@@ -1,0 +1,48 @@
+"""Attention implementations (counterpart of neko_tpu/ops/attention.py).
+
+* `xla_attention`: the JAX package's plain path (it runs wherever no TPU
+  kernel applies), written in torch: fp32 logits, finite -1e9 fill, fp32
+  softmax, weights cast to the value dtype.  The port's model does not call
+  it: it is the plain oracle the tests hold the prefill against.
+* `cache_attention`: the same plain body for the decode step, over the KV
+  cache's key mask.
+* `prefill_attention`: the prefill dispatch (the JAX package's
+  `tpu_flash_attention` -> `_kernel_local`), the only prefill path of the
+  port's model.  The key mask becomes per-row [start, end) bounds and goes to
+  `whole_head_attention`, which runs the CUDA kernel on a CUDA tensor and the
+  plain version on a CPU tensor.  One Hopper kernel serves every prefill
+  shape it takes; the JAX package sends S > 1024 to a separate bundled flash
+  kernel.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from neko_tpu_torch.ops import attention_kernel as whk
+
+_BIG_NEG = -1e9
+
+
+def xla_attention(q, k, v, key_mask):
+    """Causal attention with key-padding mask; fp32 softmax.
+    q,k,v: [B, H, S, hd]; key_mask: bool [B, S]."""
+    S = q.shape[2]
+    causal = torch.ones(S, S, dtype=torch.bool, device=q.device).tril()
+    allowed = causal[None, None] & key_mask[:, None, None, :]
+    return whk.masked_attention(q, k, v, allowed, fill=_BIG_NEG)
+
+
+def cache_attention(q, key, value, cache_mask):
+    """Decode attention of q [B, H, 1, hd] over the cache [B, H, S, hd] at
+    the valid entries of cache_mask bool [B, S] (the XLA einsums of the JAX
+    package's decode mode)."""
+    return whk.masked_attention(
+        q, key, value, cache_mask[:, None, None, :], fill=_BIG_NEG)
+
+
+def prefill_attention(q, k, v, key_mask):
+    """Whole-head attention over a packer mask (contiguous valid run per
+    row).  q,k,v: [B, H, S, hd] contiguous; key_mask: bool [B, S]."""
+    start, end = whk.mask_bounds_from_key_mask(key_mask)
+    return whk.whole_head_attention(q, k, v, start, end)
