@@ -69,6 +69,12 @@ def jax_params_to_state_dict(params_np: Dict, cfg: ModelConfig) -> Dict[str, tor
     return sd
 
 
+def jax_grads_to_state_dict(grads_np: Dict, cfg: ModelConfig) -> Dict[str, torch.Tensor]:
+    """Gradients of the flax params (same tree) -> state_dict-keyed
+    gradients: the params mapping, leaf for leaf."""
+    return jax_params_to_state_dict(grads_np, cfg)
+
+
 def state_dict_to_jax_params(sd: Dict[str, torch.Tensor], cfg: ModelConfig) -> Dict:
     """NekoModel state_dict -> flax params (nested dict of numpy arrays),
     the inverse of `jax_params_to_state_dict`."""

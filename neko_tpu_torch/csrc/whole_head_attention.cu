@@ -1,59 +1,53 @@
-// Whole-head causal attention forward for NVIDIA Hopper (sm_90a).
+// Whole-head causal attention forward, with dropout, for NVIDIA Hopper (sm_90a).
 //
-// Replaces the TPU Pallas kernel neko_tpu/ops/attention_kernel.py::_fwd_kernel
-// (reached through _pallas_fwd / whole_head_attention) at dropout_rate = 0:
+// Replaces the TPU Pallas kernels neko_tpu/ops/attention_kernel.py::_fwd_kernel
+// (#1, [B,H,S,D], via _pallas_fwd) and ::_fwd_kernel_bsd (#3, head-packed
+// [B,S,H*D], via _pallas_fwd_bsd):
 //
-//   out[b,h,r,:] = softmax_c( q[b,h,r,:] . k[b,h,c,:] * sm_scale ) @ v[b,h,c,:]
-//   over keys c with c <= r and start[b] <= c < end[b]; fp32 softmax.
+//   p[r,c] = softmax_c( q[r,:] . k[c,:] * sm_scale ) over keys c with
+//            c <= r and start[b] <= c < end[b]; fp32 softmax
+//   out[r,:] = sum_c p[r,c] * keep_scale[r,c] * v[c,:]
 //
-// Layout: q, k, v, out are contiguous [B, H, S, D] (bf16 or fp32); start and
-// end are int32 [B].  The TPU kernel keeps a whole head's S x S score matrix
-// in VMEM; a block here has at most 227 KB of shared memory, so this is the
-// tiled online-softmax form: one block per (64-row q tile, head, batch),
-// looping over 32-key tiles held in shared memory, with a running max m, sum
-// l and fp32 accumulator per row.  Key tiles wholly above the diagonal or
-// outside [start, end) are never loaded.
+// Layout: every tensor is a strided [B, H, S, D] view (attention_common.cuh),
+// so one kernel serves both TPU kernels' layouts and the train path reads q,
+// k, v straight out of the [B, S, 3*H*D] projection output.  start, end are
+// int32 [B]; the dropout seed is an int32 on the device (no host sync).
 //
-// What bounds it on the H100: at the flagship prefill (B=8, H=24, S=1024,
-// D=32) the causal half is about 13 GFLOP and the q/k/v/out traffic about
-// 50 MB per layer: tiny for both the 989 TFLOP/s bf16 tensor cores and the
-// 3.35 TB/s HBM.  This first version computes on the CUDA cores in fp32
-// (no mma/wgmma, no TMA), so it is bound by shared-memory reads and FMA
-// throughput; tensor cores are later work.
+// The TPU kernels keep a whole head's S x S score matrix in VMEM and cut it
+// into causal bands; a block here has at most 227 KB of shared memory, so this
+// is the tiled online-softmax form: one block per (64-row q tile, head,
+// batch), looping over 32-key tiles in shared memory, with a running max m,
+// sum l and fp32 accumulator per row.  Key tiles wholly above the diagonal or
+// outside [start, end) are never loaded.  Dropout multiplies the
+// unnormalized exp(s - m) that enters the accumulator, not l, so
+// out = (sum_c p*keep*v) / l is the dropout of the normalized probabilities.
+// When lse is non-null the kernel writes m + log(l) per row for the backward
+// (the TPU kernel recomputes everything instead).
 //
-// Fill and empty rows: masked logits take the finite fill -1e30 (as the TPU
-// kernel does, never -inf) and masked probabilities are forced to exactly 0,
-// so a row whose visited key set is empty keeps l = 0 and writes 0, not NaN.
+// What bounds it on the H100: at the flagship train shape (B=16, H=24,
+// S=1024, D=32) the causal half is about 26 GFLOP per layer and the q/k/v/out
+// traffic about 100 MB: small for both the 989 TFLOP/s bf16 tensor cores and
+// the 3.35 TB/s HBM.  This version computes on the CUDA cores in fp32 (no
+// mma/wgmma, no TMA), so shared-memory reads and FMA issue bound it, plus ~40
+// integer ops per 16 keep bytes when dropout is on; tensor cores are later
+// work.
+//
+// Fill and empty rows: masked logits take the finite fill -1e30 and masked
+// probabilities are forced to exactly 0, so a row whose visited key set is
+// empty keeps l = 0 and writes 0 (and lse 0), never NaN.
 //
 // C interface (loaded with ctypes): returns the cudaError_t of the launch.
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
+#include "attention_common.cuh"
 
 namespace {
+
+using namespace whk;
 
 constexpr int kBlockM = 64;  // query rows per block
 constexpr int kBlockN = 32;  // keys per tile (one key per lane)
 constexpr int kWarps = 8;
 constexpr int kRowsPerWarp = kBlockM / kWarps;
-constexpr float kNeg = -1e30f;
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
-
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
 
 template <int D>
 constexpr int smem_floats() {
@@ -62,12 +56,14 @@ constexpr int smem_floats() {
   return kBlockM * D + kBlockN * (D + 1) + kBlockN * D;
 }
 
-template <typename T, int D>
-__global__ void __launch_bounds__(kWarps * 32)
-whole_head_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                                const T* __restrict__ v, const int* __restrict__ start,
-                                const int* __restrict__ end, T* __restrict__ out,
-                                int H, int S, float sm_scale) {
+// kDrop: dropout on.  The serving prefill runs the instantiation without it,
+// which carries no Philox code and no keep-mask registers.
+// At D = 32 four blocks share an SM (at most 64 registers a thread, a few
+// spilled): on an H100 that measured 16% faster at the train shape and as
+// fast at the prefill as three blocks with 76 registers.
+template <typename T, int D, bool kDrop>
+__global__ void __launch_bounds__(kWarps * 32, D == 32 ? 4 : 1)
+whole_head_attention_fwd_kernel(const AttnArgs a) {
   static_assert(D % 32 == 0, "head dim must be a multiple of 32");
   constexpr int kDL = D / 32;  // output dims per lane
   constexpr int kKP = D + 1;   // padded k row stride
@@ -75,29 +71,33 @@ whole_head_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k
   float* sq = smem;
   float* sk = sq + kBlockM * D;
   float* sv = sk + kBlockN * kKP;
+  __shared__ uint32_t keep_words[kWarps][kRowsPerWarp][kBlockN / 4];
 
   const int r0 = blockIdx.x * kBlockM;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
-  const size_t head = (static_cast<size_t>(b) * H + h) * static_cast<size_t>(S) * D;
-  q += head;
-  k += head;
-  v += head;
-  out += head;
+  const int S = a.S;
+  const T* __restrict__ q = head_ptr<T>(a.q, b, h);
+  const T* __restrict__ k = head_ptr<T>(a.k, b, h);
+  const T* __restrict__ v = head_ptr<T>(a.v, b, h);
+  T* __restrict__ out = head_ptr<T>(a.o, b, h);
 
   const int tid = threadIdx.x;
   const int warp = tid / 32;
   const int lane = tid % 32;
-  const int st = max(start[b], 0);
-  const int en = min(end[b], S);
+  const int st = max(a.start[b], 0);
+  const int en = min(a.end[b], S);
   const int r_end = min(r0 + kBlockM, S);
   // keys this q tile can see: [st, min(en, r_end)) -- causal bound col <= row
   const int c_end = min(en, r_end);
   const int c_beg = (st / kBlockN) * kBlockN;
+  constexpr bool drop = kDrop;
+  const uint32_t seed = drop ? static_cast<uint32_t>(a.seed[0]) : 0u;
+  const uint32_t bh = static_cast<uint32_t>(b * a.H + h);
 
   for (int i = tid; i < kBlockM * D; i += blockDim.x) {
     const int r = r0 + i / D;
-    sq[i] = r < S ? to_f32(q[static_cast<size_t>(r) * D + i % D]) : 0.f;
+    sq[i] = r < S ? load(&q[r * a.q.ss + i % D]) : 0.f;
   }
 
   float m[kRowsPerWarp], l[kRowsPerWarp], acc[kRowsPerWarp][kDL];
@@ -114,11 +114,15 @@ whole_head_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k
     __syncthreads();  // previous tile fully consumed (and q tile written)
     for (int i = tid; i < kBlockN * D; i += blockDim.x) {
       const int c = c0 + i / D, d = i % D;
-      const bool in = c < S;
-      const size_t off = static_cast<size_t>(c) * D + d;
-      sk[(i / D) * kKP + d] = in ? to_f32(k[off]) : 0.f;
-      sv[i] = in ? to_f32(v[off]) : 0.f;
+      float kx = 0.f, vx = 0.f;
+      if (c < S) {  // one branch for both loads, so their latencies overlap
+        kx = load(&k[c * a.k.ss + d]);
+        vx = load(&v[c * a.v.ss + d]);
+      }
+      sk[(i / D) * kKP + d] = kx;
+      sv[i] = vx;
     }
+    if constexpr (drop) draw_keep_words(keep_words[warp], seed, bh, r0 + row0, c0, lane);
     __syncthreads();
 
     const int c = c0 + lane;  // this lane's key
@@ -137,7 +141,7 @@ whole_head_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k
     for (int i = 0; i < kRowsPerWarp; ++i) {
       const int r = r0 + row0 + i;
       const bool ok = c <= r && c >= st && c < en && r < S;
-      const float si = ok ? s[i] * sm_scale : kNeg;
+      const float si = ok ? s[i] * a.sm_scale : kNeg;
       const float m_new = fmaxf(m[i], warp_max(si));
       p[i] = ok ? expf(si - m_new) : 0.f;
       const float alpha = expf(m[i] - m_new);
@@ -145,6 +149,9 @@ whole_head_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k
       m[i] = m_new;
 #pragma unroll
       for (int j = 0; j < kDL; ++j) acc[i][j] *= alpha;
+      if constexpr (drop)
+        p[i] = keep_byte(keep_words[warp], i, lane) >= a.drop_threshold ? p[i] * a.drop_scale
+                                                                         : 0.f;
     }
 
 #pragma unroll 4
@@ -167,54 +174,48 @@ whole_head_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k
     if (r >= S) continue;
     const float inv = l[i] > 0.f ? 1.f / l[i] : 0.f;
 #pragma unroll
-    for (int t = 0; t < kDL; ++t)
-      store(&out[static_cast<size_t>(r) * D + lane + 32 * t], acc[i][t] * inv);
+    for (int t = 0; t < kDL; ++t) store(&out[r * a.o.ss + lane + 32 * t], acc[i][t] * inv);
+    if (a.lse != nullptr && lane == 0)
+      a.lse[static_cast<long long>(b * a.H + h) * S + r] = l[i] > 0.f ? m[i] + logf(l[i]) : 0.f;
   }
 }
 
-template <typename T, int D>
-cudaError_t launch(const void* q, const void* k, const void* v, const int* start,
-                   const int* end, void* out, int B, int H, int S, float sm_scale,
-                   cudaStream_t stream) {
+template <typename T, int D, bool kDrop>
+cudaError_t launch(const AttnArgs& a, cudaStream_t stream) {
   const size_t smem = smem_floats<D>() * sizeof(float);
-  auto kernel = whole_head_attention_fwd_kernel<T, D>;
-  // above 48 KB (D = 128) dynamic shared memory must be opted into
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  auto kernel = whole_head_attention_fwd_kernel<T, D, kDrop>;
+  cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((S + kBlockM - 1) / kBlockM, H, B);
-  kernel<<<grid, kWarps * 32, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      start, end, static_cast<T*>(out), H, S, sm_scale);
+  const dim3 grid((a.S + kBlockM - 1) / kBlockM, a.H, a.B);
+  kernel<<<grid, kWarps * 32, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t dispatch_d(const void* q, const void* k, const void* v, const int* start,
-                       const int* end, void* out, int B, int H, int S, int D,
-                       float sm_scale, cudaStream_t stream) {
-  switch (D) {
-    case 32: return launch<T, 32>(q, k, v, start, end, out, B, H, S, sm_scale, stream);
-    case 64: return launch<T, 64>(q, k, v, start, end, out, B, H, S, sm_scale, stream);
-    case 128: return launch<T, 128>(q, k, v, start, end, out, B, H, S, sm_scale, stream);
+template <typename T, bool kDrop>
+cudaError_t dispatch_d(const AttnArgs& a, cudaStream_t stream) {
+  switch (a.D) {
+    case 32: return launch<T, 32, kDrop>(a, stream);
+    case 64: return launch<T, 64, kDrop>(a, stream);
+    case 128: return launch<T, 128, kDrop>(a, stream);
     default: return cudaErrorInvalidValue;
   }
 }
 
+template <typename T>
+cudaError_t dispatch_drop(const AttnArgs& a, cudaStream_t stream) {
+  return a.drop_threshold > 0 ? dispatch_d<T, true>(a, stream) : dispatch_d<T, false>(a, stream);
+}
+
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  All pointers are device pointers.
-extern "C" int whole_head_attention_fwd(const void* q, const void* k, const void* v,
-                                        const void* start, const void* end, void* out,
-                                        int B, int H, int S, int D, int dtype,
-                                        float sm_scale, void* stream) {
-  if (B <= 0 || H <= 0 || S <= 0) return cudaSuccess;
-  const int* st = static_cast<const int*>(start);
-  const int* en = static_cast<const int*>(end);
+// dtype: 0 = float32, 1 = bfloat16.  All tensor pointers are device pointers.
+extern "C" int whole_head_attention_fwd(const AttnArgs* a, void* stream) {
+  if (a->B <= 0 || a->H <= 0 || a->S <= 0) return cudaSuccess;
+  if (a->drop_threshold > 0 && a->seed == nullptr) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case 0: return dispatch_d<float>(q, k, v, st, en, out, B, H, S, D, sm_scale, s);
-    case 1: return dispatch_d<__nv_bfloat16>(q, k, v, st, en, out, B, H, S, D, sm_scale, s);
+  switch (a->dtype) {
+    case 0: return dispatch_drop<float>(*a, s);
+    case 1: return dispatch_drop<__nv_bfloat16>(*a, s);
     default: return cudaErrorInvalidValue;
   }
 }

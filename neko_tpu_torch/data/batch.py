@@ -14,6 +14,9 @@ model consumes them as one `PackedBatch` of tensors on the device:
     patch_pos   i32[N, 4]   quantized (h_lo, h_hi, w_lo, w_hi) intervals
     patch_batch i32[N]      batch row of each patch; B marks an unused entry
     patch_slot  i32[N]      index into S of each patch; S marks an unused entry
+    loss_pos    i32[Nt, 2]  optional gathered-loss entries: (batch row,
+                            PREDICTING position); batch row B marks padding
+    loss_tgt    i32[Nt]     the target id of each entry
 """
 
 from __future__ import annotations
@@ -35,6 +38,8 @@ class PackedBatch:
     patch_pos: Optional[torch.Tensor] = None
     patch_batch: Optional[torch.Tensor] = None
     patch_slot: Optional[torch.Tensor] = None
+    loss_pos: Optional[torch.Tensor] = None
+    loss_tgt: Optional[torch.Tensor] = None
 
     @property
     def has_patches(self) -> bool:
@@ -67,8 +72,33 @@ def empty_batch_np(
     return out
 
 
+def add_loss_entries_np(out: dict, target_budget: int) -> None:
+    """Append the gathered-loss arrays (`loss_pos`, `loss_tgt`) derived from
+    the packed masks: position t of row b is an entry when input_mask[b, t]
+    and target_mask[b, t + 1]; the rest of the budget is padding."""
+    B, S = out["tokens"].shape
+    loss_pos = np.full((target_budget, 2), [B, 0], dtype=np.int32)
+    loss_tgt = np.zeros((target_budget,), dtype=np.int32)
+    n = 0
+    pred_mask = out["input_mask"][:, :-1] & out["target_mask"][:, 1:]
+    for b in range(B):
+        (ts,) = np.nonzero(pred_mask[b])
+        if n + len(ts) > target_budget:
+            raise ValueError(
+                f"batch has more than target_budget={target_budget} loss "
+                "targets; raise the budget"
+            )
+        loss_pos[n : n + len(ts), 0] = b
+        loss_pos[n : n + len(ts), 1] = ts
+        loss_tgt[n : n + len(ts)] = out["tokens"][b, ts + 1]
+        n += len(ts)
+    out["loss_pos"] = loss_pos
+    out["loss_tgt"] = loss_tgt
+
+
 _FIELDS = ("tokens", "input_mask", "target_mask", "inner_pos",
-           "patches", "patch_pos", "patch_batch", "patch_slot")
+           "patches", "patch_pos", "patch_batch", "patch_slot",
+           "loss_pos", "loss_tgt")
 
 
 def to_device_batch(arrays: dict, device) -> PackedBatch:

@@ -19,12 +19,12 @@ the bit-exact equal of its C fast path.  Semantics:
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 
 from neko_tpu_torch.config import ModelConfig
-from neko_tpu_torch.data.batch import empty_batch_np
+from neko_tpu_torch.data.batch import add_loss_entries_np, empty_batch_np
 from neko_tpu_torch.tokenizers.continuous import encode_np
 
 
@@ -260,21 +260,32 @@ class SequencePacker:
         examples: Sequence[Dict],
         *,
         pad_side: str = "left",
+        seq_len: Optional[int] = None,
+        patch_budget: Optional[int] = None,
+        target_budget: Optional[int] = None,
     ) -> Dict[str, np.ndarray]:
-        """Pack examples into one fixed-shape record (plus `lengths`).
+        """Pack examples (dicts or PackedExamples) into one fixed-shape
+        record (plus `lengths`).
 
-        The patch pool (image patches across the WHOLE batch) holds
-        B * max_patches, grown in 256-buckets if a batch needs more.
+        patch_budget: total image patches across the WHOLE batch (the global
+        patch pool).  By default the pool holds B * max_patches, grown in
+        256-buckets if a batch needs more; training passes the exact count
+        of its mixture.  target_budget > 0 adds the gathered-loss entries
+        (`loss_pos`, `loss_tgt`).  seq_len overrides the context length S.
         """
         if pad_side not in ("left", "right"):
             raise ValueError(f"pad_side must be 'left' or 'right', got {pad_side!r}")
-        S = self.S
+        S = self.S if seq_len is None else seq_len
         B = len(examples)
-        packed = [self.pack_example(ex) for ex in examples]
-        needed = sum(pe.patches.shape[0] for pe in packed)
-        N = B * self.P
-        if needed > N:
-            N = -(-needed // 256) * 256
+        packed = [ex if isinstance(ex, PackedExample) else self.pack_example(ex)
+                  for ex in examples]
+        if patch_budget is None:
+            needed = sum(pe.patches.shape[0] for pe in packed)
+            N = B * self.P
+            if needed > N:
+                N = -(-needed // 256) * 256
+        else:
+            N = patch_budget
         out = empty_batch_np(B, S, N, self.ps, patch_dtype=self.cfg.patch_np_dtype)
         lengths = np.zeros(B, np.int32)
         n_used = 0
@@ -293,7 +304,8 @@ class SequencePacker:
             if n_p:
                 if n_used + n_p > N:
                     raise ValueError(
-                        f"batch needs more than its {N} pooled image patches"
+                        f"batch needs more than its {N} pooled image patches "
+                        "(ModelConfig.max_patches or pack_batch(patch_budget=...))"
                     )
                 pool = slice(n_used, n_used + n_p)
                 out["patches"][pool] = pe.patches
@@ -302,5 +314,7 @@ class SequencePacker:
                 out["patch_slot"][pool] = pe.patch_slot + off
                 n_used += n_p
             lengths[i] = L
+        if target_budget is not None and target_budget > 0:
+            add_loss_entries_np(out, target_budget)
         out["lengths"] = lengths
         return out

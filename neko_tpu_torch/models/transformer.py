@@ -1,10 +1,18 @@
-"""Decoder-only transformer core, serving modes (counterpart of
+"""Decoder-only transformer core (counterpart of
 neko_tpu/models/transformer.py).
 
 * pre-LN blocks: x + attn(ln_1(x)); x + mlp(ln_2(x)); no absolute position
   embedding (positions come from the structured encodings upstream).
-* `mode='prefill'`: full causal attention over the packed context through
-  the whole-head kernel wrapper (always: `cfg.attention_impl` is carried for
+* `mode='train'`: full causal attention over the packed context through the
+  head-packed kernels: q, k and v stay the three column slices of the one
+  [B, S, 3D] `c_attn` output (no transpose, one gradient buffer), with
+  attention, residual and MLP dropout when a `generator` (the step's
+  `torch.Generator`) is given.  Each layer draws its attention seed as an
+  int32 [1] tensor on the device from that generator, as the JAX package
+  draws one per layer from its dropout stream.  Without a generator the
+  pass is deterministic (eval loss).
+* `mode='prefill'`: full causal attention through the whole-head kernel
+  wrapper on [B, H, S, hd] (always: `cfg.attention_impl` is carried for
   config round trips and ignored), returning each layer's KV cache: keys and
   values [B, H, S, hd] in the activation dtype plus the bool [B, S] key mask.
 * `mode='decode'`: one token per row written at `decode_index` (the caller
@@ -12,11 +20,16 @@ neko_tpu/models/transformer.py).
   the cached keys.  The cache tensors are updated IN PLACE: unlike the JAX
   package's functional cache, a decode step mutates the cache it is given.
 
-Computation runs in the parameters' dtype (the generator casts served
-weights to the activation dtype); attention logits and softmax are fp32.
-Train mode, dropout, the 'extend' mode, the int8 cache, LoRA, GEGLU, the
-tanh GELU ('gelu_new') and stochastic depth are not ported yet; configs
-asking for them raise NotImplementedError.
+Mixed precision by explicit casts, as flax does it (not torch.autocast,
+whose LayerNorm returns fp32): each Linear casts its input and its fp32
+weight to `cfg.dtype`; each LayerNorm normalizes in the dtype of its weight
+(fp32 when training) and returns `cfg.dtype`.  Served weights are already in
+the activation dtype, so there every cast is a no-op.  Attention logits and
+softmax are fp32.
+
+Not ported yet (configs asking for them raise NotImplementedError): the
+'extend' mode, the int8 cache, LoRA, GEGLU and the tanh GELU ('gelu_new');
+in train mode also stochastic depth and `remat`.
 """
 
 from __future__ import annotations
@@ -24,10 +37,12 @@ from __future__ import annotations
 from typing import Dict, List, Optional
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from neko_tpu_torch.config import ModelConfig
 from neko_tpu_torch.ops import attention as attn_ops
+from neko_tpu_torch.ops.dropout import Dropout
 from neko_tpu_torch.ops.gelu import gelu_erf
 
 KVCache = Dict[str, torch.Tensor]  # {"key", "value": [B,H,S,hd], "mask": [B,S]}
@@ -44,6 +59,32 @@ def _not_ported(cfg: ModelConfig) -> None:
         raise NotImplementedError(f"not yet ported to neko_tpu_torch: {bad}")
 
 
+def _train_not_ported(cfg: ModelConfig, S: int) -> None:
+    unported = {
+        "stochastic_depth > 0": cfg.stochastic_depth > 0,
+        "remat": cfg.remat,
+        f"training at S={S}, hd={cfg.head_dim} (the head-packed kernels take "
+        "S <= 1024 and hd in 32/64/128)":
+            not attn_ops.packed_ok(S, cfg.head_dim, cfg.heads),
+    }
+    bad = [name for name, on in unported.items() if on]
+    if bad:
+        raise NotImplementedError(f"not yet ported to neko_tpu_torch: {bad}")
+
+
+def linear(layer: nn.Linear, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """`layer(x)` computed in `dtype` (flax Dense(dtype=...))."""
+    bias = None if layer.bias is None else layer.bias.to(dtype)
+    return F.linear(x.to(dtype), layer.weight.to(dtype), bias)
+
+
+def layer_norm(ln: nn.LayerNorm, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """`ln(x)` normalized in the weight's dtype, returned in `dtype` (flax
+    LayerNorm(dtype=...) reduces in fp32 over fp32 params)."""
+    w = ln.weight
+    return F.layer_norm(x.to(w.dtype), ln.normalized_shape, w, ln.bias, ln.eps).to(dtype)
+
+
 class Attention(nn.Module):
     def __init__(self, cfg: ModelConfig):
         super().__init__()
@@ -53,6 +94,7 @@ class Attention(nn.Module):
         # JAX package's SplitProj computes them
         self.c_attn = nn.Linear(D, 3 * D)
         self.c_proj = nn.Linear(D, D)
+        self.resid_dropout = Dropout(cfg.dropout)
 
     def _heads(self, t: torch.Tensor) -> torch.Tensor:
         B, S, _ = t.shape
@@ -62,14 +104,27 @@ class Attention(nn.Module):
     def forward(
         self,
         x: torch.Tensor,                  # [B, S, D] (S == 1 in decode mode)
-        input_mask: Optional[torch.Tensor],  # bool [B, S]; prefill only
+        input_mask: Optional[torch.Tensor],  # bool [B, S]; train / prefill
         *,
         mode: str,
         cache: Optional[KVCache] = None,
         decode_index: Optional[torch.Tensor] = None,
+        generator: Optional[torch.Generator] = None,
     ):
+        cfg = self.cfg
+        dtype = cfg.activation_dtype
         B, S, D = x.shape
-        q, k, v = (self._heads(t) for t in self.c_attn(x).split(D, dim=-1))
+        qkv = linear(self.c_attn, x, dtype)
+        if mode == "train":
+            seed, rate = None, 0.0
+            if generator is not None and cfg.dropout > 0.0:
+                rate = cfg.dropout
+                seed = torch.randint(0, 2 ** 31 - 1, (1,), dtype=torch.int32,
+                                     device=x.device, generator=generator)
+            out2d = attn_ops.attention_qkv(qkv, input_mask, heads=cfg.heads,
+                                           seed=seed, rate=rate)
+            return self._project_out(out2d, generator), None
+        q, k, v = (self._heads(t) for t in qkv.split(D, dim=-1))
         if mode == "prefill":
             # the mask is copied: decode steps flip its entries in place
             cache = {"key": k, "value": v, "mask": input_mask.clone()}
@@ -86,17 +141,26 @@ class Attention(nn.Module):
         else:
             raise NotImplementedError(f"attention mode {mode!r} is not yet ported")
         out2d = out.transpose(1, 2).reshape(B, S, D)
-        return self.c_proj(out2d), cache
+        return self._project_out(out2d, None), cache
+
+    def _project_out(self, out2d, generator):
+        """Shared tail: output projection + residual dropout on [B, S, D]."""
+        out = linear(self.c_proj, out2d, self.cfg.activation_dtype)
+        return self.resid_dropout(out, generator)
 
 
 class MLP(nn.Module):
     def __init__(self, cfg: ModelConfig):
         super().__init__()
+        self.cfg = cfg
         self.c_fc = nn.Linear(cfg.embed_dim, 4 * cfg.embed_dim)
         self.c_proj = nn.Linear(4 * cfg.embed_dim, cfg.embed_dim)
+        self.dropout = Dropout(cfg.dropout)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.c_proj(gelu_erf(self.c_fc(x)))
+    def forward(self, x: torch.Tensor, generator=None) -> torch.Tensor:
+        dtype = self.cfg.activation_dtype
+        h = gelu_erf(linear(self.c_fc, x, dtype))
+        return self.dropout(linear(self.c_proj, h, dtype), generator)
 
 
 class Block(nn.Module):
@@ -104,18 +168,21 @@ class Block(nn.Module):
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()
+        self.cfg = cfg
         self.ln_1 = nn.LayerNorm(cfg.embed_dim, eps=1e-5)
         self.attn = Attention(cfg)
         self.ln_2 = nn.LayerNorm(cfg.embed_dim, eps=1e-5)
         self.mlp = MLP(cfg)
 
-    def forward(self, x, input_mask, *, mode, cache=None, decode_index=None):
+    def forward(self, x, input_mask, *, mode, cache=None, decode_index=None,
+                generator=None):
+        dtype = self.cfg.activation_dtype
         a, cache = self.attn(
-            self.ln_1(x), input_mask, mode=mode, cache=cache,
-            decode_index=decode_index,
+            layer_norm(self.ln_1, x, dtype), input_mask, mode=mode, cache=cache,
+            decode_index=decode_index, generator=generator,
         )
         x = x + a
-        x = x + self.mlp(self.ln_2(x))
+        x = x + self.mlp(layer_norm(self.ln_2, x, dtype), generator)
         return x, cache
 
 
@@ -125,6 +192,7 @@ class Transformer(nn.Module):
     def __init__(self, cfg: ModelConfig):
         super().__init__()
         _not_ported(cfg)
+        self.cfg = cfg
         self.h = nn.ModuleList(Block(cfg) for _ in range(cfg.layers))
         self.ln_f = nn.LayerNorm(cfg.embed_dim, eps=1e-5)
 
@@ -136,16 +204,21 @@ class Transformer(nn.Module):
         mode: str,
         caches: Optional[List[KVCache]] = None,
         decode_index: Optional[torch.Tensor] = None,
+        generator: Optional[torch.Generator] = None,
     ):
-        """Returns (hidden [B, S, D], per-layer KV caches)."""
+        """Returns (hidden [B, S, D], per-layer KV caches; None in train
+        mode).  `generator` (train mode only) turns dropout on."""
         if mode == "decode" and caches is None:
             raise ValueError("decode mode needs the caches prefill returned")
+        if mode == "train":
+            _train_not_ported(self.cfg, x.shape[1])
         out_caches = []
         for i, block in enumerate(self.h):
             x, c = block(
                 x, input_mask, mode=mode,
                 cache=None if caches is None else caches[i],
-                decode_index=decode_index,
+                decode_index=decode_index, generator=generator,
             )
             out_caches.append(c)
-        return self.ln_f(x), out_caches
+        hidden = layer_norm(self.ln_f, x, self.cfg.activation_dtype)
+        return hidden, (None if mode == "train" else out_caches)

@@ -3,12 +3,14 @@
 Each `csrc/<name>.cu` exposes a plain C interface and is compiled with nvcc
 for Hopper (`sm_90a`) into a shared library, loaded with ctypes.  Builds
 happen at first use, never at import, into `neko_tpu_torch/_build/` (listed
-in .gitignore), keyed by a hash of the source and the flags, so an edited
-source is rebuilt and an unchanged one is reused within a checkout.
+in .gitignore), keyed by a hash of the source, the shared `csrc/*.cuh`
+headers and the flags, so an edited source is rebuilt and an unchanged one is
+reused within a checkout.  `build_all` runs one nvcc per source, all at once.
 """
 
 from __future__ import annotations
 
+import concurrent.futures
 import ctypes
 import functools
 import hashlib
@@ -41,8 +43,11 @@ def find_nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC_DIR / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    h = hashlib.sha256((CSRC_DIR / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        h.update(header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    digest = h.hexdigest()[:16]
     return BUILD_DIR / f"{name}-{digest}.so"
 
 
@@ -71,6 +76,16 @@ def build(name: str) -> Path:
         if os.path.exists(tmp):
             os.unlink(tmp)
     return so
+
+
+def build_all(names=None) -> dict:
+    """Build every `csrc/*.cu` (or `names`), one nvcc process per source, all
+    started together.  -> {name: library path}; raises if any build fails."""
+    if names is None:
+        names = sorted(p.stem for p in CSRC_DIR.glob("*.cu"))
+    with concurrent.futures.ThreadPoolExecutor(max_workers=len(names)) as pool:
+        futures = {name: pool.submit(build, name) for name in names}
+        return {name: f.result() for name, f in futures.items()}
 
 
 @functools.cache

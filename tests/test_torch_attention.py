@@ -145,8 +145,8 @@ def test_kernel_wrapper_rejects_what_the_kernel_does_not_take(bad):
         args[:3] = [t[..., :16].contiguous() for t in args[:3]]
     elif bad == "shape":
         args[2] = args[2][:, :, :-1]
-    elif bad == "contiguity":
-        args[0] = q.transpose(1, 2).contiguous().transpose(1, 2)
+    elif bad == "contiguity":  # strided views are taken; hd must be contiguous
+        args[0] = q.transpose(2, 3).contiguous().transpose(2, 3)
     elif bad == "bounds_dtype":
         args[3] = args[3].long()
     elif bad == "bounds_shape":
@@ -157,8 +157,11 @@ def test_kernel_wrapper_rejects_what_the_kernel_does_not_take(bad):
 
 def test_dropout_and_unsupported_devices_raise():
     q, k, v, start, end = _good_args()
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError):  # dropout needs a seed, as in neko_tpu
         whk.whole_head_attention(q, k, v, start, end, dropout_rate=0.1)
+    seed = torch.tensor([1], dtype=torch.int32)
+    out = whk.whole_head_attention(q, k, v, start, end, seed, dropout_rate=0.1)
+    assert torch.isfinite(out).all()
     with pytest.raises(ValueError):
         whk.whole_head_attention(*(t.to("meta") for t in (q, k, v, start, end)))
     assert whk.supported(1024, 32, torch.bfloat16)

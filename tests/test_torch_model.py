@@ -1,5 +1,6 @@
 """NekoModel in neko_tpu_torch against neko_tpu's at converted weights (fp32,
-CPU): embeddings, prefill logits and decode-step logits."""
+CPU): embeddings, prefill logits and decode-step logits; and the serving
+prefill's logits against values recorded before the training port."""
 
 import numpy as np
 import pytest
@@ -145,3 +146,31 @@ def test_decode_steps_match(pair):
         np.testing.assert_allclose(got_e.numpy(), e, **TOL)
         np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
         pos = pos + 1
+
+
+def test_prefill_logits_unchanged_by_the_training_port():
+    """The serving prefill keeps its kernel call (contiguous strides, no
+    dropout) and its casts: last-position logits equal those recorded from
+    the serving-only port (same seed, same batch) within fp32 rounding."""
+    cfg = ModelConfig(**dict(TINY, heads=2))
+    model = convert.build_model(cfg, convert.init_state_dict(cfg, seed=3))
+    rng = np.random.default_rng(11)
+    ex = [{"images": rng.integers(0, 256, (2, 32, 32, 3)).astype(np.uint8),
+           "discrete_actions": rng.integers(0, 18, (2, 1))},
+          {"text": rng.integers(0, 256, 20)}]
+    arrays = SequencePacker(cfg).pack_batch(ex, pad_side="right")
+    lengths = arrays.pop("lengths")
+    batch = to_device_batch(arrays, "cpu")
+    with torch.no_grad():
+        last = torch.from_numpy(lengths.astype(np.int64) - 1)
+        logits, _ = model.prefill(model.embed_batch(batch), batch.input_mask, last=last)
+    recorded = [[0.21568632125854492, -0.1685284823179245, 0.09275259077548981,
+                 -0.020075321197509766, 0.2683062255382538, 0.0012288689613342285],
+                [-0.1527048647403717, -0.19313320517539978, 0.4770423173904419,
+                 -0.3822905719280243, 0.1620890200138092, -0.10247081518173218]]
+    np.testing.assert_allclose(logits[:, :6].numpy(), recorded, rtol=1e-6, atol=1e-7)
+    V = cfg.vocab_size
+    np.testing.assert_allclose(logits[:, :V].double().sum().item(), 6.819533975794911,
+                               rtol=1e-6)
+    np.testing.assert_allclose(logits[:, :V].abs().double().sum().item(), 99.219008365646,
+                               rtol=1e-6)
