@@ -35,12 +35,32 @@
    parameter's gradient, with planted faults in the plain forward and
    backward that the checks must see.  Then the loss must fall over 20 steps
    on one batch.
+7. Blocked kernels vs plain (long context): the forward (o, m, l) and both
+   backward routes (fused; dq + dkv) on head-packed strided views with
+   left-padded, short and empty rows, bf16 at dropout 0 and 0.1 at the
+   `long` and `long4k` shapes (B=8, S=2048 and B=4, S=4096; H=24, hd=32),
+   fp32 at hd 64 and 128 and at S=3000; the plain versions get their mask
+   from the mask kernel, which must equal the plain Philox bit for bit, and
+   the plain backward gets the kernel forward's (m, l, delta), so that each
+   backward kernel is held on its own inputs.  A fault planted in the plain
+   backward (the key tile on each row's diagonal skipped) must fail every
+   gradient check.  At S=1024 the blocked kernels agree with the whole-head
+   ones at the same seed.  Times in turns (plain, kernel, kernel, plain),
+   and SDPA's as a yardstick, at S=2048, 4096 and 8192 with the long
+   configs' rows (8, 4, 2), and the two backward routes alone at S=16384
+   (B=1): these set blocked_attention.FUSED_MAX.
+8. The long train steps: `long` (768d/6L/24h, k=2048, 8 rows, dropout 0.1)
+   timed, with launch counts = layers x steps; one step with the kernels
+   against the same step with the plain blocked attention, with planted
+   faults the checks must see; the loss falls over 20 steps on one batch;
+   one timed `long4k` step and one step at k=8192 (the same width, 2 rows;
+   not a root bench configuration).
 
-Prints a JSON line for the mask kernel, which checks use and the train step
-does not ({"check_kernels": ...}), then one JSON line of the kernels the
-main path runs ({"kernels": ...}; launches counted in the serving and train
-runs alone), then, as the last line, {"ok": true, "device": {...}}.  Any
-failed phase exits non-zero.
+Prints a JSON line of the kernels that only the checks launch
+({"check_kernels": ...}), then one JSON line of the kernels the main path
+runs ({"kernels": ...}; launches counted in the serving and train runs
+alone, each with its bound from this run's shapes), then, as the last line,
+{"ok": true, "device": {...}}.  Any failed phase exits non-zero.
 """
 
 from __future__ import annotations
@@ -98,6 +118,48 @@ STEP_FAULTS = ("keep mask not applied in the backward", "delta taken as 0",
                "dk without sm_scale")
 STEP_LOSS_FAULTS = ("keep mask not applied in the forward", "scale 1/hd in the forward",
                     "causal mask dropped in the forward")
+# blocked kernels (phases 7 and 8): bf16 check shapes (B, H, S, hd), the
+# `long` and `long4k` rows; fp32 shapes at other head dims and a ragged S
+BLOCKED_BF16 = ((8, 24, 2048, 32), (4, 24, 4096, 32))
+BLOCKED_FP32 = ((4, 12, 2048, 64), (2, 6, 2048, 128), (3, 8, 3000, 32))
+# timed shapes: the rows of long, long4k and LONG8K (16,384 tokens each);
+# beyond them the two backward routes alone, at 16,384 tokens too
+BLOCKED_TIMED = ((8, 24, 2048, 32), (4, 24, 4096, 32), (2, 24, 8192, 32))
+BLOCKED_ROUTES_ONLY = ((1, 24, 16384, 32),)
+# blocked gradients, kernel vs the plain backward in fp32 on the same bf16
+# inputs and the same (m, l, delta): the kernels compute in fp32 and round
+# once, so the gap is half a bf16 ulp (at most 2^-8 relative) plus fp32
+# summation order (the fused dq's atomics included); rtol is one ulp at
+# worst, atol covers the fp32 order on values that cancel to ~0.  fp32 as
+# GRAD_TOL.
+BLOCKED_GRAD_TOL = {"bfloat16": (1e-4, 2.0 ** -7), "float32": GRAD_TOL["float32"]}
+# planted in the plain blocked backward of phase 7; every gradient check
+# must fail against it
+BLOCKED_FAULT = "diagonal key tile skipped in the backward"
+# row stats, kernel vs plain on valid rows (atol, rtol): m is a max of fp32
+# dot products (summation order only); l sums up to S terms of order 1,
+# added in tiles of 32 by the kernel and pairwise by torch
+STAT_TOL = {"m": (1e-5, 1e-5), "l": (1e-5, 1e-4)}
+# one `long` step, kernels vs plain blocked attention: largest relative L2
+# error of a parameter's gradient, and the loss difference.  On an H100 the
+# sound run read 9.36e-3 and 1.22e-4 (the loss is a mean over ~7,000 targets
+# of bf16-noisy logits); the faintest planted fault in the gradients was
+# "running-max rescale alpha dropped" at 6.58e-2 (at random init the
+# running max barely moves between key tiles, so its loss moved only
+# 2.19e-5, under the sound reading), the only loss fault "key tiles above
+# the diagonal included" at 4.48e-3.  Each limit lies near the geometric
+# mean of the sound reading and the faintest fault.
+LONG_STEP_GRAD_TOL = 2.5e-2
+LONG_STEP_LOSS_TOL = 7e-4
+LONG_STEP_FAULTS = ("running-max rescale alpha dropped", "delta taken as 0",
+                    "keep mask not applied in the backward",
+                    "key tiles above the diagonal included")
+LONG_STEP_LOSS_FAULTS = ("key tiles above the diagonal included",)
+# the k = 8192 step of phase 8: the `long` width at 2 rows, 16,384 tokens a
+# step as `long` and `long4k`; the root bench has no k = 8192 configuration
+LONG8K = dict(embed_dim=768, layers=6, heads=24, batch_per_chip=2, context_len=8192)
+# H100 SXM published peaks (NVIDIA data sheet): dense bf16 tensor cores, HBM3
+PEAK_BF16_FLOPS, PEAK_HBM_BYTES = 989e12, 3.35e12
 
 
 def _require(ok, what) -> None:
@@ -118,6 +180,58 @@ def _time_ms(fn, iters: int = 20) -> float:
     b.record()
     torch.cuda.synchronize()
     return a.elapsed_time(b) / iters
+
+
+def _pairs(start, end, S: int, H: int) -> int:
+    """(query row, key) pairs the causal mask and the key windows leave
+    visible, over every batch row and head: the work these inputs need."""
+    import torch
+
+    rows = torch.arange(S, device=start.device)[None, :]
+    seen = torch.minimum(end.long()[:, None], rows + 1) - start.long()[:, None]
+    return int(seen.clamp(min=0).sum().item()) * H
+
+
+def _bound(flops: float, nbytes: float):
+    """-> (least ms the card could take, "operations" or "bytes"): the larger
+    of the FLOPs over the bf16 tensor-core peak and the bytes (each input
+    read once, each output written once) over the HBM rate."""
+    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_HBM_BYTES
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def _attention_bounds(pairs, B, H, S, hd, elt):
+    """{kernel: (bound ms, bound_by)} from the visible pairs: per pair each
+    product is 2*hd FLOPs (forward: s, pv; fused backward and the whole-head
+    backward: s, dp, dq, dk, dv; dq: s, dp, dq; dkv: s, dp, dk, dv).  Bytes:
+    the [B, S, H*hd] operands in `elt` bytes, fp32 [B, H, S] row stats."""
+    act, row = B * S * H * hd * elt, B * H * S * 4
+    return {
+        "fwd": _bound(4 * hd * pairs, 4 * act + 2 * row),          # q k v o, m l
+        "whole_fwd": _bound(4 * hd * pairs, 4 * act + row),        # q k v o, lse
+        "whole_bwd": _bound(10 * hd * pairs, 8 * act + row),       # q k v o do dq dk dv, lse
+        "fused": _bound(10 * hd * pairs, 7 * act + 3 * row),       # q k v do dq dk dv, m l delta
+        "dq": _bound(6 * hd * pairs, 5 * act + 3 * row),
+        "dkv": _bound(8 * hd * pairs, 6 * act + 3 * row),
+    }
+
+
+def _sdpa_ms(q4, k4, v4, do4, rate, iters):
+    """(forward ms, backward ms) of torch's scaled_dot_product_attention,
+    causal with dropout, on contiguous copies: the library yardstick (the
+    port never calls it)."""
+    import torch
+    import torch.nn.functional as F
+
+    q, k, v = (t.detach().contiguous().requires_grad_() for t in (q4, k4, v4))
+    do = do4.contiguous()
+
+    def fwd():
+        return F.scaled_dot_product_attention(q, k, v, dropout_p=rate, is_causal=True)
+
+    out = fwd()
+    return (_time_ms(fwd, iters),
+            _time_ms(lambda: torch.autograd.grad(out, (q, k, v), do, retain_graph=True), iters))
 
 
 def _against_plain(out, ref, start, end):
@@ -169,7 +283,11 @@ def kernel_vs_plain(B, H, S, hd, dtype_name, starts, ends, timed):
         run_p = lambda: whk.whole_head_attention_reference(q, k, v, start, end)  # noqa: E731
         p1, k1, k2, p2 = _time_ms(run_p), _time_ms(run_k), _time_ms(run_k), _time_ms(run_p)
         ms, plain_ms = (k1 + k2) / 2, (p1 + p2) / 2
-        print(f"  kernel {k1:.4f} / {k2:.4f} ms, plain {p1:.4f} / {p2:.4f} ms")
+        lib = _time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+            q, k, v, is_causal=True))
+        bound = _bound(4 * hd * _pairs(start, end, S, H), 4 * q.numel() * q.element_size())
+        print(f"  kernel {k1:.4f} / {k2:.4f} ms, plain {p1:.4f} / {p2:.4f} ms, SDPA (causal "
+              f"over full rows) {lib:.4f} ms, bound {bound[0]:.4f} ms ({bound[1]})")
     return err, ms, plain_ms
 
 
@@ -615,12 +733,18 @@ def train_kernels_vs_plain(card: str, dev="cuda") -> dict:
         "mask": turns(lambda: whk.dropout_keep_scale(seed, B, H, S, RATE),
                       lambda: whk.dropout_keep_scale_reference(seed, B, H, S, RATE), 3),
     }
+    lib = dict(zip(("fwd", "bwd"), _sdpa_ms(q4, k4, v4, do4, RATE, 10)))
+    bounds = _attention_bounds(_pairs(start, end, S, H), B, H, S, hd, 2)
+    bounds = {"fwd": bounds["whole_fwd"], "bwd": bounds["whole_bwd"],
+              "mask": _bound(0, B * H * S * S * 4)}
     for part, (ms, plain_ms, each) in timed.items():
         print(f"train {part} B={B} H={H} S={S} hd={hd} bf16 rate {RATE}, full rows: kernel "
               f"{ms:.4f} ms, "
               f"plain {plain_ms:.4f} ms (in turns k {each[0]:.4f}/{each[1]:.4f}, "
-              f"p {each[2]:.4f}/{each[3]:.4f}) ({card})")
-        res[part] = (ms, plain_ms)
+              f"p {each[2]:.4f}/{each[3]:.4f}), library "
+              f"{'-' if part not in lib else f'{lib[part]:.4f} ms'}, bound "
+              f"{bounds[part][0]:.4f} ms ({bounds[part][1]}) ({card})")
+        res[part] = (ms, plain_ms, lib.get(part), *bounds[part])
     return res
 
 
@@ -714,6 +838,366 @@ def train_step_check(card: str, dev="cuda") -> dict:
     return {"fwd": fwd, "bwd": bwd, "mask": mask, "mask_check": mask_launches}
 
 
+# ------------------------------------------------------- long context
+def blocked_kernels_vs_plain(card: str, dev="cuda") -> dict:
+    """Phase 7.  -> {"err": max abs error per kernel, "times": {S: {kernel:
+    JSON timing fields}}, "check_launches": launches per kernel here}."""
+    import torch
+
+    from neko_tpu_torch.ops import attention_kernel as whk
+    from neko_tpu_torch.ops import blocked_attention as ba
+
+    counters = {"fwd": ba.blocked_attention_fwd, "fused": ba.blocked_attention_bwd_fused,
+                "dq": ba.blocked_attention_dq, "dkv": ba.blocked_attention_dkv,
+                "mask": whk.dropout_keep_scale}
+    for f in counters.values():
+        f.launches = 0
+    g = torch.Generator(device=dev).manual_seed(SEED + 3)
+    seed = torch.tensor([SEED + 29], dtype=torch.int32, device=dev)
+    errs = dict.fromkeys(("fwd", "fused", "dq", "dkv"), 0.0)
+
+    def inputs(B, H, S, hd, dtype, full_rows=False):
+        qkv = torch.randn(B, S, 3 * H * hd, device=dev, generator=g).to(dtype)
+        if full_rows:
+            start = torch.zeros(B, dtype=torch.int32, device=dev)
+            end = torch.full((B,), S, dtype=torch.int32, device=dev)
+        else:
+            start, end = _train_bounds(B, S, dev)
+        valid = _valid_rows(start, end, S)
+        dout = torch.randn(B, S, H * hd, device=dev, generator=g).to(dtype) * valid[..., None]
+        return qkv, start, end, valid, dout
+
+    def case(B, H, S, hd, dtype_name, rate):
+        qkv, start, end, valid, dout = inputs(B, H, S, hd, getattr(torch, dtype_name))
+        q, k, v = whk._qkv_views("qkv", (qkv,), H)
+        do = whk._heads4(dout, H)
+        ks = ba.dropout_keep_scale(seed, B, H, S, rate) if rate else None
+        if rate and dtype_name == "bfloat16":
+            _require(torch.equal(ks, whk.dropout_keep_scale_reference(seed, B, H, S, rate)),
+                     f"mask kernel differs from the plain Philox at {B}x{H}x{S}")
+            print(f"mask kernel {B}x{H}x{S}x{S}: equal to the plain Philox bit for bit")
+        out, m, l = ba.blocked_attention_fwd(q, k, v, start, end, seed, None, rate)
+        delta = ba.row_delta(do, out)
+        bwd = (q, k, v, do, m, l, delta, start, end, seed, None, rate)
+        routes = {"fused": ba.blocked_attention_bwd_fused(*bwd),
+                  "three-pass": (ba.blocked_attention_dq(*bwd), *ba.blocked_attention_dkv(*bwd))}
+        torch.cuda.synchronize()
+        _require(all(torch.isfinite(t).all() for t in (out, m, l, *routes["fused"],
+                                                        *routes["three-pass"])),
+                 f"blocked kernel output not finite at {B}x{H}x{S}x{hd}")
+        ref, m_ref, l_ref = ba.blocked_fwd_reference(q, k, v, start, end, None, ks)
+        # each backward kernel on its own inputs: the kernel forward's (m, l,
+        # delta), and q, k, v, do in fp32 (the same values)
+        plain_bwd = (*(t.float() for t in (q, k, v, do)), m, l, delta, start, end, None, ks)
+        want = ba.blocked_bwd_fused_reference(*plain_bwd)
+        with planted(BLOCKED_FAULT, S):
+            faulty = ba.blocked_bwd_fused_reference(*plain_bwd)
+        del ks, plain_bwd
+        ok = valid[:, None, :, None].expand_as(out)
+        rows = valid[:, None, :].expand_as(m)
+        res = {"out": _excess(out[ok], ref[ok], KERNEL_TOL[dtype_name]),
+               "m": _excess(m[rows], m_ref[rows], STAT_TOL["m"]),
+               "l": _excess(l[rows], l_ref[rows], STAT_TOL["l"])}
+        fault = {}
+        for route, got in routes.items():
+            for name, a, w, f in zip(("dq", "dk", "dv"), got, want, faulty):
+                res[f"{route} {name}"] = _excess(a, w, BLOCKED_GRAD_TOL[dtype_name])
+                fault[f"{route} {name}"] = _excess(a, f, BLOCKED_GRAD_TOL[dtype_name])[1]
+        empty = bool(not out[~ok].any() and (m[~rows] == whk._NEG).all() and not l[~rows].any())
+        print(f"blocked {B}x{H}x{S}x{hd} {dtype_name} rate {rate}, kernel vs plain (max abs err / "
+              f"excess over tolerance): " + ", ".join(
+                  f"{n} {e:.2e}/{x:.1e}" for n, (e, x) in res.items())
+              + f"; rows with no key all 0 (m -1e30, l 0): {empty}; control '{BLOCKED_FAULT}' "
+              f"excess: " + ", ".join(f"{n} {x:.1e}" for n, x in fault.items()))
+        _require(empty and all(x <= 0 for _, x in res.values()),
+                 f"blocked kernels disagree with the plain versions at {B}x{H}x{S}x{hd} "
+                 f"{dtype_name} rate {rate}")
+        _require(all(x > 0 for x in fault.values()),
+                 f"the gradient checks cannot tell '{BLOCKED_FAULT}': {fault}")
+        errs["fwd"] = max(errs["fwd"], res["out"][0])
+        errs["fused"] = max([errs["fused"]] + [res[f"fused {n}"][0] for n in ("dq", "dk", "dv")])
+        errs["dq"] = max(errs["dq"], res["three-pass dq"][0])
+        errs["dkv"] = max([errs["dkv"]] + [res[f"three-pass {n}"][0] for n in ("dk", "dv")])
+
+    for B, H, S, hd in BLOCKED_BF16:
+        for rate in (0.0, RATE):
+            case(B, H, S, hd, "bfloat16", rate)
+    for B, H, S, hd in BLOCKED_FP32:
+        case(B, H, S, hd, "float32", RATE)
+
+    # one seed, one mask: at S = 1024 the blocked and whole-head kernels agree
+    qkv, start, end, valid, dout = inputs(4, 24, 1024, 32, torch.bfloat16)
+    res = []
+    for fn in (ba.blocked_attention_qkv, whk.whole_head_attention_qkv):
+        x = qkv.clone().requires_grad_()
+        out = fn(x, start, end, seed, heads=24, dropout_rate=RATE)
+        res.append((out, *torch.autograd.grad(out, (x,), dout)))
+    (o1, g1), (o2, g2) = res
+    e_o, x_o = _excess(o1[valid], o2[valid], KERNEL_TOL["bfloat16"])
+    e_g, x_g = _excess(g1, g2, GRAD_TOL["bfloat16"])
+    print(f"blocked vs whole-head kernels 4x24x1024x32 bf16 rate {RATE}, same seed: out "
+          f"{e_o:.2e}, dqkv {e_g:.2e}")
+    _require(x_o <= 0 and x_g <= 0, "blocked and whole-head kernels differ at S=1024")
+    del res, o1, o2, g1, g2
+
+    def routes(S, fused, three):
+        print(f"backward routes at S={S}: fused {fused:.4f} ms, three-pass {three:.4f} ms "
+              f"(fused/three-pass {fused / three:.3f}); FUSED_MAX = {ba.FUSED_MAX} takes the "
+              f"{'fused' if S <= ba.FUSED_MAX else 'three-pass'} route")
+
+    times = {}
+    for B, H, S, hd in BLOCKED_TIMED:  # full rows, bf16, rate 0.1, in turns
+        qkv, start, end, _, dout = inputs(B, H, S, hd, torch.bfloat16, full_rows=True)
+        q, k, v = whk._qkv_views("qkv", (qkv,), H)
+        do = whk._heads4(dout, H)
+        ks = ba.dropout_keep_scale(seed, B, H, S, RATE)
+        out, m, l = ba.blocked_attention_fwd(q, k, v, start, end, seed, None, RATE)
+        bwd = (q, k, v, do, m, l, ba.row_delta(do, out), start, end)
+        it = max(2, 10 * 2048 // S)
+        runs = {
+            "fwd": (lambda: ba.blocked_attention_fwd(q, k, v, start, end, seed, None, RATE),
+                    lambda: ba.blocked_fwd_reference(q, k, v, start, end, None, ks)),
+            "fused": (lambda: ba.blocked_attention_bwd_fused(*bwd, seed, None, RATE),
+                      lambda: ba.blocked_bwd_fused_reference(*bwd, None, ks)),
+            "dq": (lambda: ba.blocked_attention_dq(*bwd, seed, None, RATE),
+                   lambda: ba.blocked_dq_reference(*bwd, None, ks)),
+            "dkv": (lambda: ba.blocked_attention_dkv(*bwd, seed, None, RATE),
+                    lambda: ba.blocked_dkv_reference(*bwd, None, ks)),
+        }
+        bounds = _attention_bounds(_pairs(start, end, S, H), B, H, S, hd, 2)
+        lib_fwd, lib_bwd = _sdpa_ms(q, k, v, do, RATE, it)
+        library = {"fwd": lib_fwd, "fused": lib_bwd, "dq": lib_bwd, "dkv": lib_bwd}
+        if S == BLOCKED_TIMED[0][2]:  # the mask kernel (#5, #10) at the `long` shape
+            runs["mask"] = (lambda: ba.dropout_keep_scale(seed, B, H, S, RATE),
+                            lambda: whk.dropout_keep_scale_reference(seed, B, H, S, RATE))
+            bounds["mask"], library["mask"] = _bound(0, B * H * S * S * 4), None
+        times[S] = {}
+        for name, (kernel, plain) in runs.items():
+            p1, k1, k2, p2 = (_time_ms(f, n) for f, n in ((plain, 2), (kernel, it), (kernel, it),
+                                                          (plain, 2)))
+            times[S][name] = {"ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2,
+                              "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
+                              "library_ms": library[name]}
+            lib = "-" if library[name] is None else f"{library[name]:.4f} ms"
+            print(f"blocked {name} {B}x{H}x{S}x{hd} bf16 rate {RATE}, full rows: kernel "
+                  f"{k1:.4f}/{k2:.4f} ms, plain {p1:.4f}/{p2:.4f} ms, SDPA {lib}, bound "
+                  f"{bounds[name][0]:.4f} ms ({bounds[name][1]}) ({card})")
+        routes(S, times[S]["fused"]["ms"], times[S]["dq"]["ms"] + times[S]["dkv"]["ms"])
+        del ks, qkv, dout, out, m, l, bwd, runs
+        torch.cuda.empty_cache()
+    for B, H, S, hd in BLOCKED_ROUTES_ONLY:  # the two routes alone, no plain versions
+        qkv, start, end, _, dout = inputs(B, H, S, hd, torch.bfloat16, full_rows=True)
+        q, k, v = whk._qkv_views("qkv", (qkv,), H)
+        do = whk._heads4(dout, H)
+        out, m, l = ba.blocked_attention_fwd(q, k, v, start, end, seed, None, RATE)
+        bwd = (q, k, v, do, m, l, ba.row_delta(do, out), start, end, seed, None, RATE)
+        run_f = lambda: ba.blocked_attention_bwd_fused(*bwd)  # noqa: E731
+        run_t = lambda: (ba.blocked_attention_dq(*bwd), ba.blocked_attention_dkv(*bwd))  # noqa: E731
+        f1, t1, t2, f2 = (_time_ms(f, 2) for f in (run_f, run_t, run_t, run_f))  # in turns
+        print(f"blocked backward routes {B}x{H}x{S}x{hd} bf16 rate {RATE}, full rows: fused "
+              f"{f1:.4f}/{f2:.4f} ms, three-pass {t1:.4f}/{t2:.4f} ms ({card})")
+        routes(S, (f1 + f2) / 2, (t1 + t2) / 2)
+        del qkv, dout, out, m, l, bwd
+        torch.cuda.empty_cache()
+    return {"err": errs, "times": times,
+            "check_launches": {n: f.launches for n, f in counters.items()}}
+
+
+@contextlib.contextmanager
+def planted(fault, S):
+    """Within the block the plain blocked versions carry `fault` when it is
+    one of the structure faults of LONG_STEP_FAULTS / LONG_STEP_LOSS_FAULTS
+    (a dropped rescale; key tiles past the diagonal visited, the causal mask
+    left to the loop bounds) or BLOCKED_FAULT (each row's keys from the
+    start of its diagonal 32-key tile, the kernels' key tile, masked out)."""
+    import torch
+
+    from neko_tpu_torch.ops import blocked_attention as ba
+
+    saved = {n: getattr(ba, n) for n in ("_online_update", "_key_tiles", "_tile_mask")}
+    if fault == "running-max rescale alpha dropped":
+        def no_alpha(m, l, acc, s, ok, v_blk, ks):
+            m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+            p = torch.exp(s - m_new).masked_fill(~ok, 0.0)
+            l = l + p.sum(-1, keepdim=True)
+            if ks is not None:
+                p = p * ks
+            return m_new, l, acc + torch.matmul(p.to(v_blk.dtype).float(), v_blk.float())
+
+        ba._online_update = no_alpha
+    elif fault == "key tiles above the diagonal included":
+        tile_mask = saved["_tile_mask"]
+
+        def window_only_above_diagonal(r0, r1, c0, c1, start, end):
+            ok = tile_mask(r0, r1, c0, c1, start, end)
+            if c0 < r1:
+                return ok
+            col = torch.arange(c0, c1, device=start.device)
+            return ((col >= start.long()[:, None, None, None])
+                    & (col < end.long()[:, None, None, None])).expand_as(ok)
+
+        ba._key_tiles = lambda r1: range(0, S, ba.BLOCK)
+        ba._tile_mask = window_only_above_diagonal
+    elif fault == BLOCKED_FAULT:
+        tile_mask = saved["_tile_mask"]
+
+        def diagonal_tile_skipped(r0, r1, c0, c1, start, end):
+            row = torch.arange(r0, r1, device=start.device)[:, None]
+            col = torch.arange(c0, c1, device=start.device)[None, :]
+            return tile_mask(r0, r1, c0, c1, start, end) & (col < row // 32 * 32)
+
+        ba._tile_mask = diagonal_tile_skipped
+    try:
+        yield
+    finally:
+        for n, f in saved.items():
+            setattr(ba, n, f)
+
+
+def plain_blocked_qkv_fn(fault=None):
+    """A stand-in for ops.attention.attention_qkv: the plain blocked forward
+    and backward (the fused plain version for S <= FUSED_MAX, else dq and
+    dkv), in fp32 on the bf16 inputs with the mask from the mask kernel,
+    rounded once; `fault` (one of LONG_STEP_FAULTS or LONG_STEP_LOSS_FAULTS)
+    planted."""
+    import torch
+
+    from neko_tpu_torch.ops import attention_kernel as whk
+    from neko_tpu_torch.ops import blocked_attention as ba
+
+    class PlainBlockedQKV(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, qkv, start, end, seed, heads, rate):
+            q, k, v = (t.float() for t in whk._qkv_views("qkv", (qkv,), heads))
+            B, H, S, hd = q.shape
+            ks = ba.dropout_keep_scale(seed, B, H, S, rate) if rate > 0 else None
+            with planted(fault, S):
+                out, m, l = ba.blocked_fwd_reference(q, k, v, start, end, None, ks)
+            ctx.save_for_backward(qkv, start, end, seed, out, m, l)
+            ctx.static = (heads, rate)
+            return out.to(qkv.dtype).transpose(1, 2).reshape(B, S, H * hd)
+
+        @staticmethod
+        def backward(ctx, dout):
+            qkv, start, end, seed, out, m, l = ctx.saved_tensors
+            heads, rate = ctx.static
+            q, k, v = (t.float() for t in whk._qkv_views("qkv", (qkv,), heads))
+            B, H, S, hd = q.shape
+            do = whk._heads4(dout, heads).float()
+            ks = None
+            if rate > 0 and fault != "keep mask not applied in the backward":
+                ks = ba.dropout_keep_scale(seed, B, H, S, rate)
+            delta = ba.row_delta(do, out)
+            if fault == "delta taken as 0":
+                delta = torch.zeros_like(delta)
+            args = (q, k, v, do, m, l, delta, start, end, None, ks)
+            with planted(fault, S):
+                grads = (ba.blocked_bwd_fused_reference(*args) if S <= ba.FUSED_MAX
+                         else (ba.blocked_dq_reference(*args), *ba.blocked_dkv_reference(*args)))
+            dqkv = torch.cat([t.transpose(1, 2).reshape(B, S, H * hd) for t in grads], -1)
+            return dqkv.to(qkv.dtype), None, None, None, None, None
+
+    def attention_qkv(qkv, key_mask, *, heads, seed=None, rate=0.0):
+        start, end = whk.mask_bounds_from_key_mask(key_mask)
+        return PlainBlockedQKV.apply(qkv, start, end, seed, heads, rate)
+
+    return attention_qkv
+
+
+def long_train(card: str, dev="cuda") -> dict:
+    """Phase 8.  -> launches per kernel in the timed long-context steps."""
+    import torch
+
+    from neko_tpu_torch import bench
+    from neko_tpu_torch.convert import init_state_dict
+    from neko_tpu_torch.ops import attention_kernel as whk
+    from neko_tpu_torch.ops import blocked_attention as ba
+    from neko_tpu_torch.training.train_state import OptimizerConfig, TrainContext
+
+    counters = {"fwd": ba.blocked_attention_fwd, "fused": ba.blocked_attention_bwd_fused,
+                "dq": ba.blocked_attention_dq, "dkv": ba.blocked_attention_dkv,
+                "whole-head fwd": whk.whole_head_attention,
+                "whole-head bwd": whk.whole_head_attention_bwd, "mask": whk.dropout_keep_scale}
+    path = dict.fromkeys(counters, 0)
+    peak = bench.PEAK_FLOPS.get(torch.cuda.get_device_name(0))
+
+    def timed(config, warm, steps):
+        name = config if isinstance(config, str) else f"k={config['context_len']}"
+        cfg, ctx, state, batch, B = bench.setup(config, dev, SEED)
+        _, warm_losses = bench.time_steps(ctx, state, batch, warm)
+        torch.cuda.reset_peak_memory_stats()
+        for f in counters.values():
+            f.launches = 0
+        dt, losses = bench.time_steps(ctx, state, batch, steps)
+        got = {n: f.launches for n, f in counters.items()}
+        tokens = B * cfg.context_len
+        fpt = bench.train_flops_per_token(cfg, bench.tgt_budget(B, cfg) / tokens)
+        tps = tokens * steps / dt
+        print(f"{name} train step {cfg.embed_dim}d/{cfg.layers}L/{cfg.heads}h "
+              f"k={cfg.context_len} B={B} bf16 dropout {cfg.dropout}: {dt * 1e3 / steps:.3f} "
+              f"ms/step over {steps}, {tps:.1f} tokens/s, MFU "
+              f"{tps * fpt / peak if peak else float('nan'):.4f} ({fpt / 1e6:.1f} MFLOP/token), "
+              f"peak memory {torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB ({card})")
+        print(f"  losses: warm-up {warm_losses}, timed {losses}; launches {got}")
+        _require(all(np.isfinite(warm_losses + losses)), f"{name}: non-finite loss {losses}")
+        n = cfg.layers * steps
+        fused = cfg.context_len <= ba.FUSED_MAX
+        want = {"fwd": n, "fused": n if fused else 0, "dq": 0 if fused else n,
+                "dkv": 0 if fused else n, "whole-head fwd": 0, "whole-head bwd": 0, "mask": 0}
+        _require(got == want, f"{name}: the steps did not run the blocked kernels as "
+                              f"FUSED_MAX={ba.FUSED_MAX} routes them: {got}, expected {want}")
+        for k in path:
+            path[k] += got[k]
+        del state
+        torch.cuda.empty_cache()
+        return cfg, ctx, batch
+
+    cfg, ctx, batch = timed("long", 2, 3)
+    timed("long4k", 1, 1)
+    timed(LONG8K, 1, 1)
+    sd = init_state_dict(cfg, SEED)
+
+    def loss_and_grads(fn=None):
+        st = ctx.init_state({k: v.clone() for k, v in sd.items()})
+        with contextlib.ExitStack() as stack:
+            if fn is not None:
+                stack.enter_context(train_attention_through(fn))
+            loss = ctx.loss_and_grads(st, batch).item()
+        return loss, {n: p.grad for n, p in st.model.named_parameters()}
+
+    loss_k, grads_k = loss_and_grads()
+    loss_p, grads_p = loss_and_grads(plain_blocked_qkv_fn())
+    gap, dloss = _grad_gap(grads_k, grads_p), abs(loss_k - loss_p)
+    del grads_k
+    print(f"one long step, kernels vs plain blocked attention (same seeds and masks): loss "
+          f"{loss_k:.6f} vs {loss_p:.6f} (diff {dloss:.3e}, tolerance {LONG_STEP_LOSS_TOL:g}); "
+          f"largest relative gradient error {gap:.3e} (tolerance {LONG_STEP_GRAD_TOL:g})")
+    fault_gap, fault_dloss = {}, {}
+    for f in dict.fromkeys(LONG_STEP_FAULTS + LONG_STEP_LOSS_FAULTS):
+        loss_f, grads_f = loss_and_grads(plain_blocked_qkv_fn(f))
+        fault_gap[f], fault_dloss[f] = _grad_gap(grads_f, grads_p), abs(loss_f - loss_p)
+        print(f"control '{f}': loss diff {fault_dloss[f]:.3e}, largest relative gradient "
+              f"error {fault_gap[f]:.3e}")
+        del grads_f
+    del grads_p
+    _require(dloss <= LONG_STEP_LOSS_TOL and gap <= LONG_STEP_GRAD_TOL,
+             f"the long kernel step disagrees with the plain step: {dloss}, {gap}")
+    blind = [f for f in LONG_STEP_FAULTS if not fault_gap[f] > LONG_STEP_GRAD_TOL]
+    blind += [f for f in LONG_STEP_LOSS_FAULTS if not fault_dloss[f] > LONG_STEP_LOSS_TOL]
+    _require(not blind, f"the long step check cannot tell these planted faults: {blind}")
+
+    opt = OptimizerConfig(learning_rate=1e-3, init_lr=1e-3, warmup_steps=1,
+                          disable_cosine_decay=True)
+    ctx2 = TrainContext(cfg, opt, device=dev, seed=SEED)
+    state2 = ctx2.init_state()
+    _, curve = bench.time_steps(ctx2, state2, batch, 20)
+    print("long: 20 steps on one batch at lr 1e-3: loss "
+          + ", ".join(f"{x:.4f}" for x in curve[::4]) + f", ..., {curve[-1]:.4f}")
+    _require(all(np.isfinite(curve)) and curve[-1] < curve[0] - 1.0,
+             f"the long loss did not fall: {curve}")
+    return path
+
+
 def main() -> int:
     import torch
 
@@ -759,29 +1243,50 @@ def main() -> int:
     trained = train_kernels_vs_plain(card)
     launches = train_step_check(card)
     print(f"forward kernel launches: serving run {serve_launches}, train run {launches['fwd']}")
+    blocked = blocked_kernels_vs_plain(card)
+    long_path = long_train(card)
 
     src = "neko_tpu_torch/csrc/"
     tpu = "neko_tpu/ops/attention_kernel.py"
-    # kernel #5 writes the masks the checks hand to the plain attention; the
-    # train step's kernels draw the same keep bytes inline and never launch
-    # it, as neko_tpu's train step never runs its counterpart
-    print(json.dumps({"check_kernels": [
-        {"name": "dropout_keep_scale", "route": "cuda",
-         "source": src + "dropout_keep_scale.cu", "replaces": f"{tpu}:492",
-         "launches": launches["mask"], "check_launches": launches["mask_check"],
-         "max_abs_err": 0.0, "ms": trained["mask"][0], "plain_ms": trained["mask"][1]},
-    ]}))
-    print(json.dumps({"kernels": [
+    tpu_b = "neko_tpu/ops/blocked_attention.py"
+
+    def timing(part):  # phase 5's kernel, plain, library and bound at the flagship shape
+        ms, plain_ms, library_ms, bound_ms, bound_by = trained[part]
+        return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                "library_ms": library_ms}
+
+    long_times = blocked["times"][BLOCKED_TIMED[0][2]]  # at the `long` shape
+    entries = [
         {"name": "whole_head_attention", "route": "cuda",
          "source": src + "whole_head_attention.cu", "replaces": f"{tpu}:206,236",
          "launches": serve_launches + launches["fwd"],
-         "max_abs_err": max(err, trained["fwd_err"]),
-         "ms": trained["fwd"][0], "plain_ms": trained["fwd"][1]},
+         "max_abs_err": max(err, trained["fwd_err"]), **timing("fwd")},
         {"name": "whole_head_attention_bwd", "route": "cuda",
          "source": src + "whole_head_attention_bwd.cu", "replaces": f"{tpu}:220,256",
-         "launches": launches["bwd"], "max_abs_err": trained["bwd_err"],
-         "ms": trained["bwd"][0], "plain_ms": trained["bwd"][1]},
-    ]}))
+         "launches": launches["bwd"], "max_abs_err": trained["bwd_err"], **timing("bwd")},
+    ] + [
+        {"name": name, "route": "cuda", "source": src + source,
+         "replaces": f"{tpu_b}:{line}", "launches": long_path[key],
+         "check_launches": blocked["check_launches"][key],
+         "max_abs_err": blocked["err"][key], **long_times[key]}
+        for name, source, line, key in (
+            ("blocked_attention_fwd", "blocked_attention.cu", 183, "fwd"),
+            ("blocked_attention_bwd_fused", "blocked_attention_bwd.cu", 290, "fused"),
+            ("blocked_attention_dq", "blocked_attention_bwd.cu", 241, "dq"),
+            ("blocked_attention_dkv", "blocked_attention_bwd.cu", 390, "dkv"))
+    ]
+    # kernel #5 writes the masks the checks hand to the plain attention, at
+    # every S (so it is #10's counterpart too); the train steps' kernels draw
+    # the same keep bytes inline and never launch it, as neko_tpu's train
+    # step never runs its counterparts.  A blocked backward route that
+    # FUSED_MAX dispatches at no trained S runs in the checks alone.
+    mask = {"name": "dropout_keep_scale", "route": "cuda",
+            "source": src + "dropout_keep_scale.cu", "replaces": f"{tpu}:492,{tpu_b}:682",
+            "launches": launches["mask"] + long_path["mask"],
+            "check_launches": launches["mask_check"] + blocked["check_launches"]["mask"],
+            "max_abs_err": 0.0, **timing("mask")}
+    print(json.dumps({"check_kernels": [mask] + [e for e in entries if not e["launches"]]}))
+    print(json.dumps({"kernels": [e for e in entries if e["launches"]]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

@@ -1,6 +1,6 @@
 """Train-step benchmark of the port on one CUDA device:
 
-    python -m neko_tpu_torch.bench [--config flagship|medium] [--steps N]
+    python -m neko_tpu_torch.bench [--config flagship|medium|long|long4k] [--steps N]
     python -m neko_tpu_torch.bench --profile   # where a step's time goes
 
 The counterpart of the root bench.py's device-step measurement: the
@@ -17,10 +17,14 @@ reports them; `--profile` adds `profile_ms_per_step` (device time by part)
 and `optimizer_alone_ms` (the optimizer half timed alone, CUDA events).  No
 CUDA device: it exits with an error, never a CPU number.
 
+`long` (k = 2048) and `long4k` (k = 4096) are the root bench's long-context
+configurations and train through the blocked attention kernels.  `setup`
+and `model_config` also take a shape dict of the CONFIGS form, for a
+configuration the root bench does not have (chip_smoke.py's k = 8192 step).
+
 Not here yet: the root bench's `end_to_end` (it waits for the port of
 data/pipeline.py) and its measured-reference keys (their JSON files describe
-other hardware).  `long` and `long4k` (S > 1024) raise until the blocked
-attention kernels (#6-#10) are ported.
+other hardware).
 """
 
 from __future__ import annotations
@@ -43,10 +47,6 @@ CONFIGS = {
     "medium": dict(embed_dim=1536, layers=12, heads=12, batch_per_chip=8),
     "long": dict(embed_dim=768, layers=6, heads=24, batch_per_chip=8, context_len=2048),
     "long4k": dict(embed_dim=768, layers=6, heads=24, batch_per_chip=4, context_len=4096),
-}
-NOT_PORTED = {
-    "long": "k=2048 trains through the blocked attention kernels #6-#10",
-    "long4k": "k=4096 trains through the blocked attention kernels #6-#10",
 }
 
 
@@ -114,14 +114,12 @@ def patch_budget(cfg, batch_size):
     return -(-(n_img * ctx_ts_img * 36) // 256) * 256
 
 
-def model_config(name: str):
-    """The bench's ModelConfig for a CONFIGS entry (raises for the ones the
-    port cannot train yet)."""
+def model_config(name):
+    """The bench's ModelConfig for a CONFIGS name or a shape dict of that
+    form."""
     from neko_tpu_torch.config import ModelConfig
 
-    if name in NOT_PORTED:
-        raise NotImplementedError(f"config {name!r}: {NOT_PORTED[name]}, not yet ported")
-    shape = CONFIGS[name]
+    shape = CONFIGS[name] if isinstance(name, str) else name
     context_len = shape.get("context_len", 1024)
     return ModelConfig(
         embed_dim=shape["embed_dim"], layers=shape["layers"], heads=shape["heads"],
@@ -130,15 +128,16 @@ def model_config(name: str):
     )
 
 
-def setup(name: str = "flagship", device="cuda", seed: int = 0):
-    """-> (cfg, TrainContext, TrainState, batch on `device`, batch size).
-    The optimizer settings are the root bench's."""
+def setup(name="flagship", device="cuda", seed: int = 0):
+    """-> (cfg, TrainContext, TrainState, batch on `device`, batch size) for
+    a CONFIGS name or a shape dict.  The optimizer settings are the root
+    bench's."""
     from neko_tpu_torch.data.batch import to_device_batch
     from neko_tpu_torch.data.packing import SequencePacker
     from neko_tpu_torch.training.train_state import OptimizerConfig, TrainContext
 
     cfg = model_config(name)
-    batch_size = CONFIGS[name]["batch_per_chip"]
+    batch_size = (CONFIGS[name] if isinstance(name, str) else name)["batch_per_chip"]
     opt = OptimizerConfig(learning_rate=1e-4, init_lr=1e-7, warmup_steps=100,
                           training_steps=10_000)
     ctx = TrainContext(cfg, opt, device=device, seed=seed)
@@ -191,7 +190,8 @@ def optimizer_ms(ctx, state, batch, steps: int = 3) -> float:
 
 def profile_breakdown(ctx, state, batch, cfg, steps: int = 3) -> dict:
     """Device time of `steps` train steps by part, from torch.profiler: our
-    attention kernels (device rows by kernel name), the optimizer (device
+    attention kernels (device rows of csrc/attention_fwd.cuh's and
+    attention_bwd.cuh's kernels, by name), the optimizer (device
     rows inside the device-side spans of the step's "optimizer" range and
     of AdamW's own; the step runs on one stream), the head and loss (aten
     ops outside that range with a vocab-wide operand; CUDA runtime rows
@@ -208,7 +208,9 @@ def profile_breakdown(ctx, state, batch, cfg, steps: int = 3) -> dict:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    ours = "whole_head_attention"
+    def ours(name: str) -> bool:
+        return "attention_fwd_kernel" in name or "attention_bwd_" in name
+
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                  record_shapes=True) as prof:
@@ -233,7 +235,7 @@ def profile_breakdown(ctx, state, batch, cfg, steps: int = 3) -> dict:
     busy = sum(e.self_device_time_total for e in device)
     parts = {"attention kernels": 0.0, "head + loss": 0.0, "MLP": 0.0, "optimizer": 0.0}
     for e in device:
-        if ours in e.name:
+        if ours(e.name):
             parts["attention kernels"] += e.self_device_time_total
         elif any(a <= e.time_range.start < b for a, b in opt_spans):
             parts["optimizer"] += e.self_device_time_total
@@ -242,7 +244,7 @@ def profile_breakdown(ctx, state, batch, cfg, steps: int = 3) -> dict:
         # a CPU op's self device time is that of the kernels it launched
         if (evt.device_type != DeviceType.CPU or evt.is_user_annotation
                 or evt.self_device_time_total <= 0
-                or any(ours in k.name for k in evt.kernels)):
+                or any(ours(k.name) for k in evt.kernels)):
             continue
         node = evt
         while node is not None and node.name != "optimizer":

@@ -155,9 +155,10 @@ def save_model_dir(path: str, cfg: ModelConfig, state_dict: Dict[str, torch.Tens
         json.dump(dataclasses.asdict(cfg), f, indent=1, sort_keys=True)
 
 
-def build_model(cfg: ModelConfig, state_dict: Dict[str, torch.Tensor], device="cpu"):
-    """NekoModel on `device` holding `state_dict` (built on the meta device
-    first, so no throwaway random init runs)."""
+def build_model(cfg: ModelConfig, state_dict: Dict[str, torch.Tensor], device="cuda"):
+    """NekoModel on `device` (the card unless the caller asks for the CPU)
+    holding `state_dict` (built on the meta device first, so no throwaway
+    random init runs)."""
     from neko_tpu_torch.models.policy import NekoModel
 
     _check_against_model(state_dict, cfg)
@@ -167,8 +168,9 @@ def build_model(cfg: ModelConfig, state_dict: Dict[str, torch.Tensor], device="c
     return model.to(device).eval()
 
 
-def load_model_dir(path: str, device="cpu"):
-    """-> (ModelConfig, NekoModel on `device` with the saved weights)."""
+def load_model_dir(path: str, device="cuda"):
+    """-> (ModelConfig, NekoModel on `device` (the card unless the caller
+    asks for the CPU) with the saved weights)."""
     with open(os.path.join(path, "config.json")) as f:
         cfg = ModelConfig.from_dict(json.load(f))
     sd = torch.load(os.path.join(path, "model.pt"), map_location="cpu",

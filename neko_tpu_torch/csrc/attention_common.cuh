@@ -1,4 +1,5 @@
-// Shared by the whole-head attention kernels (forward, backward, keep mask).
+// Shared by the attention kernels: whole-head (forward, backward, keep mask)
+// and blocked (forward with row stats, fused and three-pass backward).
 //
 // AttnArgs is the one argument block every C entry point takes, passed from
 // Python as a ctypes Structure (neko_tpu_torch/ops/attention_kernel.py
@@ -37,6 +38,13 @@ struct AttnArgs {
   const int* seed;  // int32 [1] on the device; read only when dropout is on
   int B, H, S, D, dtype, drop_threshold;
   float sm_scale, drop_scale;
+  // the blocked kernels (blocked_attention*.cu): row stats m (running max of
+  // the scaled logits) and l (softmax normalizer, without the keep mask),
+  // fp32 [B, H, S] contiguous; the fused backward's fp32 [B, H, S, D]
+  // contiguous dq scratch, zeroed before its launch
+  float* m;
+  float* l;
+  float* dq_acc;
 };
 
 namespace whk {

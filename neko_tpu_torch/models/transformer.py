@@ -4,7 +4,8 @@ neko_tpu/models/transformer.py).
 * pre-LN blocks: x + attn(ln_1(x)); x + mlp(ln_2(x)); no absolute position
   embedding (positions come from the structured encodings upstream).
 * `mode='train'`: full causal attention over the packed context through the
-  head-packed kernels: q, k and v stay the three column slices of the one
+  head-packed kernels (whole-head up to S = 1024, blocked above, any S, hd in
+  {32, 64, 128}): q, k and v stay the three column slices of the one
   [B, S, 3D] `c_attn` output (no transpose, one gradient buffer), with
   attention, residual and MLP dropout when a `generator` (the step's
   `torch.Generator`) is given.  Each layer draws its attention seed as an
@@ -64,7 +65,7 @@ def _train_not_ported(cfg: ModelConfig, S: int) -> None:
         "stochastic_depth > 0": cfg.stochastic_depth > 0,
         "remat": cfg.remat,
         f"training at S={S}, hd={cfg.head_dim} (the head-packed kernels take "
-        "S <= 1024 and hd in 32/64/128)":
+        "hd in 32/64/128)":
             not attn_ops.packed_ok(S, cfg.head_dim, cfg.heads),
     }
     bad = [name for name, on in unported.items() if on]

@@ -18,8 +18,10 @@
 * `attention_qkv`: the train path (the JAX package's
   `tpu_flash_attention_bsd` -> `_kernel_local_bsd` on one device): the
   head-packed q, k, v as the column slices of one [B, S, 3*H*hd] projection
-  output, with attention dropout, through the same kernels.  `packed_ok`
-  says which shapes the port trains.
+  output, with attention dropout.  As `_kernel_local_bsd` dispatches, S <=
+  1024 goes to the whole-head kernels (#1-#4) and longer contexts to the
+  blocked ones (#6-#9, `blocked_attention.py`).  `packed_ok` says which
+  shapes the port trains: any S, hd in {32, 64, 128}.
 """
 
 from __future__ import annotations
@@ -27,11 +29,12 @@ from __future__ import annotations
 import torch
 
 from neko_tpu_torch.ops import attention_kernel as whk
+from neko_tpu_torch.ops import blocked_attention
 
 _BIG_NEG = -1e9
-# The JAX package's whole-head kernel serves S <= 1024; longer training
-# contexts go to its blocked kernels (#6-#10), which are not ported yet.
-_PACKED_MAX_S = 1024
+# The whole-head kernels train S <= 1024, as in the JAX package; longer
+# contexts go to the blocked kernels.
+_WHOLE_HEAD_MAX_S = 1024
 
 
 def xla_attention(q, k, v, key_mask, keep_scale=None):
@@ -60,9 +63,10 @@ def prefill_attention(q, k, v, key_mask):
 
 
 def packed_ok(S: int, hd: int, heads: int) -> bool:
-    """True when the head-packed kernels serve this training shape: a head
-    dim the kernels take and S within the whole-head kernel's range."""
-    return heads > 0 and 0 < S <= _PACKED_MAX_S and hd in whk._KERNEL_HEAD_DIMS
+    """True when the head-packed kernels serve this training shape: the
+    whole-head ones up to S = 1024, the blocked ones above, both for hd in
+    {32, 64, 128}."""
+    return heads > 0 and blocked_attention.supported(S, hd)
 
 
 def attention_qkv(qkv, key_mask, *, heads, seed=None, rate=0.0):
@@ -71,5 +75,6 @@ def attention_qkv(qkv, key_mask, *, heads, seed=None, rate=0.0):
     is one [B, S, 3*H*hd] buffer.  seed is an int32 [1] tensor on the device
     (needed when rate > 0)."""
     start, end = whk.mask_bounds_from_key_mask(key_mask)
-    return whk.whole_head_attention_qkv(qkv, start, end, seed, heads=heads,
-                                        dropout_rate=rate)
+    fn = (whk.whole_head_attention_qkv if qkv.shape[1] <= _WHOLE_HEAD_MAX_S
+          else blocked_attention.blocked_attention_qkv)
+    return fn(qkv, start, end, seed, heads=heads, dropout_rate=rate)

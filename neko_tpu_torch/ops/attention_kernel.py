@@ -193,6 +193,8 @@ class _Args(ctypes.Structure):
         ("B", ctypes.c_int), ("H", ctypes.c_int), ("S", ctypes.c_int), ("D", ctypes.c_int),
         ("dtype", ctypes.c_int), ("drop_threshold", ctypes.c_int),
         ("sm_scale", ctypes.c_float), ("drop_scale", ctypes.c_float),
+        # the blocked kernels' row stats and fp32 dq scratch (blocked_attention.py)
+        ("m", ctypes.c_void_p), ("l", ctypes.c_void_p), ("dq_acc", ctypes.c_void_p),
     ]
 
 
@@ -276,6 +278,7 @@ def _kernel_args(q, k, v, start, end, seed, sm_scale, q_thr, **views) -> _Args:
         q=_view(q), k=_view(k), v=_view(v),
         **{n: _view(views.get(n)) for n in ("o", "dout", "dq", "dk", "dv")},
         lse=_ptr(views.get("lse")), delta=_ptr(views.get("delta")),
+        m=_ptr(views.get("m")), l=_ptr(views.get("l")), dq_acc=_ptr(views.get("dq_acc")),
         start=start.data_ptr(), end=end.data_ptr(), seed=_ptr(seed),
         B=B, H=H, S=S, D=hd, dtype=_KERNEL_DTYPES[q.dtype],
         drop_threshold=q_thr, sm_scale=float(sm_scale), drop_scale=survivor_scale(q_thr),

@@ -1,6 +1,7 @@
-"""The whole-head attention CUDA kernels against their plain torch versions:
-forward and backward (autograd through the plain version), with dropout
-(the same mask: the plain version gets the keep/scale matrix the mask kernel
+"""The attention CUDA kernels against their plain torch versions: the
+whole-head forward and backward (autograd through the plain version) and the
+blocked forward (o, m, l) and both blocked backward routes, with dropout (the
+same mask: the plain version gets the keep/scale matrix the mask kernel
 writes, and that matrix must equal the plain Philox bit for bit), on
 contiguous [B, H, S, hd] tensors and on head-packed strided views of one
 [B, S, 3*H*hd] tensor.
@@ -169,3 +170,102 @@ def test_head_packed_strided_views_forward_and_backward(cuda, dtype, rate):
     ref = whk.whole_head_attention_reference(q, k, v, start, end, None, ks)
     ref_grads = torch.autograd.grad(ref, (q, k, v), do4)
     _grads_check(out4, ref, grads4, ref_grads, valid[:, None].expand_as(out4), dtype)
+
+
+# ------------------------------------------------- blocked kernels #6-#9
+def _blocked_inputs(B, H, S, hd, dtype, cuda, seed=3):
+    """qkv [B, S, 3*H*hd] (q, k, v its column slices), left-padded, short
+    and empty rows, do zero where no key is seen."""
+    D = H * hd
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    qkv = torch.randn(B, S, 3 * D, device=cuda, generator=g).to(dtype)
+    starts = [0, S // 7, S - 37, S]
+    ends = [S, S, S, 0]
+    start = torch.tensor((starts * B)[:B], dtype=torch.int32, device=cuda)
+    end = torch.tensor((ends * B)[:B], dtype=torch.int32, device=cuda)
+    rows = torch.arange(S, device=cuda)[None, :]
+    valid = (rows >= start[:, None].long()) & (start < end)[:, None]
+    dout = torch.randn(B, S, D, device=cuda, generator=g).to(dtype) * valid[..., None]
+    return qkv, start, end, valid, dout
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,S,hd,dtype", [
+    (2, 4, 1100, 32, torch.bfloat16),   # ragged S: no multiple of the 64 x 32 tiles
+    (4, 3, 700, 64, torch.float32),
+    (2, 2, 600, 128, torch.float32),
+    (3, 2, 1300, 128, torch.bfloat16),
+])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("route", ["fused", "three-pass"])
+def test_blocked_kernels_match_plain(cuda, B, H, S, hd, dtype, rate, route, monkeypatch):
+    """#6 (o, m, l) and, through `blocked_attention_qkv`, #8 or #7 + #9
+    against the plain versions with the same keep mask, given the plain
+    forward's (m, l) and delta."""
+    from neko_tpu_torch.ops import blocked_attention as ba
+
+    monkeypatch.setattr(ba, "FUSED_MAX", S if route == "fused" else S - 1)
+    qkv, start, end, valid, dout = _blocked_inputs(B, H, S, hd, dtype, cuda)
+    seed = torch.tensor([99], dtype=torch.int32, device=cuda)
+    q, k, v = whk._qkv_views("qkv", (qkv,), H)
+    launches = [f.launches for f in (ba.blocked_attention_fwd, ba.blocked_attention_bwd_fused,
+                                     ba.blocked_attention_dq, ba.blocked_attention_dkv)]
+    out, m, l = ba.blocked_attention_fwd(q, k, v, start, end, seed, dropout_rate=rate)
+    x = qkv.clone().requires_grad_()
+    out2 = ba.blocked_attention_qkv(x, start, end, seed, heads=H, dropout_rate=rate)
+    (dqkv,) = torch.autograd.grad(out2, (x,), dout)
+    torch.cuda.synchronize()
+    fused = route == "fused"
+    assert [f.launches - n for f, n in zip(
+        (ba.blocked_attention_fwd, ba.blocked_attention_bwd_fused, ba.blocked_attention_dq,
+         ba.blocked_attention_dkv), launches)] == [2, int(fused), int(not fused), int(not fused)]
+    ks = ba.dropout_keep_scale(seed, B, H, S, rate) if rate else None
+    ref, m_ref, l_ref = ba.blocked_fwd_reference(q, k, v, start, end, None, ks)
+    ok = valid[:, None, :, None].expand_as(out)
+    atol, rtol = TOL[dtype]
+    torch.testing.assert_close(out.float()[ok], ref.float()[ok], atol=atol, rtol=rtol)
+    torch.testing.assert_close(out2, out.transpose(1, 2).reshape(B, S, -1), atol=0, rtol=0)
+    rows = valid[:, None, :].expand_as(m)
+    torch.testing.assert_close(m[rows], m_ref[rows], atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(l[rows], l_ref[rows], atol=1e-5, rtol=1e-4)
+    assert (m[~rows] == -1e30).all() and not l[~rows].any() and not out[~ok].any()
+    do4 = whk._heads4(dout, H)
+    want = ba.blocked_bwd_fused_reference(q, k, v, do4, m_ref, l_ref, ba.row_delta(do4, ref),
+                                          start, end, None, ks)
+    atol, rtol = GRAD_TOL[dtype]
+    for name, got, w in zip("qkv", dqkv.chunk(3, dim=-1), want):
+        assert torch.isfinite(got).all(), name
+        torch.testing.assert_close(got.float(), w.transpose(1, 2).reshape(B, S, -1).float(),
+                                   atol=atol, rtol=rtol, msg=lambda s, n=name: f"d{n}: {s}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_blocked_kernels_equal_whole_head_kernels_at_s_1024(cuda, rate):
+    """One seed gives one mask: at S = 1024 the blocked and the whole-head
+    kernels compute the same attention and gradients (to summation order)."""
+    from neko_tpu_torch.ops import blocked_attention as ba
+
+    B, H, S, hd = 2, 4, 1024, 32
+    qkv, start, end, valid, dout = _blocked_inputs(B, H, S, hd, torch.float32, cuda)
+    seed = torch.tensor([5], dtype=torch.int32, device=cuda)
+    res = []
+    for fn in (ba.blocked_attention_qkv, whk.whole_head_attention_qkv):
+        x = qkv.clone().requires_grad_()
+        out = fn(x, start, end, seed, heads=H, dropout_rate=rate)
+        res.append((out, *torch.autograd.grad(out, (x,), dout)))
+    (o1, g1), (o2, g2) = res
+    torch.testing.assert_close(o1[valid], o2[valid], atol=1e-5, rtol=0)
+    torch.testing.assert_close(g1, g2, atol=5e-5, rtol=1e-4)
+
+
+@pytest.mark.cuda
+def test_blocked_kernel_refuses_an_unsupported_head_dim(cuda):
+    from neko_tpu_torch.ops import blocked_attention as ba
+
+    qkv = torch.randn(1, 2048, 3 * 2 * 48, device=cuda)  # hd 48: no kernel template
+    bounds = torch.tensor([0], dtype=torch.int32, device=cuda)
+    before = ba.blocked_attention_fwd.launches
+    with pytest.raises(ValueError):
+        ba.blocked_attention_qkv(qkv, bounds, bounds + 2048, heads=2)
+    assert ba.blocked_attention_fwd.launches == before

@@ -176,7 +176,7 @@ def test_attention_qkv_is_the_train_path_and_launches_nothing_on_cpu():
 def test_packed_ok_takes_the_kernel_head_dims():
     assert attn.packed_ok(1024, 32, 24)
     assert attn.packed_ok(1024, 128, 12)
-    assert not attn.packed_ok(2048, 32, 24)  # blocked kernels #6-#10
+    assert attn.packed_ok(2048, 32, 24)  # through the blocked kernels #6-#9
     assert not attn.packed_ok(1024, 16, 4)
     assert not attn.packed_ok(1024, 48, 4)
 

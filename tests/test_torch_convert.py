@@ -103,7 +103,7 @@ def test_export_tool_writes_a_servable_dir(jax_params, tmp_path):
     spec.loader.exec_module(tool)
     jcfg = JaxConfig(**TINY)
     tool.export_params(jax_params, jcfg, str(tmp_path))
-    cfg, model = convert.load_model_dir(str(tmp_path))
+    cfg, model = convert.load_model_dir(str(tmp_path), device="cpu")
     assert cfg == ModelConfig(**TINY)
     emb = np.random.default_rng(0).standard_normal((1, 64, 64)).astype(np.float32)
     mask = np.arange(64)[None] < 40
@@ -119,7 +119,22 @@ def test_model_dir_round_trip(tmp_path):
     cfg = ModelConfig(**{**TINY, "dtype": "bfloat16", "max_patches": 0})
     sd = convert.init_state_dict(cfg, seed=1)
     convert.save_model_dir(str(tmp_path), cfg, sd)
-    cfg2, model = convert.load_model_dir(str(tmp_path))
+    cfg2, model = convert.load_model_dir(str(tmp_path), device="cpu")
     assert cfg2 == cfg
     got = model.state_dict()
     assert all(torch.equal(got[k], sd[k]) for k in sd)
+
+
+def test_entry_points_default_to_the_card():
+    """build_model and load_model_dir run on the card unless the caller asks
+    for the CPU: without a card the default raises, it never lands on the
+    CPU."""
+    import inspect
+
+    for fn in (convert.build_model, convert.load_model_dir):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default would build there")
+    cfg = ModelConfig(**TINY)
+    with pytest.raises((RuntimeError, AssertionError)):
+        convert.build_model(cfg, convert.init_state_dict(cfg, 0))

@@ -39,7 +39,7 @@ def gens():
     sd = convert.jax_params_to_state_dict(
         jax.tree_util.tree_map(np.asarray, params), cfg)
     jgen = jax_generator.Generator(jmodel, params, JaxPacker(jcfg), seed=0)
-    return jgen, Generator(convert.build_model(cfg, sd), seed=0)
+    return jgen, Generator(convert.build_model(cfg, sd, device="cpu"), seed=0)
 
 
 TEXT = dict(start=0, end=255)

@@ -38,7 +38,7 @@ def pair():
     cfg = ModelConfig(**TINY)
     sd = convert.jax_params_to_state_dict(
         jax.tree_util.tree_map(np.asarray, params), cfg)
-    return jmodel, params, convert.build_model(cfg, sd)
+    return jmodel, params, convert.build_model(cfg, sd, device="cpu")
 
 
 def _examples(kind, rng):
@@ -105,7 +105,8 @@ def test_prefill_last_positions_and_xla_impl(pair, monkeypatch):
     last = torch.from_numpy(lengths.astype(np.int64) - 1)
     # a converted attention_impl='xla' config still prefills through the
     # kernel wrapper: the port has one prefill path
-    xla_cfg = convert.build_model(model.cfg.replace(attention_impl="xla"), model.state_dict())
+    xla_cfg = convert.build_model(model.cfg.replace(attention_impl="xla"), model.state_dict(),
+                                   device="cpu")
     wrapper, calls = attn_ops.prefill_attention, []
     monkeypatch.setattr(attn_ops, "prefill_attention",
                         lambda *a: calls.append(1) or wrapper(*a))
@@ -153,7 +154,7 @@ def test_prefill_logits_unchanged_by_the_training_port():
     dropout) and its casts: last-position logits equal those recorded from
     the serving-only port (same seed, same batch) within fp32 rounding."""
     cfg = ModelConfig(**dict(TINY, heads=2))
-    model = convert.build_model(cfg, convert.init_state_dict(cfg, seed=3))
+    model = convert.build_model(cfg, convert.init_state_dict(cfg, seed=3), device="cpu")
     rng = np.random.default_rng(11)
     ex = [{"images": rng.integers(0, 256, (2, 32, 32, 3)).astype(np.uint8),
            "discrete_actions": rng.integers(0, 18, (2, 1))},

@@ -45,7 +45,7 @@ def server(jgen):
     cfg = ModelConfig(**TINY)
     sd = convert.jax_params_to_state_dict(
         jax.tree_util.tree_map(np.asarray, jgen.params), cfg)
-    gen = Generator(convert.build_model(cfg, sd), seed=0)
+    gen = Generator(convert.build_model(cfg, sd, device="cpu"), seed=0)
     with NekoServer(gen, port=0, max_batch=4, batch_window_ms=400.0) as s:
         yield s
 

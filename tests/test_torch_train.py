@@ -86,7 +86,8 @@ def test_loss_and_grads_match_jax(pair, route):
     want = convert.jax_grads_to_state_dict(
         jax.tree_util.tree_map(np.asarray, want_grads), cfg)
 
-    model = convert.build_model(cfg, {k: v.clone() for k, v in sd.items()})
+    model = convert.build_model(cfg, {k: v.clone() for k, v in sd.items()},
+                                device="cpu")
     batch = to_device_batch(arrays, "cpu")
     assert (batch.loss_pos is not None) == (route == "gathered")
     logits, loss = model(batch, compute_loss=True, return_logits=return_logits)
@@ -100,9 +101,48 @@ def test_loss_and_grads_match_jax(pair, route):
                                    **GRAD_TOL)
 
 
+def test_loss_and_grads_match_jax_at_context_1536(monkeypatch):
+    """S > 1024: the port trains through its blocked attention (the plain
+    versions on the CPU), neko_tpu through XLA attention."""
+    from neko_tpu_torch.ops import blocked_attention as ba
+
+    long = dict(TINY, context_len=1536)
+    rng = np.random.default_rng(6)
+    examples = [{"text": rng.integers(0, 256, 1400)},
+                {"continuous_obs": rng.standard_normal((40, 5)).astype(np.float32),
+                 "continuous_actions": rng.uniform(-1, 1, (40, 2)).astype(np.float32)},
+                {"text": rng.integers(0, 256, 700)}]
+    arrays = JaxPacker(JaxConfig(**long)).pack_batch(examples)
+    arrays.pop("lengths")
+    jmodel = JaxModel(JaxConfig(**long))
+    params = jmodel.init({"params": jax.random.key(3)}, jax_batch(arrays))["params"]
+
+    def loss_fn(p):
+        return jmodel.apply({"params": p}, jax_batch(arrays), deterministic=True,
+                            compute_loss=True)[1]
+
+    want_loss, want_grads = jax.value_and_grad(loss_fn)(params)
+    cfg = ModelConfig(**long)
+    want = convert.jax_grads_to_state_dict(jax.tree_util.tree_map(np.asarray, want_grads), cfg)
+    sd = convert.jax_params_to_state_dict(jax.tree_util.tree_map(np.asarray, params), cfg)
+    model = convert.build_model(cfg, sd, device="cpu")
+    calls = []
+    qkv_fn = ba.blocked_attention_qkv
+    monkeypatch.setattr(ba, "blocked_attention_qkv",
+                        lambda *a, **kw: calls.append(1) or qkv_fn(*a, **kw))
+    g = torch.Generator().manual_seed(0)  # train mode, dropout 0: deterministic
+    _, loss = model(to_device_batch(arrays, "cpu"), train=True, compute_loss=True, generator=g)
+    loss.backward()
+    assert len(calls) == cfg.layers
+    np.testing.assert_allclose(loss.item(), float(want_loss), **LOSS_TOL)
+    for name, w in want.items():
+        np.testing.assert_allclose(dict(model.named_parameters())[name].grad.numpy(),
+                                   w.numpy(), err_msg=name, **GRAD_TOL)
+
+
 def test_loss_routes_agree(pair):
     *_, cfg, sd = pair
-    model = convert.build_model(cfg, sd)
+    model = convert.build_model(cfg, sd, device="cpu")
     with torch.no_grad():
         dense = model(to_device_batch(_arrays(), "cpu"), compute_loss=True,
                       return_logits=True)[1]
@@ -156,7 +196,7 @@ def test_train_mode_refuses_what_is_not_ported():
     g = torch.Generator().manual_seed(0)
     for bad in (dict(stochastic_depth=0.1), dict(remat=True), dict(heads=4)):
         cfg = ModelConfig(**{**base, **bad})
-        model = convert.build_model(cfg, convert.init_state_dict(cfg, 0))
+        model = convert.build_model(cfg, convert.init_state_dict(cfg, 0), device="cpu")
         with pytest.raises(NotImplementedError):
             model(to_device_batch(arrays, "cpu"), train=True, compute_loss=True, generator=g)
     for bad in (dict(lora_only=True), dict(gradient_accumulation_steps=2),
@@ -240,16 +280,23 @@ def test_bench_copies_equal_the_root_bench():
     spec.loader.exec_module(root)
     cfg = bench.model_config("flagship")
     for B in (3, 16):
-        assert bench.tgt_budget(B, cfg) == root.tgt_budget(B, cfg)
-        assert bench.patch_budget(cfg, B) == root.patch_budget(cfg, B)
         for a, b in zip(bench.build_examples(cfg, B), root.build_examples(cfg, B)):
             assert a.keys() == b.keys()
             for k in a:
                 np.testing.assert_array_equal(np.asarray(a[k]), np.asarray(b[k]))
-    assert bench.train_flops_per_token(cfg, 0.3) == root.train_flops_per_token(cfg, 0.3)
-    for name in ("long", "long4k"):
-        with pytest.raises(NotImplementedError):
-            bench.model_config(name)
+    # every root configuration, the long-context ones included: the same
+    # shapes, batch, patch pool, loss-target budget and FLOPs per token
+    assert set(root.CONFIGS) <= set(bench.CONFIGS)
+    for name, shape in root.CONFIGS.items():
+        assert bench.CONFIGS[name] == shape, name
+        cfg = bench.model_config(name)
+        assert cfg.context_len == shape.get("context_len", 1024)
+        assert cfg.max_patches == (cfg.context_len // 38) * 36
+        for B in (3, shape["batch_per_chip"]):
+            assert bench.tgt_budget(B, cfg) == root.tgt_budget(B, cfg), name
+            assert bench.patch_budget(cfg, B) == root.patch_budget(cfg, B), name
+        for frac in (0.3, bench.tgt_budget(shape["batch_per_chip"], cfg) / cfg.context_len):
+            assert bench.train_flops_per_token(cfg, frac) == root.train_flops_per_token(cfg, frac)
 
 
 def test_sampled_patch_positions_lie_in_their_intervals():
@@ -266,5 +313,6 @@ def test_sampled_patch_positions_lie_in_their_intervals():
 def test_bench_gives_no_number_without_a_card(capsys):
     if torch.cuda.is_available():
         pytest.skip("a card is present: the bench would measure it")
-    assert bench.main(["--config", "flagship", "--steps", "1"]) == 2
-    assert capsys.readouterr().out == ""  # no JSON line, no CPU number
+    for name in ("flagship", "long", "long4k"):
+        assert bench.main(["--config", name, "--steps", "1"]) == 2
+        assert capsys.readouterr().out == ""  # no JSON line, no CPU number
