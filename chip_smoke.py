@@ -55,6 +55,26 @@
    faults the checks must see; the loss falls over 20 steps on one batch;
    one timed `long4k` step and one step at k=8192 (the same width, 2 rows;
    not a root bench configuration).
+9. Ring kernels vs plain (sequence parallelism, 4 shards): per (q block,
+   kv block) pair -- a diagonal pair, a past pair (full square), a pair
+   whose kv block holds a row's `start`, a pair wholly before it -- the
+   forward partial (acc, m, l) and the dq and dk/dv partials, bf16 at
+   S_local=2048 (B=2) and 4096 (B=1), H=24, hd=32, dropout 0 and 0.1, on a
+   full and a left-padded row; fp32 at hd 64 and 128 and at a ragged
+   S_local.  The plain versions run in fp32 on the same values with the
+   plain Philox window of the pair, and each backward kernel is held on the
+   kernel forward's own L and delta.  A planted fault (the visiting block's
+   column offset taken as 0) must fail every check.  Then the ring as a
+   whole at S=8192 against the blocked kernels at the same seed: output and
+   the three gradients.  Times in turns at a diagonal and a full pair, with
+   SDPA on the pair's shape as a yardstick.
+10. The sequence-parallel train steps under `create_mesh(data=1, seq=4)`
+   (shards on the one card): timed steps at k=8192 (2 rows) and k=16384
+   (1 row) with launch counts = layers x steps x 10 pairs per ring kernel and
+   0 for the blocked and whole-head kernels; one k=8192 step through the
+   ring against the same step through the blocked path with the same seed,
+   with planted faults in the ring schedule that the check must see; the
+   loss falls over 20 steps on one batch.
 
 Prints a JSON line of the kernels that only the checks launch
 ({"check_kernels": ...}), then one JSON line of the kernels the main path
@@ -158,6 +178,42 @@ LONG_STEP_LOSS_FAULTS = ("key tiles above the diagonal included",)
 # the k = 8192 step of phase 8: the `long` width at 2 rows, 16,384 tokens a
 # step as `long` and `long4k`; the root bench has no k = 8192 configuration
 LONG8K = dict(embed_dim=768, layers=6, heads=24, batch_per_chip=2, context_len=8192)
+# sequence parallelism (phases 9 and 10): 4 shards; the k = 16384 step is one
+# row of 16,384 tokens (S_local = 4096), the case the JAX package wrote its
+# ring kernels for; the root bench has neither configuration
+SEQ = 4
+LONG16K = dict(embed_dim=768, layers=6, heads=24, batch_per_chip=1, context_len=16384)
+# ring check shapes (B, H, S_local, hd): bf16 at the two trained shard sizes,
+# fp32 at other head dims and a ragged shard (offsets that are no multiple of
+# the kernels' 32-key tile)
+RING_BF16 = ((2, 24, 2048, 32), (1, 24, 4096, 32))
+RING_FP32 = ((2, 12, 1024, 64), (2, 6, 1024, 128), (3, 8, 1000, 32))
+# (q shard, kv shard) of the checked pairs: diagonal, past with every key
+# visible, the kv shard that holds the padded row's `start`, a kv shard wholly
+# before it (those rows see no key of the pair)
+RING_PAIRS = ((2, 2), (3, 2), (2, 1), (2, 0))
+# the forward partial, kernel vs the plain version in fp32 on the same
+# values: acc is a sum of up to S_local terms exp(s - m) * keep * v that is
+# NOT divided by l, so it is held relative to l (1 where l < 1): fp32
+# summation order, expf against torch.exp
+RING_ACC_TOL = 5e-6
+# planted in the plain versions of phase 9; every check of a pair off shard 0
+# must fail against it
+RING_FAULT = "visiting block's column offset taken as 0"
+# one k = 8192 step, ring vs blocked kernels at the same seed (the same
+# masks): largest relative L2 error of a parameter's gradient, and the loss
+# difference.  On an H100 the sound run read 8.77e-3 and 5.05e-5 (both sides
+# round out and the gradients to bf16, from sums taken in different orders);
+# the faintest planted fault in the gradients was "farthest kv block
+# skipped" at 7.69e-2, which is also the only one that moves the loss, by
+# 7.63e-4 (a dropped rescale moves it 4.2e-5: at random init the running max
+# barely moves between kv blocks).  Each limit lies near the geometric mean
+# of the sound reading and the faintest fault.
+RING_STEP_GRAD_TOL = 2.5e-2
+RING_STEP_LOSS_TOL = 2e-4
+RING_STEP_FAULTS = ("running-max rescale dropped in the merge", "farthest kv block skipped",
+                    "delta taken as 0", "dk, dv partials added to the q shard's block")
+RING_STEP_LOSS_FAULTS = ("farthest kv block skipped",)
 # H100 SXM published peaks (NVIDIA data sheet): dense bf16 tensor cores, HBM3
 PEAK_BF16_FLOPS, PEAK_HBM_BYTES = 989e12, 3.35e12
 
@@ -216,10 +272,10 @@ def _attention_bounds(pairs, B, H, S, hd, elt):
     }
 
 
-def _sdpa_ms(q4, k4, v4, do4, rate, iters):
+def _sdpa_ms(q4, k4, v4, do4, rate, iters, causal=True):
     """(forward ms, backward ms) of torch's scaled_dot_product_attention,
-    causal with dropout, on contiguous copies: the library yardstick (the
-    port never calls it)."""
+    causal (or over every key) with dropout, on contiguous copies: the
+    library yardstick (the port never calls it)."""
     import torch
     import torch.nn.functional as F
 
@@ -227,7 +283,7 @@ def _sdpa_ms(q4, k4, v4, do4, rate, iters):
     do = do4.contiguous()
 
     def fwd():
-        return F.scaled_dot_product_attention(q, k, v, dropout_p=rate, is_causal=True)
+        return F.scaled_dot_product_attention(q, k, v, dropout_p=rate, is_causal=causal)
 
     out = fwd()
     return (_time_ms(fwd, iters),
@@ -1198,6 +1254,352 @@ def long_train(card: str, dev="cuda") -> dict:
     return path
 
 
+# ------------------------------------------------- sequence parallelism
+def ring_kernels_vs_plain(card: str, dev="cuda") -> dict:
+    """Phase 9.  -> {"err": max abs error per kernel, "times": {kernel: JSON
+    timing fields at a full pair of the k = 8192 shards}, "check_launches":
+    launches per kernel here}."""
+    import torch
+
+    from neko_tpu_torch.ops import attention_kernel as whk
+    from neko_tpu_torch.ops import blocked_attention as ba
+    from neko_tpu_torch.ops import ring_kernel as rk
+
+    counters = {"fwd": rk.ring_partial_fwd, "dq": rk.ring_partial_dq, "dkv": rk.ring_partial_dkv}
+    for f in counters.values():
+        f.launches = 0
+    g = torch.Generator(device=dev).manual_seed(SEED + 5)
+    seed = torch.tensor([SEED + 41], dtype=torch.int32, device=dev)
+    errs = dict.fromkeys(counters, 0.0)
+
+    def inputs(B, H, S_l, hd, dtype, full_rows=False):
+        """One global problem of SEQ shards: a full row and rows left-padded
+        from inside shard 1 and shard 0 (one row: from inside shard 1)."""
+        S = SEQ * S_l
+        qkv = torch.randn(B, S, 3 * H * hd, device=dev, generator=g).to(dtype)
+        starts = [0] * B if full_rows else [0, S_l + 300, S_l // 3][:B] if B > 1 else [S_l + 300]
+        start = torch.tensor(starts, dtype=torch.int32, device=dev)
+        end = torch.full((B,), S, dtype=torch.int32, device=dev)
+        valid = _valid_rows(start, end, S)
+        dout = torch.randn(B, S, H * hd, device=dev, generator=g).to(dtype) * valid[..., None]
+        return qkv, start, end, dout
+
+    def ring_forward(qkv, start, end, H, rate):
+        """The kernel ring forward.  -> (q, k, v views, out view, L)."""
+        q, k, v = whk._qkv_views("qkv", (qkv,), H)
+        out = torch.empty(qkv.shape[0], qkv.shape[1], qkv.shape[2] // 3, dtype=qkv.dtype,
+                          device=dev)
+        L = rk._ring_fwd_local(q, k, v, whk._heads4(out, H), SEQ,
+                               (start, end, seed, q.shape[-1] ** -0.5, rate))
+        return q, k, v, whk._heads4(out, H), L
+
+    def case(B, H, S_l, hd, dtype_name, rate):
+        qkv, start, end, dout = inputs(B, H, S_l, hd, getattr(torch, dtype_name))
+        q, k, v, out, L = ring_forward(qkv, start, end, H, rate)
+        do = whk._heads4(dout, H)
+        chunk = lambda t, i: t.chunk(SEQ, dim=2)[i]  # noqa: E731
+        for i, j in RING_PAIRS:
+            q_off, k_off = i * S_l, j * S_l
+            qi, kj, vj, doi = chunk(q, i), chunk(k, j), chunk(v, j), chunk(do, i)
+            delta = ba.row_delta(doi, chunk(out, i))
+            rest = (q_off, k_off, start, end, seed, None, rate)
+            acc, m, l = rk.ring_partial_fwd(qi, kj, vj, *rest)
+            dq = rk.ring_partial_dq(qi, kj, vj, doi, L[i], delta, *rest)
+            dk, dv = rk.ring_partial_dkv(qi, kj, vj, doi, L[i], delta, *rest)
+            torch.cuda.synchronize()
+            _require(all(torch.isfinite(t).all() for t in (acc, m, l, dq, dk, dv)),
+                     f"ring kernel output not finite at {B}x{H}x{S_l}x{hd} pair {i},{j}")
+            # the plain versions in fp32 on the same values, the pair's window
+            # of the plain Philox, the kernel forward's own L and delta
+            f32 = [t.float() for t in (qi, kj, vj, doi)]
+
+            def plain(k_off_plain):
+                ks = (whk.dropout_keep_scale_reference(
+                    seed, B, H, None, rate, rows=(q_off, q_off + S_l),
+                    cols=(k_off_plain, k_off_plain + S_l)) if rate else None)
+                at = (q_off, k_off_plain, start, end, None, ks)
+                return (*rk.ring_partial_fwd_reference(*f32[:3], *at),
+                        rk.ring_partial_dq_reference(*f32, L[i], delta, *at),
+                        *rk.ring_partial_dkv_reference(*f32, L[i], delta, *at))
+
+            def held(want):
+                acc_w, m_w, l_w, dq_w, dk_w, dv_w = want
+                rows = l_w > 0  # rows that see a key of the pair
+                scale = l_w.clamp_min(1.0)[..., None]
+                res = {"acc": ((acc - acc_w).abs().max().item(),
+                               ((acc - acc_w).abs() / scale).max().item() - RING_ACC_TOL),
+                       "m": _excess(m.masked_fill(~rows, 0), m_w.masked_fill(~rows, 0),
+                                    STAT_TOL["m"]),
+                       "l": _excess(l, l_w, STAT_TOL["l"])}
+                for name, a, w in (("dq", dq, dq_w), ("dk", dk, dk_w), ("dv", dv, dv_w)):
+                    res[name] = _excess(a, w, BLOCKED_GRAD_TOL[dtype_name])
+                return res, rows
+
+            res, rows = held(plain(k_off))
+            empty = bool((m[~rows] == whk._NEG).all() and not l[~rows].any()
+                         and not acc[~rows].any())
+            line = ", ".join(f"{n} {e:.2e}/{x:.1e}" for n, (e, x) in res.items())
+            fault = ""
+            if j:  # at shard 0 the planted offset is the true one
+                bad, _ = held(plain(0))
+                fault = f"; control '{RING_FAULT}' excess: " + ", ".join(
+                    f"{n} {x:.1e}" for n, (_, x) in bad.items() if n not in ("m", "l"))
+                # (every case has a left-padded row, so a past pair sees the
+                # fault too: its key window moves with the offset)
+                blind = [n for n, (_, x) in bad.items() if n not in ("m", "l") and not x > 0]
+                _require(not blind, f"the ring checks cannot tell '{RING_FAULT}' in {blind} "
+                                    f"at pair {i},{j}")
+            print(f"ring pair q{i} kv{j} {B}x{H}x{S_l}x{hd} {dtype_name} rate {rate}, kernel vs "
+                  f"plain (max abs err / excess over tolerance): {line}; rows with no key of "
+                  f"the pair m -1e30, l 0, acc 0: {empty}{fault}")
+            _require(empty and all(x <= 0 for _, x in res.values()),
+                     f"ring kernels disagree with the plain versions at {B}x{H}x{S_l}x{hd} "
+                     f"{dtype_name} rate {rate} pair {i},{j}")
+            errs["fwd"] = max(errs["fwd"], res["acc"][0])
+            errs["dq"] = max(errs["dq"], res["dq"][0])
+            errs["dkv"] = max(errs["dkv"], res["dk"][0], res["dv"][0])
+
+    for B, H, S_l, hd in RING_BF16:
+        for rate in (0.0, RATE):
+            case(B, H, S_l, hd, "bfloat16", rate)
+    for B, H, S_l, hd in RING_FP32:
+        case(B, H, S_l, hd, "float32", RATE)
+    torch.cuda.empty_cache()
+
+    # the ring as a whole against the blocked kernels: one seed, one mask
+    B, H, S_l, hd = RING_BF16[0]
+    qkv, start, end, dout = inputs(B, H, S_l, hd, torch.bfloat16)
+    valid = _valid_rows(start, end, SEQ * S_l)
+    res = []
+    for fn, kw in ((rk.ring_attention_qkv, {"n_shards": SEQ}), (ba.blocked_attention_qkv, {})):
+        x = qkv.clone().requires_grad_()
+        out = fn(x, start, end, seed, heads=H, dropout_rate=RATE, **kw)
+        res.append((out, *torch.autograd.grad(out, (x,), dout)))
+    (o1, g1), (o2, g2) = res
+    e_o, x_o = _excess(o1[valid], o2[valid], KERNEL_TOL["bfloat16"])
+    grads = {n: _excess(a, b, GRAD_TOL["bfloat16"])
+             for n, a, b in zip(("dq", "dk", "dv"), g1.chunk(3, -1), g2.chunk(3, -1))}
+    print(f"ring over {SEQ} shards vs blocked kernels {B}x{H}x{SEQ * S_l}x{hd} bf16 rate {RATE}, "
+          f"same seed: out {e_o:.2e} (tolerance {KERNEL_TOL['bfloat16']}), "
+          + ", ".join(f"{n} {e:.2e}" for n, (e, _) in grads.items())
+          + f" (tolerance {GRAD_TOL['bfloat16']})")
+    _require(x_o <= 0 and all(x <= 0 for _, x in grads.values()),
+             "the ring and the blocked kernels differ at the same seed")
+    del res, o1, o2, g1, g2
+
+    # times, in turns (plain, kernel, kernel, plain): full rows, bf16, rate
+    # 0.1, on the diagonal pair and on a full (past) pair of the k = 8192 shards
+    times = {}
+    qkv, start, end, dout = inputs(B, H, S_l, hd, torch.bfloat16, full_rows=True)
+    q, k, v, out, L = ring_forward(qkv, start, end, H, RATE)
+    do = whk._heads4(dout, H)
+    act, row = B * S_l * H * hd, B * H * S_l * 4
+    for kind, (i, j) in (("diagonal", (2, 2)), ("full", (3, 2))):
+        q_off, k_off = i * S_l, j * S_l
+        qi, kj, vj, doi, oi = (t.chunk(SEQ, dim=2)[n] for t, n in
+                               ((q, i), (k, j), (v, j), (do, i), (out, i)))
+        delta = ba.row_delta(doi, oi)
+        ks = whk.dropout_keep_scale_reference(seed, B, H, None, RATE, rows=(q_off, q_off + S_l),
+                                              cols=(k_off, k_off + S_l))
+        bufs, stat = rk._new_grads(qi), rk._new_state(qi)
+        rest = (q_off, k_off, start, end, seed, None, RATE)
+        plain_at = (q_off, k_off, start, end, None, ks)
+        runs = {
+            "fwd": (lambda: rk.ring_partial_fwd(qi, kj, vj, *rest, out=stat[2], m=stat[0],
+                                                l=stat[1]),
+                    lambda: rk.ring_partial_fwd_reference(qi, kj, vj, *plain_at)),
+            "dq": (lambda: rk.ring_partial_dq(qi, kj, vj, doi, L[i], delta, *rest, dq=bufs[0]),
+                   lambda: rk.ring_partial_dq_reference(qi, kj, vj, doi, L[i], delta, *plain_at)),
+            "dkv": (lambda: rk.ring_partial_dkv(qi, kj, vj, doi, L[i], delta, *rest,
+                                                dk=bufs[1], dv=bufs[2]),
+                    lambda: rk.ring_partial_dkv_reference(qi, kj, vj, doi, L[i], delta,
+                                                          *plain_at)),
+        }
+        # visible (row, key) pairs of this block pair, every head and row
+        seen = B * H * (S_l * (S_l + 1) // 2 if i == j else S_l * S_l)
+        bounds = {  # bf16 inputs, fp32 outputs and row stats
+            "fwd": _bound(4 * hd * seen, 3 * act * 2 + act * 4 + 2 * row),
+            "dq": _bound(6 * hd * seen, 4 * act * 2 + act * 4 + 2 * row),
+            "dkv": _bound(8 * hd * seen, 4 * act * 2 + 2 * act * 4 + 2 * row),
+        }
+        lib_fwd, lib_bwd = _sdpa_ms(qi, kj, vj, doi, RATE, 10, causal=i == j)
+        library = {"fwd": lib_fwd, "dq": lib_bwd, "dkv": lib_bwd}
+        times[kind] = {}
+        for name, (kernel, plain) in runs.items():
+            p1, k1, k2, p2 = (_time_ms(f, n) for f, n in ((plain, 2), (kernel, 10), (kernel, 10),
+                                                          (plain, 2)))
+            times[kind][name] = {"ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2,
+                                 "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
+                                 "library_ms": library[name]}
+            print(f"ring {name} {kind} pair {B}x{H}x{S_l}x{hd} bf16 rate {RATE}, full rows: "
+                  f"kernel {k1:.4f}/{k2:.4f} ms, plain {p1:.4f}/{p2:.4f} ms, SDPA "
+                  f"{library[name]:.4f} ms ({'all three gradients' if name != 'fwd' else 'forward'}"
+                  f"), bound {bounds[name][0]:.4f} ms ({bounds[name][1]}) ({card})")
+        del ks
+    # the torch passes between the kernels, per pair: the (m, l, acc) merge
+    # and the three gradient adds
+    stat2, bufs2 = rk._new_state(qi), rk._new_grads(qi)
+    for t in (*stat, *stat2, *bufs, *bufs2):
+        t.normal_()
+    merge = _time_ms(lambda: rk.merge_partial(stat[0], stat[1], stat[2], *stat2), 10)
+    adds = _time_ms(lambda: [a.add_(b) for a, b in zip(bufs, bufs2)], 10)
+    print(f"ring torch passes per pair {B}x{H}x{S_l}x{hd}: merge of (m, l, acc) {merge:.4f} ms, "
+          f"three gradient adds {adds:.4f} ms ({card})")
+    torch.cuda.empty_cache()
+    return {"err": errs, "times": times, "passes_ms": {"merge": merge, "adds": adds},
+            "check_launches": {n: f.launches for n, f in counters.items()}}
+
+
+@contextlib.contextmanager
+def ring_planted(fault):
+    """Within the block the ring schedule (ops/ring_kernel.py) carries one of
+    RING_STEP_FAULTS."""
+    import torch
+
+    from neko_tpu_torch.ops import blocked_attention as ba
+    from neko_tpu_torch.ops import ring_kernel as rk
+
+    saved = {(mod, n): getattr(mod, n) for mod, n in
+             ((rk, "merge_partial"), (rk, "pair_visible"), (ba, "row_delta"), (rk, "_bwd_step"))}
+    if fault == "running-max rescale dropped in the merge":
+        def no_rescale(m, l, acc, m_p, l_p, acc_p):
+            l.add_(l_p)
+            acc.add_(acc_p)
+            m.copy_(torch.maximum(m, m_p))
+
+        rk.merge_partial = no_rescale
+    elif fault == "farthest kv block skipped":
+        visible = rk.pair_visible
+        rk.pair_visible = lambda q_off, k_off, S_l: (visible(q_off, k_off, S_l)
+                                                      and q_off - k_off < (SEQ - 1) * S_l)
+    elif fault == "delta taken as 0":
+        delta = ba.row_delta
+        ba.row_delta = lambda do, o: torch.zeros_like(delta(do, o))
+    elif fault == "dk, dv partials added to the q shard's block":
+        step = rk._bwd_step
+
+        def at_home(q, k, v, do, L, delta, q_off, k_off, grads, scratch, first, common):
+            dq, dk, dv = grads
+            if first:  # remember the shard's own sums, and add every later pair there
+                at_home.own[q_off] = (dk, dv)
+            step(q, k, v, do, L, delta, q_off, k_off, (dq, *at_home.own[q_off]), scratch,
+                 first, common)
+
+        at_home.own = {}
+        rk._bwd_step = at_home
+    elif fault is not None:
+        raise ValueError(fault)
+    try:
+        yield
+    finally:
+        for (mod, n), f in saved.items():
+            setattr(mod, n, f)
+
+
+def seq_parallel_train(card: str, dev="cuda") -> dict:
+    """Phase 10.  -> launches per kernel in the timed sequence-parallel
+    steps."""
+    import torch
+
+    from neko_tpu_torch import bench
+    from neko_tpu_torch.convert import init_state_dict
+    from neko_tpu_torch.ops import attention_kernel as whk
+    from neko_tpu_torch.ops import blocked_attention as ba
+    from neko_tpu_torch.ops import ring_kernel as rk
+    from neko_tpu_torch.parallel.mesh import create_mesh
+    from neko_tpu_torch.training.train_state import OptimizerConfig, TrainContext
+
+    counters = {"ring fwd": rk.ring_partial_fwd, "ring dq": rk.ring_partial_dq,
+                "ring dkv": rk.ring_partial_dkv, "fwd": ba.blocked_attention_fwd,
+                "fused": ba.blocked_attention_bwd_fused, "dq": ba.blocked_attention_dq,
+                "dkv": ba.blocked_attention_dkv, "whole-head fwd": whk.whole_head_attention,
+                "whole-head bwd": whk.whole_head_attention_bwd, "mask": whk.dropout_keep_scale}
+    path = dict.fromkeys(counters, 0)
+    peak = bench.PEAK_FLOPS.get(torch.cuda.get_device_name(0))
+    pairs = SEQ * (SEQ + 1) // 2  # the kv blocks wholly in the future are skipped
+
+    def timed(config, warm, steps):
+        cfg, ctx, state, batch, B = bench.setup(config, dev, SEED, mesh_seq_axis=SEQ)
+        name = f"k={cfg.context_len} over seq={SEQ}"
+        _, warm_losses = bench.time_steps(ctx, state, batch, warm)
+        torch.cuda.reset_peak_memory_stats()
+        for f in counters.values():
+            f.launches = 0
+        dt, losses = bench.time_steps(ctx, state, batch, steps)
+        got = {n: f.launches for n, f in counters.items()}
+        tokens = B * cfg.context_len
+        fpt = bench.train_flops_per_token(cfg, bench.tgt_budget(B, cfg) / tokens)
+        tps = tokens * steps / dt
+        print(f"{name} train step {cfg.embed_dim}d/{cfg.layers}L/{cfg.heads}h B={B} "
+              f"S_local={cfg.context_len // SEQ} bf16 dropout {cfg.dropout}: "
+              f"{dt * 1e3 / steps:.3f} ms/step over {steps}, {tps:.1f} tokens/s, MFU "
+              f"{tps * fpt / peak if peak else float('nan'):.4f} ({fpt / 1e6:.1f} MFLOP/token), "
+              f"peak memory {torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB ({card})")
+        print(f"  losses: warm-up {warm_losses}, timed {losses}; launches {got}")
+        _require(all(np.isfinite(warm_losses + losses)), f"{name}: non-finite loss {losses}")
+        n = cfg.layers * steps * pairs
+        want = dict.fromkeys(counters, 0) | {"ring fwd": n, "ring dq": n, "ring dkv": n}
+        _require(got == want, f"{name}: the steps did not run the ring kernels layers x steps x "
+                              f"{pairs} pairs times: {got}, expected {want}")
+        for k in path:
+            path[k] += got[k]
+        del state
+        torch.cuda.empty_cache()
+        return cfg, ctx, batch
+
+    cfg, ctx, batch = timed(LONG8K, 1, 2)
+    timed(LONG16K, 1, 2)
+
+    # one k = 8192 step through the ring against the same step through the
+    # blocked kernels: the same weights, batch and seeds, so the same masks
+    sd = init_state_dict(cfg, SEED)
+    blocked_ctx = TrainContext(cfg, ctx.opt_cfg, device=dev, seed=SEED)
+
+    def loss_and_grads(context, fault=None):
+        st = context.init_state({k: v.clone() for k, v in sd.items()})
+        with ring_planted(fault):
+            loss = context.loss_and_grads(st, batch).item()
+        # (the k = 8192 batch has no image row: the patch embedder gets no gradient)
+        return loss, {n: p.grad for n, p in st.model.named_parameters() if p.grad is not None}
+
+    loss_r, grads_r = loss_and_grads(ctx)
+    before = ba.blocked_attention_fwd.launches
+    loss_b, grads_b = loss_and_grads(blocked_ctx)
+    _require(ba.blocked_attention_fwd.launches == before + cfg.layers,
+             "the step without a mesh did not run the blocked kernels")
+    gap, dloss = _grad_gap(grads_r, grads_b), abs(loss_r - loss_b)
+    del grads_r
+    print(f"one k={cfg.context_len} step, ring over {SEQ} shards vs blocked kernels (same seeds "
+          f"and masks): loss {loss_r:.6f} vs {loss_b:.6f} (diff {dloss:.3e}, tolerance "
+          f"{RING_STEP_LOSS_TOL:g}); largest relative gradient error {gap:.3e} (tolerance "
+          f"{RING_STEP_GRAD_TOL:g})")
+    fault_gap, fault_dloss = {}, {}
+    for f in dict.fromkeys(RING_STEP_FAULTS + RING_STEP_LOSS_FAULTS):
+        loss_f, grads_f = loss_and_grads(ctx, f)
+        fault_gap[f], fault_dloss[f] = _grad_gap(grads_f, grads_b), abs(loss_f - loss_b)
+        print(f"control '{f}': loss diff {fault_dloss[f]:.3e}, largest relative gradient "
+              f"error {fault_gap[f]:.3e}")
+        del grads_f
+    del grads_b
+    _require(dloss <= RING_STEP_LOSS_TOL and gap <= RING_STEP_GRAD_TOL,
+             f"the ring step disagrees with the blocked step: {dloss}, {gap}")
+    blind = [f for f in RING_STEP_FAULTS if not fault_gap[f] > RING_STEP_GRAD_TOL]
+    blind += [f for f in RING_STEP_LOSS_FAULTS if not fault_dloss[f] > RING_STEP_LOSS_TOL]
+    _require(not blind, f"the ring step check cannot tell these planted faults: {blind}")
+
+    opt = OptimizerConfig(learning_rate=1e-3, init_lr=1e-3, warmup_steps=1,
+                          disable_cosine_decay=True)
+    ctx2 = TrainContext(cfg, opt, device=dev, seed=SEED,
+                        mesh=create_mesh(data=1, seq=SEQ, seq_group=None))
+    state2 = ctx2.init_state()
+    _, curve = bench.time_steps(ctx2, state2, batch, 20)
+    print(f"k={cfg.context_len} over seq={SEQ}: 20 steps on one batch at lr 1e-3: loss "
+          + ", ".join(f"{x:.4f}" for x in curve[::4]) + f", ..., {curve[-1]:.4f}")
+    _require(all(np.isfinite(curve)) and curve[-1] < curve[0] - 1.0,
+             f"the sequence-parallel loss did not fall: {curve}")
+    return path
+
+
 def main() -> int:
     import torch
 
@@ -1225,7 +1627,6 @@ def main() -> int:
         for line in so.with_suffix(".log").read_text().splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  ptxas {so.stem.rsplit('-', 1)[0]}:", line.strip())
-
     err, ms, plain_ms = kernel_vs_plain(
         8, 24, 1024, 32, "bfloat16",
         starts=[0, 0, 0, 0, 0, 0, 0, 300],
@@ -1245,10 +1646,13 @@ def main() -> int:
     print(f"forward kernel launches: serving run {serve_launches}, train run {launches['fwd']}")
     blocked = blocked_kernels_vs_plain(card)
     long_path = long_train(card)
+    ring = ring_kernels_vs_plain(card)
+    seq_path = seq_parallel_train(card)
 
     src = "neko_tpu_torch/csrc/"
     tpu = "neko_tpu/ops/attention_kernel.py"
     tpu_b = "neko_tpu/ops/blocked_attention.py"
+    tpu_r = "neko_tpu/ops/ring_kernel.py"
 
     def timing(part):  # phase 5's kernel, plain, library and bound at the flagship shape
         ms, plain_ms, library_ms, bound_ms, bound_by = trained[part]
@@ -1274,6 +1678,16 @@ def main() -> int:
             ("blocked_attention_bwd_fused", "blocked_attention_bwd.cu", 290, "fused"),
             ("blocked_attention_dq", "blocked_attention_bwd.cu", 241, "dq"),
             ("blocked_attention_dkv", "blocked_attention_bwd.cu", 390, "dkv"))
+    ] + [
+        # the ring kernels, timed on a full (past) pair of the k = 8192 shards
+        # (B=2, H=24, S_local=2048, hd=32), with the diagonal pair's times beside
+        {"name": name, "route": "cuda", "source": src + "ring_attention.cu",
+         "replaces": f"{tpu_r}:{line}", "launches": seq_path[f"ring {key}"],
+         "check_launches": ring["check_launches"][key], "max_abs_err": ring["err"][key],
+         **ring["times"]["full"][key],
+         "diagonal_pair": ring["times"]["diagonal"][key]}
+        for name, line, key in (("ring_partial_fwd", 102, "fwd"), ("ring_partial_dq", 158, "dq"),
+                                ("ring_partial_dkv", 208, "dkv"))
     ]
     # kernel #5 writes the masks the checks hand to the plain attention, at
     # every S (so it is #10's counterpart too); the train steps' kernels draw
@@ -1282,7 +1696,7 @@ def main() -> int:
     # FUSED_MAX dispatches at no trained S runs in the checks alone.
     mask = {"name": "dropout_keep_scale", "route": "cuda",
             "source": src + "dropout_keep_scale.cu", "replaces": f"{tpu}:492,{tpu_b}:682",
-            "launches": launches["mask"] + long_path["mask"],
+            "launches": launches["mask"] + long_path["mask"] + seq_path["mask"],
             "check_launches": launches["mask_check"] + blocked["check_launches"]["mask"],
             "max_abs_err": 0.0, **timing("mask")}
     print(json.dumps({"check_kernels": [mask] + [e for e in entries if not e["launches"]]}))

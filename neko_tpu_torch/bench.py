@@ -2,6 +2,7 @@
 
     python -m neko_tpu_torch.bench [--config flagship|medium|long|long4k] [--steps N]
     python -m neko_tpu_torch.bench --profile   # where a step's time goes
+    python -m neko_tpu_torch.bench --config long4k --mesh_seq_axis 4   # a ring step
 
 The counterpart of the root bench.py's device-step measurement: the
 jit-free eager train step (`TrainContext.train_step`) on the flagship mixed
@@ -18,7 +19,11 @@ and `optimizer_alone_ms` (the optimizer half timed alone, CUDA events).  No
 CUDA device: it exits with an error, never a CPU number.
 
 `long` (k = 2048) and `long4k` (k = 4096) are the root bench's long-context
-configurations and train through the blocked attention kernels.  `setup`
+configurations and train through the blocked attention kernels.
+`--mesh_seq_axis N` (the JAX package's flag) runs the step under a mesh with
+N sequence shards on the one device, so every layer's attention is ring
+attention over them (ops/ring_kernel.py); `--profile` then counts the ring
+kernels as attention and the torch passes between them as "ring merge".  `setup`
 and `model_config` also take a shape dict of the CONFIGS form, for a
 configuration the root bench does not have (chip_smoke.py's k = 8192 step).
 
@@ -128,19 +133,22 @@ def model_config(name):
     )
 
 
-def setup(name="flagship", device="cuda", seed: int = 0):
+def setup(name="flagship", device="cuda", seed: int = 0, mesh_seq_axis: int = 1):
     """-> (cfg, TrainContext, TrainState, batch on `device`, batch size) for
     a CONFIGS name or a shape dict.  The optimizer settings are the root
-    bench's."""
+    bench's.  `mesh_seq_axis` > 1: the steps run under a mesh with that many
+    sequence shards on the device."""
     from neko_tpu_torch.data.batch import to_device_batch
     from neko_tpu_torch.data.packing import SequencePacker
+    from neko_tpu_torch.parallel.mesh import create_mesh
     from neko_tpu_torch.training.train_state import OptimizerConfig, TrainContext
 
     cfg = model_config(name)
     batch_size = (CONFIGS[name] if isinstance(name, str) else name)["batch_per_chip"]
     opt = OptimizerConfig(learning_rate=1e-4, init_lr=1e-7, warmup_steps=100,
                           training_steps=10_000)
-    ctx = TrainContext(cfg, opt, device=device, seed=seed)
+    mesh = create_mesh(data=1, seq=mesh_seq_axis, seq_group=None) if mesh_seq_axis > 1 else None
+    ctx = TrainContext(cfg, opt, device=device, seed=seed, mesh=mesh)
     arrays = SequencePacker(cfg).pack_batch(
         build_examples(cfg, batch_size, seed),
         patch_budget=patch_budget(cfg, batch_size),
@@ -191,7 +199,9 @@ def optimizer_ms(ctx, state, batch, steps: int = 3) -> float:
 def profile_breakdown(ctx, state, batch, cfg, steps: int = 3) -> dict:
     """Device time of `steps` train steps by part, from torch.profiler: our
     attention kernels (device rows of csrc/attention_fwd.cuh's and
-    attention_bwd.cuh's kernels, by name), the optimizer (device
+    attention_bwd.cuh's kernels, by name: whole-head, blocked and ring), the
+    ring's merge passes (device rows inside the device-side spans of
+    ring_kernel.MERGE_RANGE; 0 off a 'seq' mesh), the optimizer (device
     rows inside the device-side spans of the step's "optimizer" range and
     of AdamW's own; the step runs on one stream), the head and loss (aten
     ops outside that range with a vocab-wide operand; CUDA runtime rows
@@ -207,6 +217,8 @@ def profile_breakdown(ctx, state, batch, cfg, steps: int = 3) -> dict:
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+
+    from neko_tpu_torch.ops.ring_kernel import MERGE_RANGE
 
     def ours(name: str) -> bool:
         return "attention_fwd_kernel" in name or "attention_bwd_" in name
@@ -232,13 +244,19 @@ def profile_breakdown(ctx, state, batch, cfg, steps: int = 3) -> dict:
                  and (e.name == "optimizer" or e.name.startswith("Optimizer.step#"))]
     if len(opt_spans) != 2 * steps:
         raise RuntimeError(f"{len(opt_spans)} device-side optimizer ranges in {steps} steps")
+    merge_spans = [(e.time_range.start, e.time_range.end) for e in events
+                   if e.device_type == DeviceType.CUDA and e.is_user_annotation
+                   and e.name == MERGE_RANGE]
     busy = sum(e.self_device_time_total for e in device)
-    parts = {"attention kernels": 0.0, "head + loss": 0.0, "MLP": 0.0, "optimizer": 0.0}
+    parts = {"attention kernels": 0.0, "ring merge": 0.0, "head + loss": 0.0, "MLP": 0.0,
+             "optimizer": 0.0}
     for e in device:
         if ours(e.name):
             parts["attention kernels"] += e.self_device_time_total
         elif any(a <= e.time_range.start < b for a, b in opt_spans):
             parts["optimizer"] += e.self_device_time_total
+        elif any(a <= e.time_range.start < b for a, b in merge_spans):
+            parts["ring merge"] += e.self_device_time_total
     V, F4 = cfg.padded_vocab_size, 4 * cfg.embed_dim
     for evt in events:
         # a CPU op's self device time is that of the kernels it launched
@@ -247,7 +265,7 @@ def profile_breakdown(ctx, state, batch, cfg, steps: int = 3) -> dict:
                 or any(ours(k.name) for k in evt.kernels)):
             continue
         node = evt
-        while node is not None and node.name != "optimizer":
+        while node is not None and node.name not in ("optimizer", MERGE_RANGE):
             node = node.cpu_parent
         if node is not None:
             continue  # counted from the device rows above
@@ -276,6 +294,8 @@ def main(argv=None) -> int:
     ap.add_argument("--steps", type=int, default=10)
     ap.add_argument("--warmup", type=int, default=3)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--mesh_seq_axis", type=int, default=1,
+                    help="sequence shards of the mesh: > 1 runs ring attention over them")
     ap.add_argument("--profile", action="store_true",
                     help="also print where a step's device time goes")
     args = ap.parse_args(argv)
@@ -287,7 +307,8 @@ def main(argv=None) -> int:
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cfg, ctx, state, batch, batch_size = setup(args.config, "cuda", args.seed)
+    cfg, ctx, state, batch, batch_size = setup(args.config, "cuda", args.seed,
+                                               args.mesh_seq_axis)
     time_steps(ctx, state, batch, args.warmup)
     torch.cuda.reset_peak_memory_stats()
     dt, losses = time_steps(ctx, state, batch, args.steps)
@@ -307,6 +328,7 @@ def main(argv=None) -> int:
         "peak_mem_gb": round(torch.cuda.max_memory_allocated() / 2 ** 30, 3),
         "device": name,
         "card": card(),
+        "mesh_seq_axis": args.mesh_seq_axis,
     }
     if args.profile:
         out["profile_ms_per_step"] = profile_breakdown(ctx, state, batch, cfg)

@@ -13,7 +13,9 @@ and each leaf by kind:
     bias                            -> bias (as is)
 
 Embedding rows and head columns stay padded 1:1 (`padded_embed_rows`,
-`padded_vocab_size`).  Pure numpy <-> torch: no JAX needed here.
+`padded_vocab_size`).  Pure numpy <-> torch: no JAX needed here.  Sequence
+parallelism adds no parameter (the ring has none): `TrainContext(mesh=...)`
+takes the same converted state dict.
 
 A served model lives in a directory holding `model.pt` (the state_dict) and
 `config.json` (the ModelConfig fields); `save_model_dir` / `load_model_dir`

@@ -1,5 +1,6 @@
 // The causal attention backward tiles that whole_head_attention_bwd.cu (#2,
-// #4) and blocked_attention_bwd.cu (#7, #8, #9) launch.  With ks the
+// #4), blocked_attention_bwd.cu (#7, #8, #9) and ring_attention.cu (#12, #13)
+// launch.  With ks the
 // keep/scale the forward applied (attention_common.cuh) and delta =
 // rowsum(do * o) computed before the launch:
 //
@@ -32,10 +33,21 @@
 // that the heaviest blocks start first (key tiles ascending, q tiles
 // descending).
 //
+// Ring mode (kRing, with the lse row stats): q, do and the row stats are the
+// S rows of one sequence shard at global row offset q_off; k, v are the S
+// keys of the visiting shard at global column offset k_off.  The causal test,
+// the key window and the keep mask take global rows and columns, and key tiles
+// start at global multiples of 32 (the keep mask's 32-byte draws), so the
+// offsets may be any integers.  The outputs are fp32 partials: dq of the local
+// rows from this kv block alone (#12), dk and dv of the VISITING block from
+// the local rows alone (#13); the caller adds them up over the ring.
+//
 // Offsets: batch and head offsets and the rows of the row stats, delta and
 // the dq scratch are 64-bit.
 
 #pragma once
+
+#include <type_traits>
 
 #include "attention_common.cuh"
 
@@ -74,9 +86,11 @@ constexpr int kv_smem_floats() {
 }
 
 // dk, dv of one key tile; with kFusedDq also its share of dq.
-template <typename T, int D, bool kLse, bool kFusedDq>
+template <typename T, int D, bool kLse, bool kFusedDq, bool kRing>
 __global__ void __launch_bounds__(kWarps * 32)
 attention_bwd_kv_kernel(const AttnArgs a) {
+  static_assert(!(kRing && kFusedDq), "the ring has no fused dq phase");
+  using TO = std::conditional_t<kRing, float, T>;  // the ring partials are fp32
   constexpr int kDL = D / 32;
   constexpr int kKP = D + 1;
   constexpr int kKeysPerWarp = kBlockN / kWarps;  // 4: keys warp + 8j
@@ -94,7 +108,12 @@ attention_bwd_kv_kernel(const AttnArgs a) {
 
   const int h = blockIdx.x;
   const int b = blockIdx.y;
-  const int c0 = blockIdx.z * kBlockN;  // key tile 0, which every q tile sees, first
+  // global offsets of local row 0 and local key 0 (0 outside the ring)
+  const int q_off = kRing ? a.q_off : 0;
+  const int k_off = kRing ? a.k_off : 0;
+  // this block's key tile as global columns [c0, c0 + 32); key tile 0, which
+  // every q tile sees, first
+  const int c0 = (k_off / kBlockN + blockIdx.z) * kBlockN;
   const int S = a.S;
   const T* q = head_ptr<T>(a.q, b, h);
   const T* k = head_ptr<T>(a.k, b, h);
@@ -107,15 +126,16 @@ attention_bwd_kv_kernel(const AttnArgs a) {
   const int lane = tid % 32;
   const int row0 = warp * kRowsPerWarp;
   const int st = max(a.start[b], 0);
-  const int en = min(a.end[b], S);
+  const int en = kRing ? a.end[b] : min(a.end[b], S);
   const bool drop = a.drop_threshold > 0;
   const uint32_t seed = drop ? static_cast<uint32_t>(a.seed[0]) : 0u;
   const uint32_t bh = static_cast<uint32_t>(b * a.H + h);
 
   for (int i = tid; i < kBlockN * D; i += blockDim.x) {
-    const int c = c0 + i / D, d = i % D;
+    const int c = c0 - k_off + i / D, d = i % D;  // local key
     float kx = 0.f, vx = 0.f;
-    if (c < S) {  // one branch for both loads, so their latencies overlap
+    // one branch for both loads, so their latencies overlap
+    if ((!kRing || c >= 0) && c < S) {
       kx = load(&k[c * a.k.ss + d]);
       vx = load(&v[c * a.v.ss + d]);
     }
@@ -133,9 +153,9 @@ attention_bwd_kv_kernel(const AttnArgs a) {
   // rows that see a key of this tile: r >= max(c0, st), and only if the tile
   // meets [st, en)
   const bool any_key = c0 < en && c0 + kBlockN > st;
-  const int r_first = max(c0, st);
+  const int r_first = max(max(c0, st) - q_off, 0);  // local row
   const int r_beg = any_key ? (r_first / kBlockM) * kBlockM : S;
-  const int c = c0 + lane;  // this lane's key in phase A
+  const int c = c0 + lane;  // this lane's key in phase A (global column)
 
   for (int r0 = r_beg; r0 < S; r0 += kBlockM) {
     __syncthreads();  // previous tile consumed (and k, v tiles written)
@@ -160,7 +180,7 @@ attention_bwd_kv_kernel(const AttnArgs a) {
       sinvl[tid] = inv_l;
       sdelta[tid] = dr;
     }
-    if (drop) draw_keep_words(keep_words[warp], seed, bh, r0 + row0, c0, lane);
+    if (drop) draw_keep_words(keep_words[warp], seed, bh, q_off + r0 + row0, c0, lane);
     __syncthreads();
 
     // phase A: this warp's 8 rows x this lane's key
@@ -181,7 +201,8 @@ attention_bwd_kv_kernel(const AttnArgs a) {
     for (int i = 0; i < kRowsPerWarp; ++i) {
       const int ri = row0 + i;
       const int r = r0 + ri;
-      const bool ok = c <= r && c >= st && c < en && r < S;
+      bool ok = c <= q_off + r && c >= st && c < en && r < S;
+      if constexpr (kRing) ok = ok && c >= k_off && c < k_off + S;
       const float p = ok ? expf(s[i] * a.sm_scale - sm[ri]) * sinvl[ri] : 0.f;
       float ks = 1.f;
       if (drop) ks = keep_byte(keep_words[warp], i, lane) >= a.drop_threshold ? a.drop_scale : 0.f;
@@ -246,12 +267,12 @@ attention_bwd_kv_kernel(const AttnArgs a) {
     }
   }
 
-  T* dk = head_ptr<T>(a.dk, b, h);
-  T* dv = head_ptr<T>(a.dv, b, h);
+  TO* dk = head_ptr<TO>(a.dk, b, h);
+  TO* dv = head_ptr<TO>(a.dv, b, h);
 #pragma unroll
   for (int j = 0; j < kKeysPerWarp; ++j) {
-    const int cj = c0 + warp + kWarps * j;
-    if (cj >= S) continue;
+    const int cj = c0 - k_off + warp + kWarps * j;  // local key
+    if ((kRing && cj < 0) || cj >= S) continue;
 #pragma unroll
     for (int t = 0; t < kDL; ++t) {
       store(&dk[cj * a.dk.ss + lane + 32 * t], dk_acc[j][t]);
@@ -267,9 +288,10 @@ constexpr int dq_smem_floats() {
 }
 
 // dq of one q tile, over the key tiles at or below the diagonal.
-template <typename T, int D, bool kLse>
+template <typename T, int D, bool kLse, bool kRing>
 __global__ void __launch_bounds__(kWarps * 32)
 attention_bwd_dq_kernel(const AttnArgs a) {
+  using TO = std::conditional_t<kRing, float, T>;  // the ring partial is fp32
   constexpr int kDL = D / 32;
   constexpr int kKP = D + 1;
   extern __shared__ float smem[];
@@ -293,10 +315,14 @@ attention_bwd_dq_kernel(const AttnArgs a) {
   const int warp = tid / 32;
   const int lane = tid % 32;
   const int row0 = warp * kRowsPerWarp;
+  // global offsets of local row 0 and local key 0 (0 outside the ring)
+  const int q_off = kRing ? a.q_off : 0;
+  const int k_off = kRing ? a.k_off : 0;
   const int st = max(a.start[b], 0);
-  const int en = min(a.end[b], S);
-  const int c_end = min(en, min(r0 + kBlockM, S));
-  const int c_beg = (st / kBlockN) * kBlockN;
+  const int en = kRing ? a.end[b] : min(a.end[b], S);
+  // the key tiles this q tile sees, as global columns
+  const int c_end = min(min(en, k_off + S), q_off + min(r0 + kBlockM, S));
+  const int c_beg = (max(st, k_off) / kBlockN) * kBlockN;
   const bool drop = a.drop_threshold > 0;
   const uint32_t seed = drop ? static_cast<uint32_t>(a.seed[0]) : 0u;
   const uint32_t bh = static_cast<uint32_t>(b * a.H + h);
@@ -327,19 +353,20 @@ attention_bwd_dq_kernel(const AttnArgs a) {
   for (int c0 = c_beg; c0 < c_end; c0 += kBlockN) {
     __syncthreads();  // previous tile consumed (and q, do tiles written)
     for (int i = tid; i < kBlockN * D; i += blockDim.x) {
-      const int c = c0 + i / D, d = i % D;
+      const int c = c0 - k_off + i / D, d = i % D;  // local key
       float kx = 0.f, vx = 0.f;
-      if (c < S) {  // one branch for both loads, so their latencies overlap
+      // one branch for both loads, so their latencies overlap
+      if ((!kRing || c >= 0) && c < S) {
         kx = load(&k[c * a.k.ss + d]);
         vx = load(&v[c * a.v.ss + d]);
       }
       sk[(i / D) * kKP + d] = kx;
       sv[(i / D) * kKP + d] = vx;
     }
-    if (drop) draw_keep_words(keep_words[warp], seed, bh, r0 + row0, c0, lane);
+    if (drop) draw_keep_words(keep_words[warp], seed, bh, q_off + r0 + row0, c0, lane);
     __syncthreads();
 
-    const int c = c0 + lane;
+    const int c = c0 + lane;  // global column
     float s[kRowsPerWarp], dp[kRowsPerWarp];
 #pragma unroll
     for (int i = 0; i < kRowsPerWarp; ++i) s[i] = dp[i] = 0.f;
@@ -357,7 +384,8 @@ attention_bwd_dq_kernel(const AttnArgs a) {
 #pragma unroll
     for (int i = 0; i < kRowsPerWarp; ++i) {
       const int r = r0 + row0 + i;
-      const bool ok = c <= r && c >= st && c < en && r < S;
+      bool ok = c <= q_off + r && c >= st && c < en && r < S;
+      if constexpr (kRing) ok = ok && c >= k_off && c < k_off + S;
       const float p = ok ? expf(s[i] * a.sm_scale - mrow[i]) * inv_l[i] : 0.f;
       float ks = 1.f;
       if (drop) ks = keep_byte(keep_words[warp], i, lane) >= a.drop_threshold ? a.drop_scale : 0.f;
@@ -377,7 +405,7 @@ attention_bwd_dq_kernel(const AttnArgs a) {
     }
   }
 
-  T* dq = head_ptr<T>(a.dq, b, h);
+  TO* dq = head_ptr<TO>(a.dq, b, h);
 #pragma unroll
   for (int i = 0; i < kRowsPerWarp; ++i) {
     const int r = r0 + row0 + i;
@@ -387,20 +415,23 @@ attention_bwd_dq_kernel(const AttnArgs a) {
   }
 }
 
-template <typename T, int D, bool kLse, bool kFusedDq>
+template <typename T, int D, bool kLse, bool kFusedDq, bool kRing>
 cudaError_t launch_kv(const AttnArgs& a, cudaStream_t stream) {
   const size_t smem = kv_smem_floats<D>() * sizeof(float);
-  auto kernel = attention_bwd_kv_kernel<T, D, kLse, kFusedDq>;
+  auto kernel = attention_bwd_kv_kernel<T, D, kLse, kFusedDq, kRing>;
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
-  kernel<<<dim3(a.H, a.B, (a.S + kBlockN - 1) / kBlockN), kWarps * 32, smem, stream>>>(a);
+  // the 32-column tiles, aligned in global columns, that meet [k_off, k_off + S)
+  const int k_off = kRing ? a.k_off : 0;
+  const int tiles = (k_off + a.S + kBlockN - 1) / kBlockN - k_off / kBlockN;
+  kernel<<<dim3(a.H, a.B, tiles), kWarps * 32, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
-template <typename T, int D, bool kLse>
+template <typename T, int D, bool kLse, bool kRing>
 cudaError_t launch_dq(const AttnArgs& a, cudaStream_t stream) {
   const size_t smem = dq_smem_floats<D>() * sizeof(float);
-  auto kernel = attention_bwd_dq_kernel<T, D, kLse>;
+  auto kernel = attention_bwd_dq_kernel<T, D, kLse, kRing>;
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   kernel<<<dim3(a.H, a.B, (a.S + kBlockM - 1) / kBlockM), kWarps * 32, smem, stream>>>(a);
@@ -412,31 +443,32 @@ cudaError_t launch_dq(const AttnArgs& a, cudaStream_t stream) {
 // Which backward tiles a launch runs, in order.
 enum BwdPass { kKv = 1, kKvFusedDq = 2, kDq = 4 };
 
-template <int kPasses, bool kLse, typename T, int D>
+template <int kPasses, bool kLse, bool kRing, typename T, int D>
 cudaError_t launch_bwd(const AttnArgs& a, cudaStream_t stream) {
   cudaError_t err = cudaSuccess;
-  if constexpr ((kPasses & kKv) != 0) err = bwd::launch_kv<T, D, kLse, false>(a, stream);
+  if constexpr ((kPasses & kKv) != 0) err = bwd::launch_kv<T, D, kLse, false, kRing>(a, stream);
   if constexpr ((kPasses & kKvFusedDq) != 0)
-    if (err == cudaSuccess) err = bwd::launch_kv<T, D, kLse, true>(a, stream);
+    if (err == cudaSuccess) err = bwd::launch_kv<T, D, kLse, true, kRing>(a, stream);
   if constexpr ((kPasses & kDq) != 0)
-    if (err == cudaSuccess) err = bwd::launch_dq<T, D, kLse>(a, stream);
+    if (err == cudaSuccess) err = bwd::launch_dq<T, D, kLse, kRing>(a, stream);
   return err;
 }
 
-template <int kPasses, bool kLse, typename T>
+template <int kPasses, bool kLse, bool kRing, typename T>
 cudaError_t bwd_dispatch_d(const AttnArgs& a, cudaStream_t stream) {
   switch (a.D) {
-    case 32: return launch_bwd<kPasses, kLse, T, 32>(a, stream);
-    case 64: return launch_bwd<kPasses, kLse, T, 64>(a, stream);
-    case 128: return launch_bwd<kPasses, kLse, T, 128>(a, stream);
+    case 32: return launch_bwd<kPasses, kLse, kRing, T, 32>(a, stream);
+    case 64: return launch_bwd<kPasses, kLse, kRing, T, 64>(a, stream);
+    case 128: return launch_bwd<kPasses, kLse, kRing, T, 128>(a, stream);
     default: return cudaErrorInvalidValue;
   }
 }
 
 // The passes on the arguments' dtype (0 = float32, 1 = bfloat16) and head
 // dim; needs q, k, v, dout, delta and the row stats kLse names (lse, or m
-// and l; the other unset), and seed when dropout is on.
-template <int kPasses, bool kLse>
+// and l; the other unset), and seed when dropout is on.  kRing: the ring
+// partials (global offsets, fp32 outputs).
+template <int kPasses, bool kLse, bool kRing = false>
 int attention_bwd(const AttnArgs* a, void* stream) {
   if (a->B <= 0 || a->H <= 0 || a->S <= 0) return cudaSuccess;
   const bool lse = a->lse != nullptr, ml = a->m != nullptr && a->l != nullptr;
@@ -445,8 +477,8 @@ int attention_bwd(const AttnArgs* a, void* stream) {
   if ((kPasses & kKvFusedDq) && a->dq_acc == nullptr) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (a->dtype) {
-    case 0: return bwd_dispatch_d<kPasses, kLse, float>(*a, s);
-    case 1: return bwd_dispatch_d<kPasses, kLse, __nv_bfloat16>(*a, s);
+    case 0: return bwd_dispatch_d<kPasses, kLse, kRing, float>(*a, s);
+    case 1: return bwd_dispatch_d<kPasses, kLse, kRing, __nv_bfloat16>(*a, s);
     default: return cudaErrorInvalidValue;
   }
 }

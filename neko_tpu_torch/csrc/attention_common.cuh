@@ -1,5 +1,6 @@
-// Shared by the attention kernels: whole-head (forward, backward, keep mask)
-// and blocked (forward with row stats, fused and three-pass backward).
+// Shared by the attention kernels: whole-head (forward, backward, keep mask),
+// blocked (forward with row stats, fused and three-pass backward) and ring
+// (one (q block, kv block) pair of a sequence-parallel pass).
 //
 // AttnArgs is the one argument block every C entry point takes, passed from
 // Python as a ctypes Structure (neko_tpu_torch/ops/attention_kernel.py
@@ -45,6 +46,11 @@ struct AttnArgs {
   float* m;
   float* l;
   float* dq_acc;
+  // the ring kernels (ring_attention.cu): q, k, v hold S rows each of a
+  // longer sequence; local row r is global row q_off + r and local key c is
+  // global column k_off + c, in the causal test, the key window [start, end)
+  // and the keep mask.  The other entry points ignore them.
+  int q_off, k_off;
 };
 
 namespace whk {

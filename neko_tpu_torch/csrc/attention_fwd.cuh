@@ -1,5 +1,6 @@
-// The causal attention forward that whole_head_attention.cu (#1, #3) and
-// blocked_attention.cu (#6) launch: one kernel, two row-stat contracts.
+// The causal attention forward that whole_head_attention.cu (#1, #3),
+// blocked_attention.cu (#6) and ring_attention.cu (#11) launch: one kernel,
+// two row-stat contracts and, for the ring, global coordinates.
 //
 //   p[r,c] = softmax_c( q[r,:] . k[c,:] * sm_scale ) over keys c with
 //            c <= r and start[b] <= c < end[b]; fp32 softmax
@@ -9,6 +10,14 @@
 // whole-head backward, or the running max m and the normalizer l (without
 // the keep mask) for the blocked backward; with neither, none is written
 // (the serving prefill).
+//
+// Ring mode (kRing): q and k, v are S-row blocks of a longer sequence at
+// global offsets q_off and k_off.  The causal test, the key window and the
+// keep mask take global rows and columns, so one seed drops the same elements
+// whichever pair of blocks computes them; key tiles start at global multiples
+// of 32 (the keep mask's 32-byte draws), so k_off may be any integer.  The
+// output is the fp32 accumulator, NOT divided by l, with (m, l): the partial
+// of this pair, which the caller merges with those of the other kv blocks.
 //
 // Tiling: the tiled online-softmax form.  One block per (64-row q tile, head,
 // batch) loops over 32-key tiles in shared memory, a warp per 8 rows and a
@@ -28,6 +37,8 @@
 // empty keeps l = 0 and writes o = 0, lse = 0, m = -1e30 and l = 0, never NaN.
 
 #pragma once
+
+#include <type_traits>
 
 #include "attention_common.cuh"
 
@@ -54,9 +65,10 @@ constexpr int smem_floats() {
 // At D = 32 four blocks share an SM (at most 64 registers a thread, a few
 // spilled): on an H100 that measured 16% faster at the train shape and as
 // fast at the prefill as three blocks with 76 registers.
-template <typename T, int D, bool kDrop>
+template <typename T, int D, bool kDrop, bool kRing>
 __global__ void __launch_bounds__(kWarps * 32, D == 32 ? 4 : 1)
 attention_fwd_kernel(const AttnArgs a) {
+  using TO = std::conditional_t<kRing, float, T>;  // the ring partial is fp32
   static_assert(D % 32 == 0, "head dim must be a multiple of 32");
   constexpr int kDL = D / 32;  // output dims per lane
   constexpr int kKP = D + 1;   // padded k row stride
@@ -73,17 +85,21 @@ attention_fwd_kernel(const AttnArgs a) {
   const T* __restrict__ q = head_ptr<T>(a.q, b, h);
   const T* __restrict__ k = head_ptr<T>(a.k, b, h);
   const T* __restrict__ v = head_ptr<T>(a.v, b, h);
-  T* __restrict__ out = head_ptr<T>(a.o, b, h);
+  TO* __restrict__ out = head_ptr<TO>(a.o, b, h);
   const long long bh_row = static_cast<long long>(b * a.H + h) * S;
 
   const int tid = threadIdx.x;
   const int warp = tid / 32;
   const int lane = tid % 32;
+  // global offsets of local row 0 and local key 0 (0 outside the ring)
+  const int q_off = kRing ? a.q_off : 0;
+  const int k_off = kRing ? a.k_off : 0;
   const int st = max(a.start[b], 0);
-  const int en = min(a.end[b], S);
-  // keys this q tile can see: [st, min(en, r_end)) -- causal bound col <= row
-  const int c_end = min(en, min(r0 + kBlockM, S));
-  const int c_beg = (st / kBlockN) * kBlockN;
+  const int en = kRing ? a.end[b] : min(a.end[b], S);
+  // keys this q tile can see, as global columns: [st, min(en, r_end)) --
+  // causal bound col <= row -- within the kv block [k_off, k_off + S)
+  const int c_end = min(min(en, k_off + S), q_off + min(r0 + kBlockM, S));
+  const int c_beg = (max(st, k_off) / kBlockN) * kBlockN;
   const uint32_t seed = kDrop ? static_cast<uint32_t>(a.seed[0]) : 0u;
   const uint32_t bh = static_cast<uint32_t>(b * a.H + h);
 
@@ -105,19 +121,21 @@ attention_fwd_kernel(const AttnArgs a) {
   for (int c0 = c_beg; c0 < c_end; c0 += kBlockN) {
     __syncthreads();  // previous tile fully consumed (and q tile written)
     for (int i = tid; i < kBlockN * D; i += blockDim.x) {
-      const int c = c0 + i / D, d = i % D;
+      const int c = c0 - k_off + i / D, d = i % D;  // local key
       float kx = 0.f, vx = 0.f;
-      if (c < S) {  // one branch for both loads, so their latencies overlap
+      // one branch for both loads, so their latencies overlap
+      if ((!kRing || c >= 0) && c < S) {
         kx = load(&k[c * a.k.ss + d]);
         vx = load(&v[c * a.v.ss + d]);
       }
       sk[(i / D) * kKP + d] = kx;
       sv[i] = vx;
     }
-    if constexpr (kDrop) draw_keep_words(keep_words[warp], seed, bh, r0 + row0, c0, lane);
+    if constexpr (kDrop)
+      draw_keep_words(keep_words[warp], seed, bh, q_off + r0 + row0, c0, lane);
     __syncthreads();
 
-    const int c = c0 + lane;  // this lane's key
+    const int c = c0 + lane;  // this lane's key (global column)
     float s[kRowsPerWarp];
 #pragma unroll
     for (int i = 0; i < kRowsPerWarp; ++i) s[i] = 0.f;
@@ -132,7 +150,8 @@ attention_fwd_kernel(const AttnArgs a) {
 #pragma unroll
     for (int i = 0; i < kRowsPerWarp; ++i) {
       const int r = r0 + row0 + i;
-      const bool ok = c <= r && c >= st && c < en && r < S;
+      bool ok = c <= q_off + r && c >= st && c < en && r < S;
+      if constexpr (kRing) ok = ok && c >= k_off && c < k_off + S;
       const float si = ok ? s[i] * a.sm_scale : kNeg;
       const float m_new = fmaxf(m[i], warp_max(si));
       p[i] = ok ? expf(si - m_new) : 0.f;
@@ -164,7 +183,7 @@ attention_fwd_kernel(const AttnArgs a) {
   for (int i = 0; i < kRowsPerWarp; ++i) {
     const int r = r0 + row0 + i;
     if (r >= S) continue;
-    const float inv = l[i] > 0.f ? 1.f / l[i] : 0.f;
+    const float inv = kRing ? 1.f : l[i] > 0.f ? 1.f / l[i] : 0.f;
 #pragma unroll
     for (int t = 0; t < kDL; ++t) store(&out[r * a.o.ss + lane + 32 * t], acc[i][t] * inv);
     if (lane == 0) {
@@ -177,10 +196,10 @@ attention_fwd_kernel(const AttnArgs a) {
   }
 }
 
-template <typename T, int D, bool kDrop>
+template <typename T, int D, bool kDrop, bool kRing>
 cudaError_t launch(const AttnArgs& a, cudaStream_t stream) {
   const size_t smem = smem_floats<D>() * sizeof(float);
-  auto kernel = attention_fwd_kernel<T, D, kDrop>;
+  auto kernel = attention_fwd_kernel<T, D, kDrop, kRing>;
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(a.H, a.B, (a.S + kBlockM - 1) / kBlockM);
@@ -188,31 +207,34 @@ cudaError_t launch(const AttnArgs& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-template <typename T, bool kDrop>
+template <typename T, bool kDrop, bool kRing>
 cudaError_t dispatch_d(const AttnArgs& a, cudaStream_t stream) {
   switch (a.D) {
-    case 32: return launch<T, 32, kDrop>(a, stream);
-    case 64: return launch<T, 64, kDrop>(a, stream);
-    case 128: return launch<T, 128, kDrop>(a, stream);
+    case 32: return launch<T, 32, kDrop, kRing>(a, stream);
+    case 64: return launch<T, 64, kDrop, kRing>(a, stream);
+    case 128: return launch<T, 128, kDrop, kRing>(a, stream);
     default: return cudaErrorInvalidValue;
   }
 }
 
-template <typename T>
+template <typename T, bool kRing>
 cudaError_t dispatch_drop(const AttnArgs& a, cudaStream_t stream) {
-  return a.drop_threshold > 0 ? dispatch_d<T, true>(a, stream) : dispatch_d<T, false>(a, stream);
+  return a.drop_threshold > 0 ? dispatch_d<T, true, kRing>(a, stream)
+                              : dispatch_d<T, false, kRing>(a, stream);
 }
 
 }  // namespace fwd
 
-// The forward on the arguments' dtype (0 = float32, 1 = bfloat16).
-inline int attention_fwd(const AttnArgs* a, void* stream) {
+// The forward on the arguments' dtype (0 = float32, 1 = bfloat16); kRing:
+// the ring partial (global offsets, fp32 unnormalized output).
+template <bool kRing = false>
+int attention_fwd(const AttnArgs* a, void* stream) {
   if (a->B <= 0 || a->H <= 0 || a->S <= 0) return cudaSuccess;
   if (a->drop_threshold > 0 && a->seed == nullptr) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (a->dtype) {
-    case 0: return fwd::dispatch_drop<float>(*a, s);
-    case 1: return fwd::dispatch_drop<__nv_bfloat16>(*a, s);
+    case 0: return fwd::dispatch_drop<float, kRing>(*a, s);
+    case 1: return fwd::dispatch_drop<__nv_bfloat16, kRing>(*a, s);
     default: return cudaErrorInvalidValue;
   }
 }

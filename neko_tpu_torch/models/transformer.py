@@ -8,7 +8,11 @@ neko_tpu/models/transformer.py).
   {32, 64, 128}): q, k and v stay the three column slices of the one
   [B, S, 3D] `c_attn` output (no transpose, one gradient buffer), with
   attention, residual and MLP dropout when a `generator` (the step's
-  `torch.Generator`) is given.  Each layer draws its attention seed as an
+  `torch.Generator`) is given.  Under an active mesh whose 'seq' axis has
+  more than one shard (`parallel/mesh.py`) the attention runs as ring
+  attention over the sequence shards instead (`ops/ring_kernel.py`), before
+  the whole-head / blocked dispatch, as the JAX package routes it; S must
+  split over the axis.  Each layer draws its attention seed as an
   int32 [1] tensor on the device from that generator, as the JAX package
   draws one per layer from its dropout stream.  Without a generator the
   pass is deterministic (eval loss).
@@ -71,6 +75,9 @@ def _train_not_ported(cfg: ModelConfig, S: int) -> None:
     bad = [name for name, on in unported.items() if on]
     if bad:
         raise NotImplementedError(f"not yet ported to neko_tpu_torch: {bad}")
+    n = attn_ops.seq_shards()
+    if n > 1 and S % n:
+        raise ValueError(f"S={S} does not split over the mesh's {n} sequence shards")
 
 
 def linear(layer: nn.Linear, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -122,8 +129,10 @@ class Attention(nn.Module):
                 rate = cfg.dropout
                 seed = torch.randint(0, 2 ** 31 - 1, (1,), dtype=torch.int32,
                                      device=x.device, generator=generator)
-            out2d = attn_ops.attention_qkv(qkv, input_mask, heads=cfg.heads,
-                                           seed=seed, rate=rate)
+            # sequence-parallel first, as the JAX package dispatches
+            attend = (attn_ops.sequence_parallel_attention_qkv if attn_ops.seq_shards() > 1
+                      else attn_ops.attention_qkv)
+            out2d = attend(qkv, input_mask, heads=cfg.heads, seed=seed, rate=rate)
             return self._project_out(out2d, generator), None
         q, k, v = (self._heads(t) for t in qkv.split(D, dim=-1))
         if mode == "prefill":

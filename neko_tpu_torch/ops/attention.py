@@ -22,6 +22,13 @@
   1024 goes to the whole-head kernels (#1-#4) and longer contexts to the
   blocked ones (#6-#9, `blocked_attention.py`).  `packed_ok` says which
   shapes the port trains: any S, hd in {32, 64, 128}.
+* `sequence_parallel_attention_qkv` / `_bsd`: the train path under a mesh
+  whose 'seq' axis has more than one shard (the JAX package's
+  `sequence_parallel_attention_bsd`): ring attention with the per-pair
+  kernels #11-#13 (`ring_kernel.py`).  The global key bounds are computed
+  once from the key mask; nothing mask-shaped travels around the ring.
+  `seq_shards()` reads the active mesh and `packed_ring_ok` says which
+  shapes the ring takes: S a multiple of the axis size, hd in {32, 64, 128}.
 """
 
 from __future__ import annotations
@@ -29,7 +36,8 @@ from __future__ import annotations
 import torch
 
 from neko_tpu_torch.ops import attention_kernel as whk
-from neko_tpu_torch.ops import blocked_attention
+from neko_tpu_torch.ops import blocked_attention, ring_kernel
+from neko_tpu_torch.parallel.mesh import active_mesh, seq_axis_size
 
 _BIG_NEG = -1e9
 # The whole-head kernels train S <= 1024, as in the JAX package; longer
@@ -78,3 +86,48 @@ def attention_qkv(qkv, key_mask, *, heads, seed=None, rate=0.0):
     fn = (whk.whole_head_attention_qkv if qkv.shape[1] <= _WHOLE_HEAD_MAX_S
           else blocked_attention.blocked_attention_qkv)
     return fn(qkv, start, end, seed, heads=heads, dropout_rate=rate)
+
+
+def seq_shards() -> int:
+    """Size of the 'seq' axis of the active mesh (1 when no mesh / no axis)."""
+    return seq_axis_size(active_mesh())
+
+
+def packed_ring_ok(S: int, hd: int, heads: int) -> bool:
+    """True when the ring kernels serve this sequence-sharded shape: a 'seq'
+    axis of more than one shard is active, the global S splits over it and
+    hd is in {32, 64, 128}."""
+    n = seq_shards()
+    return n > 1 and heads > 0 and S % n == 0 and ring_kernel.supported(S // n, hd)
+
+
+def _ring_args(key_mask):
+    """(global start, global end, shards, process group or None) of the
+    active mesh's ring."""
+    mesh = active_mesh()
+    n = seq_axis_size(mesh)
+    if n <= 1:
+        raise ValueError("sequence-parallel attention needs an active mesh with seq > 1")
+    start, end = whk.mask_bounds_from_key_mask(key_mask)
+    return start, end, n, mesh.seq_group
+
+
+def sequence_parallel_attention_qkv(qkv, key_mask, *, heads, seed=None, rate=0.0):
+    """`attention_qkv` as ring attention over the active mesh's 'seq' axis.
+    With the shards on one device qkv is the global [B, S, 3*H*hd] tensor;
+    with the shards on the ranks of a process group it is this rank's
+    [B, S / n, 3*H*hd] block.  key_mask is the GLOBAL bool [B, S] mask either
+    way, and seed (int32 [1] on the device) the same on every rank.  Check
+    `packed_ring_ok(S, hd, heads)` first."""
+    start, end, n, group = _ring_args(key_mask)
+    return ring_kernel.ring_attention_qkv(qkv, start, end, seed, n_shards=n, heads=heads,
+                                          group=group, dropout_rate=rate)
+
+
+def sequence_parallel_attention_bsd(q, k, v, key_mask, *, heads, dropout_seed=None,
+                                    dropout_rate=0.0):
+    """Ring attention in the head-packed [B, S, H*hd] layout (the JAX
+    signature); q, k, v as `sequence_parallel_attention_qkv` takes qkv."""
+    start, end, n, group = _ring_args(key_mask)
+    return ring_kernel.ring_attention_bsd(q, k, v, start, end, dropout_seed, n_shards=n,
+                                          heads=heads, group=group, dropout_rate=dropout_rate)

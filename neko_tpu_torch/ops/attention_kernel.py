@@ -125,30 +125,38 @@ def _philox4x32_10(c0, c1, c2, c3, k0, k1):
     return c0, c1, c2, c3
 
 
-def keep_bytes_reference(seed: torch.Tensor, B: int, H: int, S: int) -> torch.Tensor:
+def keep_bytes_reference(seed: torch.Tensor, B: int, H: int, S: Optional[int],
+                         rows=None, cols=None) -> torch.Tensor:
     """uint8 [B, H, S, S]: the keep byte of every element (plain Philox on
-    the seed's device)."""
+    the seed's device); with `rows` = (r0, r1) and `cols` = (c0, c1), the
+    window [B, H, r1 - r0, c1 - c0] of it (S may then be None: a keep byte
+    does not depend on it)."""
     dev = seed.device
-    n16 = -(-S // 16)
-    shape = (B * H, S, n16)
-    c0 = torch.arange(n16, device=dev).view(1, 1, n16).expand(shape)
-    c1 = torch.arange(S, device=dev).view(1, S, 1).expand(shape)
+    r0, r1 = (0, S) if rows is None else rows
+    c0, c1 = (0, S) if cols is None else cols
+    b0, b1 = c0 // 16, -(-c1 // 16)  # the 16-byte draws that cover the columns
+    shape = (B * H, r1 - r0, b1 - b0)
+    x0 = torch.arange(b0, b1, device=dev).view(1, 1, -1).expand(shape)
+    x1 = torch.arange(r0, r1, device=dev).view(1, -1, 1).expand(shape)
     zero = torch.zeros(shape, dtype=torch.int64, device=dev)
     k0 = seed.reshape(-1)[:1].long().view(1, 1, 1) & _U32
     k1 = torch.arange(B * H, device=dev).view(B * H, 1, 1)
-    words = _philox4x32_10(c0, c1, zero, zero, k0, k1)
+    words = _philox4x32_10(x0, x1, zero, zero, k0, k1)
     shifts = torch.arange(0, 32, 8, device=dev)
     byts = torch.stack([(w[..., None] >> shifts) & 0xFF for w in words], dim=-2)
-    return byts.reshape(B, H, S, n16 * 16)[..., :S].to(torch.uint8)
+    byts = byts.reshape(B, H, r1 - r0, (b1 - b0) * 16)
+    return byts[..., c0 - b0 * 16:c1 - b0 * 16].to(torch.uint8)
 
 
 def dropout_keep_scale_reference(
-    seed: torch.Tensor, B: int, H: int, S: int, dropout_rate: float
+    seed: torch.Tensor, B: int, H: int, S: Optional[int], dropout_rate: float,
+    rows=None, cols=None,
 ) -> torch.Tensor:
     """fp32 [B, H, S, S] keep/scale matrices: scale where the keep byte is
-    >= the threshold, else 0 (the plain version of kernel #5)."""
+    >= the threshold, else 0 (the plain version of kernel #5); with `rows`
+    and `cols`, that window of them."""
     q = keep_threshold(dropout_rate)
-    keep = keep_bytes_reference(seed, B, H, S) >= q
+    keep = keep_bytes_reference(seed, B, H, S, rows, cols) >= q
     return keep.float() * survivor_scale(q)
 
 
@@ -195,6 +203,8 @@ class _Args(ctypes.Structure):
         ("sm_scale", ctypes.c_float), ("drop_scale", ctypes.c_float),
         # the blocked kernels' row stats and fp32 dq scratch (blocked_attention.py)
         ("m", ctypes.c_void_p), ("l", ctypes.c_void_p), ("dq_acc", ctypes.c_void_p),
+        # the ring kernels' global row and column offsets (ring_kernel.py)
+        ("q_off", ctypes.c_int), ("k_off", ctypes.c_int),
     ]
 
 
@@ -272,9 +282,11 @@ def _call(library: str, symbol: str, args: _Args, device) -> None:
         )
 
 
-def _kernel_args(q, k, v, start, end, seed, sm_scale, q_thr, **views) -> _Args:
+def _kernel_args(q, k, v, start, end, seed, sm_scale, q_thr, q_off=0, k_off=0,
+                 **views) -> _Args:
     B, H, S, hd = q.shape
     return _Args(
+        q_off=q_off, k_off=k_off,
         q=_view(q), k=_view(k), v=_view(v),
         **{n: _view(views.get(n)) for n in ("o", "dout", "dq", "dk", "dv")},
         lse=_ptr(views.get("lse")), delta=_ptr(views.get("delta")),

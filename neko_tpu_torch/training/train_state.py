@@ -18,14 +18,23 @@ Here the step runs eagerly on one device and updates the state in place:
   at the first update).  torch's decoupled decay p *= 1 - lr * wd before
   the Adam step is optax's add_decayed_weights after it: the same update.
 
+`TrainContext(..., mesh=create_mesh(data=1, seq=n))` runs its steps under
+the mesh, as the JAX `TrainContext` does: the attention of every layer then
+runs as ring attention over n sequence shards that live on the one device
+(`ops/ring_kernel.py`); the context length must split over them.  The rest
+of the step is unchanged, and the same converted weights load.
+
 Not ported yet (NotImplementedError): `lora_only`, gradient accumulation,
-EMA, `fused_adamw` and FSDP.  There is no mesh, so the pipeline fields of
-`OptimizerConfig` are ignored, as the JAX package ignores them off a 'pipe'
-mesh.
+EMA, `fused_adamw`, FSDP, and a mesh whose 'seq' axis lies over the ranks of
+a process group (the model, the batch and the optimizer are not yet sharded
+over processes; the ring itself is, `ring_kernel.ring_attention_bsd`).  The
+pipeline fields of `OptimizerConfig` are ignored, as the JAX package ignores
+them off a 'pipe' mesh.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Callable, Dict, List, Optional, Tuple
 
@@ -34,6 +43,7 @@ import torch
 from neko_tpu_torch.config import ModelConfig
 from neko_tpu_torch.data.batch import PackedBatch
 from neko_tpu_torch.models.policy import NekoModel
+from neko_tpu_torch.parallel.mesh import Mesh, seq_axis_size
 from neko_tpu_torch.training.schedulers import linear_warmup_cosine_decay
 
 
@@ -133,8 +143,18 @@ class TrainContext:
         device="cuda",
         seed: int = 0,
         fsdp: bool = False,
+        mesh: Optional[Mesh] = None,
     ):
         _not_ported(opt_cfg, fsdp)
+        if mesh is not None and mesh.seq_group is not None:
+            raise NotImplementedError(
+                "a 'seq' axis over the ranks of a process group: the model and the "
+                "batch are not yet sharded over processes")
+        n = seq_axis_size(mesh)
+        if model_cfg.context_len % n:
+            raise ValueError(f"context_len={model_cfg.context_len} does not split over "
+                             f"the mesh's {n} sequence shards")
+        self.mesh = mesh
         self.model_cfg = model_cfg
         self.opt_cfg = opt_cfg
         self.device = torch.device(device)
@@ -160,8 +180,10 @@ class TrainContext:
         """Train-mode loss of `batch` with the step's generator; leaves the
         gradients in the parameters' `.grad`.  -> loss (device scalar)."""
         state.optimizer.zero_grad(set_to_none=True)
-        _, loss = state.model(batch, train=True, compute_loss=True,
-                              generator=self.step_generator(state))
+        with self.mesh or contextlib.nullcontext():
+            _, loss = state.model(batch, train=True, compute_loss=True,
+                                  generator=self.step_generator(state))
+        # the backward pass reads no mesh: each autograd node carries its own
         loss.backward()
         return loss.detach()
 
@@ -188,7 +210,8 @@ class TrainContext:
     @torch.no_grad()
     def eval_step(self, state: TrainState, batch: PackedBatch) -> torch.Tensor:
         """Deterministic loss on a batch (no grads, no dropout)."""
-        _, loss = state.model(batch, compute_loss=True)
+        with self.mesh or contextlib.nullcontext():
+            _, loss = state.model(batch, compute_loss=True)
         return loss
 
     def current_lr(self, step: int) -> float:

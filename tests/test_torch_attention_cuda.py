@@ -1,6 +1,7 @@
 """The attention CUDA kernels against their plain torch versions: the
 whole-head forward and backward (autograd through the plain version) and the
-blocked forward (o, m, l) and both blocked backward routes, with dropout (the
+blocked forward (o, m, l) and both blocked backward routes, the ring's
+per-pair kernels and the ring as a whole, with dropout (the
 same mask: the plain version gets the keep/scale matrix the mask kernel
 writes, and that matrix must equal the plain Philox bit for bit), on
 contiguous [B, H, S, hd] tensors and on head-packed strided views of one
@@ -269,3 +270,102 @@ def test_blocked_kernel_refuses_an_unsupported_head_dim(cuda):
     with pytest.raises(ValueError):
         ba.blocked_attention_qkv(qkv, bounds, bounds + 2048, heads=2)
     assert ba.blocked_attention_fwd.launches == before
+
+
+# ---------------------------------------------------- ring kernels #11-#13
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,S_l,hd,dtype", [
+    (2, 4, 512, 32, torch.bfloat16),
+    (2, 3, 300, 64, torch.float32),    # ragged: offsets off the 32-key tiles
+    (3, 2, 200, 128, torch.float32),
+])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("pair", [(1, 1), (2, 1), (2, 0), (0, 2)])
+def test_ring_pair_kernels_match_plain(cuda, B, H, S_l, hd, dtype, rate, pair):
+    """#11, #12 and #13 on one (q shard, kv shard) pair of a 3-shard sequence
+    against their plain versions in fp32 on the same values, with the pair's
+    window of the plain Philox and the same L and delta; (0, 2) is a pair in
+    the future of the q shard: every output is 0, m = -1e30."""
+    from neko_tpu_torch.ops import ring_kernel as rk
+
+    n = 3
+    qkv, start, end, valid, dout = _blocked_inputs(B, H, n * S_l, hd, dtype, cuda)
+    start = torch.minimum(start, torch.tensor(S_l + 70, device=cuda)).int()  # inside shard 1
+    seed = torch.tensor([31], dtype=torch.int32, device=cuda)
+    i, j = pair
+    q, k, v = (t.chunk(n, dim=2)[s] for t, s in zip(whk._qkv_views("qkv", (qkv,), H), (i, j, j)))
+    do = whk._heads4(dout, H).chunk(n, dim=2)[i]
+    g = torch.Generator(device=cuda).manual_seed(1)
+    L = torch.randn(B, H, S_l, device=cuda, generator=g) + 3.0
+    delta = torch.randn(B, H, S_l, device=cuda, generator=g)
+    at = (i * S_l, j * S_l, start, end)
+    before = [f.launches for f in (rk.ring_partial_fwd, rk.ring_partial_dq, rk.ring_partial_dkv)]
+    acc, m, l = rk.ring_partial_fwd(q, k, v, *at, seed, None, rate)
+    dq = rk.ring_partial_dq(q, k, v, do, L, delta, *at, seed, None, rate)
+    dk, dv = rk.ring_partial_dkv(q, k, v, do, L, delta, *at, seed, None, rate)
+    torch.cuda.synchronize()
+    assert [f.launches - b for f, b in zip(
+        (rk.ring_partial_fwd, rk.ring_partial_dq, rk.ring_partial_dkv), before)] == [1, 1, 1]
+    assert all(t.dtype == torch.float32 and torch.isfinite(t).all()
+               for t in (acc, m, l, dq, dk, dv))
+    ks = (whk.dropout_keep_scale_reference(seed, B, H, None, rate, rows=(at[0], at[0] + S_l),
+                                           cols=(at[1], at[1] + S_l)) if rate else None)
+    f32 = [t.float() for t in (q, k, v, do)]
+    acc_w, m_w, l_w = rk.ring_partial_fwd_reference(*f32[:3], *at, None, ks)
+    dq_w = rk.ring_partial_dq_reference(*f32, L, delta, *at, None, ks)
+    dk_w, dv_w = rk.ring_partial_dkv_reference(*f32, L, delta, *at, None, ks)
+    rows = l_w > 0
+    assert (m[~rows] == -1e30).all() and not l[~rows].any() and not acc[~rows].any()
+    if not rk.pair_visible(at[0], at[1], S_l):
+        assert not rows.any() and not dq.any() and not dk.any() and not dv.any()
+    torch.testing.assert_close(m[rows], m_w[rows], atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(l, l_w, atol=1e-5, rtol=1e-4)
+    # acc is not divided by l: held relative to it (fp32 summation order)
+    scale = l_w.clamp_min(1.0)[..., None]
+    torch.testing.assert_close(acc / scale, acc_w / scale, atol=5e-6, rtol=0)
+    for name, got, want in (("dq", dq, dq_w), ("dk", dk, dk_w), ("dv", dv, dv_w)):
+        torch.testing.assert_close(got, want, atol=1e-4, rtol=2.0 ** -7,
+                                   msg=lambda s, n=name: f"{n}: {s}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,S,hd,dtype", [(4, 2048, 32, torch.float32), (2, 1000, 64, torch.float32),
+                                          (4, 1200, 32, torch.bfloat16)])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_ring_equals_blocked_kernels_at_one_seed(cuda, n, S, hd, dtype, rate):
+    """The ring over n shards on the card against the blocked kernels at the
+    same S and seed: the same mask, so the same attention and gradients (fp32
+    to summation order; bf16 to the rounding of out and of the gradients),
+    with n (n + 1) / 2 launches per ring kernel and none of the blocked."""
+    from neko_tpu_torch.ops import blocked_attention as ba
+    from neko_tpu_torch.ops import ring_kernel as rk
+
+    B, H = 2, 4
+    qkv, start, end, valid, dout = _blocked_inputs(B, H, S, hd, dtype, cuda)
+    seed = torch.tensor([5], dtype=torch.int32, device=cuda)
+    ring = (rk.ring_partial_fwd, rk.ring_partial_dq, rk.ring_partial_dkv)
+    before = [f.launches for f in ring]
+    x = qkv.clone().requires_grad_()
+    o1 = rk.ring_attention_qkv(x, start, end, seed, n_shards=n, heads=H, dropout_rate=rate)
+    (g1,) = torch.autograd.grad(o1, (x,), dout)
+    assert [f.launches - b for f, b in zip(ring, before)] == [n * (n + 1) // 2] * 3
+    x = qkv.clone().requires_grad_()
+    o2 = ba.blocked_attention_qkv(x, start, end, seed, heads=H, dropout_rate=rate)
+    (g2,) = torch.autograd.grad(o2, (x,), dout)
+    assert torch.isfinite(o1).all() and torch.isfinite(g1).all() and not o1[~valid].any()
+    o_tol = dict(atol=1e-5, rtol=0) if dtype == torch.float32 else dict(zip(("atol", "rtol"),
+                                                                          TOL[dtype]))
+    torch.testing.assert_close(o1[valid], o2[valid], **o_tol)
+    torch.testing.assert_close(g1, g2, **dict(zip(("atol", "rtol"), GRAD_TOL[dtype])))
+
+
+@pytest.mark.cuda
+def test_ring_kernel_refuses_an_unsupported_head_dim(cuda):
+    from neko_tpu_torch.ops import ring_kernel as rk
+
+    qkv = torch.randn(1, 2048, 3 * 2 * 48, device=cuda)  # hd 48: no kernel template
+    bounds = torch.tensor([0], dtype=torch.int32, device=cuda)
+    before = rk.ring_partial_fwd.launches
+    with pytest.raises(ValueError):
+        rk.ring_attention_qkv(qkv, bounds, bounds + 2048, n_shards=4, heads=2)
+    assert rk.ring_partial_fwd.launches == before

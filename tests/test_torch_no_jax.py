@@ -58,6 +58,26 @@ def test_sources_import_no_jax():
     assert not hits, hits
 
 
+def test_package_data_holds_every_source_the_kernels_build_from():
+    """An installed (non-editable) package builds its kernels from its own
+    csrc/: every file cuda_build.py compiles (`*.cu`) or hashes and includes
+    (`*.cuh`) must match a package-data glob of pyproject.toml."""
+    import fnmatch
+    import tomllib
+
+    from neko_tpu_torch.ops import cuda_build
+
+    globs = tomllib.loads((ROOT / "pyproject.toml").read_text())[
+        "tool"]["setuptools"]["package-data"]["neko_tpu_torch"]
+    sources = sorted(cuda_build.CSRC_DIR.glob("*.cu")) + sorted(cuda_build.CSRC_DIR.glob("*.cuh"))
+    assert len(sources) >= 9 and cuda_build.CSRC_DIR.parent == PKG
+    included = {inc for f in sources for inc in re.findall(r'#include "([^"]+)"', f.read_text())}
+    assert included <= {f.name for f in sources}, included  # no header outside csrc/
+    for f in sources:
+        rel = f.relative_to(PKG).as_posix()
+        assert any(fnmatch.fnmatch(rel, g) for g in globs), f"{rel} matches none of {globs}"
+
+
 def test_chip_smoke_refuses_without_cuda():
     import torch
 

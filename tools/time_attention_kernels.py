@@ -10,7 +10,9 @@ name and power limit) and the kernel ms (CUDA events, mean of 20 calls
 after 3 warm-up calls), bf16, dropout 0.1, full rows: the whole-head
 forward and backward at the flagship train shape (B=16, H=24, S=1024,
 hd=32), the blocked forward, fused backward, dq and dkv at `long`
-(B=8, H=24, S=2048, hd=32).  Run it as parent, change, change, parent.
+(B=8, H=24, S=2048, hd=32); and, where the checkout has them, the ring's
+per-pair forward, dq and dkv on a full (past) pair of the k = 8192 shards
+(B=2, H=24, S_local=2048, hd=32).  Run it as parent, change, change, parent.
 """
 
 from __future__ import annotations
@@ -79,6 +81,24 @@ def main(argv=None) -> int:
     ms["blocked_bwd_fused"] = _time_ms(lambda: ba.blocked_attention_bwd_fused(*bwd))
     ms["blocked_dq"] = _time_ms(lambda: ba.blocked_attention_dq(*bwd))
     ms["blocked_dkv"] = _time_ms(lambda: ba.blocked_attention_dkv(*bwd))
+
+    try:
+        from neko_tpu_torch.ops import ring_kernel as rk
+    except ImportError:  # a checkout from before the ring kernels
+        rk = None
+    if rk is not None:
+        q, k, v, do, start, end = views(2, 24, 2048, 32)
+        end = end * 4  # shard 3 meets the kv block of shard 2 of an 8192-row sequence
+        L = torch.full((2, 24, 2048), 8.0, device=dev)
+        delta = torch.zeros_like(L)
+        at = (3 * 2048, 2 * 2048, start, end, seed, None, rate)
+        acc, m, l = rk.ring_partial_fwd(q, k, v, *at)
+        bufs = rk._new_grads(q)
+        ms["ring_fwd"] = _time_ms(lambda: rk.ring_partial_fwd(q, k, v, *at, out=acc, m=m, l=l))
+        ms["ring_dq"] = _time_ms(lambda: rk.ring_partial_dq(q, k, v, do, L, delta, *at,
+                                                            dq=bufs[0]))
+        ms["ring_dkv"] = _time_ms(lambda: rk.ring_partial_dkv(q, k, v, do, L, delta, *at,
+                                                              dk=bufs[1], dv=bufs[2]))
     print(json.dumps({"repo": args.repo, "card": card(), "ms": ms}))
     return 0
 
