@@ -13,7 +13,8 @@
    space, bf16, random weights from a seed) behind NekoServer on 127.0.0.1,
    answering greedy and sampled text requests and continuous and image
    (discrete) action requests.  Every prefill of that run must have gone
-   through the kernel (its launch counter).
+   through the kernel (its launch counter), and every decode step through
+   the decode kernel (layers x decode steps launches).
 4. Prefill check, on the greedy batch: each layer's kernel output against
    the plain version on the same served inputs, and the last-position
    logits against a prefill through the plain version on the card.  Planted
@@ -75,6 +76,25 @@
    ring against the same step through the blocked path with the same seed,
    with planted faults in the ring schedule that the check must see; the
    loss falls over 20 steps on one batch.
+11. Decode attention (#14) vs plain at the flagship decode step (B=8 and
+   B=1, H=24, S=1024, hd=32, bf16), fp32 at hd 64 and 128 and a ragged
+   S=1000: rows with a full cache, a left-padded start, one key, no key, a
+   wrapped ring; planted faults ("newest key excluded", "start ignored")
+   must fail; times in turns with SDPA (boolean mask) as the yardstick.
+   Then generate_batch at bench_decode.py's shape (B=8, 512-token prompts,
+   64 new tokens) through the kernel and through the plain decode
+   attention: per-token ms, and the last-step logits of the two (teacher-
+   forced on the kernel run's tokens) within a limit a planted fault fails.
+12. The fused loss head (#15, a check kernel) at the flagship loss chunks
+   ([4096, 768] and [3328, 768] x 52,480, valid vocab 52,305, bf16) against
+   its plain version in fp32, with planted faults; times against cuBLAS +
+   logsumexp + gather.
+13. Fused AdamW (#16) on the flagship tree with the gradients of a real step
+   and moments after two updates, bit for bit against its plain version,
+   with planted faults; times against torch's fused AdamW; the optimizer
+   half of the step both ways; the flagship train step with
+   `fused_adamw=True` (launches = steps); three steps against the default
+   AdamW route, and 20 steps of falling loss.
 
 Prints a JSON line of the kernels that only the checks launch
 ({"check_kernels": ...}), then one JSON line of the kernels the main path
@@ -86,6 +106,7 @@ alone, each with its bound from this run's shapes), then, as the last line,
 from __future__ import annotations
 
 import contextlib
+import itertools
 import json
 import sys
 import threading
@@ -214,6 +235,46 @@ RING_STEP_LOSS_TOL = 2e-4
 RING_STEP_FAULTS = ("running-max rescale dropped in the merge", "farthest kv block skipped",
                     "delta taken as 0", "dk, dv partials added to the q shard's block")
 RING_STEP_LOSS_FAULTS = ("farthest kv block skipped",)
+# decode attention (phase 11): check shapes (B, H, S, hd, dtype); B=8 and
+# B=1 are the flagship decode step, the rest other head dims and a ragged S
+DECODE_SHAPES = ((8, 24, 1024, 32, "bfloat16"), (1, 24, 1024, 32, "bfloat16"),
+                 (4, 12, 1024, 64, "float32"), (4, 6, 1024, 128, "float32"),
+                 (8, 24, 1000, 32, "bfloat16"))
+# planted in the plain decode attention; the kernel check of the B=8 shapes
+# must see each one, the logits check DECODE_LOGIT_FAULTS ("start ignored"
+# cannot move the logits of right-padded prompts, whose windows start at 0)
+DECODE_FAULTS = ("newest key excluded", "start ignored")
+DECODE_LOGIT_FAULTS = ("newest key excluded",)
+# bench_decode.py's shape: 8 text prompts of 512 tokens, 64 new tokens
+DECODE_BENCH = dict(B=8, prompt=512, new=64)
+# last-step logits after 63 teacher-forced decode steps, kernel vs plain
+# decode attention at the bench_decode shape: 6 bf16 layers, every
+# activation rounded to bf16, the cache rows of the generated tokens written
+# from either side's own outputs.  On an H100 the sound run read 2.34e-2 and
+# the planted "newest key excluded" 5.47e-2; the limit lies near their
+# geometric mean.
+DECODE_LOGIT_TOL = 3.5e-2
+# fused loss head (phase 12): logz and the target logit, kernel vs the plain
+# version in fp32 on the same bf16 operands: fp32 sums of the same exact
+# products, in another order (logz ~ 11, target logits ~ 0.5)
+LOSS_TOL = (1e-4, 1e-5)
+LOSS_FAULTS = ("padded columns not masked", "target column off by one")
+# fused AdamW (phase 13): kernel vs plain, |kernel - plain| <= 1e-6 * |plain|
+# on params, mu and nu (both round after every operation in one order)
+ADAMW_RTOL = 1e-6
+ADAMW_FAULTS = ("bias correction dropped", "clip scale ignored")
+# three flagship steps on one batch at lr 1e-3, FusedAdamW vs the clip pass +
+# torch's AdamW (optax's formula vs torch's, rounded in other orders): the
+# largest loss difference, and the relative L2 error of the whole tree's
+# update (p after 3 steps - p before).  Per parameter the routes cannot be
+# held: the gradient of the key bias is 0 but for rounding (the softmax does
+# not see it), and Adam turns that rounding into +-lr steps.  A planted
+# "bias correction dropped" in the fused route must fail both.
+# On an H100 the sound run read 4.10e-5 and 1.89e-3 (the default route
+# against itself: 0 and 0), the fault 0.321 and 0.475; each limit lies near
+# the geometric mean.
+FUSED_STEP_LOSS_TOL = 3e-3
+FUSED_STEP_UPDATE_TOL = 2.5e-2
 # H100 SXM published peaks (NVIDIA data sheet): dense bf16 tensor cores, HBM3
 PEAK_BF16_FLOPS, PEAK_HBM_BYTES = 989e12, 3.35e12
 
@@ -236,6 +297,27 @@ def _time_ms(fn, iters: int = 20) -> float:
     b.record()
     torch.cuda.synchronize()
     return a.elapsed_time(b) / iters
+
+
+def _device_ms(fn, iters: int = 50) -> float:
+    """Device time per call of `fn`: the kernels and copies it launched, from
+    torch.profiler, summed and divided by `iters`.  Where the host takes
+    longer to launch a call than the card to run it, CUDA events around a
+    loop time the host; this does not."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    busy = sum(e.self_device_time_total for e in prof.events()
+               if e.device_type == DeviceType.CUDA and not e.is_user_annotation)
+    return busy / 1e3 / iters
 
 
 def _pairs(start, end, S: int, H: int) -> int:
@@ -359,14 +441,15 @@ def _post(url: str, payload: dict):
 
 
 def serve(card: str):
-    """Phase 3.  Returns (kernel launches in the serving run, the generator,
-    the greedy prompts as examples)."""
+    """Phase 3.  Returns (prefill kernel launches in the serving run, decode
+    kernel launches in it, the generator, the greedy prompts as examples)."""
     import torch
 
     from neko_tpu_torch.config import ModelConfig
     from neko_tpu_torch.convert import build_model, init_state_dict
     from neko_tpu_torch.inference.generator import Generator
     from neko_tpu_torch.ops import attention_kernel as whk
+    from neko_tpu_torch.ops import decode_attention as da
     from neko_tpu_torch.serving.server import NekoServer
 
     cfg = ModelConfig(**FLAGSHIP)
@@ -381,7 +464,15 @@ def serve(card: str):
     frames = rng.integers(0, 256, (4, 96, 96, 3)).tolist()
     obs = rng.standard_normal((8, 17)).tolist()
 
-    whk.whole_head_attention.launches = 0
+    decode_steps = [0]
+    decode_step = gen.model.decode_step
+
+    def counted_decode_step(*args, **kw):  # the decode steps the requests ran
+        decode_steps[0] += 1
+        return decode_step(*args, **kw)
+
+    gen.model.decode_step = counted_decode_step
+    whk.whole_head_attention.launches = da.decode_cache_attention.launches = 0
     with NekoServer(gen, port=0, max_batch=8, batch_window_ms=100.0,
                     request_timeout=600.0) as server:
         host, port = server.address[0], server.address[1]
@@ -436,14 +527,22 @@ def serve(card: str):
             _require(r.status == 200 and health["status"] == "ok", health)
         calls = server.coalesced_calls
     launches = whk.whole_head_attention.launches
+    decode_launches = da.decode_cache_attention.launches
+    del gen.model.decode_step
     for name, dt in lat.items():
         print(f"latency {name}: {dt * 1e3:.1f} ms ({card})")
     print(f"kernel launches {launches} over {calls} prefill calls x {cfg.layers} layers")
+    print(f"decode kernel launches {decode_launches} over {decode_steps[0]} decode steps x "
+          f"{cfg.layers} layers")
     if launches == 0 or launches != cfg.layers * calls:
         raise AssertionError(
             f"prefills did not all run through the kernel: {launches} launches, "
             f"{calls} prefill calls x {cfg.layers} layers")
-    return launches, gen, [{"text": p} for p in prompts]
+    if decode_launches == 0 or decode_launches != cfg.layers * decode_steps[0]:
+        raise AssertionError(
+            f"decode steps did not all run through the kernel: {decode_launches} launches, "
+            f"{decode_steps[0]} decode steps x {cfg.layers} layers")
+    return launches, decode_launches, gen, [{"text": p} for p in prompts]
 
 
 @contextlib.contextmanager
@@ -1600,6 +1699,442 @@ def seq_parallel_train(card: str, dev="cuda") -> dict:
     return path
 
 
+# ------------------------------------------------------------- decoding
+def plain_decode_attention(q, k, v, start, end, fault=None):
+    """The decode kernel's plain version, or that version with one of
+    DECODE_FAULTS planted in it."""
+    import torch
+
+    from neko_tpu_torch.ops import decode_attention as da
+
+    if fault == "newest key excluded":
+        end = torch.maximum(end - 1, start)
+    elif fault == "start ignored":
+        start = torch.zeros_like(start)
+    return da.decode_cache_attention_reference(q, k, v, start, end)
+
+
+@contextlib.contextmanager
+def decode_attention_through(fn):
+    """Within the block the model's decode attention runs `fn(q, k, v, start,
+    end)` in place of the kernel wrapper."""
+    from neko_tpu_torch.ops import attention as attn_ops
+
+    wrapper = attn_ops.decode_attention
+    attn_ops.decode_attention = fn
+    try:
+        yield
+    finally:
+        attn_ops.decode_attention = wrapper
+
+
+def _decode_rows(B, S):
+    """(start, end) lists: a full cache, a left-padded start, one key, no key
+    (start >= end), a wrapped ring (every row valid), a short window, a
+    window in the middle, a full cache."""
+    starts = [0, S // 3, 17, 500, 0, 0, 100, 0]
+    ends = [S, S, 18, 400, S, 9, 700, S]
+    return (starts * B)[:B], (ends * B)[:B]
+
+
+def decode_kernels_vs_plain(card: str, dev="cuda") -> dict:
+    """Phase 11, kernel part.  -> {"err": max abs error, "times": the JSON
+    timing fields at B=8, "times_b1": at B=1, "check_launches": n}."""
+    import torch
+    import torch.nn.functional as F
+
+    from neko_tpu_torch.ops import decode_attention as da
+
+    da.decode_cache_attention.launches = 0
+    worst, fault_excess = 0.0, {f: -1.0 for f in DECODE_FAULTS}
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    for B, H, S, hd, dtype_name in DECODE_SHAPES:
+        dtype = getattr(torch, dtype_name)
+        q = torch.randn(B, H, hd, device=dev, generator=g).to(dtype)
+        k, v = (torch.randn(B, H, S, hd, device=dev, generator=g).to(dtype) for _ in range(2))
+        st, en = _decode_rows(B, S)
+        start = torch.tensor(st, dtype=torch.int32, device=dev)
+        end = torch.tensor(en, dtype=torch.int32, device=dev)
+        out = da.decode_cache_attention(q, k, v, start, end)
+        ref = plain_decode_attention(q, k, v, start, end)
+        torch.cuda.synchronize()
+        _require(torch.isfinite(out).all(), f"decode kernel output not finite at {B}x{H}x{S}x{hd}")
+        seen = (start < end)[:, None, None]
+        _require(torch.all(out.masked_fill(seen, 0) == 0), "decode rows without a key not 0")
+        tol = KERNEL_TOL[dtype_name]
+        err, excess = _excess(out.float() * seen, ref.float() * seen, tol)
+        worst = max(worst, err)
+        print(f"decode kernel vs plain B={B} H={H} S={S} hd={hd} {dtype_name}: max abs err "
+              f"{err:.3e} (excess over tolerance {excess:.3e})")
+        _require(excess <= 0, f"decode kernel disagrees at {B}x{H}x{S}x{hd} {dtype_name}")
+        for f in DECODE_FAULTS:
+            bad = plain_decode_attention(q, k, v, start, end, fault=f)
+            fault_excess[f] = max(fault_excess[f], _excess(bad.float() * seen,
+                                                           ref.float() * seen, tol)[1])
+    for f in DECODE_FAULTS:
+        print(f"control '{f}': largest excess over tolerance {fault_excess[f]:.3e}")
+    blind = [f for f in DECODE_FAULTS if not fault_excess[f] > 0]
+    _require(not blind, f"the decode check cannot tell these planted faults: {blind}")
+    res = {"err": worst, "check_launches": da.decode_cache_attention.launches}
+
+    # device times on a full cache (torch.profiler: a call's host work takes
+    # longer than the kernel), in turns (plain, kernel, kernel, plain), with
+    # CUDA-event times beside them; SDPA with the boolean key mask as the
+    # library yardstick.  Each call reads the next of enough copies of the
+    # cache to fill the 50 MB L2 twice, as a decode step finds a layer's cache
+    # after the other layers' have passed through it.
+    for B, key in ((8, "times"), (1, "times_b1")):
+        H, S, hd = 24, 1024, 32
+        q = torch.randn(B, H, hd, device=dev, generator=g).bfloat16()
+        copies = -(-100_000_000 // (2 * B * H * S * hd * 2))
+        caches = [[torch.randn(B, H, S, hd, device=dev, generator=g).bfloat16()
+                   for _ in range(2)] for _ in range(copies)]
+        turn = itertools.cycle(caches)
+        start = torch.zeros(B, dtype=torch.int32, device=dev)
+        end = torch.full((B,), S, dtype=torch.int32, device=dev)
+        mask = da.key_window(S, start, end)
+        run_k = lambda: da.decode_cache_attention(q, *next(turn), start, end)  # noqa: E731
+        run_p = lambda: da.decode_cache_attention_reference(  # noqa: E731
+            q, *next(turn), start, end)
+        run_l = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            q[:, :, None], *next(turn), attn_mask=mask)
+        p1, k1, k2, p2 = (_device_ms(f) for f in (run_p, run_k, run_k, run_p))
+        lib = _device_ms(run_l)
+        ev_k, ev_p, ev_l = (_time_ms(f, 50) for f in (run_k, run_p, run_l))
+        keys = B * H * S
+        bound = _bound(4 * hd * keys, (2 * keys * hd + 2 * B * H * hd) * 2)
+        del caches
+        print(f"decode B={B} H={H} S={S} hd={hd} bf16, full cache ({copies} copies in turn), "
+              f"device time: kernel "
+              f"{k1:.4f} / {k2:.4f} ms, plain {p1:.4f} / {p2:.4f} ms, SDPA (boolean mask) "
+              f"{lib:.4f} ms, bound {bound[0]:.4f} ms ({bound[1]}); CUDA events over 50 calls: "
+              f"kernel {ev_k:.4f}, plain {ev_p:.4f}, SDPA {ev_l:.4f} ms ({card})")
+        res[key] = {"ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2, "bound_ms": bound[0],
+                    "bound_by": bound[1], "library_ms": lib, "event_ms": ev_k}
+    return res
+
+
+def _teacher_forced_logits(gen, examples, tokens):
+    """Last-step logits [B, V] of the generator's decode loop fed `tokens`
+    ([B, T] int64 numpy, the tokens a generate_batch chose) instead of its own
+    choices: prefill, then T - 1 decode steps."""
+    import torch
+
+    from neko_tpu_torch.data.batch import to_device_batch
+
+    model, dev, S = gen.model, gen.device, gen.cfg.context_len
+    arrays = gen.packer.pack_batch(examples, pad_side="right")
+    lengths = arrays.pop("lengths")
+    with torch.inference_mode():
+        emb = model.embed_batch(to_device_batch(arrays, dev))
+        mask = torch.from_numpy(np.arange(S)[None, :] < lengths[:, None]).to(dev)
+        pos = torch.as_tensor(lengths, dtype=torch.long, device=dev)
+        logits, caches = model.prefill(emb, mask, last=pos - 1)
+        toks = torch.as_tensor(tokens, device=dev)
+        for i in range(toks.shape[1] - 1):
+            logits = model.decode_step(model.embed_tokens(toks[:, i:i + 1]), pos, caches)[:, 0]
+            pos = pos + 1
+    return logits
+
+
+def decode_generate(card: str, dev="cuda") -> dict:
+    """Phase 11, generation part: generate_batch at bench_decode.py's shape
+    through kernel #14 and through the plain decode attention (per-token ms
+    in turns), and the last-step logits of the two, teacher-forced on the
+    kernel run's tokens, with DECODE_LOGIT_FAULTS planted.  -> {"kernel_ms",
+    "plain_ms" per token, "launches" of the kernel run}."""
+    import torch
+
+    from neko_tpu_torch.config import ModelConfig
+    from neko_tpu_torch.convert import build_model, init_state_dict
+    from neko_tpu_torch.inference.generator import Generator
+    from neko_tpu_torch.ops import decode_attention as da
+
+    cfg = ModelConfig(**dict(FLAGSHIP, max_patches=0, dropout=0.0))
+    gen = Generator(build_model(cfg, init_state_dict(cfg, SEED), dev), seed=SEED)
+    rng = np.random.RandomState(SEED)
+    B, P, T = DECODE_BENCH["B"], DECODE_BENCH["prompt"], DECODE_BENCH["new"]
+    examples = [{"text": list(rng.randint(1, cfg.text_tokens, size=P))} for _ in range(B)]
+    ts = cfg.token_space
+    kw = dict(start=ts.start("text"), end=ts.end("text"), return_logits=False)
+
+    def per_token(runs=3):
+        gen.generate_batch(examples, max_new_tokens=T, **kw)  # warm-up
+        full, one = [], []
+        for _ in range(runs):
+            t0 = time.perf_counter()
+            gen.generate_batch(examples, max_new_tokens=T, **kw)
+            full.append(time.perf_counter() - t0)
+            t0 = time.perf_counter()
+            gen.generate_batch(examples, max_new_tokens=1, **kw)
+            one.append(time.perf_counter() - t0)
+        return (float(np.median(full)) - float(np.median(one))) / (T - 1) * 1e3
+
+    da.decode_cache_attention.launches = 0
+    (tokens,) = gen.generate_batch(examples, max_new_tokens=T, **kw)
+    launches = da.decode_cache_attention.launches
+    print(f"generate_batch B={B}, {P}-token prompts, {T} new tokens: decode kernel launches "
+          f"{launches} ({T - 1} decode steps x {cfg.layers} layers)")
+    _require(launches == (T - 1) * cfg.layers, f"decode launches {launches}")
+    with decode_attention_through(plain_decode_attention):
+        p1 = per_token()
+    k1, k2 = per_token(), per_token()
+    with decode_attention_through(plain_decode_attention):
+        p2 = per_token()
+    kernel_ms, plain_ms = (k1 + k2) / 2, (p1 + p2) / 2
+    print(f"decode per token at B={B} (generate_batch, host clock, median of 3 runs less the "
+          f"1-token run, in turns): kernel {k1:.3f} / {k2:.3f} ms, plain {p1:.3f} / {p2:.3f} "
+          f"ms ({card})")
+
+    V = cfg.vocab_size
+    got = _teacher_forced_logits(gen, examples, tokens)[:, :V]
+    with decode_attention_through(plain_decode_attention):
+        want = _teacher_forced_logits(gen, examples, tokens)[:, :V]
+    err = (got - want).abs().max().item()
+    print(f"last-step logits after {T - 1} decode steps, kernel vs plain decode attention: "
+          f"max abs err {err:.3e} (tolerance {DECODE_LOGIT_TOL:g}; logit std "
+          f"{want.std().item():.3f})")
+    fault_err = {}
+    for f in DECODE_LOGIT_FAULTS:
+        with decode_attention_through(lambda *a, f=f: plain_decode_attention(*a, fault=f)):
+            bad = _teacher_forced_logits(gen, examples, tokens)[:, :V]
+        fault_err[f] = (bad - want).abs().max().item()
+        print(f"control '{f}': logits max abs err {fault_err[f]:.3e}")
+    _require(torch.isfinite(got).all(), "decode logits not finite")
+    _require(err <= DECODE_LOGIT_TOL, f"decode logits disagree: {err}")
+    blind = [f for f in DECODE_LOGIT_FAULTS if not fault_err[f] > DECODE_LOGIT_TOL]
+    _require(not blind, f"the decode logits check cannot tell these planted faults: {blind}")
+    return {"kernel_ms": kernel_ms, "plain_ms": plain_ms, "launches": launches}
+
+
+# ------------------------------------------------------------- loss head
+def loss_kernel_vs_plain(card: str, dev="cuda") -> dict:
+    """Phase 12.  -> {"err", "launches" (checks), and the JSON timing fields
+    at the first chunk}."""
+    import torch
+    import torch.nn.functional as F
+
+    from neko_tpu_torch import bench
+    from neko_tpu_torch.ops import loss_kernel as lk
+
+    cfg = bench.model_config("flagship")
+    V, valid, D = cfg.padded_vocab_size, cfg.vocab_size, cfg.embed_dim
+    budget = bench.tgt_budget(TRAIN["B"], cfg)
+    chunks = [min(4096, budget - i) for i in range(0, budget, 4096)]  # the loss's chunking
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    W = (torch.randn(V, D, device=dev, generator=g) * 0.02).bfloat16()
+    lk.fused_logz_tl.launches = 0
+    res, worst = {}, 0.0
+    for n in chunks:
+        x = torch.randn(n, D, device=dev, generator=g).bfloat16()
+        t = torch.randint(0, valid, (n,), device=dev, generator=g)
+        logz, tl = lk.fused_logz_tl(x, t, W, valid)
+        want_logz, want_tl = lk.fused_logz_tl_reference(x, t, W, valid)
+        torch.cuda.synchronize()
+        _require(torch.isfinite(logz).all() and torch.isfinite(tl).all(), "loss kernel not finite")
+        errs = [_excess(logz, want_logz, LOSS_TOL), _excess(tl, want_tl, LOSS_TOL)]
+        worst = max(worst, *(e for e, _ in errs))
+        print(f"loss head [{n}, {D}] x {V} (valid {valid}) bf16: logz, target logit max abs err "
+              f"{errs[0][0]:.3e}, {errs[1][0]:.3e} vs the plain version in fp32 (tolerance "
+              f"{LOSS_TOL[0]:g} + {LOSS_TOL[1]:g}*|plain|)")
+        _require(all(x <= 0 for _, x in errs), f"loss kernel disagrees at {n} rows")
+        faults = dict(zip(LOSS_FAULTS, (lk.fused_logz_tl_reference(x, t, W, None),
+                                        lk.fused_logz_tl_reference(x, t + 1, W, valid))))
+        for f, (bad_logz, bad_tl) in faults.items():
+            x1 = max(_excess(bad_logz, want_logz, LOSS_TOL)[1], _excess(bad_tl, want_tl, LOSS_TOL)[1])
+            print(f"  control '{f}': excess over tolerance {x1:.3e}")
+            _require(x1 > 0, f"the loss check cannot tell '{f}'")
+        if "ms" not in res:  # times at the first (4096-row) chunk, in turns
+            def library():
+                logits = F.linear(x, W).float()
+                return torch.logsumexp(logits, -1), logits.gather(1, t[:, None])[:, 0]
+
+            run_k = lambda: lk.fused_logz_tl(x, t, W, valid)  # noqa: E731
+            run_p = lambda: lk.fused_logz_tl_reference(x, t, W, valid)  # noqa: E731
+            p1, k1, k2, p2 = (_time_ms(f, 10) for f in (run_p, run_k, run_k, run_p))
+            lib = _time_ms(library, 10)
+            bound = _bound(2 * n * D * V, (n * D + V * D) * 2 + n * 4 + 2 * n * 4)
+            print(f"loss head [{n}, {D}] x {V}: kernel {k1:.4f} / {k2:.4f} ms, plain (fp32) "
+                  f"{p1:.4f} / {p2:.4f} ms, library (F.linear bf16 + logsumexp + gather) "
+                  f"{lib:.4f} ms, bound {bound[0]:.4f} ms ({bound[1]}) ({card})")
+            res.update(ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2, bound_ms=bound[0],
+                       bound_by=bound[1], library_ms=lib)
+    res["err"], res["launches"] = worst, lk.fused_logz_tl.launches
+    return res
+
+
+# ----------------------------------------------------------- fused AdamW
+def _adamw_args(ctx, state, max_norm, fault=None):
+    """(params, grads, scale, kwargs) of `fused_adamw_apply` for the next
+    update of a FusedAdamW state, with one of ADAMW_FAULTS planted."""
+    import torch
+
+    from neko_tpu_torch.ops import fused_adamw as fa
+
+    opt, oc = state.optimizer, ctx.opt_cfg
+    params = list(state.model.parameters())
+    grads = [p.grad for p in params]
+    bc1, bc2 = fa.bias_corrections(opt.count, oc.beta_1, oc.beta_2)
+    if fault == "bias correction dropped":
+        bc1 = bc2 = 1.0
+    scale = fa.clip_scale_from_norm(fa.global_norm(grads), max_norm)
+    if fault == "clip scale ignored":
+        scale = torch.ones_like(scale)
+    kw = dict(lr=ctx.schedule(opt.count), b1=oc.beta_1, b2=oc.beta_2, eps=oc.adam_eps,
+              wd=oc.weight_decay, bc1=bc1, bc2=bc2)
+    return params, grads, scale, kw
+
+
+def fused_adamw_check(card: str, dev="cuda") -> dict:
+    """Phase 13.  -> {"err" (largest relative error), "check_launches",
+    "launches" of the timed fused train steps, and the JSON timing fields}."""
+    import torch
+
+    from neko_tpu_torch import bench
+    from neko_tpu_torch.convert import init_state_dict
+    from neko_tpu_torch.ops import fused_adamw as fa
+    from neko_tpu_torch.training.train_state import OptimizerConfig, TrainContext
+
+    cfg, ctx, state, batch, B = bench.setup("flagship", dev, SEED, fused_adamw=True)
+    bench.time_steps(ctx, state, batch, 2)       # moments after two updates
+    ctx.loss_and_grads(state, batch)              # the gradients of a real step
+    params = list(state.model.parameters())
+    n_params = sum(p.numel() for p in params)
+    norm = fa.global_norm([p.grad for p in params]).item()
+    max_norm = min(ctx.opt_cfg.grad_norm_clip, norm / 2)  # below the norm: the clip acts
+    mu, nu = state.optimizer.fused_state()[1:]
+    print(f"fused AdamW on the flagship tree: {len(params)} tensors, {n_params} parameters, "
+          f"gradient norm {norm:.4f} (max_norm {max_norm:.4f}), count {state.optimizer.count}")
+
+    def run(apply, fault=None):
+        ps, grads, scale, kw = _adamw_args(ctx, state, max_norm, fault)
+        ps = [p.detach().clone() for p in ps]
+        m, v = [t.clone() for t in mu], [t.clone() for t in nu]
+        apply(ps, grads, m, v, scale, **kw)
+        return ps + m + v
+
+    def rel_err(got, want):
+        return max(((a - b).abs() / b.abs().clamp(min=1e-30)).max().item()
+                   for a, b in zip(got, want))
+
+    fa.fused_adamw_apply.launches = 0
+    got = run(fa.fused_adamw_apply)
+    want = run(fa.fused_adamw_apply_reference)
+    torch.cuda.synchronize()
+    err = rel_err(got, want)
+    abs_err = max((a - b).abs().max().item() for a, b in zip(got, want))
+    unequal = sum(int((a != b).sum().item()) for a, b in zip(got, want))
+    print(f"fused AdamW kernel vs plain: largest relative error of params, mu, nu {err:.3e} "
+          f"(tolerance {ADAMW_RTOL:g}), absolute {abs_err:.3e}; {unequal} of {3 * n_params} "
+          f"values not bit-equal")
+    _require(all(torch.isfinite(t).all() for t in got), "fused AdamW output not finite")
+    _require(err <= ADAMW_RTOL, f"fused AdamW kernel disagrees: {err}")
+    for f in ADAMW_FAULTS:
+        bad = run(fa.fused_adamw_apply_reference, f)
+        e = rel_err(bad, want)
+        print(f"control '{f}': largest relative error {e:.3e}")
+        _require(e > ADAMW_RTOL, f"the AdamW check cannot tell '{f}'")
+        del bad
+    del got, want
+
+    # times, in turns; the library yardstick is torch's fused AdamW (no clip)
+    # on a copy of the tree with the same gradients
+    ps, grads, scale, kw = _adamw_args(ctx, state, max_norm)
+    ps = [p.detach().clone() for p in ps]
+    m, v = [t.clone() for t in mu], [t.clone() for t in nu]
+    run_k = lambda: fa.fused_adamw_apply(ps, grads, m, v, scale, **kw)  # noqa: E731
+    run_p = lambda: fa.fused_adamw_apply_reference(ps, grads, m, v, scale, **kw)  # noqa: E731
+    p1, k1, k2, p2 = (_time_ms(f, 10) for f in (run_p, run_k, run_k, run_p))
+    lib_params = [torch.nn.Parameter(p.detach().clone()) for p in params]
+    for lp, p in zip(lib_params, params):
+        lp.grad = p.grad.clone()
+    lib_opt = torch.optim.AdamW(lib_params, lr=kw["lr"], betas=(kw["b1"], kw["b2"]),
+                                eps=kw["eps"], weight_decay=kw["wd"], fused=True)
+    lib = _time_ms(lib_opt.step, 10)
+    bound = _bound(20 * n_params, 28 * n_params)
+    print(f"fused AdamW over {n_params} parameters: kernel {k1:.4f} / {k2:.4f} ms, plain "
+          f"{p1:.4f} / {p2:.4f} ms, library (torch.optim.AdamW(fused=True), no clip) "
+          f"{lib:.4f} ms, bound {bound[0]:.4f} ms ({bound[1]}) ({card})")
+    res = {"ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2, "bound_ms": bound[0],
+           "bound_by": bound[1], "library_ms": lib, "err": abs_err, "rel_err": err,
+           "check_launches": fa.fused_adamw_apply.launches}
+    del ps, grads, m, v, run_k, run_p, lib_params, lib_opt
+
+    # the optimizer half alone, both routes (CUDA events around apply_gradients)
+    fused_opt_ms = bench.optimizer_ms(ctx, state, batch)
+    cfg_d, ctx_d, state_d, _, _ = bench.setup("flagship", dev, SEED)
+    bench.time_steps(ctx_d, state_d, batch, 2)  # AdamW makes its state at its first step
+    default_opt_ms = bench.optimizer_ms(ctx_d, state_d, batch)
+    del state_d
+    print(f"optimizer half of the flagship step (norm + kernel / clip pass + torch AdamW): "
+          f"fused {fused_opt_ms:.4f} ms, default {default_opt_ms:.4f} ms ({card})")
+    res.update(optimizer_ms=fused_opt_ms, default_optimizer_ms=default_opt_ms)
+
+    # the flagship train step with the fused optimizer
+    torch.cuda.reset_peak_memory_stats()
+    fa.fused_adamw_apply.launches = 0
+    steps = 5
+    dt, losses = bench.time_steps(ctx, state, batch, steps)
+    res["launches"] = fa.fused_adamw_apply.launches
+    tokens = B * cfg.context_len
+    fpt = bench.train_flops_per_token(cfg, bench.tgt_budget(B, cfg) / tokens)
+    tps = tokens * steps / dt
+    peak = bench.PEAK_FLOPS.get(torch.cuda.get_device_name(0))
+    print(f"flagship train step with fused_adamw: {dt * 1e3 / steps:.3f} ms/step, {tps:.1f} "
+          f"tokens/s, MFU {tps * fpt / peak if peak else float('nan'):.4f}, peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB; fused AdamW launches "
+          f"{res['launches']} over {steps} steps ({card})")
+    _require(all(np.isfinite(losses)), f"non-finite loss: {losses}")
+    _require(res["launches"] == steps, f"the steps did not run the fused AdamW kernel once each")
+    del state
+    torch.cuda.empty_cache()
+
+    # three steps on one batch at lr 1e-3: the fused route against the default
+    sd = init_state_dict(cfg, SEED)
+    opt = dict(learning_rate=1e-3, init_lr=1e-3, warmup_steps=1, disable_cosine_decay=True)
+
+    def three(fused):
+        """-> (losses, the whole tree's update as one fp32 vector)."""
+        c = TrainContext(cfg, OptimizerConfig(fused_adamw=fused, **opt), device=dev, seed=SEED)
+        st = c.init_state({k: t.clone() for k, t in sd.items()})
+        losses = [c.train_step(st, batch)[1].item() for _ in range(3)]
+        return losses, torch.cat([(p.detach() - sd[n].to(dev)).flatten()
+                                  for n, p in st.model.named_parameters()])
+
+    def against(run, want):
+        (lf, uf), (ld, ud) = run, want
+        return max(abs(a - b) for a, b in zip(lf, ld)), ((uf - ud).norm() / ud.norm()).item()
+
+    default, fused = three(False), three(True)
+    dloss, gap = against(fused, default)
+    noise = against(three(False), default)
+    bias_corrections = fa.bias_corrections
+    fa.bias_corrections = lambda count, b1, b2: (1.0, 1.0)  # the planted fault
+    try:
+        fault = against(three(True), default)
+    finally:
+        fa.bias_corrections = bias_corrections
+    print(f"three steps at lr 1e-3, fused vs default AdamW route: losses {fused[0]} vs "
+          f"{default[0]} (largest diff {dloss:.3e}, tolerance {FUSED_STEP_LOSS_TOL:g}); relative "
+          f"L2 error of the tree's update {gap:.3e} (tolerance {FUSED_STEP_UPDATE_TOL:g}); the "
+          f"default route against itself {noise[0]:.3e}, {noise[1]:.3e}; control 'bias "
+          f"correction dropped' {fault[0]:.3e}, {fault[1]:.3e}")
+    _require(dloss <= FUSED_STEP_LOSS_TOL and gap <= FUSED_STEP_UPDATE_TOL,
+             f"the fused route disagrees with the default route: {dloss}, {gap}")
+    _require(fault[0] > FUSED_STEP_LOSS_TOL and fault[1] > FUSED_STEP_UPDATE_TOL,
+             f"the route check cannot tell 'bias correction dropped': {fault}")
+    del default, fused
+
+    c = TrainContext(cfg, OptimizerConfig(fused_adamw=True, **opt), device=dev, seed=SEED)
+    st = c.init_state()
+    _, curve = bench.time_steps(c, st, batch, 20)
+    print("fused_adamw: 20 steps on one batch at lr 1e-3: loss "
+          + ", ".join(f"{x:.4f}" for x in curve[::4]) + f", ..., {curve[-1]:.4f}")
+    _require(all(np.isfinite(curve)) and curve[-1] < curve[0] - 1.0,
+             f"the loss did not fall with fused_adamw: {curve}")
+    return res
+
+
 def main() -> int:
     import torch
 
@@ -1637,7 +2172,7 @@ def main() -> int:
     kernel_vs_plain(8, 6, 1024, 128, "float32", starts=[0] * 7 + [100],
                     ends=[1024, 700, 1, 1024, 513, 1, 1024, 1024], timed=False)
 
-    serve_launches, gen, examples = serve(card)
+    serve_launches, decode_launches, gen, examples = serve(card)
     prefill_check(gen, examples)
     del gen
 
@@ -1648,6 +2183,10 @@ def main() -> int:
     long_path = long_train(card)
     ring = ring_kernels_vs_plain(card)
     seq_path = seq_parallel_train(card)
+    decode = decode_kernels_vs_plain(card)
+    decode.update(generate=decode_generate(card))
+    loss_head = loss_kernel_vs_plain(card)
+    adamw = fused_adamw_check(card)
 
     src = "neko_tpu_torch/csrc/"
     tpu = "neko_tpu/ops/attention_kernel.py"
@@ -1688,6 +2227,26 @@ def main() -> int:
          "diagonal_pair": ring["times"]["diagonal"][key]}
         for name, line, key in (("ring_partial_fwd", 102, "fwd"), ("ring_partial_dq", 158, "dq"),
                                 ("ring_partial_dkv", 208, "dkv"))
+    ] + [
+        # decode timed at B=8, H=24, S=1024, hd=32 bf16 on a full cache; launches
+        # are the serving run's (layers x decode steps)
+        {"name": "decode_cache_attention", "route": "cuda", "source": src + "decode_attention.cu",
+         "replaces": "neko_tpu/ops/decode_attention.py:80", "launches": decode_launches,
+         "check_launches": decode["check_launches"] + decode["generate"]["launches"],
+         "max_abs_err": decode["err"], **decode["times"], "b1": decode["times_b1"],
+         "generate_per_token_ms": {k: decode["generate"][k] for k in ("kernel_ms", "plain_ms")}},
+        # the loss head at the first [4096, 768] chunk of the flagship loss; the
+        # port's loss never dispatches it (neither does neko_tpu's)
+        {"name": "fused_logz_tl", "route": "cuda", "source": src + "fused_logz_tl.cu",
+         "replaces": "neko_tpu/ops/loss_kernel.py:54", "launches": 0,
+         "check_launches": loss_head["launches"], "max_abs_err": loss_head["err"],
+         **{k: loss_head[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}},
+        # AdamW over the flagship tree; launches are the fused train steps'
+        {"name": "fused_adamw", "route": "cuda", "source": src + "fused_adamw.cu",
+         "replaces": "neko_tpu/ops/fused_adamw.py:101", "launches": adamw["launches"],
+         "check_launches": adamw["check_launches"], "max_abs_err": adamw["err"],
+         **{k: adamw[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                                  "optimizer_ms", "default_optimizer_ms")}},
     ]
     # kernel #5 writes the masks the checks hand to the plain attention, at
     # every S (so it is #10's counterpart too); the train steps' kernels draw

@@ -3,6 +3,7 @@
     python -m neko_tpu_torch.bench [--config flagship|medium|long|long4k] [--steps N]
     python -m neko_tpu_torch.bench --profile   # where a step's time goes
     python -m neko_tpu_torch.bench --config long4k --mesh_seq_axis 4   # a ring step
+    python -m neko_tpu_torch.bench --fused_adamw   # the optimizer as kernel #16
 
 The counterpart of the root bench.py's device-step measurement: the
 jit-free eager train step (`TrainContext.train_step`) on the flagship mixed
@@ -26,6 +27,9 @@ attention over them (ops/ring_kernel.py); `--profile` then counts the ring
 kernels as attention and the torch passes between them as "ring merge".  `setup`
 and `model_config` also take a shape dict of the CONFIGS form, for a
 configuration the root bench does not have (chip_smoke.py's k = 8192 step).
+`--fused_adamw` (the JAX train CLI's flag) runs the optimizer half as
+`FusedAdamW`: the global norm and one launch of the fused AdamW kernel,
+in place of the clip pass and torch's AdamW.
 
 Not here yet: the root bench's `end_to_end` (it waits for the port of
 data/pipeline.py) and its measured-reference keys (their JSON files describe
@@ -133,11 +137,12 @@ def model_config(name):
     )
 
 
-def setup(name="flagship", device="cuda", seed: int = 0, mesh_seq_axis: int = 1):
+def setup(name="flagship", device="cuda", seed: int = 0, mesh_seq_axis: int = 1,
+          fused_adamw: bool = False):
     """-> (cfg, TrainContext, TrainState, batch on `device`, batch size) for
     a CONFIGS name or a shape dict.  The optimizer settings are the root
-    bench's.  `mesh_seq_axis` > 1: the steps run under a mesh with that many
-    sequence shards on the device."""
+    bench's, with `fused_adamw` as given.  `mesh_seq_axis` > 1: the steps run
+    under a mesh with that many sequence shards on the device."""
     from neko_tpu_torch.data.batch import to_device_batch
     from neko_tpu_torch.data.packing import SequencePacker
     from neko_tpu_torch.parallel.mesh import create_mesh
@@ -146,7 +151,7 @@ def setup(name="flagship", device="cuda", seed: int = 0, mesh_seq_axis: int = 1)
     cfg = model_config(name)
     batch_size = (CONFIGS[name] if isinstance(name, str) else name)["batch_per_chip"]
     opt = OptimizerConfig(learning_rate=1e-4, init_lr=1e-7, warmup_steps=100,
-                          training_steps=10_000)
+                          training_steps=10_000, fused_adamw=fused_adamw)
     mesh = create_mesh(data=1, seq=mesh_seq_axis, seq_group=None) if mesh_seq_axis > 1 else None
     ctx = TrainContext(cfg, opt, device=device, seed=seed, mesh=mesh)
     arrays = SequencePacker(cfg).pack_batch(
@@ -178,7 +183,8 @@ def time_steps(ctx, state, batch, n: int):
 
 
 def optimizer_ms(ctx, state, batch, steps: int = 3) -> float:
-    """Device ms of the optimizer half of a step alone (clip + AdamW), from
+    """Device ms of the optimizer half of a step alone (clip + AdamW, or
+    FusedAdamW's norm + kernel), from
     CUDA events around `apply_gradients` after the gradients are ready: the
     check on the profile's "optimizer" part."""
     import torch
@@ -238,11 +244,12 @@ def profile_breakdown(ctx, state, batch, cfg, steps: int = 3) -> dict:
     device = [e for e in events
               if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
     # the device-side span of a range leaves out its nested ranges' kernels:
-    # AdamW's step is its own range ("Optimizer.step#AdamW.step")
+    # AdamW's step is its own range ("Optimizer.step#AdamW.step"); FusedAdamW
+    # launches every kernel inside its own, so "optimizer" has no span then
     opt_spans = [(e.time_range.start, e.time_range.end) for e in events
                  if e.device_type == DeviceType.CUDA and e.is_user_annotation
                  and (e.name == "optimizer" or e.name.startswith("Optimizer.step#"))]
-    if len(opt_spans) != 2 * steps:
+    if len(opt_spans) != (1 if ctx.opt_cfg.fused_adamw else 2) * steps:
         raise RuntimeError(f"{len(opt_spans)} device-side optimizer ranges in {steps} steps")
     merge_spans = [(e.time_range.start, e.time_range.end) for e in events
                    if e.device_type == DeviceType.CUDA and e.is_user_annotation
@@ -296,6 +303,8 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--mesh_seq_axis", type=int, default=1,
                     help="sequence shards of the mesh: > 1 runs ring attention over them")
+    ap.add_argument("--fused_adamw", action="store_true",
+                    help="the optimizer as one fused AdamW kernel launch (FusedAdamW)")
     ap.add_argument("--profile", action="store_true",
                     help="also print where a step's device time goes")
     args = ap.parse_args(argv)
@@ -308,7 +317,7 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     cfg, ctx, state, batch, batch_size = setup(args.config, "cuda", args.seed,
-                                               args.mesh_seq_axis)
+                                               args.mesh_seq_axis, args.fused_adamw)
     time_steps(ctx, state, batch, args.warmup)
     torch.cuda.reset_peak_memory_stats()
     dt, losses = time_steps(ctx, state, batch, args.steps)
@@ -329,6 +338,7 @@ def main(argv=None) -> int:
         "device": name,
         "card": card(),
         "mesh_seq_axis": args.mesh_seq_axis,
+        "fused_adamw": args.fused_adamw,
     }
     if args.profile:
         out["profile_ms_per_step"] = profile_breakdown(ctx, state, batch, cfg)

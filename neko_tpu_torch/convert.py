@@ -77,6 +77,25 @@ def jax_grads_to_state_dict(grads_np: Dict, cfg: ModelConfig) -> Dict[str, torch
     return jax_params_to_state_dict(grads_np, cfg)
 
 
+def jax_fused_adamw_state_to_torch(opt_state, cfg: ModelConfig) -> Dict:
+    """neko_tpu's `FusedAdamWState` (count, per-leaf mu and nu trees; jax or
+    numpy arrays) -> {"count": int, "mu": ..., "nu": ...} with the moments
+    keyed and laid out as the state dict (the params mapping, leaf for leaf),
+    as `TrainContext.init_state(fused_adamw_state=...)` takes it."""
+    return {"count": int(np.asarray(opt_state.count)),
+            "mu": jax_params_to_state_dict(opt_state.mu, cfg),
+            "nu": jax_params_to_state_dict(opt_state.nu, cfg)}
+
+
+def torch_fused_adamw_state_to_jax(state: Dict, cfg: ModelConfig) -> Dict:
+    """The inverse of `jax_fused_adamw_state_to_torch`: -> {"count": int32,
+    "mu": tree, "nu": tree} of numpy arrays, the fields of neko_tpu's
+    `FusedAdamWState`."""
+    return {"count": np.int32(state["count"]),
+            "mu": state_dict_to_jax_params(state["mu"], cfg),
+            "nu": state_dict_to_jax_params(state["nu"], cfg)}
+
+
 def state_dict_to_jax_params(sd: Dict[str, torch.Tensor], cfg: ModelConfig) -> Dict:
     """NekoModel state_dict -> flax params (nested dict of numpy arrays),
     the inverse of `jax_params_to_state_dict`."""

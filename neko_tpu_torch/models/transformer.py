@@ -22,8 +22,14 @@ neko_tpu/models/transformer.py).
   values [B, H, S, hd] in the activation dtype plus the bool [B, S] key mask.
 * `mode='decode'`: one token per row written at `decode_index` (the caller
   passes `pos % context_len` for the ring), then attention of that token over
-  the cached keys.  The cache tensors are updated IN PLACE: unlike the JAX
-  package's functional cache, a decode step mutates the cache it is given.
+  the cached keys through the decode kernel (#14, `ops/decode_attention.py`).
+  The cache tensors are updated IN PLACE: unlike the JAX package's
+  functional cache, a decode step mutates the cache it is given.  The
+  kernel takes the valid cache rows as one window [start, end) per row,
+  computed once a step from the cache mask with the new row set: the
+  generator's mask is always one contiguous run ([0, pos] for right-padded
+  prompts; every row once the ring has wrapped, and attention over the
+  cache does not depend on the order of its rows).
 
 Mixed precision by explicit casts, as flax does it (not torch.autocast,
 whose LayerNorm returns fp32): each Linear casts its input and its fp32
@@ -47,6 +53,7 @@ from torch import nn
 
 from neko_tpu_torch.config import ModelConfig
 from neko_tpu_torch.ops import attention as attn_ops
+from neko_tpu_torch.ops.attention_kernel import mask_bounds_from_key_mask
 from neko_tpu_torch.ops.dropout import Dropout
 from neko_tpu_torch.ops.gelu import gelu_erf
 
@@ -117,6 +124,7 @@ class Attention(nn.Module):
         mode: str,
         cache: Optional[KVCache] = None,
         decode_index: Optional[torch.Tensor] = None,
+        decode_bounds=None,
         generator: Optional[torch.Generator] = None,
     ):
         cfg = self.cfg
@@ -146,8 +154,8 @@ class Attention(nn.Module):
             cache["key"][rows, :, decode_index] = k[:, :, 0]
             cache["value"][rows, :, decode_index] = v[:, :, 0]
             cache["mask"][rows, decode_index] = True
-            out = attn_ops.cache_attention(
-                q, cache["key"], cache["value"], cache["mask"])
+            out = attn_ops.decode_attention(
+                q[:, :, 0], cache["key"], cache["value"], *decode_bounds)[:, :, None]
         else:
             raise NotImplementedError(f"attention mode {mode!r} is not yet ported")
         out2d = out.transpose(1, 2).reshape(B, S, D)
@@ -185,11 +193,11 @@ class Block(nn.Module):
         self.mlp = MLP(cfg)
 
     def forward(self, x, input_mask, *, mode, cache=None, decode_index=None,
-                generator=None):
+                decode_bounds=None, generator=None):
         dtype = self.cfg.activation_dtype
         a, cache = self.attn(
             layer_norm(self.ln_1, x, dtype), input_mask, mode=mode, cache=cache,
-            decode_index=decode_index, generator=generator,
+            decode_index=decode_index, decode_bounds=decode_bounds, generator=generator,
         )
         x = x + a
         x = x + self.mlp(layer_norm(self.ln_2, x, dtype), generator)
@@ -222,12 +230,19 @@ class Transformer(nn.Module):
             raise ValueError("decode mode needs the caches prefill returned")
         if mode == "train":
             _train_not_ported(self.cfg, x.shape[1])
+        bounds = None
+        if mode == "decode":
+            # the layers' masks are equal; the window includes the row this
+            # step writes
+            mask = caches[0]["mask"].clone()
+            mask[torch.arange(x.shape[0], device=x.device), decode_index] = True
+            bounds = mask_bounds_from_key_mask(mask)
         out_caches = []
         for i, block in enumerate(self.h):
             x, c = block(
                 x, input_mask, mode=mode,
                 cache=None if caches is None else caches[i],
-                decode_index=decode_index, generator=generator,
+                decode_index=decode_index, decode_bounds=bounds, generator=generator,
             )
             out_caches.append(c)
         hidden = layer_norm(self.ln_f, x, self.cfg.activation_dtype)

@@ -6,8 +6,11 @@
   fp32 keep/scale matrix, because this is the plain oracle the tests hold
   the kernels against with the same mask.  The port's model does not call
   it.
-* `cache_attention`: the same plain body for the decode step, over the KV
-  cache's key mask.
+* `decode_attention`: the decode-step dispatch: one query per (row, head)
+  over the KV cache rows [start, end), through `decode_cache_attention`
+  (kernel #14 on a CUDA tensor, its plain version on a CPU one), the only
+  decode path of the port's model.  The JAX package's decode step runs XLA
+  einsums over a mask bias and never its kernel.
 * `prefill_attention`: the prefill dispatch (the JAX package's
   `tpu_flash_attention` -> `_kernel_local`), the only prefill path of the
   port's model.  The key mask becomes per-row [start, end) bounds and goes to
@@ -37,6 +40,7 @@ import torch
 
 from neko_tpu_torch.ops import attention_kernel as whk
 from neko_tpu_torch.ops import blocked_attention, ring_kernel
+from neko_tpu_torch.ops.decode_attention import decode_cache_attention
 from neko_tpu_torch.parallel.mesh import active_mesh, seq_axis_size
 
 _BIG_NEG = -1e9
@@ -55,12 +59,10 @@ def xla_attention(q, k, v, key_mask, keep_scale=None):
     return whk.masked_attention(q, k, v, allowed, fill=_BIG_NEG, keep_scale=keep_scale)
 
 
-def cache_attention(q, key, value, cache_mask):
-    """Decode attention of q [B, H, 1, hd] over the cache [B, H, S, hd] at
-    the valid entries of cache_mask bool [B, S] (the XLA einsums of the JAX
-    package's decode mode)."""
-    return whk.masked_attention(
-        q, key, value, cache_mask[:, None, None, :], fill=_BIG_NEG)
+def decode_attention(q, key, value, start, end):
+    """Decode attention of q [B, H, hd] over the cache [B, H, S, hd] at the
+    rows [start, end) (int32 [B] each) -> [B, H, hd]."""
+    return decode_cache_attention(q, key, value, start, end)
 
 
 def prefill_attention(q, k, v, key_mask):

@@ -16,10 +16,14 @@ logits outlive its own forward or backward.
   `jax.checkpoint`; the gradient is the same).
 
 `weight` is the torch head weight [V, D] (the JAX kernel is its transpose).
-The head matmuls stay `torch.matmul` in the hidden dtype: the JAX package
-computes them in XLA, outside any Pallas kernel.  Padded vocab columns
-(>= `valid_vocab`) are excluded from the partition function with a finite
--1e30 fill.
+The head matmuls stay `torch.matmul` (cuBLAS) in the hidden dtype: the JAX
+package computes them in XLA, outside any Pallas kernel.  So does the
+forward's (logz, target logit), the JAX package's `_logz_tl`: logits, then
+torch's logsumexp and gather.  The fused loss-head kernel #15
+(`ops/loss_kernel.py`, no [C, V] logits) is a check kernel, as its Pallas
+counterpart is in the JAX package, whose loss never dispatches it.  Padded
+vocab columns (>= `valid_vocab`) are excluded from the partition function
+with a finite -1e30 fill.
 """
 
 from __future__ import annotations

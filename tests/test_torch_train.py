@@ -200,7 +200,7 @@ def test_train_mode_refuses_what_is_not_ported():
         with pytest.raises(NotImplementedError):
             model(to_device_batch(arrays, "cpu"), train=True, compute_loss=True, generator=g)
     for bad in (dict(lora_only=True), dict(gradient_accumulation_steps=2),
-                dict(ema_decay=0.999), dict(fused_adamw=True)):
+                dict(ema_decay=0.999)):
         with pytest.raises(NotImplementedError):
             ts.TrainContext(ModelConfig(**base), ts.OptimizerConfig(**bad), device="cpu")
     with pytest.raises(NotImplementedError):
