@@ -12,7 +12,9 @@ loss-target budgets (JAX-free copies of its `build_examples`,
 `patch_budget`, `tgt_budget` and `train_flops_per_token` live here; the root
 bench.py is not imported).  Weights are random, from `--seed`.
 
-Prints one JSON line: metric, value (tokens/s), unit, mfu (against the
+Prints one JSON line: metric (named by `metric_name`, the root bench's
+rule), value (tokens/s), unit, vs_baseline (value over the root bench's
+REFERENCE_TOKENS_PER_SEC_PER_CHIP), mfu (against the
 dense bf16 peak of the card, keyed by its name), flops_per_token (MFLOPs),
 step_ms, peak_mem_gb, and the card's name and power limit as nvidia-smi
 reports them; `--profile` adds `profile_ms_per_step` (device time by part)
@@ -46,6 +48,9 @@ import time
 
 import numpy as np
 
+# the root bench's `vs_baseline` denominator (bench.py:41), tokens/s per chip
+REFERENCE_TOKENS_PER_SEC_PER_CHIP = 25_000.0
+
 # dense bf16 tensor-core peak FLOP/s by torch.cuda.get_device_name
 PEAK_FLOPS = {
     "NVIDIA H100 80GB HBM3": 989e12,   # H100 SXM (NVIDIA data sheet)
@@ -57,6 +62,15 @@ CONFIGS = {
     "long": dict(embed_dim=768, layers=6, heads=24, batch_per_chip=8, context_len=2048),
     "long4k": dict(embed_dim=768, layers=6, heads=24, batch_per_chip=4, context_len=4096),
 }
+
+
+def metric_name(cfg) -> str:
+    """The root bench's metric name (bench.py:274-278): width and depth, and
+    the context length when it is not 1024."""
+    label = f"{cfg.embed_dim}d{cfg.layers}L"
+    if cfg.context_len != 1024:
+        label += f"_k{cfg.context_len}"
+    return f"multimodal_train_tokens_per_sec_per_chip_{label}"
 
 
 def train_flops_per_token(cfg, target_fraction: float) -> float:
@@ -328,9 +342,10 @@ def main(argv=None) -> int:
     fpt = train_flops_per_token(cfg, tgt_budget(batch_size, cfg) / tokens_per_step)
     name = torch.cuda.get_device_name(0)
     out = {
-        "metric": f"multimodal_train_tokens_per_sec_per_chip_{cfg.embed_dim}d{cfg.layers}L",
+        "metric": metric_name(cfg),
         "value": round(tokens_per_sec, 1),
         "unit": "tokens/sec/chip",
+        "vs_baseline": round(tokens_per_sec / REFERENCE_TOKENS_PER_SEC_PER_CHIP, 3),
         "mfu": round(tokens_per_sec * fpt / PEAK_FLOPS[name], 4) if name in PEAK_FLOPS else None,
         "flops_per_token": round(fpt / 1e6, 1),
         "step_ms": round(dt * 1e3 / args.steps, 3),

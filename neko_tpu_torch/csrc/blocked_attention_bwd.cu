@@ -12,24 +12,23 @@
 //
 // The tiles are those of attention_bwd.cuh, shared with the whole-head
 // backward (#2, #4), on (m, l) in place of lse:
-// * #9 is its kv kernel: one block per (32-key tile, head, batch) keeps dk
-//   and dv in registers and loops over the 64-row q tiles from the diagonal
-//   down;
-// * #8 is the same kernel with the fused dq phase: each (q, k) tile's s, p,
+// * #9 is its kv tile: one block per key tile keeps dk and dv in registers
+//   and loops over the q tiles from the diagonal down;
+// * #8 is the same tile with the fused dq phase: each (q, k) tile's s, p,
 //   dp and keep mask are computed once, and ds k is added into a zeroed fp32
 //   dq scratch with atomics (5 tile products where #7 + #9 take 7), which
 //   the wrapper casts into dq.  Hopper blocks run in no order and a full-S
 //   fp32 dk/dv does not fit beside the tiles in shared memory, so the TPU's
 //   dk/dv resident across a sequential grid does not carry over;
-// * #7 is its dq kernel: one block per 64-row q tile owns its dq rows, no
-//   atomics.
+// * #7 is its dq tile: one block per q tile owns its dq rows, no atomics.
 //
 // What bounds it on the H100: at the k = 2048 train shape (B = 8, H = 24,
 // D = 32) the fused backward's 5 products are about 129 GFLOP, 0.13 ms at the
 // 989 TFLOP/s bf16 tensor-core rate; its traffic (q, k, v, do, dq, dk, dv,
-// m, l, delta) about 180 MB.  Like the forward, this version runs on the CUDA
-// cores in fp32 through shared memory, where the score loops' shared loads
-// bound it; tensor cores are later work.
+// m, l, delta) about 180 MB: operations.  In bf16 the products run on the
+// tensor cores (mma.sync) from cp.async-fed bf16 tiles, p and ds stay in
+// registers, and the fused dq goes out as float2 atomics; fp32 runs the
+// CUDA-core tiles.
 //
 // C interface (loaded with ctypes): each entry returns the first failing
 // cudaError_t.

@@ -2,9 +2,14 @@
 //
 // Replaces the TPU Pallas kernel neko_tpu/ops/decode_attention.py::_kernel
 // (#14, via decode_cache_attention): one query per (batch row, head) against
-// the KV cache rows start[b] <= j < end[b], with fp32 scores, an fp32 softmax
-// and the fp32 value sum; one output row in the query's dtype.  The caches
-// are only read (the TPU kernel passes them through identity-aliased).
+// the KV cache rows j with mask[b, j] set, start[b] <= j < end[b], with fp32
+// scores, an fp32 softmax and the fp32 value sum; one output row in the
+// query's dtype.  The caches are only read (the TPU kernel passes them
+// through identity-aliased).  The window [start, end) is the range of work
+// (the first to the last valid row); the mask skips the rows inside it that
+// are not valid, as neko_tpu's decode step masks them (its bias over the
+// whole cache mask), so a cache whose valid rows have holes attends to the
+// valid ones alone.
 //
 // What bounds it on the H100: every valid key row is read once from K and
 // once from V, and each byte meets ~1 FLOP (a dot product and an axpy per
@@ -19,8 +24,9 @@
 // softmax (running max, sum, fp32 accumulator of its slice of hd).  The
 // groups merge by warp shuffles, the warps through shared memory.
 //
-// The fill of a key outside the window is finite (-1e30, never -inf), and a
-// row with no key (start >= end) writes zeros, never NaN.  The key loop visits
+// The fill of a key outside the window or the mask is finite (-1e30, never
+// -inf), and a row with no key (start >= end, or no mask bit set in the
+// window) writes zeros, never NaN.  The key loop visits
 // only [start, end), so a short window costs only its own rows.  One block
 // per (b, h) leaves most SMs idle at B=1 (24 blocks on 132 SMs); splitting the
 // keys over blocks is later work.
@@ -40,6 +46,8 @@ struct DecodeArgs {
   View q, k, v, o;  // q, o: [B, H, hd] (ss unused); k, v: [B, H, S, hd]
   const int* start;
   const int* end;
+  const uint8_t* mask;  // bool [B, S] valid cache rows, row stride mask_sb; null: all
+  long long mask_sb;
   int B, H, S, D, dtype;  // dtype: 0 = float32, 1 = bfloat16
   float sm_scale;
 };
@@ -94,6 +102,7 @@ __global__ void __launch_bounds__(kWarps * 32) decode_attention_kernel(const Dec
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int grp = lane / LPK, sub = lane % LPK;
   const int s0 = max(a.start[b], 0), e0 = min(a.end[b], a.S);
+  const uint8_t* valid = a.mask == nullptr ? nullptr : a.mask + b * a.mask_sb;
 
   float q[VEC];
   Vec<T>::unpack(Vec<T>::load(static_cast<const T*>(a.q.ptr) + b * a.q.sb + h * a.q.sh +
@@ -112,6 +121,8 @@ __global__ void __launch_bounds__(kWarps * 32) decode_attention_kernel(const Dec
   for (int base = s0 + warp * KPW; base < e0; base += STRIDE * kUnroll) {
     uint4 kr[kUnroll], vr[kUnroll];
     bool ok[kUnroll];
+    // the rows of the window are loaded whatever their mask bit, so the
+    // mask's loads overlap the rows' instead of gating them
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) {
       const int j = base + grp + u * STRIDE;
@@ -120,6 +131,10 @@ __global__ void __launch_bounds__(kWarps * 32) decode_attention_kernel(const Dec
         kr[u] = Vec<T>::load(kbase + static_cast<long long>(j) * a.k.ss);
         vr[u] = Vec<T>::load(vbase + static_cast<long long>(j) * a.v.ss);
       }
+    }
+    if (valid != nullptr) {
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) ok[u] = ok[u] && __ldg(valid + base + grp + u * STRIDE);
     }
     float s[kUnroll], tile_max = m;
 #pragma unroll
@@ -195,6 +210,7 @@ template <typename T>
 cudaError_t launch_d(const DecodeArgs& a, cudaStream_t stream) {
   const dim3 grid(a.B * a.H), block(kWarps * 32);
   switch (a.D) {
+    case 16: decode_attention_kernel<T, 16><<<grid, block, 0, stream>>>(a); break;
     case 32: decode_attention_kernel<T, 32><<<grid, block, 0, stream>>>(a); break;
     case 64: decode_attention_kernel<T, 64><<<grid, block, 0, stream>>>(a); break;
     case 128: decode_attention_kernel<T, 128><<<grid, block, 0, stream>>>(a); break;

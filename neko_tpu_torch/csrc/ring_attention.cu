@@ -22,14 +22,14 @@
 // partials of a row over the kv blocks and adds up the gradient partials
 // (neko_tpu_torch/ops/ring_kernel.py), as the JAX package does in XLA.
 //
-// These are the tiles of attention_fwd.cuh and attention_bwd.cuh (64-row q
-// tiles, 32-key tiles, a warp per 8 rows and a lane per key), in their ring
-// mode: global rows and columns in the causal test, the key window and the
-// Philox counter, so the keep byte of (seed, b, h, row, col) is the one the
-// blocked kernels draw at the same S, whichever ring step computes the pair;
-// fp32 outputs; the log-sum-exp row stats of the whole-head backward; and in
-// #13 the block that gets gradients is the visiting one.  Key tiles start at
-// global multiples of 32, so the offsets need no alignment.
+// These are the tiles of attention_fwd.cuh and attention_bwd.cuh in their
+// ring mode: global rows and columns in the causal test, the key window and
+// the Philox counter, so the keep byte of (seed, b, h, row, col) is the one
+// the blocked kernels draw at the same S, whichever ring step computes the
+// pair; fp32 outputs; the log-sum-exp row stats of the whole-head backward;
+// and in #13 the block that gets gradients is the visiting one.  Key tiles
+// start at global multiples of the tile width, so the offsets need no
+// alignment.
 //
 // The TPU kernel is launched for every pair and ends at once on a kv block
 // that lies wholly in the future of the q block.  Here the offsets are host
@@ -38,9 +38,9 @@
 // What bounds them on the H100: a full (past) pair at B = 2, H = 24, S = 2048,
 // hd = 32 is 25.8 GFLOP in #11 (0.026 ms at the 989 TFLOP/s bf16 tensor-core
 // rate) against 32 MB of traffic (q, k, v in bf16, the fp32 acc, m, l: 0.010
-// ms at 3.35 TB/s): operations.  Like the blocked kernels, this version runs
-// on the CUDA cores in fp32 through shared memory, where the score loops'
-// shared loads bound it; tensor cores are later work.
+// ms at 3.35 TB/s): operations.  The forward runs on the CUDA cores in fp32
+// through shared memory; in bf16 the backward pair kernels #12, #13 run
+// their products on the tensor cores (attention_bwd.cuh).
 //
 // Rows that see no key of the pair write acc = 0, m = -1e30, l = 0 and have
 // p = 0 in the backward: nothing is NaN, and merging such a partial changes

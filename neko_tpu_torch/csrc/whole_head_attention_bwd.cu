@@ -19,18 +19,19 @@
 // no atomics (the result is deterministic):
 //   1. delta per row from do and out (the JAX package's blocked backward
 //      also computes it outside its kernel, blocked_attention.py:645-651);
-//   2. dk, dv: attention_bwd.cuh's kv kernel, one block per (32-key tile,
-//      head, batch), looping over the 64-row query tiles at or below the
-//      diagonal;
-//   3. dq: its dq kernel, one block per (64-row query tile, head, batch),
-//      looping over the keys in [start, min(end, row_end)).
+//   2. dk, dv: attention_bwd.cuh's kv tile, one block per key tile, looping
+//      over the query tiles at or below the diagonal;
+//   3. dq: its dq tile, one block per query tile, looping over the keys in
+//      [start, min(end, row_end)).
 // dq, dk and dv are strided views like the inputs, so the train path writes
-// them straight into one [B, S, 3*H*D] gradient buffer.
+// them straight into one [B, S, 3*H*hd] gradient buffer.
 //
 // What bounds it on the H100: the backward recomputes q k^T and do v^T (once
-// in each of kernels 2 and 3) and forms dq, dk, dv: about 3.5x the forward's
-// FLOPs, all on the CUDA cores in fp32 through shared memory, like the
-// forward.  Tensor cores are later work.
+// in each of kernels 2 and 3) and forms dq, dk, dv: 14 * hd FLOPs per
+// visible (row, key) pair, operations-bound at the flagship shape.  In bf16
+// every product runs on the tensor cores (mma.sync, attention_bwd.cuh),
+// with the elementwise work of each score kept in registers; fp32 runs the
+// CUDA-core tiles.
 //
 // C interface (loaded with ctypes): returns the first failing cudaError_t.
 
@@ -41,10 +42,9 @@ namespace {
 constexpr int kDeltaWarps = 8;
 
 // delta[b, h, r] = sum_d do[r, d] * out[r, d]: one warp per row.
-template <typename T, int D>
+template <typename T>
 __global__ void __launch_bounds__(kDeltaWarps * 32)
 attention_bwd_delta_kernel(const AttnArgs a) {
-  constexpr int kDL = D / 32;
   const int lane = threadIdx.x % 32;
   const long long row = static_cast<long long>(blockIdx.x) * kDeltaWarps + threadIdx.x / 32;
   if (row >= static_cast<long long>(a.B) * a.H * a.S) return;
@@ -54,8 +54,7 @@ attention_bwd_delta_kernel(const AttnArgs a) {
   const T* o = head_ptr<T>(a.o, b, h) + r * a.o.ss;
   const T* dout = head_ptr<T>(a.dout, b, h) + r * a.dout.ss;
   float sum = 0.f;
-#pragma unroll
-  for (int t = 0; t < kDL; ++t) sum += to_f32(o[lane + 32 * t]) * to_f32(dout[lane + 32 * t]);
+  for (int d = lane; d < a.D; d += 32) sum += to_f32(o[d]) * to_f32(dout[d]);
   sum = warp_sum(sum);
   if (lane == 0) a.delta[row] = sum;
 }
@@ -64,12 +63,7 @@ template <typename T>
 cudaError_t launch_delta(const AttnArgs& a, cudaStream_t stream) {
   const long long rows = static_cast<long long>(a.B) * a.H * a.S;
   const unsigned grid = static_cast<unsigned>((rows + kDeltaWarps - 1) / kDeltaWarps);
-  switch (a.D) {
-    case 32: attention_bwd_delta_kernel<T, 32><<<grid, kDeltaWarps * 32, 0, stream>>>(a); break;
-    case 64: attention_bwd_delta_kernel<T, 64><<<grid, kDeltaWarps * 32, 0, stream>>>(a); break;
-    case 128: attention_bwd_delta_kernel<T, 128><<<grid, kDeltaWarps * 32, 0, stream>>>(a); break;
-    default: return cudaErrorInvalidValue;
-  }
+  attention_bwd_delta_kernel<T><<<grid, kDeltaWarps * 32, 0, stream>>>(a);
   return cudaGetLastError();
 }
 

@@ -4,8 +4,8 @@ neko_tpu/models/transformer.py).
 * pre-LN blocks: x + attn(ln_1(x)); x + mlp(ln_2(x)); no absolute position
   embedding (positions come from the structured encodings upstream).
 * `mode='train'`: full causal attention over the packed context through the
-  head-packed kernels (whole-head up to S = 1024, blocked above, any S, hd in
-  {32, 64, 128}): q, k and v stay the three column slices of the one
+  head-packed kernels (whole-head up to S = 1024, blocked above, any S, any
+  hd <= 128): q, k and v stay the three column slices of the one
   [B, S, 3D] `c_attn` output (no transpose, one gradient buffer), with
   attention, residual and MLP dropout when a `generator` (the step's
   `torch.Generator`) is given.  Under an active mesh whose 'seq' axis has
@@ -25,11 +25,11 @@ neko_tpu/models/transformer.py).
   the cached keys through the decode kernel (#14, `ops/decode_attention.py`).
   The cache tensors are updated IN PLACE: unlike the JAX package's
   functional cache, a decode step mutates the cache it is given.  The
-  kernel takes the valid cache rows as one window [start, end) per row,
-  computed once a step from the cache mask with the new row set: the
-  generator's mask is always one contiguous run ([0, pos] for right-padded
-  prompts; every row once the ring has wrapped, and attention over the
-  cache does not depend on the order of its rows).
+  kernel takes the cache mask (with the new row set) and, as its range of
+  work, one window [start, end) per row from the first to the last valid
+  row, computed once a step; rows inside the window that the mask clears
+  are skipped, so a mask with holes is attended as the JAX package attends
+  it (attention over the cache does not depend on the order of its rows).
 
 Mixed precision by explicit casts, as flax does it (not torch.autocast,
 whose LayerNorm returns fp32): each Linear casts its input and its fp32
@@ -76,7 +76,7 @@ def _train_not_ported(cfg: ModelConfig, S: int) -> None:
         "stochastic_depth > 0": cfg.stochastic_depth > 0,
         "remat": cfg.remat,
         f"training at S={S}, hd={cfg.head_dim} (the head-packed kernels take "
-        "hd in 32/64/128)":
+        "hd <= 128)":
             not attn_ops.packed_ok(S, cfg.head_dim, cfg.heads),
     }
     bad = [name for name, on in unported.items() if on]
@@ -155,7 +155,8 @@ class Attention(nn.Module):
             cache["value"][rows, :, decode_index] = v[:, :, 0]
             cache["mask"][rows, decode_index] = True
             out = attn_ops.decode_attention(
-                q[:, :, 0], cache["key"], cache["value"], *decode_bounds)[:, :, None]
+                q[:, :, 0], cache["key"], cache["value"], *decode_bounds,
+                cache["mask"])[:, :, None]
         else:
             raise NotImplementedError(f"attention mode {mode!r} is not yet ported")
         out2d = out.transpose(1, 2).reshape(B, S, D)

@@ -7,10 +7,11 @@
   the kernels against with the same mask.  The port's model does not call
   it.
 * `decode_attention`: the decode-step dispatch: one query per (row, head)
-  over the KV cache rows [start, end), through `decode_cache_attention`
-  (kernel #14 on a CUDA tensor, its plain version on a CPU one), the only
-  decode path of the port's model.  The JAX package's decode step runs XLA
-  einsums over a mask bias and never its kernel.
+  over the valid KV cache rows (the cache mask) inside the window
+  [start, end), through `decode_cache_attention` (kernel #14 on a CUDA
+  tensor, its plain version on a CPU one), the only decode path of the
+  port's model.  The JAX package's decode step runs XLA einsums over a mask
+  bias and never its kernel.
 * `prefill_attention`: the prefill dispatch (the JAX package's
   `tpu_flash_attention` -> `_kernel_local`), the only prefill path of the
   port's model.  The key mask becomes per-row [start, end) bounds and goes to
@@ -24,14 +25,15 @@
   output, with attention dropout.  As `_kernel_local_bsd` dispatches, S <=
   1024 goes to the whole-head kernels (#1-#4) and longer contexts to the
   blocked ones (#6-#9, `blocked_attention.py`).  `packed_ok` says which
-  shapes the port trains: any S, hd in {32, 64, 128}.
+  shapes the port trains: any S, any hd <= 128 (the kernels' wrappers pad
+  hd to a compiled width), as the JAX package's whole-head kernel takes.
 * `sequence_parallel_attention_qkv` / `_bsd`: the train path under a mesh
   whose 'seq' axis has more than one shard (the JAX package's
   `sequence_parallel_attention_bsd`): ring attention with the per-pair
   kernels #11-#13 (`ring_kernel.py`).  The global key bounds are computed
   once from the key mask; nothing mask-shaped travels around the ring.
   `seq_shards()` reads the active mesh and `packed_ring_ok` says which
-  shapes the ring takes: S a multiple of the axis size, hd in {32, 64, 128}.
+  shapes the ring takes: S a multiple of the axis size, hd <= 128.
 """
 
 from __future__ import annotations
@@ -59,10 +61,11 @@ def xla_attention(q, k, v, key_mask, keep_scale=None):
     return whk.masked_attention(q, k, v, allowed, fill=_BIG_NEG, keep_scale=keep_scale)
 
 
-def decode_attention(q, key, value, start, end):
+def decode_attention(q, key, value, start, end, key_mask):
     """Decode attention of q [B, H, hd] over the cache [B, H, S, hd] at the
-    rows [start, end) (int32 [B] each) -> [B, H, hd]."""
-    return decode_cache_attention(q, key, value, start, end)
+    rows of the bool [B, S] cache mask inside [start, end) (int32 [B] each)
+    -> [B, H, hd]."""
+    return decode_cache_attention(q, key, value, start, end, key_mask)
 
 
 def prefill_attention(q, k, v, key_mask):
@@ -74,8 +77,8 @@ def prefill_attention(q, k, v, key_mask):
 
 def packed_ok(S: int, hd: int, heads: int) -> bool:
     """True when the head-packed kernels serve this training shape: the
-    whole-head ones up to S = 1024, the blocked ones above, both for hd in
-    {32, 64, 128}."""
+    whole-head ones up to S = 1024, the blocked ones above, both for any
+    hd <= 128."""
     return heads > 0 and blocked_attention.supported(S, hd)
 
 
@@ -98,7 +101,7 @@ def seq_shards() -> int:
 def packed_ring_ok(S: int, hd: int, heads: int) -> bool:
     """True when the ring kernels serve this sequence-sharded shape: a 'seq'
     axis of more than one shard is active, the global S splits over it and
-    hd is in {32, 64, 128}."""
+    hd <= 128."""
     n = seq_shards()
     return n > 1 and heads > 0 and S % n == 0 and ring_kernel.supported(S // n, hd)
 

@@ -46,6 +46,14 @@ A CPU tensor runs the plain versions (`whole_head_attention_reference`,
 autograd through it for the backward, `dropout_keep_scale_reference`).  A
 CUDA tensor launches the kernels or raises: there is no fallback on the card.
 
+Head dims: the plain versions take any hd.  The kernels are compiled for
+hd in `FWD_HEAD_DIMS` (the forward, and the fp32 backward) and
+`BF16_BWD_HEAD_DIMS` (the bf16 backward's tensor-core tiles); the wrappers
+zero-pad any other hd <= 128 to the next of those widths (`kernel_head_dim`)
+and slice the padding off the results, with sm_scale from the true hd: zero
+columns change no score and no delta.  They pad on every device, so the CPU
+tests run the padding route too.
+
 Rows whose visited key set is empty (query rows before `start`, or a row
 with start >= end) come out as exact zeros in every version, and get zero
 gradients.  The TPU kernel writes a finite average there instead; nothing
@@ -61,7 +69,9 @@ import torch
 
 _NEG = -1e30  # finite fill for masked logits, as the TPU kernel (never -inf)
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_KERNEL_HEAD_DIMS = (32, 64, 128)
+FWD_HEAD_DIMS = (32, 64, 128)            # csrc/attention_fwd.cuh; the fp32 backward
+BF16_BWD_HEAD_DIMS = (16, 32, 64, 128)   # the bf16 backward (attention_bwd.cuh, tensor cores)
+MAX_HEAD_DIM = 128
 
 # Philox4x32-10 (Salmon et al., "Parallel random numbers: as easy as 1, 2, 3")
 _M0, _M1 = 0xD2511F53, 0xCD9E8D57
@@ -70,8 +80,38 @@ _U32 = 0xFFFFFFFF
 
 
 def supported(S: int, hd: int, dtype) -> bool:
-    """Shapes the CUDA kernels take: any S, hd in {32, 64, 128}, bf16/fp32."""
-    return S > 0 and hd in _KERNEL_HEAD_DIMS and dtype in _KERNEL_DTYPES
+    """Shapes the CUDA kernels take: any S, any hd <= 128 (padded to a
+    compiled width), bf16/fp32."""
+    return S > 0 and 0 < hd <= MAX_HEAD_DIM and dtype in _KERNEL_DTYPES
+
+
+def kernel_head_dim(hd: int, widths=FWD_HEAD_DIMS) -> int:
+    """The compiled width a kernel runs hd at: the least of `widths` >= hd
+    (hd itself above MAX_HEAD_DIM, which the kernels refuse)."""
+    return next((w for w in widths if w >= hd), hd)
+
+
+def bwd_head_dims(dtype) -> tuple:
+    """The backward's compiled widths for `dtype`."""
+    return BF16_BWD_HEAD_DIMS if dtype == torch.bfloat16 else FWD_HEAD_DIMS
+
+
+def padded(width: int, *tensors):
+    """The tensors with their last dim zero-padded to `width` (new
+    contiguous tensors; None stays None)."""
+    return tuple(None if t is None else torch.nn.functional.pad(t, (0, width - t.shape[-1]))
+                 for t in tensors)
+
+
+def _scale(sm_scale, hd: int) -> float:
+    """sm_scale, or 1 / sqrt(hd) when it is None."""
+    return hd ** -0.5 if sm_scale is None else sm_scale
+
+
+def _sliced_into(res, bufs, hd):
+    """The results cut to hd columns, copied into `bufs` where given."""
+    return tuple(r[..., :hd] if buf is None else buf.copy_(r[..., :hd])
+                 for r, buf in zip(res, bufs))
 
 
 def keep_threshold(rate: float) -> int:
@@ -218,8 +258,9 @@ def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
 
 
-def _check_kernel_args(q, k, v, start, end, seed=None) -> None:
-    """What the CUDA kernels take; raises ValueError on anything else."""
+def _check_kernel_args(q, k, v, start, end, seed=None, widths=FWD_HEAD_DIMS) -> None:
+    """What the CUDA kernels take (hd one of the compiled `widths`); raises
+    ValueError on anything else."""
     if q.dim() != 4:
         raise ValueError(f"q must be [B, H, S, hd], got shape {tuple(q.shape)}")
     if k.shape != q.shape or v.shape != q.shape:
@@ -230,10 +271,10 @@ def _check_kernel_args(q, k, v, start, end, seed=None) -> None:
     if not (q.dtype == k.dtype == v.dtype):
         raise ValueError(f"q, k, v dtypes differ: {q.dtype}, {k.dtype}, {v.dtype}")
     B, _, S, hd = q.shape
-    if not supported(S, hd, q.dtype):
+    if not (supported(S, hd, q.dtype) and hd in widths):
         raise ValueError(
-            f"no kernel for S={S}, hd={hd}, {q.dtype}: it takes hd in "
-            f"{_KERNEL_HEAD_DIMS} and dtypes {list(_KERNEL_DTYPES)}"
+            f"no kernel for S={S}, hd={hd}, {q.dtype}: it takes hd in {widths} "
+            f"(the wrappers pad any hd <= {MAX_HEAD_DIM}) and dtypes {list(_KERNEL_DTYPES)}"
         )
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.stride(-1) != 1:
@@ -259,6 +300,19 @@ def _check_like(q, **tensors) -> None:
             raise ValueError(f"{name} must match q: {t.dtype} {tuple(t.shape)} {t.device}")
         if t.stride(-1) != 1:
             raise ValueError(f"{name}: the head dim must be contiguous (stride 1)")
+
+
+def _check_aligned16(**tensors) -> None:
+    """The bf16 backward tiles copy 16 bytes at a time: each [B, H, S, hd]
+    view needs a 16-byte aligned pointer and (batch, head, row) strides
+    that are multiples of 16 bytes."""
+    for name, t in tensors.items():
+        if t is None or t.dtype != torch.bfloat16:
+            continue
+        vec = 16 // t.element_size()
+        if t.data_ptr() % 16 or any(st % vec for st in t.stride()[:3]):
+            raise ValueError(f"{name}: the bf16 backward needs 16-byte aligned rows, got "
+                             f"strides {t.stride()}")
 
 
 def _entry(library: str, symbol: str):
@@ -328,6 +382,11 @@ def whole_head_attention_fwd(
     B, H, S, hd = q.shape
     if sm_scale is None:
         sm_scale = hd ** -0.5
+    width = kernel_head_dim(hd)
+    if width != hd:
+        res, lse = whole_head_attention_fwd(*padded(width, q, k, v), start, end, seed, sm_scale,
+                                            dropout_rate, need_lse=need_lse)
+        return _sliced_into((res,), (out,), hd)[0], lse
     q_thr = _threshold(seed, dropout_rate)
     if _device_of(q) == "cpu":
         ks = _plain_keep_scale(q, seed, q_thr, dropout_rate)
@@ -356,6 +415,11 @@ def whole_head_attention_bwd(
     B, H, S, hd = q.shape
     if sm_scale is None:
         sm_scale = hd ** -0.5
+    width = kernel_head_dim(hd, bwd_head_dims(q.dtype))
+    if width != hd:
+        res = whole_head_attention_bwd(*padded(width, q, k, v, out, dout), lse, start, end, seed,
+                                       sm_scale, dropout_rate)
+        return _sliced_into(res, (dq, dk, dv), hd)
     q_thr = _threshold(seed, dropout_rate)
     if _device_of(q) == "cpu":
         ks = _plain_keep_scale(q, seed, q_thr, dropout_rate)
@@ -365,12 +429,13 @@ def whole_head_attention_bwd(
             grads = torch.autograd.grad(res, qkv, dout)
         return tuple(g if buf is None else buf.copy_(g)
                      for g, buf in zip(grads, (dq, dk, dv)))
-    _check_kernel_args(q, k, v, start, end, seed if q_thr else None)
+    _check_kernel_args(q, k, v, start, end, seed if q_thr else None, bwd_head_dims(q.dtype))
     dq, dk, dv = (torch.empty_like(t, memory_format=torch.contiguous_format)
                   if buf is None else buf for t, buf in zip((q, k, v), (dq, dk, dv)))
     if dout.stride(-1) != 1:
         dout = dout.contiguous()
     _check_like(q, out=out, dout=dout, dq=dq, dk=dk, dv=dv)
+    _check_aligned16(q=q, k=k, v=v, dout=dout)
     if lse is None or lse.shape != (B, H, S) or lse.dtype != torch.float32 \
             or not lse.is_contiguous():
         raise ValueError("lse must be the forward's contiguous fp32 [B, H, S] log-sum-exp")

@@ -66,8 +66,9 @@ FUSED_MAX = float("inf")
 
 def supported(S: int, hd: int) -> bool:
     """Shapes the blocked kernels take: any S (they mask the ragged tail
-    tile themselves) and hd in {32, 64, 128}."""
-    return S > 0 and hd in whk._KERNEL_HEAD_DIMS
+    tile themselves) and any hd <= 128 (the wrappers pad it to a compiled
+    width, as attention_kernel.py says)."""
+    return S > 0 and 0 < hd <= whk.MAX_HEAD_DIM
 
 
 def row_delta(do: torch.Tensor, o: torch.Tensor) -> torch.Tensor:
@@ -276,8 +277,11 @@ def _new(q, dtype=None, zero=False):
 
 def _bwd_kernel_args(q, k, v, do, m, l, delta, start, end, seed, sm_scale, q_thr, **outs):
     """Checks and the argument block of the three backward kernels."""
-    whk._check_kernel_args(q, k, v, start, end, seed if q_thr else None)
-    whk._check_like(q, dout=do, **{n: t for n, t in outs.items() if n != "dq_acc"})
+    whk._check_kernel_args(q, k, v, start, end, seed if q_thr else None,
+                           whk.bwd_head_dims(q.dtype))
+    grads = {n: t for n, t in outs.items() if n != "dq_acc"}
+    whk._check_like(q, dout=do, **grads)
+    whk._check_aligned16(q=q, k=k, v=v, dout=do)
     _check_stats(q, m=m, l=l, delta=delta)
     return whk._kernel_args(q, k, v, start, end, seed if q_thr else None, sm_scale, q_thr,
                             dout=do, m=m, l=l, delta=delta, **outs)
@@ -297,6 +301,12 @@ def blocked_attention_fwd(q, k, v, start, end, seed=None, sm_scale=None, dropout
                           out=None):
     """Forward on [B, H, S, hd] views (hd contiguous, any other strides),
     written into `out` when given.  -> (out, m, l)."""
+    hd = q.shape[-1]
+    width = whk.kernel_head_dim(hd)
+    if width != hd:
+        res, m, l = blocked_attention_fwd(*whk.padded(width, q, k, v), start, end, seed,
+                                          whk._scale(sm_scale, hd), dropout_rate)
+        return whk._sliced_into((res,), (out,), hd)[0], m, l
     sm_scale, q_thr, ks = _plain_setup(q, seed, sm_scale, dropout_rate)
     if whk._device_of(q) == "cpu":
         res, m, l = blocked_fwd_reference(q, k, v, start, end, sm_scale, ks)
@@ -321,6 +331,12 @@ def _do(do):
 def blocked_attention_dq(q, k, v, do, m, l, delta, start, end, seed=None, sm_scale=None,
                          dropout_rate=0.0, dq=None):
     """Three-pass dq (#7) on [B, H, S, hd] views, into `dq` when given."""
+    hd = q.shape[-1]
+    width = whk.kernel_head_dim(hd, whk.bwd_head_dims(q.dtype))
+    if width != hd:
+        res = blocked_attention_dq(*whk.padded(width, q, k, v, do), m, l, delta, start, end,
+                                   seed, whk._scale(sm_scale, hd), dropout_rate)
+        return whk._sliced_into((res,), (dq,), hd)[0]
     sm_scale, q_thr, ks = _plain_setup(q, seed, sm_scale, dropout_rate)
     if whk._device_of(q) == "cpu":
         res = blocked_dq_reference(q, k, v, do, m, l, delta, start, end, sm_scale, ks)
@@ -337,6 +353,12 @@ def blocked_attention_dkv(q, k, v, do, m, l, delta, start, end, seed=None, sm_sc
                           dropout_rate=0.0, dk=None, dv=None):
     """Three-pass (dk, dv) (#9) on [B, H, S, hd] views, into `dk`, `dv` when
     given."""
+    hd = q.shape[-1]
+    width = whk.kernel_head_dim(hd, whk.bwd_head_dims(q.dtype))
+    if width != hd:
+        res = blocked_attention_dkv(*whk.padded(width, q, k, v, do), m, l, delta, start, end,
+                                    seed, whk._scale(sm_scale, hd), dropout_rate)
+        return whk._sliced_into(res, (dk, dv), hd)
     sm_scale, q_thr, ks = _plain_setup(q, seed, sm_scale, dropout_rate)
     if whk._device_of(q) == "cpu":
         res = blocked_dkv_reference(q, k, v, do, m, l, delta, start, end, sm_scale, ks)
@@ -356,6 +378,12 @@ def blocked_attention_bwd_fused(q, k, v, do, m, l, delta, start, end, seed=None,
     buffers.  On the card dq is summed in a zeroed fp32 [B, H, S, hd]
     scratch with atomics, in an order that changes from run to run, and
     cast into dq after the launch."""
+    hd = q.shape[-1]
+    width = whk.kernel_head_dim(hd, whk.bwd_head_dims(q.dtype))
+    if width != hd:
+        res = blocked_attention_bwd_fused(*whk.padded(width, q, k, v, do), m, l, delta, start,
+                                          end, seed, whk._scale(sm_scale, hd), dropout_rate)
+        return whk._sliced_into(res, (dq, dk, dv), hd)
     sm_scale, q_thr, ks = _plain_setup(q, seed, sm_scale, dropout_rate)
     if whk._device_of(q) == "cpu":
         res = blocked_bwd_fused_reference(q, k, v, do, m, l, delta, start, end, sm_scale, ks)

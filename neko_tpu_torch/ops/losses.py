@@ -16,8 +16,13 @@ logits outlive its own forward or backward.
   `jax.checkpoint`; the gradient is the same).
 
 `weight` is the torch head weight [V, D] (the JAX kernel is its transpose).
-The head matmuls stay `torch.matmul` (cuBLAS) in the hidden dtype: the JAX
-package computes them in XLA, outside any Pallas kernel.  So does the
+The head matmuls stay cuBLAS products in the hidden dtype: the JAX package
+computes them in XLA, outside any Pallas kernel.  The logits come out in
+fp32 from bf16 operands (fp32 sums, no bf16 rounding of the [C, V] result),
+as the JAX package asks with `preferred_element_type=float32`: on the card
+`torch.mm(..., out_dtype=torch.float32)`, on the CPU the product of the
+bf16 values in fp32 (exact products, fp32 sums).  The backward's dx and dW
+products stay in the hidden dtype, as the JAX package's do.  So does the
 forward's (logz, target logit), the JAX package's `_logz_tl`: logits, then
 torch's logsumexp and gather.  The fused loss-head kernel #15
 (`ops/loss_kernel.py`, no [C, V] logits) is a check kernel, as its Pallas
@@ -37,7 +42,14 @@ _NEG = -1e30
 
 
 def _chunk_logits(x, W, valid_vocab):
-    logits = F.linear(x, W).float()
+    """fp32 [C, V] logits of x [C, D] against W [V, D] (both in the hidden
+    dtype), masked past `valid_vocab`."""
+    if x.dtype == torch.float32:
+        logits = F.linear(x, W)
+    elif x.is_cuda:
+        logits = torch.mm(x, W.t(), out_dtype=torch.float32)
+    else:
+        logits = F.linear(x.float(), W.float())
     if valid_vocab is not None and valid_vocab < W.shape[0]:
         col = torch.arange(W.shape[0], device=x.device)
         logits = logits.masked_fill(col >= valid_vocab, _NEG)

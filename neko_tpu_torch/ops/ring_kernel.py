@@ -71,10 +71,11 @@ MERGE_RANGE = "ring merge"
 
 
 def supported(S_local: int, hd: int) -> bool:
-    """Shapes the ring kernels take: any S_local and hd in {32, 64, 128}.
-    (The JAX package's `S_local <= 8192`, `% 128` and head-group gates are
-    limits of the TPU's memory and lanes.)"""
-    return S_local > 0 and hd in whk._KERNEL_HEAD_DIMS
+    """Shapes the ring kernels take: any S_local and any hd <= 128 (the
+    wrappers pad it to a compiled width, as attention_kernel.py says).  (The
+    JAX package's `S_local <= 8192`, `% 128` and head-group gates are limits
+    of the TPU's memory and lanes.)"""
+    return S_local > 0 and 0 < hd <= whk.MAX_HEAD_DIM
 
 
 def pair_visible(q_off: int, k_off: int, S_local: int) -> bool:
@@ -235,6 +236,12 @@ def ring_partial_fwd(q, k, v, q_off, k_off, start, end, seed=None, sm_scale=None
     contiguous, any other strides); `start`, `end` are the global key bounds.
     Written into the fp32 buffers `out` ([B, H, S_local, hd] view), `m`, `l`
     ([B, H, S_local] contiguous) when given.  -> (acc, m, l)."""
+    hd = q.shape[-1]
+    width = whk.kernel_head_dim(hd)
+    if width != hd:
+        acc, m_p, l_p = ring_partial_fwd(*whk.padded(width, q, k, v), q_off, k_off, start, end,
+                                         seed, whk._scale(sm_scale, hd), dropout_rate)
+        return (*whk._sliced_into((acc,), (out,), hd), *_filled((m_p, l_p), (m, l)))
     sm_scale, q_thr, ks = _pair_setup(q, q_off, k_off, seed, sm_scale, dropout_rate)
     if whk._device_of(q) == "cpu":
         res = ring_partial_fwd_reference(q, k, v, q_off, k_off, start, end, sm_scale, ks)
@@ -252,8 +259,10 @@ def ring_partial_fwd(q, k, v, q_off, k_off, start, end, seed=None, sm_scale=None
 
 def _bwd_kernel_args(q, k, v, do, L, delta, q_off, k_off, start, end, seed, sm_scale, q_thr,
                      **outs):
-    whk._check_kernel_args(q, k, v, start, end, seed if q_thr else None)
+    whk._check_kernel_args(q, k, v, start, end, seed if q_thr else None,
+                           whk.bwd_head_dims(q.dtype))
     whk._check_like(q, dout=do)
+    whk._check_aligned16(q=q, k=k, v=v, dout=do)
     ba._check_stats(q, L=L, delta=delta)
     return whk._kernel_args(q, k, v, start, end, seed if q_thr else None, sm_scale, q_thr,
                             q_off, k_off, dout=do, lse=L, delta=delta, **outs)
@@ -264,6 +273,12 @@ def ring_partial_dq(q, k, v, do, L, delta, q_off, k_off, start, end, seed=None, 
     """dq partial (#12) of the local rows from the kv block at `k_off`: fp32,
     into `dq` when given.  `L` and `delta` are fp32 [B, H, S_local]
     contiguous: the log-sum-exp of the whole ring and rowsum(do * out)."""
+    hd = q.shape[-1]
+    width = whk.kernel_head_dim(hd, whk.bwd_head_dims(q.dtype))
+    if width != hd:
+        res = ring_partial_dq(*whk.padded(width, q, k, v, do), L, delta, q_off, k_off, start,
+                              end, seed, whk._scale(sm_scale, hd), dropout_rate)
+        return whk._sliced_into((res,), (dq,), hd)[0]
     sm_scale, q_thr, ks = _pair_setup(q, q_off, k_off, seed, sm_scale, dropout_rate)
     if whk._device_of(q) == "cpu":
         res = ring_partial_dq_reference(q, k, v, do, L, delta, q_off, k_off, start, end,
@@ -281,6 +296,12 @@ def ring_partial_dkv(q, k, v, do, L, delta, q_off, k_off, start, end, seed=None,
                      dropout_rate=0.0, dk=None, dv=None):
     """(dk, dv) partials (#13) of the VISITING kv block at `k_off` from the
     local rows at `q_off`: fp32, into `dk`, `dv` when given."""
+    hd = q.shape[-1]
+    width = whk.kernel_head_dim(hd, whk.bwd_head_dims(q.dtype))
+    if width != hd:
+        res = ring_partial_dkv(*whk.padded(width, q, k, v, do), L, delta, q_off, k_off, start,
+                               end, seed, whk._scale(sm_scale, hd), dropout_rate)
+        return whk._sliced_into(res, (dk, dv), hd)
     sm_scale, q_thr, ks = _pair_setup(q, q_off, k_off, seed, sm_scale, dropout_rate)
     if whk._device_of(q) == "cpu":
         res = ring_partial_dkv_reference(q, k, v, do, L, delta, q_off, k_off, start, end,
@@ -504,7 +525,7 @@ def _check_ring(S: int, hd: int, n_shards: int, group) -> None:
     if n_shards < 1 or (group is None and S % n_shards):
         raise ValueError(f"S={S} does not split into {n_shards} sequence shards")
     if not supported(S if group is not None else S // n_shards, hd):
-        raise ValueError(f"no ring kernel for hd={hd}: it takes hd in {whk._KERNEL_HEAD_DIMS}")
+        raise ValueError(f"no ring kernel for hd={hd}: it takes hd <= {whk.MAX_HEAD_DIM}")
 
 
 def ring_attention_bsd(q, k, v, start, end, seed=None, *, n_shards, heads, group=None,

@@ -74,7 +74,7 @@ def test_kernel_matches_plain(cuda, B, H, S, hd, dtype):
 
 @pytest.mark.cuda
 def test_kernel_refuses_cpu_fallback_inputs(cuda):
-    q = torch.randn(1, 1, 64, 48, device=cuda)  # hd 48: no kernel template
+    q = torch.randn(1, 1, 64, 256, device=cuda)  # hd 256: over the kernels' 128
     bounds = torch.tensor([0], dtype=torch.int32, device=cuda)
     with pytest.raises(ValueError):
         whk.whole_head_attention(q, q, q, bounds, bounds + 64)
@@ -112,6 +112,9 @@ def _grads_check(out, ref, grads, ref_grads, valid_rows, dtype):
     (2, 2, 192, 64, torch.float32),
     (2, 2, 128, 128, torch.float32),
     (2, 2, 128, 128, torch.bfloat16),
+    (2, 3, 200, 16, torch.bfloat16),   # hd 16: native bf16 backward, padded forward
+    (2, 3, 200, 16, torch.float32),    # hd 16: padded to 32 both ways
+    (2, 2, 160, 48, torch.bfloat16),   # an odd hd: padded to 64
 ])
 @pytest.mark.parametrize("rate", [0.0, 0.1])
 def test_backward_matches_autograd_through_plain(cuda, B, H, S, hd, dtype, rate):
@@ -264,7 +267,7 @@ def test_blocked_kernels_equal_whole_head_kernels_at_s_1024(cuda, rate):
 def test_blocked_kernel_refuses_an_unsupported_head_dim(cuda):
     from neko_tpu_torch.ops import blocked_attention as ba
 
-    qkv = torch.randn(1, 2048, 3 * 2 * 48, device=cuda)  # hd 48: no kernel template
+    qkv = torch.randn(1, 2048, 3 * 2 * 256, device=cuda)  # hd 256: over the kernels' 128
     bounds = torch.tensor([0], dtype=torch.int32, device=cuda)
     before = ba.blocked_attention_fwd.launches
     with pytest.raises(ValueError):
@@ -276,16 +279,19 @@ def test_blocked_kernel_refuses_an_unsupported_head_dim(cuda):
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,H,S_l,hd,dtype", [
     (2, 4, 512, 32, torch.bfloat16),
-    (2, 3, 300, 64, torch.float32),    # ragged: offsets off the 32-key tiles
+    (2, 3, 300, 64, torch.float32),    # ragged: offsets off the kernels' key tiles
     (3, 2, 200, 128, torch.float32),
+    (2, 3, 300, 16, torch.bfloat16),   # the tensor-core tiles at hd 16 and 128, ragged
+    (3, 2, 200, 128, torch.bfloat16),
 ])
 @pytest.mark.parametrize("rate", [0.0, 0.1])
 @pytest.mark.parametrize("pair", [(1, 1), (2, 1), (2, 0), (0, 2)])
 def test_ring_pair_kernels_match_plain(cuda, B, H, S_l, hd, dtype, rate, pair):
     """#11, #12 and #13 on one (q shard, kv shard) pair of a 3-shard sequence
-    against their plain versions in fp32 on the same values, with the pair's
-    window of the plain Philox and the same L and delta; (0, 2) is a pair in
-    the future of the q shard: every output is 0, m = -1e30."""
+    against their plain versions on the same values (which, in bf16, round
+    p * keep and ds to bf16 before their products as the kernels do), with
+    the pair's window of the plain Philox and the same L and delta; (0, 2) is
+    a pair in the future of the q shard: every output is 0, m = -1e30."""
     from neko_tpu_torch.ops import ring_kernel as rk
 
     n = 3
@@ -296,11 +302,12 @@ def test_ring_pair_kernels_match_plain(cuda, B, H, S_l, hd, dtype, rate, pair):
     q, k, v = (t.chunk(n, dim=2)[s] for t, s in zip(whk._qkv_views("qkv", (qkv,), H), (i, j, j)))
     do = whk._heads4(dout, H).chunk(n, dim=2)[i]
     g = torch.Generator(device=cuda).manual_seed(1)
-    L = torch.randn(B, H, S_l, device=cuda, generator=g) + 3.0
     delta = torch.randn(B, H, S_l, device=cuda, generator=g)
     at = (i * S_l, j * S_l, start, end)
     before = [f.launches for f in (rk.ring_partial_fwd, rk.ring_partial_dq, rk.ring_partial_dkv)]
     acc, m, l = rk.ring_partial_fwd(q, k, v, *at, seed, None, rate)
+    # the log-sum-exp of a ring whose only pair this is (0 on rows without a key)
+    L = torch.where(l > 0, m + torch.log(l.clamp_min(1e-30)), 0.0)
     dq = rk.ring_partial_dq(q, k, v, do, L, delta, *at, seed, None, rate)
     dk, dv = rk.ring_partial_dkv(q, k, v, do, L, delta, *at, seed, None, rate)
     torch.cuda.synchronize()
@@ -310,10 +317,10 @@ def test_ring_pair_kernels_match_plain(cuda, B, H, S_l, hd, dtype, rate, pair):
                for t in (acc, m, l, dq, dk, dv))
     ks = (whk.dropout_keep_scale_reference(seed, B, H, None, rate, rows=(at[0], at[0] + S_l),
                                            cols=(at[1], at[1] + S_l)) if rate else None)
-    f32 = [t.float() for t in (q, k, v, do)]
-    acc_w, m_w, l_w = rk.ring_partial_fwd_reference(*f32[:3], *at, None, ks)
-    dq_w = rk.ring_partial_dq_reference(*f32, L, delta, *at, None, ks)
-    dk_w, dv_w = rk.ring_partial_dkv_reference(*f32, L, delta, *at, None, ks)
+    f32 = [t.float() for t in (q, k, v)]
+    acc_w, m_w, l_w = rk.ring_partial_fwd_reference(*f32, *at, None, ks)
+    dq_w = rk.ring_partial_dq_reference(q, k, v, do, L, delta, *at, None, ks)
+    dk_w, dv_w = rk.ring_partial_dkv_reference(q, k, v, do, L, delta, *at, None, ks)
     rows = l_w > 0
     assert (m[~rows] == -1e30).all() and not l[~rows].any() and not acc[~rows].any()
     if not rk.pair_visible(at[0], at[1], S_l):
@@ -324,8 +331,11 @@ def test_ring_pair_kernels_match_plain(cuda, B, H, S_l, hd, dtype, rate, pair):
     scale = l_w.clamp_min(1.0)[..., None]
     torch.testing.assert_close(acc / scale, acc_w / scale, atol=5e-6, rtol=0)
     for name, got, want in (("dq", dq, dq_w), ("dk", dk, dk_w), ("dv", dv, dv_w)):
-        torch.testing.assert_close(got, want, atol=1e-4, rtol=2.0 ** -7,
-                                   msg=lambda s, n=name: f"{n}: {s}")
+        if dtype == torch.bfloat16:
+            _close_but_rare_flips(got, want, name)
+        else:
+            torch.testing.assert_close(got, want, atol=1e-4, rtol=2.0 ** -7,
+                                       msg=lambda s, n=name: f"{n}: {s}")
 
 
 @pytest.mark.cuda
@@ -363,9 +373,106 @@ def test_ring_equals_blocked_kernels_at_one_seed(cuda, n, S, hd, dtype, rate):
 def test_ring_kernel_refuses_an_unsupported_head_dim(cuda):
     from neko_tpu_torch.ops import ring_kernel as rk
 
-    qkv = torch.randn(1, 2048, 3 * 2 * 48, device=cuda)  # hd 48: no kernel template
+    qkv = torch.randn(1, 2048, 3 * 2 * 256, device=cuda)  # hd 256: over the kernels' 128
     bounds = torch.tensor([0], dtype=torch.int32, device=cuda)
     before = rk.ring_partial_fwd.launches
     with pytest.raises(ValueError):
         rk.ring_attention_qkv(qkv, bounds, bounds + 2048, n_shards=4, heads=2)
     assert rk.ring_partial_fwd.launches == before
+
+
+# ----------------------------------- the bf16 backward tiles (tensor cores)
+# Kernel against the plain backward on the same bf16 inputs and the kernel
+# forward's own row stats and delta.  The plain side rounds p * keep and ds
+# to bf16 before its products, as the kernels (and neko_tpu) do, and sums in
+# fp32, so what remains is fp32 summation order (the fused dq's atomics
+# included) and the rounding of the outputs to bf16: 1e-4 absolute plus one
+# bf16 ulp relative (BWD_TOL).  But the two sides round p * keep and ds
+# from fp32 values computed in other orders, and where one lands on the
+# other side of a rounding boundary the operands differ by one bf16 ulp:
+# the gradients that sum it move by one ulp of that term, which on rows that
+# see few keys (p near 1) exceeds BWD_TOL.  So at most FLIP_SHARE of the
+# values may exceed BWD_TOL, and none GRAD_TOL[bf16].  (The first H100 run
+# read up to 16 of 153,600 values over BWD_TOL, up to 2.9e-2 over it on a
+# pair with random, unnormalized L; a faulty tile moves most values.)
+BWD_TOL = dict(atol=1e-4, rtol=2.0 ** -7)
+FLIP_SHARE = 1e-3
+
+
+def _close_but_rare_flips(got, want, name):
+    """`got` within BWD_TOL of `want` on all but FLIP_SHARE of the values,
+    and within GRAD_TOL[bf16] everywhere."""
+    diff = (got.float() - want.float()).abs()
+    w = want.float().abs()
+    share = (diff > BWD_TOL["atol"] + BWD_TOL["rtol"] * w).double().mean().item()
+    atol, rtol = GRAD_TOL[torch.bfloat16]
+    worst = (diff - atol - rtol * w).max().item()
+    assert share <= FLIP_SHARE and worst <= 0, (
+        f"d{name}: {share:.2e} of the values over {BWD_TOL}, worst excess over "
+        f"{GRAD_TOL[torch.bfloat16]} {worst:.3e}, max abs diff {diff.max().item():.3e}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", [16, 32, 64, 128])
+@pytest.mark.parametrize("entry", ["whole-head", "fused", "dq", "dkv"])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_bf16_backward_tiles_match_plain(cuda, hd, entry, rate):
+    """Every entry point of the tiles at each compiled head dim, on a ragged
+    S with a left-padded row, a short row and a row that sees no key: the
+    gradients of rows that see no key, and of keys no row sees, are exact
+    zeros."""
+    from neko_tpu_torch.ops import blocked_attention as ba
+    from neko_tpu_torch.ops import ring_kernel as rk
+
+    B, H, S = 4, 2, (1000 if entry == "whole-head" else 3000)
+    qkv, start, end, valid, dout = _blocked_inputs(B, H, S, hd, torch.bfloat16, cuda, seed=hd)
+    seed = torch.tensor([2024], dtype=torch.int32, device=cuda)
+    q, k, v = whk._qkv_views("qkv", (qkv,), H)
+    do = whk._heads4(dout, H)
+    ks = whk.dropout_keep_scale(seed, B, H, S, rate) if rate else None
+    if entry == "whole-head":
+        out, lse = whk.whole_head_attention_fwd(q, k, v, start, end, seed, None, rate,
+                                                need_lse=True)
+        delta = ba.row_delta(do, out)
+        before = whk.whole_head_attention_bwd.launches
+        got = whk.whole_head_attention_bwd(q, k, v, out, do, lse, start, end, seed, None, rate)
+        assert whk.whole_head_attention_bwd.launches == before + 1
+        at = (lse, delta, 0, 0, start, end, None, ks)  # one ring "pair": the whole head
+        want = (rk.ring_partial_dq_reference(q, k, v, do, *at),
+                *rk.ring_partial_dkv_reference(q, k, v, do, *at))
+    else:
+        out, m, l = ba.blocked_attention_fwd(q, k, v, start, end, seed, None, rate)
+        bwd = (q, k, v, do, m, l, ba.row_delta(do, out), start, end)
+        plain = ba.blocked_bwd_fused_reference(*bwd, None, ks)
+        if entry == "fused":
+            got, want = ba.blocked_attention_bwd_fused(*bwd, seed, None, rate), plain
+        elif entry == "dq":
+            got, want = (ba.blocked_attention_dq(*bwd, seed, None, rate),), plain[:1]
+        else:
+            got, want = ba.blocked_attention_dkv(*bwd, seed, None, rate), plain[1:]
+    torch.cuda.synchronize()
+    names = {"whole-head": "qkv", "fused": "qkv", "dq": "q", "dkv": "kv"}[entry]
+    rows = valid[:, None, :, None]
+    # keys no row sees: before start (every row sees its key c from row c on)
+    seen_keys = (torch.arange(S, device=cuda)[None, :] >= start[:, None].long()) & \
+        (start < end)[:, None]
+    for name, g, w in zip(names, got, want):
+        assert g.dtype == torch.bfloat16 and torch.isfinite(g).all(), name
+        _close_but_rare_flips(g, w, name)
+        unseen = ~rows if name == "q" else ~seen_keys[:, None, :, None]
+        assert not g.masked_fill(~unseen, 0).any(), f"d{name} not 0 where nothing is seen"
+
+
+@pytest.mark.cuda
+def test_bf16_backward_refuses_misaligned_rows(cuda):
+    """The tiles copy 16 bytes at a time: a view whose rows are not 16-byte
+    aligned is refused, never run through another path."""
+    B, H, S, hd = 1, 2, 64, 32
+    x = torch.randn(B, H, S, hd + 1, device=cuda).bfloat16()[..., 1:]  # rows off by 2 bytes
+    start = torch.zeros(B, dtype=torch.int32, device=cuda)
+    end = torch.full((B,), S, dtype=torch.int32, device=cuda)
+    lse = torch.zeros(B, H, S, device=cuda)
+    before = whk.whole_head_attention_bwd.launches
+    with pytest.raises(ValueError):
+        whk.whole_head_attention_bwd(x, x, x, x, x, lse, start, end)
+    assert whk.whole_head_attention_bwd.launches == before

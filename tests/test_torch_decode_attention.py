@@ -82,7 +82,8 @@ def test_supported():
     assert da.supported(8, 24, 1024, 32)
     assert da.supported(8, 24, 1000, 32)   # any S (the TPU kernel needs S % 128 == 0)
     assert da.supported(1, 8, 16384, 128)  # no VMEM cap
-    assert not da.supported(8, 24, 1024, 48)
+    assert da.supported(8, 24, 1024, 48)   # padded to a compiled width
+    assert not da.supported(8, 24, 1024, 256)
     assert not jax_da.supported(8, 24, 1000, 32)
 
 
@@ -114,9 +115,9 @@ def test_generation_through_the_decode_wrapper_wraps_the_ring_as_jax(gens, monke
     windows = []
     wrapper = attn_ops.decode_attention
 
-    def spy(q, k, v, start, end):
+    def spy(q, k, v, start, end, key_mask):
         windows.append((start.tolist(), end.tolist()))
-        return wrapper(q, k, v, start, end)
+        return wrapper(q, k, v, start, end, key_mask)
 
     monkeypatch.setattr(attn_ops, "decode_attention", spy)
     kw = dict(max_new_tokens=14, start=0, end=255)
@@ -136,3 +137,59 @@ def test_generation_through_the_decode_wrapper_wraps_the_ring_as_jax(gens, monke
         assert start == [0, 0, 0]
         assert end == [min(p + 1, S) for p in pos], (i, end)
     assert per_step[-1][1][0] == S and lens[0] + 1 + steps > S  # row 0 wrapped
+
+
+def test_decode_step_with_holes_in_the_cache_mask_matches_jax(gens):
+    """A cache mask with holes inside its valid run (rows a left-padded
+    prompt or an eviction clears): the decode step attends to the valid rows
+    alone, as neko_tpu's decode step does through its mask bias.  The window
+    [start, end) spans the holes; the kernel's plain version skips them."""
+    jgen, gen = gens
+    jmodel, params, model = jgen.model, jgen.params, gen.model
+    rng = np.random.default_rng(5)
+    arrays = JaxPacker(JaxConfig(**TINY)).pack_batch(
+        [{"text": rng.integers(0, 256, 40)}, {"text": rng.integers(0, 256, 25)}])
+    lengths = arrays.pop("lengths")
+    emb = np.array(jmodel.apply({"params": params}, jax_batch(arrays),
+                                method=JaxModel.embed_batch))
+    mask = arrays["input_mask"]
+    _, vars_ = jmodel.apply({"params": params}, jnp.asarray(emb), jnp.asarray(mask),
+                            method=JaxModel.prefill, mutable=["cache"])
+    with torch.no_grad():
+        _, caches = model.prefill(torch.from_numpy(emb), torch.from_numpy(mask))
+    first = mask.argmax(1)  # each row's valid run starts here
+    holes = np.zeros_like(mask)
+    holes[0, first[0] + np.array([3, 4, 5, 20])] = True  # inside the valid runs
+    holes[1, first[1] + 10:first[1] + 18] = True
+    assert mask[holes].all()
+    jcache = jax.tree_util.tree_map_with_path(
+        lambda path, x: x & ~jnp.asarray(holes) if path[-1].key == "mask" else x,
+        vars_["cache"])
+    for c in caches:
+        c["mask"][torch.from_numpy(holes)] = False
+    pos = lengths.astype(np.int32)
+    tok = rng.integers(0, 256, (2, 1)).astype(np.int32)
+    e = np.array(jmodel.apply({"params": params}, jnp.asarray(tok),
+                              method=JaxModel.embed_tokens))
+    want, _ = jmodel.apply({"params": params, "cache": jcache}, jnp.asarray(e),
+                           jnp.asarray(pos), method=JaxModel.decode_step, mutable=["cache"])
+    with torch.no_grad():
+        got = model.decode_step(torch.from_numpy(e), torch.from_numpy(pos), caches)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4, atol=1e-4)
+
+
+def test_plain_decode_skips_masked_rows_inside_the_window():
+    """The plain version over a window with holes equals attention over the
+    valid rows alone, and a window whose rows are all masked gives 0."""
+    q, k, v = (torch.from_numpy(a) for a in _inputs(2, 4, 64, 32, seed=9))
+    mask = torch.zeros(2, 64, dtype=torch.bool)
+    keep = [2, 7, 30, 31, 50]
+    mask[0, keep] = True
+    start = torch.tensor([2, 10], dtype=torch.int32)
+    end = torch.tensor([51, 20], dtype=torch.int32)  # row 1: no valid row in its window
+    out = da.decode_cache_attention(q, k, v, start, end, mask)
+    want = da.decode_cache_attention_reference(
+        q[:1], k[:1, :, keep], v[:1, :, keep], torch.tensor([0], dtype=torch.int32),
+        torch.tensor([len(keep)], dtype=torch.int32))
+    torch.testing.assert_close(out[:1], want, rtol=1e-6, atol=1e-6)
+    assert torch.equal(out[1], torch.zeros_like(out[1]))

@@ -12,6 +12,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from neko_tpu_torch.ops import attention_kernel as whk  # noqa: E402
 from neko_tpu_torch.ops import decode_attention as da  # noqa: E402
 from neko_tpu_torch.ops import fused_adamw as fa  # noqa: E402
 from neko_tpu_torch.ops import loss_kernel as lk  # noqa: E402
@@ -38,6 +39,9 @@ DECODE_TOL = {torch.bfloat16: (1e-2, 2.0 ** -7), torch.float32: (1e-5, 1e-5)}
     (3, 8, 1000, 64, torch.float32),     # ragged S
     (3, 8, 512, 128, torch.float32),
     (3, 8, 512, 128, torch.bfloat16),
+    (4, 4, 300, 16, torch.bfloat16),     # hd 16, compiled natively
+    (4, 4, 300, 16, torch.float32),
+    (2, 4, 300, 48, torch.bfloat16),     # an odd hd: padded to 64
 ])
 def test_decode_kernel_matches_plain(cuda, B, H, S, hd, dtype):
     g = torch.Generator(device=cuda).manual_seed(0)
@@ -54,6 +58,31 @@ def test_decode_kernel_matches_plain(cuda, B, H, S, hd, dtype):
     assert torch.isfinite(out).all()
     atol, rtol = DECODE_TOL[dtype]
     torch.testing.assert_close(out.float(), ref.float(), atol=atol, rtol=rtol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd,dtype", [(32, torch.bfloat16), (16, torch.bfloat16),
+                                      (64, torch.float32)])
+def test_decode_kernel_skips_holes_in_the_cache_mask(cuda, hd, dtype):
+    """Rows inside the window whose mask bit is clear are not attended: the
+    kernel against the plain version over the same mask, and against the
+    plain version over the window alone (which must differ)."""
+    B, H, S = 4, 8, 512
+    g = torch.Generator(device=cuda).manual_seed(3)
+    q = torch.randn(B, H, hd, device=cuda, generator=g).to(dtype)
+    k, v = (torch.randn(B, H, S, hd, device=cuda, generator=g).to(dtype) for _ in range(2))
+    mask = torch.rand(B, S, device=cuda, generator=g) < 0.7  # holes everywhere
+    mask[3] = False
+    mask[3, 100] = mask[3, 200] = True   # two keys 100 rows apart
+    mask[2, 40:] = False                 # a window whose tail is all holes
+    start, end = (t.to(cuda) for t in whk.mask_bounds_from_key_mask(mask))
+    out = da.decode_cache_attention(q, k, v, start, end, mask)
+    ref = da.decode_cache_attention_reference(q, k, v, start, end, key_mask=mask)
+    window_only = da.decode_cache_attention_reference(q, k, v, start, end)
+    torch.cuda.synchronize()
+    atol, rtol = DECODE_TOL[dtype]
+    torch.testing.assert_close(out.float(), ref.float(), atol=atol, rtol=rtol)
+    assert ((out.float() - window_only.float()).abs().amax(dim=(1, 2)) > 2 * atol).all()
 
 
 @pytest.mark.cuda

@@ -410,7 +410,8 @@ def test_mesh_axes_context_and_what_is_not_ported():
 
 
 def test_dispatch_and_the_raises(monkeypatch):
-    assert rk.supported(2048, 32) and rk.supported(150, 128) and not rk.supported(128, 48)
+    assert rk.supported(2048, 32) and rk.supported(150, 128) and rk.supported(128, 48)
+    assert not rk.supported(128, 256)
     assert not rk.supported(0, 32)
     assert rk.pair_visible(256, 0, 128) and rk.pair_visible(128, 255, 128)
     assert not rk.pair_visible(128, 256, 128)
@@ -418,7 +419,7 @@ def test_dispatch_and_the_raises(monkeypatch):
     mesh = pmesh.create_mesh(data=1, seq=4)
     with mesh:
         assert attn.packed_ring_ok(512, 64, 2) and attn.packed_ring_ok(16384, 32, 24)
-        assert not attn.packed_ring_ok(510, 64, 2) and not attn.packed_ring_ok(512, 48, 2)
+        assert not attn.packed_ring_ok(510, 64, 2) and not attn.packed_ring_ok(512, 256, 2)
 
     counters = [rk.ring_partial_fwd, rk.ring_partial_dq, rk.ring_partial_dkv,
                 ba.blocked_attention_fwd, whk.whole_head_attention]
@@ -446,7 +447,7 @@ def test_dispatch_and_the_raises(monkeypatch):
     model = convert.build_model(cfg, convert.init_state_dict(cfg, 0), device="cpu")
     with pmesh.create_mesh(seq=3), pytest.raises(ValueError):
         model(batch, train=True, compute_loss=True, generator=torch.Generator().manual_seed(0))
-    bad_hd = ModelConfig(**dict(LONG, heads=8))  # hd 16: no kernel takes it, mesh or not
+    bad_hd = ModelConfig(**dict(LONG, embed_dim=256, heads=1))  # hd 256: over 128, mesh or not
     with mesh, pytest.raises(NotImplementedError):
         convert.build_model(bad_hd, convert.init_state_dict(bad_hd, 0), device="cpu")(
             batch, train=True, compute_loss=True, generator=torch.Generator().manual_seed(0))
@@ -454,8 +455,9 @@ def test_dispatch_and_the_raises(monkeypatch):
     bounds = torch.tensor([0], dtype=torch.int32)
     with pytest.raises(ValueError):
         rk.ring_attention_bsd(x, x, x, bounds, bounds + 512, n_shards=3, heads=H)
-    with pytest.raises(ValueError):  # hd 16
-        rk.ring_attention_bsd(x, x, x, bounds, bounds + 512, n_shards=4, heads=8)
+    x256 = torch.zeros(1, 512, 256)
+    with pytest.raises(ValueError):  # hd 256: over the kernels' 128
+        rk.ring_attention_bsd(x256, x256, x256, bounds, bounds + 512, n_shards=4, heads=1)
     with pytest.raises(ValueError):  # no active seq axis
         attn.sequence_parallel_attention_bsd(x, x, x, torch.ones(1, 512, dtype=torch.bool),
                                              heads=H)

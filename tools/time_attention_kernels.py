@@ -12,12 +12,16 @@ forward and backward at the flagship train shape (B=16, H=24, S=1024,
 hd=32), the blocked forward, fused backward, dq and dkv at `long`
 (B=8, H=24, S=2048, hd=32); and, where the checkout has them, the ring's
 per-pair forward, dq and dkv on a full (past) pair of the k = 8192 shards
-(B=2, H=24, S_local=2048, hd=32).  Run it as parent, change, change, parent.
+(B=2, H=24, S_local=2048, hd=32), the prefill forward (B=8, H=24, S=1024,
+hd=32, no dropout) and the decode step (B=8, H=24, S=1024, hd=32, a full
+cache; device time from torch.profiler, as a call's host work outlasts the
+kernel).  Run it as parent, change, change, parent.
 """
 
 from __future__ import annotations
 
 import argparse
+import inspect
 import json
 import sys
 from pathlib import Path
@@ -36,6 +40,24 @@ def _time_ms(fn, iters: int = 20) -> float:
     b.record()
     torch.cuda.synchronize()
     return a.elapsed_time(b) / iters
+
+
+def _device_ms(fn, iters: int = 50) -> float:
+    """Device time per call: the kernels `fn` launched, from torch.profiler."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    busy = sum(e.self_device_time_total for e in prof.events()
+               if e.device_type == DeviceType.CUDA and not e.is_user_annotation)
+    return busy / 1e3 / iters
 
 
 def main(argv=None) -> int:
@@ -99,6 +121,23 @@ def main(argv=None) -> int:
                                                             dq=bufs[0]))
         ms["ring_dkv"] = _time_ms(lambda: rk.ring_partial_dkv(q, k, v, do, L, delta, *at,
                                                               dk=bufs[1], dv=bufs[2]))
+    try:
+        from neko_tpu_torch.ops import decode_attention as da
+    except ImportError:  # a checkout from before the decode kernel
+        da = None
+    if da is not None:
+        q, k, v = (torch.randn(8, 24, 1024, 32, device=dev, generator=g).bfloat16()
+                   for _ in range(3))
+        start = torch.zeros(8, dtype=torch.int32, device=dev)
+        end = torch.full((8,), 1024, dtype=torch.int32, device=dev)
+        ms["prefill_fwd"] = _time_ms(lambda: whk.whole_head_attention_fwd(q, k, v, start, end))
+        qd, mask = q[:, :, 0], torch.ones(8, 1024, dtype=torch.bool, device=dev)
+        if "key_mask" in inspect.signature(da.decode_cache_attention).parameters:
+            ms["decode_device"] = _device_ms(
+                lambda: da.decode_cache_attention(qd, k, v, start, end, mask))
+        else:
+            ms["decode_device"] = _device_ms(
+                lambda: da.decode_cache_attention(qd, k, v, start, end))
     print(json.dumps({"repo": args.repo, "card": card(), "ms": ms}))
     return 0
 
