@@ -17,18 +17,17 @@
 // The TPU kernel keeps a head group's full K and V in VMEM and walks 512 x 512
 // tiles.  A Hopper block has at most 227 KB of shared memory and many blocks
 // must be in flight to fill 132 SMs, so the tiles are small: this is the
-// kernel of attention_fwd.cuh, the whole-head forward's (64-row q tiles,
-// 32-key tiles, a warp per 8 rows and a lane per key, heaviest q tiles
-// first), writing (m, l) in place of lse.  At S = 8192 the causal imbalance
-// is 256 key tiles for the last q tile against 1 for the first, which the
-// heaviest-first order spreads over the SMs.
+// kernel of attention_fwd.cuh, the whole-head forward's (in bf16 64-row q
+// tiles of four warps over 64-key tiles on the tensor cores, heaviest q
+// tiles first), writing (m, l) in place of lse.  At S = 8192 the causal
+// imbalance is 128 key tiles for the last q tile against 1 for the first,
+// which the heaviest-first order spreads over the SMs.
 //
 // What bounds it on the H100: at the k = 2048 train shape (B = 8, H = 24,
 // D = 32) the causal half is 51.5 GFLOP per layer and the q/k/v/o/m/l traffic
-// about 103 MB, 0.052 ms at the 989 TFLOP/s bf16 tensor-core rate.  This
-// version computes on the CUDA cores in fp32 (no mma/wgmma, no TMA): the
-// shared-memory reads of the score loop (one per FMA per row group) and FMA
-// issue bound it.  Tensor cores are later work.
+// about 103 MB, 0.052 ms at the 989 TFLOP/s bf16 tensor-core rate:
+// operations.  In bf16 both products run as mma.sync and the softmax on
+// their fragments in registers; fp32 runs the CUDA-core kernel.
 //
 // Rows with no visible key (before start, or start >= end) write o = 0,
 // m = -1e30 and l = 0, never NaN.

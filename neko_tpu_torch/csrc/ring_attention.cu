@@ -38,9 +38,8 @@
 // What bounds them on the H100: a full (past) pair at B = 2, H = 24, S = 2048,
 // hd = 32 is 25.8 GFLOP in #11 (0.026 ms at the 989 TFLOP/s bf16 tensor-core
 // rate) against 32 MB of traffic (q, k, v in bf16, the fp32 acc, m, l: 0.010
-// ms at 3.35 TB/s): operations.  The forward runs on the CUDA cores in fp32
-// through shared memory; in bf16 the backward pair kernels #12, #13 run
-// their products on the tensor cores (attention_bwd.cuh).
+// ms at 3.35 TB/s): operations.  In bf16 all three run their products on
+// the tensor cores (the tc tiles of attention_fwd.cuh and attention_bwd.cuh).
 //
 // Rows that see no key of the pair write acc = 0, m = -1e30, l = 0 and have
 // p = 0 in the backward: nothing is NaN, and merging such a partial changes

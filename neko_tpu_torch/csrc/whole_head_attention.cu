@@ -13,16 +13,17 @@
 // The TPU kernels keep a whole head's S x S score matrix in VMEM and cut it
 // into causal bands; a block here has at most 227 KB of shared memory, so this
 // is the tiled online-softmax kernel of attention_fwd.cuh (shared with the
-// blocked forward, #6).  When lse is non-null it writes m + log(l) per row
-// for the backward (the TPU kernel recomputes everything instead).
+// blocked forward, #6, and the ring partial, #11).  When lse is non-null it
+// writes m + log(l) per row for the backward (the TPU kernel recomputes
+// everything instead).
 //
 // What bounds it on the H100: at the flagship train shape (B=16, H=24,
 // S=1024, D=32) the causal half is about 26 GFLOP per layer and the q/k/v/out
-// traffic about 100 MB: small for both the 989 TFLOP/s bf16 tensor cores and
-// the 3.35 TB/s HBM.  This version computes on the CUDA cores in fp32 (no
-// mma/wgmma, no TMA), so shared-memory reads and FMA issue bound it, plus ~40
-// integer ops per 16 keep bytes when dropout is on; tensor cores are later
-// work.
+// traffic about 100 MB: 0.026 ms at the 989 TFLOP/s bf16 tensor-core rate,
+// 0.03 ms at 3.35 TB/s.  In bf16 both products run on the tensor cores
+// (mma.sync, attention_fwd.cuh's tc tile) and the elementwise work of each
+// score (exp2, masks, the keep byte, the bf16 pack) stays in registers; fp32
+// runs the CUDA-core kernel.
 //
 // C interface (loaded with ctypes): returns the cudaError_t of the launch.
 

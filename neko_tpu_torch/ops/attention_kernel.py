@@ -47,12 +47,12 @@ autograd through it for the backward, `dropout_keep_scale_reference`).  A
 CUDA tensor launches the kernels or raises: there is no fallback on the card.
 
 Head dims: the plain versions take any hd.  The kernels are compiled for
-hd in `FWD_HEAD_DIMS` (the forward, and the fp32 backward) and
-`BF16_BWD_HEAD_DIMS` (the bf16 backward's tensor-core tiles); the wrappers
-zero-pad any other hd <= 128 to the next of those widths (`kernel_head_dim`)
-and slice the padding off the results, with sm_scale from the true hd: zero
-columns change no score and no delta.  They pad on every device, so the CPU
-tests run the padding route too.
+hd in `head_dims(dtype)`: in bf16 16, 32, 64 and 128 (the tensor-core
+tiles, forward and backward), in fp32 32, 64 and 128 (the CUDA-core
+kernels); the wrappers zero-pad any other hd <= 128 to the next of those
+widths (`kernel_head_dim`) and slice the padding off the results, with
+sm_scale from the true hd: zero columns change no score and no delta.  They
+pad on every device, so the CPU tests run the padding route too.
 
 Rows whose visited key set is empty (query rows before `start`, or a row
 with start >= end) come out as exact zeros in every version, and get zero
@@ -69,8 +69,6 @@ import torch
 
 _NEG = -1e30  # finite fill for masked logits, as the TPU kernel (never -inf)
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-FWD_HEAD_DIMS = (32, 64, 128)            # csrc/attention_fwd.cuh; the fp32 backward
-BF16_BWD_HEAD_DIMS = (16, 32, 64, 128)   # the bf16 backward (attention_bwd.cuh, tensor cores)
 MAX_HEAD_DIM = 128
 
 # Philox4x32-10 (Salmon et al., "Parallel random numbers: as easy as 1, 2, 3")
@@ -85,15 +83,18 @@ def supported(S: int, hd: int, dtype) -> bool:
     return S > 0 and 0 < hd <= MAX_HEAD_DIM and dtype in _KERNEL_DTYPES
 
 
-def kernel_head_dim(hd: int, widths=FWD_HEAD_DIMS) -> int:
+def head_dims(dtype) -> tuple:
+    """The head dims the attention kernels are compiled for, forward and
+    backward: bf16 16, 32, 64, 128 (the tensor-core tiles of
+    csrc/attention_fwd.cuh and attention_bwd.cuh); fp32 32, 64, 128 (their
+    CUDA-core kernels)."""
+    return (16, 32, 64, 128) if dtype == torch.bfloat16 else (32, 64, 128)
+
+
+def kernel_head_dim(hd: int, widths) -> int:
     """The compiled width a kernel runs hd at: the least of `widths` >= hd
     (hd itself above MAX_HEAD_DIM, which the kernels refuse)."""
     return next((w for w in widths if w >= hd), hd)
-
-
-def bwd_head_dims(dtype) -> tuple:
-    """The backward's compiled widths for `dtype`."""
-    return BF16_BWD_HEAD_DIMS if dtype == torch.bfloat16 else FWD_HEAD_DIMS
 
 
 def padded(width: int, *tensors):
@@ -258,8 +259,8 @@ def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
 
 
-def _check_kernel_args(q, k, v, start, end, seed=None, widths=FWD_HEAD_DIMS) -> None:
-    """What the CUDA kernels take (hd one of the compiled `widths`); raises
+def _check_kernel_args(q, k, v, start, end, seed=None) -> None:
+    """What the CUDA kernels take (hd one of the compiled `head_dims`); raises
     ValueError on anything else."""
     if q.dim() != 4:
         raise ValueError(f"q must be [B, H, S, hd], got shape {tuple(q.shape)}")
@@ -271,9 +272,9 @@ def _check_kernel_args(q, k, v, start, end, seed=None, widths=FWD_HEAD_DIMS) -> 
     if not (q.dtype == k.dtype == v.dtype):
         raise ValueError(f"q, k, v dtypes differ: {q.dtype}, {k.dtype}, {v.dtype}")
     B, _, S, hd = q.shape
-    if not (supported(S, hd, q.dtype) and hd in widths):
+    if not (supported(S, hd, q.dtype) and hd in head_dims(q.dtype)):
         raise ValueError(
-            f"no kernel for S={S}, hd={hd}, {q.dtype}: it takes hd in {widths} "
+            f"no kernel for S={S}, hd={hd}, {q.dtype}: it takes hd in {head_dims(q.dtype)} "
             f"(the wrappers pad any hd <= {MAX_HEAD_DIM}) and dtypes {list(_KERNEL_DTYPES)}"
         )
     for name, t in (("q", q), ("k", k), ("v", v)):
@@ -303,15 +304,15 @@ def _check_like(q, **tensors) -> None:
 
 
 def _check_aligned16(**tensors) -> None:
-    """The bf16 backward tiles copy 16 bytes at a time: each [B, H, S, hd]
-    view needs a 16-byte aligned pointer and (batch, head, row) strides
-    that are multiples of 16 bytes."""
+    """The bf16 tensor-core tiles copy 16 bytes at a time: each [B, H, S, hd]
+    view they read needs a 16-byte aligned pointer and (batch, head, row)
+    strides that are multiples of 16 bytes."""
     for name, t in tensors.items():
         if t is None or t.dtype != torch.bfloat16:
             continue
         vec = 16 // t.element_size()
         if t.data_ptr() % 16 or any(st % vec for st in t.stride()[:3]):
-            raise ValueError(f"{name}: the bf16 backward needs 16-byte aligned rows, got "
+            raise ValueError(f"{name}: the bf16 tiles need 16-byte aligned rows, got "
                              f"strides {t.stride()}")
 
 
@@ -382,7 +383,7 @@ def whole_head_attention_fwd(
     B, H, S, hd = q.shape
     if sm_scale is None:
         sm_scale = hd ** -0.5
-    width = kernel_head_dim(hd)
+    width = kernel_head_dim(hd, head_dims(q.dtype))
     if width != hd:
         res, lse = whole_head_attention_fwd(*padded(width, q, k, v), start, end, seed, sm_scale,
                                             dropout_rate, need_lse=need_lse)
@@ -393,6 +394,7 @@ def whole_head_attention_fwd(
         res = whole_head_attention_reference(q, k, v, start, end, sm_scale, ks)
         return (res if out is None else out.copy_(res)), None
     _check_kernel_args(q, k, v, start, end, seed if q_thr else None)
+    _check_aligned16(q=q, k=k, v=v)
     if out is None:
         out = torch.empty_like(q, memory_format=torch.contiguous_format)
     _check_like(q, out=out)
@@ -415,7 +417,7 @@ def whole_head_attention_bwd(
     B, H, S, hd = q.shape
     if sm_scale is None:
         sm_scale = hd ** -0.5
-    width = kernel_head_dim(hd, bwd_head_dims(q.dtype))
+    width = kernel_head_dim(hd, head_dims(q.dtype))
     if width != hd:
         res = whole_head_attention_bwd(*padded(width, q, k, v, out, dout), lse, start, end, seed,
                                        sm_scale, dropout_rate)
@@ -429,7 +431,7 @@ def whole_head_attention_bwd(
             grads = torch.autograd.grad(res, qkv, dout)
         return tuple(g if buf is None else buf.copy_(g)
                      for g, buf in zip(grads, (dq, dk, dv)))
-    _check_kernel_args(q, k, v, start, end, seed if q_thr else None, bwd_head_dims(q.dtype))
+    _check_kernel_args(q, k, v, start, end, seed if q_thr else None)
     dq, dk, dv = (torch.empty_like(t, memory_format=torch.contiguous_format)
                   if buf is None else buf for t, buf in zip((q, k, v), (dq, dk, dv)))
     if dout.stride(-1) != 1:

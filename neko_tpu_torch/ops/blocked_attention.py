@@ -53,7 +53,7 @@ import torch
 
 from neko_tpu_torch.ops import attention_kernel as whk
 
-BLOCK = 512  # the plain versions' tile (the JAX package's); the kernels tile 64 x 32
+BLOCK = 512  # the plain versions' tile (the JAX package's); the bf16 kernels tile 64 x 64
 # The backward takes the fused route (#8) up to this S and the three-pass
 # route (#7 + #9) beyond it.  On an H100 80GB HBM3 (700 W), bf16, rate 0.1,
 # full rows, H = 24, hd = 32, 16,384 tokens (chip_smoke.py phase 7), fused /
@@ -277,8 +277,7 @@ def _new(q, dtype=None, zero=False):
 
 def _bwd_kernel_args(q, k, v, do, m, l, delta, start, end, seed, sm_scale, q_thr, **outs):
     """Checks and the argument block of the three backward kernels."""
-    whk._check_kernel_args(q, k, v, start, end, seed if q_thr else None,
-                           whk.bwd_head_dims(q.dtype))
+    whk._check_kernel_args(q, k, v, start, end, seed if q_thr else None)
     grads = {n: t for n, t in outs.items() if n != "dq_acc"}
     whk._check_like(q, dout=do, **grads)
     whk._check_aligned16(q=q, k=k, v=v, dout=do)
@@ -302,7 +301,7 @@ def blocked_attention_fwd(q, k, v, start, end, seed=None, sm_scale=None, dropout
     """Forward on [B, H, S, hd] views (hd contiguous, any other strides),
     written into `out` when given.  -> (out, m, l)."""
     hd = q.shape[-1]
-    width = whk.kernel_head_dim(hd)
+    width = whk.kernel_head_dim(hd, whk.head_dims(q.dtype))
     if width != hd:
         res, m, l = blocked_attention_fwd(*whk.padded(width, q, k, v), start, end, seed,
                                           whk._scale(sm_scale, hd), dropout_rate)
@@ -312,6 +311,7 @@ def blocked_attention_fwd(q, k, v, start, end, seed=None, sm_scale=None, dropout
         res, m, l = blocked_fwd_reference(q, k, v, start, end, sm_scale, ks)
         return (res if out is None else out.copy_(res)), m, l
     whk._check_kernel_args(q, k, v, start, end, seed if q_thr else None)
+    whk._check_aligned16(q=q, k=k, v=v)
     out = _new(q) if out is None else out
     whk._check_like(q, out=out)
     B, H, S, _ = q.shape
@@ -332,7 +332,7 @@ def blocked_attention_dq(q, k, v, do, m, l, delta, start, end, seed=None, sm_sca
                          dropout_rate=0.0, dq=None):
     """Three-pass dq (#7) on [B, H, S, hd] views, into `dq` when given."""
     hd = q.shape[-1]
-    width = whk.kernel_head_dim(hd, whk.bwd_head_dims(q.dtype))
+    width = whk.kernel_head_dim(hd, whk.head_dims(q.dtype))
     if width != hd:
         res = blocked_attention_dq(*whk.padded(width, q, k, v, do), m, l, delta, start, end,
                                    seed, whk._scale(sm_scale, hd), dropout_rate)
@@ -354,7 +354,7 @@ def blocked_attention_dkv(q, k, v, do, m, l, delta, start, end, seed=None, sm_sc
     """Three-pass (dk, dv) (#9) on [B, H, S, hd] views, into `dk`, `dv` when
     given."""
     hd = q.shape[-1]
-    width = whk.kernel_head_dim(hd, whk.bwd_head_dims(q.dtype))
+    width = whk.kernel_head_dim(hd, whk.head_dims(q.dtype))
     if width != hd:
         res = blocked_attention_dkv(*whk.padded(width, q, k, v, do), m, l, delta, start, end,
                                     seed, whk._scale(sm_scale, hd), dropout_rate)
@@ -379,7 +379,7 @@ def blocked_attention_bwd_fused(q, k, v, do, m, l, delta, start, end, seed=None,
     scratch with atomics, in an order that changes from run to run, and
     cast into dq after the launch."""
     hd = q.shape[-1]
-    width = whk.kernel_head_dim(hd, whk.bwd_head_dims(q.dtype))
+    width = whk.kernel_head_dim(hd, whk.head_dims(q.dtype))
     if width != hd:
         res = blocked_attention_bwd_fused(*whk.padded(width, q, k, v, do), m, l, delta, start,
                                           end, seed, whk._scale(sm_scale, hd), dropout_rate)

@@ -64,7 +64,7 @@ import torch.distributed as dist
 from neko_tpu_torch.ops import attention_kernel as whk
 from neko_tpu_torch.ops import blocked_attention as ba
 
-BLOCK = ba.BLOCK  # the plain versions' tile; the kernels tile 64 x 32
+BLOCK = ba.BLOCK  # the plain versions' tile; the bf16 kernels tile 64 x 64
 # profiler range around the torch passes between the kernels (the merges of
 # (m, l, acc), out = acc / l and L, the adds of the gradient partials)
 MERGE_RANGE = "ring merge"
@@ -237,7 +237,7 @@ def ring_partial_fwd(q, k, v, q_off, k_off, start, end, seed=None, sm_scale=None
     Written into the fp32 buffers `out` ([B, H, S_local, hd] view), `m`, `l`
     ([B, H, S_local] contiguous) when given.  -> (acc, m, l)."""
     hd = q.shape[-1]
-    width = whk.kernel_head_dim(hd)
+    width = whk.kernel_head_dim(hd, whk.head_dims(q.dtype))
     if width != hd:
         acc, m_p, l_p = ring_partial_fwd(*whk.padded(width, q, k, v), q_off, k_off, start, end,
                                          seed, whk._scale(sm_scale, hd), dropout_rate)
@@ -247,6 +247,7 @@ def ring_partial_fwd(q, k, v, q_off, k_off, start, end, seed=None, sm_scale=None
         res = ring_partial_fwd_reference(q, k, v, q_off, k_off, start, end, sm_scale, ks)
         return _filled(res, (out, m, l))
     whk._check_kernel_args(q, k, v, start, end, seed if q_thr else None)
+    whk._check_aligned16(q=q, k=k, v=v)
     out = _fp32_like(q, out, "out")
     m, l = (_new_stat(q) if t is None else t for t in (m, l))
     ba._check_stats(q, m=m, l=l)
@@ -259,8 +260,7 @@ def ring_partial_fwd(q, k, v, q_off, k_off, start, end, seed=None, sm_scale=None
 
 def _bwd_kernel_args(q, k, v, do, L, delta, q_off, k_off, start, end, seed, sm_scale, q_thr,
                      **outs):
-    whk._check_kernel_args(q, k, v, start, end, seed if q_thr else None,
-                           whk.bwd_head_dims(q.dtype))
+    whk._check_kernel_args(q, k, v, start, end, seed if q_thr else None)
     whk._check_like(q, dout=do)
     whk._check_aligned16(q=q, k=k, v=v, dout=do)
     ba._check_stats(q, L=L, delta=delta)
@@ -274,7 +274,7 @@ def ring_partial_dq(q, k, v, do, L, delta, q_off, k_off, start, end, seed=None, 
     into `dq` when given.  `L` and `delta` are fp32 [B, H, S_local]
     contiguous: the log-sum-exp of the whole ring and rowsum(do * out)."""
     hd = q.shape[-1]
-    width = whk.kernel_head_dim(hd, whk.bwd_head_dims(q.dtype))
+    width = whk.kernel_head_dim(hd, whk.head_dims(q.dtype))
     if width != hd:
         res = ring_partial_dq(*whk.padded(width, q, k, v, do), L, delta, q_off, k_off, start,
                               end, seed, whk._scale(sm_scale, hd), dropout_rate)
@@ -297,7 +297,7 @@ def ring_partial_dkv(q, k, v, do, L, delta, q_off, k_off, start, end, seed=None,
     """(dk, dv) partials (#13) of the VISITING kv block at `k_off` from the
     local rows at `q_off`: fp32, into `dk`, `dv` when given."""
     hd = q.shape[-1]
-    width = whk.kernel_head_dim(hd, whk.bwd_head_dims(q.dtype))
+    width = whk.kernel_head_dim(hd, whk.head_dims(q.dtype))
     if width != hd:
         res = ring_partial_dkv(*whk.padded(width, q, k, v, do), L, delta, q_off, k_off, start,
                                end, seed, whk._scale(sm_scale, hd), dropout_rate)

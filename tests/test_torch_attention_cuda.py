@@ -1,7 +1,8 @@
 """The attention CUDA kernels against their plain torch versions: the
 whole-head forward and backward (autograd through the plain version) and the
 blocked forward (o, m, l) and both blocked backward routes, the ring's
-per-pair kernels and the ring as a whole, with dropout (the
+per-pair kernels and the ring as a whole, the bf16 forward and backward
+tiles (tensor cores) on every entry point and compiled hd, with dropout (the
 same mask: the plain version gets the keep/scale matrix the mask kernel
 writes, and that matrix must equal the plain Philox bit for bit), on
 contiguous [B, H, S, hd] tensors and on head-packed strided views of one
@@ -30,16 +31,30 @@ def cuda():
 
 
 # tolerances (atol, rtol): bf16 outputs are rounded to 8 significant bits,
-# and the kernel keeps p in fp32 where the plain version rounds it to bf16
-# before the value product (as the TPU kernel does): 1e-2 absolute plus one
-# bf16 ulp relative (outputs reach |x| ~ 4 on rows with few keys, where one
-# ulp is 1.56e-2).  fp32: summation order only.
+# and both the kernel and the plain version round exp(s - m) * keep to bf16
+# before the value product (as the TPU kernel does), from fp32 values
+# computed in other orders and against other running maxes (64-key tiles
+# against 512-key ones, or the normalized p): 1e-2 absolute plus one bf16
+# ulp relative (outputs reach |x| ~ 4 on rows with few keys, where one ulp
+# is 1.56e-2), on all but FLIP_SHARE of the values, where the two roundings
+# of one term fall on either side of a boundary (`_fwd_close`).  fp32:
+# summation order only.
 TOL = {torch.bfloat16: (1e-2, 2.0 ** -7), torch.float32: (1e-5, 0.0)}
 # gradients: sums over up to S terms of products of rounded factors.  bf16:
 # 3e-2 absolute plus two bf16 ulps relative (the gradient is rounded to bf16
 # once, the plain version's p once more before dv; gradients reach |x| ~ 8);
 # fp32: summation order over S keys.
 GRAD_TOL = {torch.bfloat16: (3e-2, 2.0 ** -6), torch.float32: (5e-5, 1e-4)}
+
+
+def _fwd_close(got, want, dtype, name="out"):
+    """A forward's output against the plain one: within TOL; in bf16 on all
+    but FLIP_SHARE of the values, and within GRAD_TOL[bf16] everywhere."""
+    atol, rtol = TOL[dtype]
+    if dtype != torch.bfloat16:
+        torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
+        return
+    _close_but_rare_flips(got, want, name, dict(atol=atol, rtol=rtol))
 
 
 def _bounds(B, S, cuda):
@@ -68,8 +83,7 @@ def test_kernel_matches_plain(cuda, B, H, S, hd, dtype):
     assert whk.whole_head_attention.launches == before + 1
     ref = whk.whole_head_attention_reference(q, k, v, start, end)
     assert torch.isfinite(out).all()
-    atol, rtol = TOL[dtype]
-    torch.testing.assert_close(out.float(), ref.float(), atol=atol, rtol=rtol)
+    _fwd_close(out, ref, dtype)
 
 
 @pytest.mark.cuda
@@ -95,9 +109,7 @@ def test_mask_kernel_equals_plain_philox_bit_for_bit(cuda, B, H, S, rate):
 
 
 def _grads_check(out, ref, grads, ref_grads, valid_rows, dtype):
-    atol, rtol = TOL[dtype]
-    torch.testing.assert_close(out.float()[valid_rows], ref.float()[valid_rows],
-                               atol=atol, rtol=rtol)
+    _fwd_close(out[valid_rows], ref[valid_rows], dtype)
     atol, rtol = GRAD_TOL[dtype]
     for name, g, r in zip("qkv", grads, ref_grads):
         assert torch.isfinite(g).all(), name
@@ -112,7 +124,7 @@ def _grads_check(out, ref, grads, ref_grads, valid_rows, dtype):
     (2, 2, 192, 64, torch.float32),
     (2, 2, 128, 128, torch.float32),
     (2, 2, 128, 128, torch.bfloat16),
-    (2, 3, 200, 16, torch.bfloat16),   # hd 16: native bf16 backward, padded forward
+    (2, 3, 200, 16, torch.bfloat16),   # hd 16: the native bf16 tiles, forward and backward
     (2, 3, 200, 16, torch.float32),    # hd 16: padded to 32 both ways
     (2, 2, 160, 48, torch.bfloat16),   # an odd hd: padded to 64
 ])
@@ -195,7 +207,7 @@ def _blocked_inputs(B, H, S, hd, dtype, cuda, seed=3):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,H,S,hd,dtype", [
-    (2, 4, 1100, 32, torch.bfloat16),   # ragged S: no multiple of the 64 x 32 tiles
+    (2, 4, 1100, 32, torch.bfloat16),   # ragged S: no multiple of the kernels' tiles
     (4, 3, 700, 64, torch.float32),
     (2, 2, 600, 128, torch.float32),
     (3, 2, 1300, 128, torch.bfloat16),
@@ -226,8 +238,7 @@ def test_blocked_kernels_match_plain(cuda, B, H, S, hd, dtype, rate, route, monk
     ks = ba.dropout_keep_scale(seed, B, H, S, rate) if rate else None
     ref, m_ref, l_ref = ba.blocked_fwd_reference(q, k, v, start, end, None, ks)
     ok = valid[:, None, :, None].expand_as(out)
-    atol, rtol = TOL[dtype]
-    torch.testing.assert_close(out.float()[ok], ref.float()[ok], atol=atol, rtol=rtol)
+    _fwd_close(out[ok], ref[ok], dtype)
     torch.testing.assert_close(out2, out.transpose(1, 2).reshape(B, S, -1), atol=0, rtol=0)
     rows = valid[:, None, :].expand_as(m)
     torch.testing.assert_close(m[rows], m_ref[rows], atol=1e-5, rtol=1e-5)
@@ -276,6 +287,11 @@ def test_blocked_kernel_refuses_an_unsupported_head_dim(cuda):
 
 
 # ---------------------------------------------------- ring kernels #11-#13
+# the forward partial's acc, which is not divided by l, relative to max(l, 1):
+# bf16 (both sides round exp(s - m) * keep to bf16, against the running
+# maxes of 64- and 512-key tiles) as chip_smoke.py's RING_ACC_TOL; fp32
+# summation order and exp2f against torch.exp
+RING_ACC_TOL = {torch.bfloat16: 2e-2, torch.float32: 5e-6}
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,H,S_l,hd,dtype", [
     (2, 4, 512, 32, torch.bfloat16),
@@ -291,7 +307,8 @@ def test_ring_pair_kernels_match_plain(cuda, B, H, S_l, hd, dtype, rate, pair):
     against their plain versions on the same values (which, in bf16, round
     p * keep and ds to bf16 before their products as the kernels do), with
     the pair's window of the plain Philox and the same L and delta; (0, 2) is
-    a pair in the future of the q shard: every output is 0, m = -1e30."""
+    a pair in the future of the q shard: every output is 0, m = -1e30.  acc
+    is not divided by l, so it is held relative to it (RING_ACC_TOL)."""
     from neko_tpu_torch.ops import ring_kernel as rk
 
     n = 3
@@ -317,8 +334,7 @@ def test_ring_pair_kernels_match_plain(cuda, B, H, S_l, hd, dtype, rate, pair):
                for t in (acc, m, l, dq, dk, dv))
     ks = (whk.dropout_keep_scale_reference(seed, B, H, None, rate, rows=(at[0], at[0] + S_l),
                                            cols=(at[1], at[1] + S_l)) if rate else None)
-    f32 = [t.float() for t in (q, k, v)]
-    acc_w, m_w, l_w = rk.ring_partial_fwd_reference(*f32, *at, None, ks)
+    acc_w, m_w, l_w = rk.ring_partial_fwd_reference(q, k, v, *at, None, ks)
     dq_w = rk.ring_partial_dq_reference(q, k, v, do, L, delta, *at, None, ks)
     dk_w, dv_w = rk.ring_partial_dkv_reference(q, k, v, do, L, delta, *at, None, ks)
     rows = l_w > 0
@@ -327,12 +343,11 @@ def test_ring_pair_kernels_match_plain(cuda, B, H, S_l, hd, dtype, rate, pair):
         assert not rows.any() and not dq.any() and not dk.any() and not dv.any()
     torch.testing.assert_close(m[rows], m_w[rows], atol=1e-5, rtol=1e-5)
     torch.testing.assert_close(l, l_w, atol=1e-5, rtol=1e-4)
-    # acc is not divided by l: held relative to it (fp32 summation order)
     scale = l_w.clamp_min(1.0)[..., None]
-    torch.testing.assert_close(acc / scale, acc_w / scale, atol=5e-6, rtol=0)
+    torch.testing.assert_close(acc / scale, acc_w / scale, atol=RING_ACC_TOL[dtype], rtol=0)
     for name, got, want in (("dq", dq, dq_w), ("dk", dk, dk_w), ("dv", dv, dv_w)):
         if dtype == torch.bfloat16:
-            _close_but_rare_flips(got, want, name)
+            _close_but_rare_flips(got, want, f"d{name}")
         else:
             torch.testing.assert_close(got, want, atol=1e-4, rtol=2.0 ** -7,
                                        msg=lambda s, n=name: f"{n}: {s}")
@@ -363,9 +378,7 @@ def test_ring_equals_blocked_kernels_at_one_seed(cuda, n, S, hd, dtype, rate):
     o2 = ba.blocked_attention_qkv(x, start, end, seed, heads=H, dropout_rate=rate)
     (g2,) = torch.autograd.grad(o2, (x,), dout)
     assert torch.isfinite(o1).all() and torch.isfinite(g1).all() and not o1[~valid].any()
-    o_tol = dict(atol=1e-5, rtol=0) if dtype == torch.float32 else dict(zip(("atol", "rtol"),
-                                                                          TOL[dtype]))
-    torch.testing.assert_close(o1[valid], o2[valid], **o_tol)
+    _fwd_close(o1[valid], o2[valid], dtype)
     torch.testing.assert_close(g1, g2, **dict(zip(("atol", "rtol"), GRAD_TOL[dtype])))
 
 
@@ -399,16 +412,16 @@ BWD_TOL = dict(atol=1e-4, rtol=2.0 ** -7)
 FLIP_SHARE = 1e-3
 
 
-def _close_but_rare_flips(got, want, name):
-    """`got` within BWD_TOL of `want` on all but FLIP_SHARE of the values,
+def _close_but_rare_flips(got, want, name, tight=BWD_TOL):
+    """`got` within `tight` of `want` on all but FLIP_SHARE of the values,
     and within GRAD_TOL[bf16] everywhere."""
     diff = (got.float() - want.float()).abs()
     w = want.float().abs()
-    share = (diff > BWD_TOL["atol"] + BWD_TOL["rtol"] * w).double().mean().item()
+    share = (diff > tight["atol"] + tight["rtol"] * w).double().mean().item()
     atol, rtol = GRAD_TOL[torch.bfloat16]
     worst = (diff - atol - rtol * w).max().item()
     assert share <= FLIP_SHARE and worst <= 0, (
-        f"d{name}: {share:.2e} of the values over {BWD_TOL}, worst excess over "
+        f"{name}: {share:.2e} of the values over {tight}, worst excess over "
         f"{GRAD_TOL[torch.bfloat16]} {worst:.3e}, max abs diff {diff.max().item():.3e}")
 
 
@@ -458,7 +471,7 @@ def test_bf16_backward_tiles_match_plain(cuda, hd, entry, rate):
         (start < end)[:, None]
     for name, g, w in zip(names, got, want):
         assert g.dtype == torch.bfloat16 and torch.isfinite(g).all(), name
-        _close_but_rare_flips(g, w, name)
+        _close_but_rare_flips(g, w, f"d{name}")
         unseen = ~rows if name == "q" else ~seen_keys[:, None, :, None]
         assert not g.masked_fill(~unseen, 0).any(), f"d{name} not 0 where nothing is seen"
 
@@ -476,3 +489,83 @@ def test_bf16_backward_refuses_misaligned_rows(cuda):
     with pytest.raises(ValueError):
         whk.whole_head_attention_bwd(x, x, x, x, x, lse, start, end)
     assert whk.whole_head_attention_bwd.launches == before
+
+
+# ------------------------------------ the bf16 forward tile (tensor cores)
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", [16, 32, 64, 128])
+@pytest.mark.parametrize("contract", ["none", "lse", "m, l", "ring"])
+@pytest.mark.parametrize("S", [1024, 1000, 3000])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_bf16_forward_tile_matches_plain(cuda, hd, contract, S, rate):
+    """The tensor-core forward at each compiled head dim, through each of its
+    four row-stat contracts -- none (the serving prefill), lse (the
+    whole-head backward's), (m, l) (the blocked backward's) and the ring's
+    unnormalized acc with (m, l) -- against the plain versions on the same
+    bf16 values, on a full row, a left-padded row, a short row and a row that
+    sees no key, at an S that is a multiple of the 64-key tile and two that
+    are not.  The ring's pairs sit at k_off = S // 3 (no multiple of 64): the
+    first key tile starts before k_off.  Rows that see no key give exact
+    zeros, m = -1e30, l = 0 (and lse = 0), never NaN."""
+    from neko_tpu_torch.ops import blocked_attention as ba
+    from neko_tpu_torch.ops import ring_kernel as rk
+
+    B, H = 4, 2
+    dtype = torch.bfloat16
+    n = 3 if contract == "ring" else 1
+    S_l = S // n
+    qkv, start, end, valid, _ = _blocked_inputs(B, H, n * S_l, hd, dtype, cuda, seed=hd + S)
+    seed = torch.tensor([4242], dtype=torch.int32, device=cuda)
+    q, k, v = whk._qkv_views("qkv", (qkv,), H)
+
+    def stats_close(m, l, m_w, l_w, rows):
+        torch.testing.assert_close(m[rows], m_w[rows], atol=1e-5, rtol=1e-5)
+        torch.testing.assert_close(l, l_w, atol=1e-5, rtol=1e-4)
+        assert (m[~rows] == -1e30).all() and not l[~rows].any()
+
+    if contract != "ring":
+        ks = whk.dropout_keep_scale(seed, B, H, S, rate) if rate else None
+        ref, m_w, l_w = ba.blocked_fwd_reference(q, k, v, start, end, None, ks)
+        rows = l_w > 0
+        assert torch.equal(rows, valid[:, None, :].expand_as(rows))
+        ok = rows[..., None].expand_as(q)
+        if contract == "m, l":
+            before = ba.blocked_attention_fwd.launches
+            out, m, l = ba.blocked_attention_fwd(q, k, v, start, end, seed, None, rate)
+            assert ba.blocked_attention_fwd.launches == before + 1
+            stats_close(m, l, m_w, l_w, rows)
+        else:
+            before = whk.whole_head_attention.launches
+            out, lse = whk.whole_head_attention_fwd(q, k, v, start, end, seed, None, rate,
+                                                    need_lse=contract == "lse")
+            assert (lse is None) == (contract == "none")
+            if lse is not None:
+                lse_w = torch.where(rows, m_w + torch.log(l_w.clamp_min(1e-30)), 0.0)
+                torch.testing.assert_close(lse, lse_w, atol=1e-4, rtol=1e-5)
+                assert not lse[~rows].any()
+            # the plain whole-head version too: it rounds the normalized p
+            whole = whk.whole_head_attention_reference(q, k, v, start, end, None, ks)
+            _fwd_close(out[ok], whole[ok], dtype, "out vs the whole-head plain version")
+        torch.cuda.synchronize()
+        assert out.dtype == dtype and torch.isfinite(out).all()
+        _fwd_close(out[ok], ref[ok], dtype)
+        assert not out[~ok].any()
+        return
+
+    for i, j in ((1, 1), (2, 1)):  # the diagonal pair and a past one, both at k_off = S_l
+        q_off, k_off = i * S_l, j * S_l
+        qi, kj, vj = q.chunk(n, dim=2)[i], k.chunk(n, dim=2)[j], v.chunk(n, dim=2)[j]
+        before = rk.ring_partial_fwd.launches
+        acc, m, l = rk.ring_partial_fwd(qi, kj, vj, q_off, k_off, start, end, seed, None, rate)
+        torch.cuda.synchronize()
+        assert rk.ring_partial_fwd.launches == before + 1
+        assert acc.dtype == torch.float32 and torch.isfinite(acc).all()
+        ks = (whk.dropout_keep_scale_reference(seed, B, H, None, rate, rows=(q_off, q_off + S_l),
+                                               cols=(k_off, k_off + S_l)) if rate else None)
+        acc_w, m_w, l_w = rk.ring_partial_fwd_reference(qi, kj, vj, q_off, k_off, start, end,
+                                                        None, ks)
+        rows = l_w > 0
+        stats_close(m, l, m_w, l_w, rows)
+        scale = l_w.clamp_min(1.0)[..., None]
+        torch.testing.assert_close(acc / scale, acc_w / scale, atol=RING_ACC_TOL[dtype], rtol=0)
+        assert not acc[~rows].any()

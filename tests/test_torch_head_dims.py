@@ -182,11 +182,11 @@ def test_wrappers_pad_an_odd_head_dim_to_the_plain_result():
 
 
 def test_head_dims_the_kernels_take():
-    assert whk.kernel_head_dim(16) == 32 and whk.kernel_head_dim(48) == 64
-    assert whk.kernel_head_dim(16, whk.bwd_head_dims(torch.bfloat16)) == 16
-    assert whk.kernel_head_dim(16, whk.bwd_head_dims(torch.float32)) == 32
+    bf16, fp32 = whk.head_dims(torch.bfloat16), whk.head_dims(torch.float32)
+    assert whk.kernel_head_dim(16, bf16) == 16 and whk.kernel_head_dim(16, fp32) == 32
+    assert whk.kernel_head_dim(48, bf16) == 64 and whk.kernel_head_dim(48, fp32) == 64
     assert whk.kernel_head_dim(100, da.KERNEL_HEAD_DIMS) == 128
-    assert whk.kernel_head_dim(256) == 256  # above 128: no kernel, never padded
+    assert whk.kernel_head_dim(256, bf16) == 256  # above 128: no kernel, never padded
     for hd in (8, 16, 48, 80, 128):
         assert attn.packed_ok(1024, hd, 4) and ba.supported(3000, hd) and rk.supported(300, hd)
         assert da.supported(2, 4, 100, hd)
@@ -270,3 +270,40 @@ def test_plain_ring_pair_backward_matches_the_jax_kernels_at_hd_16_bf16(pair):
         assert got.dtype == torch.float32
         np.testing.assert_allclose(got.transpose(1, 2).reshape(B16, S_l, -1).numpy(),
                                    np.asarray(want.astype(jnp.float32)), **BF16_TOL)
+
+
+# ------------------------------------- the compiled widths, forward and backward
+@pytest.mark.parametrize("dtype,hd,width", [
+    (torch.bfloat16, 16, 16),   # native: the tensor-core tiles are compiled at hd 16
+    (torch.float32, 16, 32),    # the CUDA-core kernels pad hd 16 to 32
+    (torch.bfloat16, 48, 64),
+    (torch.float32, 48, 64),
+    (torch.bfloat16, 8, 16),
+    (torch.float32, 128, 128),
+])
+def test_one_head_dim_rule_for_the_forward_and_the_backward(dtype, hd, width):
+    """`head_dims(dtype)` is the one set of compiled widths: every wrapper,
+    forward and backward, pads hd to `kernel_head_dim(hd, head_dims(dtype))`
+    and the kernels' argument check takes exactly those widths."""
+    assert whk.head_dims(torch.bfloat16) == (16, 32, 64, 128)
+    assert whk.head_dims(torch.float32) == (32, 64, 128)
+    assert whk.kernel_head_dim(hd, whk.head_dims(dtype)) == width
+    B, S = 1, 8
+    start = torch.zeros(B, dtype=torch.int32)
+    end = torch.full((B,), S, dtype=torch.int32)
+    for d in (hd, width):
+        x = torch.zeros(B, 2, S, d, dtype=dtype)
+        if d in whk.head_dims(dtype):
+            whk._check_kernel_args(x, x, x, start, end)
+        else:
+            with pytest.raises(ValueError):
+                whk._check_kernel_args(x, x, x, start, end)
+
+
+def test_head_dims_above_128_are_refused():
+    x = torch.zeros(1, 2, 8, 256, dtype=torch.bfloat16)
+    bounds = torch.zeros(1, dtype=torch.int32)
+    assert whk.kernel_head_dim(256, whk.head_dims(torch.bfloat16)) == 256
+    assert not whk.supported(8, 256, torch.bfloat16)
+    with pytest.raises(ValueError):
+        whk._check_kernel_args(x, x, x, bounds, bounds + 8)
