@@ -29,8 +29,9 @@
    At dropout 0 and 0.1: out, dq, dk, dv against autograd through the plain
    version with the same materialized mask, and a planted forward fault
    (the keep byte of the neighbouring 16-column block) that the out check
-   must see; the mask kernel against the plain Philox bit for bit, and its
-   keep share; [B,H,S,hd] at hd 64 and 128 in fp32; the tensor-core forward
+   must see; the mask kernel against the plain Philox bit for bit (also
+   at MASK_EDGES: S 1, 17, 128, 1000 and 2048), and its keep share;
+   [B,H,S,hd] at hd 64 and 128 in fp32; the tensor-core forward
    (out and lse) and backward at bf16 hd 16 and 128 (and hd 16 in fp32)
    against the plain versions, the backward on the kernel forward's lse,
    rounding p * keep and ds as the kernels do.  Forward, backward and mask times, kernel and
@@ -39,7 +40,7 @@
 6. The flagship train step (neko_tpu_torch.bench's model and batch, random
    weights from the seed): warm-up and timed steps (step ms, tokens/s, MFU,
    peak memory); every loss finite; the launch counters show forward =
-   backward = layers x steps.  One step with the kernels against the same
+   backward = layers x steps, loss head = loss chunks x steps.  One step with the kernels against the same
    step with the plain attention (same seeds, so the same masks; the plain
    attention gets its mask from the mask kernel): loss and every
    parameter's gradient, with planted faults in the plain forward and
@@ -103,10 +104,15 @@
    64 new tokens) through the kernel and through the plain decode
    attention: per-token ms, and the last-step logits of the two (teacher-
    forced on the kernel run's tokens) within a limit a planted fault fails.
-12. The fused loss head (#15, a check kernel) at the flagship loss chunks
-   ([4096, 768] and [3328, 768] x 52,480, valid vocab 52,305, bf16) against
-   its plain version in fp32, with planted faults; times against cuBLAS +
-   logsumexp + gather.
+12. The fused loss head (#15, the train steps' loss forward) at the
+   flagship loss chunks ([4096, 768] and [3328, 768] x 52,480, valid vocab
+   52,305, bf16) against its plain version in fp32, with planted faults
+   (the last one what a wrong swizzle or a dropped tail k-slice gives);
+   times and TFLOP/s at both chunks against the route the loss forward ran
+   before it (cuBLAS fp32 logits + logsumexp + gather), which it must beat,
+   and at the 256-row chunk of the loss without gathered targets at B = 1;
+   its registers and spills (ptxas: none may spill) and its HGMMA and
+   UTMALDG instructions (cuobjdump -sass: both must be there).
 13. Fused AdamW (#16) on the flagship tree with the gradients of a real step
    and moments after two updates, bit for bit against its plain version,
    with planted faults; times against torch's fused AdamW; the optimizer
@@ -114,12 +120,18 @@
    `fused_adamw=True` (launches = steps); three steps against the default
    AdamW route, and 20 steps of falling loss.
 
+Every train run (phases 6, 8, 10, 13) takes its loss forward through #15:
+its launches must be loss chunks x steps (2 a flagship and `long` step, 3 a
+`long4k` step), and the plain side of each kernels-vs-plain step check runs
+the plain loss forward too.
+
 Prints a JSON line of the kernels that only the checks launch
 ({"check_kernels": ...}), then one JSON line of the kernels the main path
 runs ({"kernels": ...}; launches counted in the serving and train runs
 alone, each with its bound from this run's shapes), then, as the last line,
 {"ok": true, "device": {...}}.  Any failed phase exits non-zero.  The
-attention entries carry `tflops`: the bound's FLOPs over their ms.
+attention entries and the loss head carry `tflops`: the bound's FLOPs over
+their ms.
 """
 
 from __future__ import annotations
@@ -174,6 +186,8 @@ LOGIT_FAULTS = ("causal mask dropped", "diagonal excluded", "scale 1/hd")
 # training (phases 5 and 6)
 TRAIN = dict(B=16, H=24, S=1024, hd=32)
 RATE = 0.1
+# the mask kernel's edges, held bit for bit (B, H, S)
+MASK_EDGES = ((2, 3, 1), (2, 3, 17), (3, 4, 128), (2, 3, 1000), (1, 2, 2048))
 # gradients, kernel vs autograd through the plain version: sums of up to S
 # products of rounded factors, rounded to bf16 once (the plain version also
 # rounds p to bf16 before dv): 3e-2 absolute plus two bf16 ulps relative
@@ -345,9 +359,13 @@ DECODE_BENCH = dict(B=8, prompt=512, new=64)
 DECODE_LOGIT_TOL = 3.5e-2
 # fused loss head (phase 12): logz and the target logit, kernel vs the plain
 # version in fp32 on the same bf16 operands: fp32 sums of the same exact
-# products, in another order (logz ~ 11, target logits ~ 0.5)
+# products, in another order, and exp through ex2.approx (logz ~ 11, target
+# logits ~ 0.5).  "last 64-deep slice of D dropped" is what a TMA box or a
+# wgmma descriptor that misses the tail of D (or a swizzle that scrambles a
+# slice) would give.
 LOSS_TOL = (1e-4, 1e-5)
-LOSS_FAULTS = ("padded columns not masked", "target column off by one")
+LOSS_FAULTS = ("padded columns not masked", "target column off by one",
+               "last 64-deep slice of D dropped")
 # fused AdamW (phase 13): kernel vs plain, |kernel - plain| <= 1e-6 * |plain|
 # on params, mu and nu (both round after every operation in one order)
 ADAMW_RTOL = 1e-6
@@ -980,6 +998,13 @@ def train_kernels_vs_plain(card: str, dev="cuda") -> dict:
     print(f"mask kernel {B}x{H}x{S}x{S}: equal to the plain Philox bit for bit; keep "
           f"share {share:.6f} (expected {p_keep:.6f} +- {5 * (p_keep * (1 - p_keep) / n) ** 0.5:.2e})")
     _require(abs(share - p_keep) < 5 * (p_keep * (1 - p_keep) / n) ** 0.5, "keep share")
+    # the coalesced stores' edges: rows shorter than a warp's 128 columns, S
+    # no multiple of 4 (scalar stores) or of 16
+    for Bm, Hm, Sm in MASK_EDGES:
+        got = whk.dropout_keep_scale(seed, Bm, Hm, Sm, RATE)
+        want = whk.dropout_keep_scale_reference(seed, Bm, Hm, Sm, RATE)
+        _require(torch.equal(got, want), f"mask kernel differs at S={Sm}")
+    print(f"mask kernel equal to the plain Philox bit for bit at (B, H, S) {MASK_EDGES}")
 
     fwd_err = bwd_err = 0.0
     for rate in (0.0, RATE):
@@ -1147,13 +1172,40 @@ def _grad_gap(grads, want) -> float:
                for n, w in want.items())
 
 
+def _loss_chunks(batch) -> int:
+    """Chunks the gathered loss cuts a step's targets into: the loss head #15
+    launches once for each."""
+    import inspect
+
+    from neko_tpu_torch.ops import losses
+
+    size = inspect.signature(losses.gathered_masked_xent).parameters["chunk_size"].default
+    return -(-batch.loss_pos.shape[0] // size)
+
+
+@contextlib.contextmanager
+def plain_loss_forward():
+    """The loss forward's (logz, target logit) through the plain version (the
+    [C, V] logits in fp32, logsumexp, gather) in place of kernel #15."""
+    from neko_tpu_torch.ops import loss_kernel as lk
+
+    kernel = lk.fused_logz_tl
+    lk.fused_logz_tl = lk.fused_logz_tl_reference
+    try:
+        yield
+    finally:
+        lk.fused_logz_tl = kernel
+
+
 def _step_loss_and_grads(ctx, sd, batch, fn=None):
-    """(loss, {name: gradient}) of one step from the state dict `sd`, the
-    train attention replaced by `fn` when given."""
+    """(loss, {name: gradient}) of one step from the state dict `sd`; with
+    `fn`, the plain side: the train attention replaced by `fn` and the loss
+    forward by its plain version."""
     st = ctx.init_state({k: v.clone() for k, v in sd.items()})
     with contextlib.ExitStack() as stack:
         if fn is not None:
             stack.enter_context(train_attention_through(fn))
+            stack.enter_context(plain_loss_forward())
         loss = ctx.loss_and_grads(st, batch).item()
     return loss, {n: p.grad for n, p in st.model.named_parameters()}
 
@@ -1199,13 +1251,14 @@ def smoke_width_step_check(card: str, dev="cuda") -> dict:
 
 def train_step_check(card: str, dev="cuda") -> dict:
     """Phase 6.  -> launch counts of the training kernels in the timed train
-    steps ("fwd", "bwd", "mask"), and of the mask kernel in the step check
-    ("mask_check")."""
+    steps ("fwd", "bwd", "mask", "loss"), and of the mask kernel in the step
+    check ("mask_check")."""
     import torch
 
     from neko_tpu_torch import bench
     from neko_tpu_torch.convert import init_state_dict
     from neko_tpu_torch.ops import attention_kernel as whk
+    from neko_tpu_torch.ops import loss_kernel as lk
     from neko_tpu_torch.training.train_state import OptimizerConfig, TrainContext
 
     cfg, ctx, state, batch, B = bench.setup("flagship", dev, SEED)
@@ -1213,10 +1266,10 @@ def train_step_check(card: str, dev="cuda") -> dict:
     _, warm_losses = bench.time_steps(ctx, state, batch, warm)
     torch.cuda.reset_peak_memory_stats()
     whk.whole_head_attention.launches = whk.whole_head_attention_bwd.launches = 0
-    whk.dropout_keep_scale.launches = 0
+    whk.dropout_keep_scale.launches = lk.fused_logz_tl.launches = 0
     dt, losses = bench.time_steps(ctx, state, batch, steps)
     fwd, bwd = whk.whole_head_attention.launches, whk.whole_head_attention_bwd.launches
-    mask = whk.dropout_keep_scale.launches
+    mask, loss_head = whk.dropout_keep_scale.launches, lk.fused_logz_tl.launches
     tokens = B * cfg.context_len
     fpt = bench.train_flops_per_token(cfg, bench.tgt_budget(B, cfg) / tokens)
     tps = tokens * steps / dt
@@ -1228,11 +1281,15 @@ def train_step_check(card: str, dev="cuda") -> dict:
           f"{torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB ({card})")
     print(f"losses: warm-up {warm_losses}, timed {losses}")
     _require(all(np.isfinite(warm_losses + losses)), f"non-finite loss: {losses}")
+    chunks = _loss_chunks(batch)
     print(f"train kernel launches over {steps} steps x {cfg.layers} layers: forward {fwd}, "
-          f"backward {bwd}, mask {mask} (the kernels draw their keep bytes inline)")
+          f"backward {bwd}, mask {mask} (the kernels draw their keep bytes inline); loss head "
+          f"{loss_head} ({chunks} loss chunks a step)")
     _require(fwd == bwd == cfg.layers * steps,
              f"the train steps did not all run through the kernels: {fwd}, {bwd}")
     _require(mask == 0, f"the train steps launched the mask kernel {mask} times")
+    _require(loss_head == chunks * steps,
+             f"the loss forward did not run through the loss head kernel: {loss_head}")
     del state
 
     sd = init_state_dict(cfg, SEED)
@@ -1241,9 +1298,10 @@ def train_step_check(card: str, dev="cuda") -> dict:
         return _step_loss_and_grads(ctx, sd, batch, fn)
 
     loss_k, grads_k = loss_and_grads()
-    whk.dropout_keep_scale.launches = 0
+    whk.dropout_keep_scale.launches = lk.fused_logz_tl.launches = 0
     loss_p, grads_p = loss_and_grads(plain_attention_qkv_fn())
     mask_launches = whk.dropout_keep_scale.launches
+    _require(lk.fused_logz_tl.launches == 0, "the plain step launched the loss head kernel")
     gap, dloss = _grad_gap(grads_k, grads_p), abs(loss_k - loss_p)
     print(f"one step, kernels vs plain attention (same seeds and masks): loss {loss_k:.6f} vs "
           f"{loss_p:.6f} (diff {dloss:.3e}, tolerance {STEP_LOSS_TOL:g}); largest relative "
@@ -1273,7 +1331,8 @@ def train_step_check(card: str, dev="cuda") -> dict:
           + f", ..., {curve[-1]:.4f}")
     _require(all(np.isfinite(curve)) and curve[-1] < curve[0] - 1.0,
              f"the loss did not fall: {curve}")
-    return {"fwd": fwd, "bwd": bwd, "mask": mask, "mask_check": mask_launches}
+    return {"fwd": fwd, "bwd": bwd, "mask": mask, "mask_check": mask_launches,
+            "loss": loss_head}
 
 
 # ------------------------------------------------------- long context
@@ -1569,12 +1628,14 @@ def long_train(card: str, dev="cuda") -> dict:
     from neko_tpu_torch.convert import init_state_dict
     from neko_tpu_torch.ops import attention_kernel as whk
     from neko_tpu_torch.ops import blocked_attention as ba
+    from neko_tpu_torch.ops import loss_kernel as lk
     from neko_tpu_torch.training.train_state import OptimizerConfig, TrainContext
 
     counters = {"fwd": ba.blocked_attention_fwd, "fused": ba.blocked_attention_bwd_fused,
                 "dq": ba.blocked_attention_dq, "dkv": ba.blocked_attention_dkv,
                 "whole-head fwd": whk.whole_head_attention,
-                "whole-head bwd": whk.whole_head_attention_bwd, "mask": whk.dropout_keep_scale}
+                "whole-head bwd": whk.whole_head_attention_bwd, "mask": whk.dropout_keep_scale,
+                "loss head": lk.fused_logz_tl}
     path = dict.fromkeys(counters, 0)
     peak = bench.PEAK_FLOPS.get(torch.cuda.get_device_name(0))
 
@@ -1600,9 +1661,11 @@ def long_train(card: str, dev="cuda") -> dict:
         n = cfg.layers * steps
         fused = cfg.context_len <= ba.FUSED_MAX
         want = {"fwd": n, "fused": n if fused else 0, "dq": 0 if fused else n,
-                "dkv": 0 if fused else n, "whole-head fwd": 0, "whole-head bwd": 0, "mask": 0}
+                "dkv": 0 if fused else n, "whole-head fwd": 0, "whole-head bwd": 0, "mask": 0,
+                "loss head": _loss_chunks(batch) * steps}
         _require(got == want, f"{name}: the steps did not run the blocked kernels as "
-                              f"FUSED_MAX={ba.FUSED_MAX} routes them: {got}, expected {want}")
+                              f"FUSED_MAX={ba.FUSED_MAX} routes them (and the loss head once "
+                              f"a loss chunk): {got}, expected {want}")
         for k in path:
             path[k] += got[k]
         del state
@@ -1913,6 +1976,7 @@ def seq_parallel_train(card: str, dev="cuda") -> dict:
     from neko_tpu_torch.convert import init_state_dict
     from neko_tpu_torch.ops import attention_kernel as whk
     from neko_tpu_torch.ops import blocked_attention as ba
+    from neko_tpu_torch.ops import loss_kernel as lk
     from neko_tpu_torch.ops import ring_kernel as rk
     from neko_tpu_torch.parallel.mesh import create_mesh
     from neko_tpu_torch.training.train_state import OptimizerConfig, TrainContext
@@ -1921,7 +1985,8 @@ def seq_parallel_train(card: str, dev="cuda") -> dict:
                 "ring dkv": rk.ring_partial_dkv, "fwd": ba.blocked_attention_fwd,
                 "fused": ba.blocked_attention_bwd_fused, "dq": ba.blocked_attention_dq,
                 "dkv": ba.blocked_attention_dkv, "whole-head fwd": whk.whole_head_attention,
-                "whole-head bwd": whk.whole_head_attention_bwd, "mask": whk.dropout_keep_scale}
+                "whole-head bwd": whk.whole_head_attention_bwd, "mask": whk.dropout_keep_scale,
+                "loss head": lk.fused_logz_tl}
     path = dict.fromkeys(counters, 0)
     peak = bench.PEAK_FLOPS.get(torch.cuda.get_device_name(0))
     pairs = SEQ * (SEQ + 1) // 2  # the kv blocks wholly in the future are skipped
@@ -1946,9 +2011,11 @@ def seq_parallel_train(card: str, dev="cuda") -> dict:
         print(f"  losses: warm-up {warm_losses}, timed {losses}; launches {got}")
         _require(all(np.isfinite(warm_losses + losses)), f"{name}: non-finite loss {losses}")
         n = cfg.layers * steps * pairs
-        want = dict.fromkeys(counters, 0) | {"ring fwd": n, "ring dq": n, "ring dkv": n}
+        want = dict.fromkeys(counters, 0) | {"ring fwd": n, "ring dq": n, "ring dkv": n,
+                                             "loss head": _loss_chunks(batch) * steps}
         _require(got == want, f"{name}: the steps did not run the ring kernels layers x steps x "
-                              f"{pairs} pairs times: {got}, expected {want}")
+                              f"{pairs} pairs times (and the loss head once a loss chunk): "
+                              f"{got}, expected {want}")
         for k in path:
             path[k] += got[k]
         del state
@@ -2229,24 +2296,68 @@ def decode_generate(card: str, dev="cuda") -> dict:
 
 
 # ------------------------------------------------------------- loss head
-def loss_kernel_vs_plain(card: str, dev="cuda") -> dict:
-    """Phase 12.  -> {"err", "launches" (checks), and the JSON timing fields
-    at the first chunk}."""
+def _loss_head_build(libs) -> dict:
+    """Registers and spills of kernel #15 (ptxas) and its count of HGMMA
+    (wgmma) and UTMALDG (TMA load) instructions in the built library's SASS
+    (cuobjdump)."""
+    import os
+    import re
+    import shutil
+    import subprocess
+
+    so = libs["fused_logz_tl"]
+    log = so.with_suffix(".log").read_text()
+    at = log.index("Function properties for", log.index("fused_logz_tl_kernel"))
+    props = log[at:at + 600]
+    regs = int(re.search(r"Used (\d+) registers", props).group(1))
+    spills = [int(n) for n in re.findall(r"(\d+) bytes spill (?:stores|loads)", props)[:2]]
+    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    _require(os.path.exists(cuobjdump), "cuobjdump not found")
+    sass = subprocess.run([cuobjdump, "-sass", str(so)], capture_output=True, text=True,
+                          check=True, timeout=120).stdout
+    return {"registers": regs, "spill_bytes": sum(spills),
+            "serialized": "C7515" in log,  # ptxas: wgmma serialized
+            "hgmma": len(re.findall(r"\bHGMMA\.", sass)),
+            "utmaldg": len(re.findall(r"\bUTMALDG\.", sass))}
+
+
+def loss_kernel_vs_plain(card: str, libs, dev="cuda") -> dict:
+    """Phase 12.  -> {"err", "launches" (checks), "build" (ptxas, SASS),
+    and the JSON timing fields at the first (4096-row) chunk, the other
+    chunks' under "chunk_<rows>"}."""
+    import inspect
+
     import torch
-    import torch.nn.functional as F
 
     from neko_tpu_torch import bench
     from neko_tpu_torch.ops import loss_kernel as lk
+    from neko_tpu_torch.ops import losses
 
+    build = _loss_head_build(libs)
+    print(f"loss head kernel: {build['registers']} registers a thread, "
+          f"{build['spill_bytes']} bytes spilled, "
+          f"{build['hgmma']} HGMMA and {build['utmaldg']} UTMALDG instructions in its SASS"
+          f"{', wgmma SERIALIZED (ptxas C7515)' if build['serialized'] else ''}")
+    _require(build["hgmma"] > 0 and build["utmaldg"] > 0,
+             "the loss head kernel has no wgmma or no TMA load in its SASS")
+    _require(build["spill_bytes"] == 0 and not build["serialized"],
+             "the loss head kernel spills registers or serializes its wgmma")
     cfg = bench.model_config("flagship")
     V, valid, D = cfg.padded_vocab_size, cfg.vocab_size, cfg.embed_dim
     budget = bench.tgt_budget(TRAIN["B"], cfg)
-    chunks = [min(4096, budget - i) for i in range(0, budget, 4096)]  # the loss's chunking
+    size = inspect.signature(losses.gathered_masked_xent).parameters["chunk_size"].default
+    chunks = [min(size, budget - i) for i in range(0, budget, size)]  # the gathered loss's
+    # the loss without loss_pos (chunked_masked_xent) takes B x 256-row
+    # chunks: 4,096 rows at B = 16 (the first gathered chunk's shape) and 256
+    # at B = 1, timed but not held to beating the route: the dispatch rests
+    # on the flagship's gathered chunks
+    rows = inspect.signature(losses.chunked_masked_xent).parameters["chunk_size"].default
+    shapes = [(n, True) for n in chunks] + [(rows, False)]
     g = torch.Generator(device=dev).manual_seed(SEED)
     W = (torch.randn(V, D, device=dev, generator=g) * 0.02).bfloat16()
     lk.fused_logz_tl.launches = 0
-    res, worst = {}, 0.0
-    for n in chunks:
+    res, worst = {"build": build}, 0.0
+    for n, gathered in shapes:
         x = torch.randn(n, D, device=dev, generator=g).bfloat16()
         t = torch.randint(0, valid, (n,), device=dev, generator=g)
         logz, tl = lk.fused_logz_tl(x, t, W, valid)
@@ -2259,27 +2370,45 @@ def loss_kernel_vs_plain(card: str, dev="cuda") -> dict:
               f"{errs[0][0]:.3e}, {errs[1][0]:.3e} vs the plain version in fp32 (tolerance "
               f"{LOSS_TOL[0]:g} + {LOSS_TOL[1]:g}*|plain|)")
         _require(all(x <= 0 for _, x in errs), f"loss kernel disagrees at {n} rows")
+        x_tail = x.clone()
+        x_tail[:, (D - 1) // 64 * 64:] = 0  # the last 64-deep slice of D
         faults = dict(zip(LOSS_FAULTS, (lk.fused_logz_tl_reference(x, t, W, None),
-                                        lk.fused_logz_tl_reference(x, t + 1, W, valid))))
+                                        lk.fused_logz_tl_reference(x, t + 1, W, valid),
+                                        lk.fused_logz_tl_reference(x_tail, t, W, valid))))
         for f, (bad_logz, bad_tl) in faults.items():
             x1 = max(_excess(bad_logz, want_logz, LOSS_TOL)[1], _excess(bad_tl, want_tl, LOSS_TOL)[1])
             print(f"  control '{f}': excess over tolerance {x1:.3e}")
             _require(x1 > 0, f"the loss check cannot tell '{f}'")
-        if "ms" not in res:  # times at the first (4096-row) chunk, in turns
-            def library():
-                logits = F.linear(x, W).float()
-                return torch.logsumexp(logits, -1), logits.gather(1, t[:, None])[:, 0]
+        del x_tail, faults
 
-            run_k = lambda: lk.fused_logz_tl(x, t, W, valid)  # noqa: E731
-            run_p = lambda: lk.fused_logz_tl_reference(x, t, W, valid)  # noqa: E731
-            p1, k1, k2, p2 = (_time_ms(f, 10) for f in (run_p, run_k, run_k, run_p))
-            lib = _time_ms(library, 10)
-            bound = _bound(2 * n * D * V, (n * D + V * D) * 2 + n * 4 + 2 * n * 4)
-            print(f"loss head [{n}, {D}] x {V}: kernel {k1:.4f} / {k2:.4f} ms, plain (fp32) "
-                  f"{p1:.4f} / {p2:.4f} ms, library (F.linear bf16 + logsumexp + gather) "
-                  f"{lib:.4f} ms, bound {bound[0]:.4f} ms ({bound[1]}) ({card})")
-            res.update(ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2, bound_ms=bound[0],
-                       bound_by=bound[1], library_ms=lib)
+        # times in turns; the library yardstick is the route the loss forward
+        # took before kernel #15 (and takes for the shapes #15 refuses): the
+        # cuBLAS product with fp32 logits, the padded columns filled,
+        # logsumexp and gather
+        route = lambda: lk.logits_logz_tl(x, t, W, valid)  # noqa: E731
+        run_k = lambda: lk.fused_logz_tl(x, t, W, valid)  # noqa: E731
+        run_p = lambda: lk.fused_logz_tl_reference(x, t, W, valid)  # noqa: E731
+        r1, k1, k2, r2 = (_time_ms(f, 10) for f in (route, run_k, run_k, route))
+        p1, p2 = _time_ms(run_p, 5), _time_ms(run_p, 5)
+        # only the valid columns enter logz and the target logit: the padded
+        # rows of W are work the function does not need
+        flops = 2 * n * D * valid
+        bound = _bound(flops, (n * D + valid * D) * 2 + n * 4 + 2 * n * 4)
+        ms = (k1 + k2) / 2
+        print(f"loss head [{n}, {D}] x {V}: kernel {k1:.4f} / {k2:.4f} ms "
+              f"({_tflops(flops, ms):.1f} TFLOP/s, {bound[0] / ms:.3f} of the bound), loss route "
+              f"(cuBLAS fp32 logits + logsumexp + gather) {r1:.4f} / {r2:.4f} ms, plain (fp32 "
+              f"product) {p1:.4f} / {p2:.4f} ms, bound {bound[0]:.4f} ms ({bound[1]}) ({card})")
+        _require(not gathered or max(k1, k2) < min(r1, r2),
+                 f"the loss head kernel is slower than the route it replaced at {n} rows")
+        timing = {"ms": ms, "plain_ms": (p1 + p2) / 2, "bound_ms": bound[0],
+                  "bound_by": bound[1], "library_ms": (r1 + r2) / 2,
+                  "tflops": _tflops(flops, ms)}
+        if "ms" not in res:
+            res.update(timing)
+        else:
+            res[f"chunk_{n}"] = timing
+        del x, t, logz, tl, want_logz, want_tl
     res["err"], res["launches"] = worst, lk.fused_logz_tl.launches
     return res
 
@@ -2314,6 +2443,7 @@ def fused_adamw_check(card: str, dev="cuda") -> dict:
     from neko_tpu_torch import bench
     from neko_tpu_torch.convert import init_state_dict
     from neko_tpu_torch.ops import fused_adamw as fa
+    from neko_tpu_torch.ops import loss_kernel as lk
     from neko_tpu_torch.training.train_state import OptimizerConfig, TrainContext
 
     cfg, ctx, state, batch, B = bench.setup("flagship", dev, SEED, fused_adamw=True)
@@ -2393,10 +2523,10 @@ def fused_adamw_check(card: str, dev="cuda") -> dict:
 
     # the flagship train step with the fused optimizer
     torch.cuda.reset_peak_memory_stats()
-    fa.fused_adamw_apply.launches = 0
+    fa.fused_adamw_apply.launches = lk.fused_logz_tl.launches = 0
     steps = 5
     dt, losses = bench.time_steps(ctx, state, batch, steps)
-    res["launches"] = fa.fused_adamw_apply.launches
+    res["launches"], res["loss_launches"] = fa.fused_adamw_apply.launches, lk.fused_logz_tl.launches
     tokens = B * cfg.context_len
     fpt = bench.train_flops_per_token(cfg, bench.tgt_budget(B, cfg) / tokens)
     tps = tokens * steps / dt
@@ -2404,9 +2534,12 @@ def fused_adamw_check(card: str, dev="cuda") -> dict:
     print(f"flagship train step with fused_adamw: {dt * 1e3 / steps:.3f} ms/step, {tps:.1f} "
           f"tokens/s, MFU {tps * fpt / peak if peak else float('nan'):.4f}, peak memory "
           f"{torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB; fused AdamW launches "
-          f"{res['launches']} over {steps} steps ({card})")
+          f"{res['launches']}, loss head launches {res['loss_launches']} over {steps} steps "
+          f"({card})")
     _require(all(np.isfinite(losses)), f"non-finite loss: {losses}")
     _require(res["launches"] == steps, f"the steps did not run the fused AdamW kernel once each")
+    _require(res["loss_launches"] == _loss_chunks(batch) * steps,
+             f"the steps did not run the loss head once a loss chunk: {res['loss_launches']}")
     del state
     torch.cuda.empty_cache()
 
@@ -2518,7 +2651,7 @@ def main() -> int:
     seq_path = seq_parallel_train(card)
     decode = decode_kernels_vs_plain(card)
     decode.update(generate=decode_generate(card))
-    loss_head = loss_kernel_vs_plain(card)
+    loss_head = loss_kernel_vs_plain(card, libs)
     adamw = fused_adamw_check(card)
 
     src = "neko_tpu_torch/csrc/"
@@ -2572,12 +2705,15 @@ def main() -> int:
          "check_launches": decode["check_launches"] + decode["generate"]["launches"],
          "max_abs_err": decode["err"], **decode["times"], "b1": decode["times_b1"],
          "generate_per_token_ms": {k: decode["generate"][k] for k in ("kernel_ms", "plain_ms")}},
-        # the loss head at the first [4096, 768] chunk of the flagship loss; the
-        # port's loss never dispatches it (neither does neko_tpu's)
+        # the loss head timed at the first [4096, 768] chunk of the flagship
+        # loss, the 3,328- and 256-row chunks beside; launches are the train
+        # runs' (one a loss chunk a step), library_ms the loss route it replaced
         {"name": "fused_logz_tl", "route": "cuda", "source": src + "fused_logz_tl.cu",
-         "replaces": "neko_tpu/ops/loss_kernel.py:54", "launches": 0,
+         "replaces": "neko_tpu/ops/loss_kernel.py:54",
+         "launches": (launches["loss"] + long_path["loss head"] + seq_path["loss head"]
+                      + adamw["loss_launches"]),
          "check_launches": loss_head["launches"], "max_abs_err": loss_head["err"],
-         **{k: loss_head[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}},
+         **{k: v for k, v in loss_head.items() if k not in ("err", "launches")}},
         # AdamW over the flagship tree; launches are the fused train steps'
         {"name": "fused_adamw", "route": "cuda", "source": src + "fused_adamw.cu",
          "replaces": "neko_tpu/ops/fused_adamw.py:101", "launches": adamw["launches"],
@@ -2586,15 +2722,19 @@ def main() -> int:
                                   "optimizer_ms", "default_optimizer_ms")}},
     ]
     # kernel #5 writes the masks the checks hand to the plain attention, at
-    # every S (so it is #10's counterpart too); the train steps' kernels draw
-    # the same keep bytes inline and never launch it, as neko_tpu's train
-    # step never runs its counterparts.  A blocked backward route that
+    # every S (so it is #10's counterpart too), timed at the flagship train
+    # shape and at `long`'s; the train steps' kernels draw the same keep
+    # bytes inline and never launch it, as neko_tpu's train step never runs
+    # its counterparts.  A blocked backward route that
     # FUSED_MAX dispatches at no trained S runs in the checks alone.
     mask = {"name": "dropout_keep_scale", "route": "cuda",
             "source": src + "dropout_keep_scale.cu", "replaces": f"{tpu}:492,{tpu_b}:682",
             "launches": launches["mask"] + long_path["mask"] + seq_path["mask"],
             "check_launches": launches["mask_check"] + blocked["check_launches"]["mask"],
-            "max_abs_err": 0.0, **timing("mask")}
+            "max_abs_err": 0.0, **timing("mask"), "long": long_times["mask"]}
+    for shape, t in (("16x24x1024^2", mask), ("8x24x2048^2", long_times["mask"])):
+        print(f"mask kernel {shape}: {t['ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
+              f"({t['bound_ms'] / t['ms']:.3f} of it) ({card})")
     print(json.dumps({"check_kernels": [mask] + [e for e in entries if not e["launches"]]}))
     print(json.dumps({"kernels": [e for e in entries if e["launches"]]}))
     print(json.dumps({"ok": True, "device": {

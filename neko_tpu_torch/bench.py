@@ -223,8 +223,9 @@ def profile_breakdown(ctx, state, batch, cfg, steps: int = 3) -> dict:
     ring's merge passes (device rows inside the device-side spans of
     ring_kernel.MERGE_RANGE; 0 off a 'seq' mesh), the optimizer (device
     rows inside the device-side spans of the step's "optimizer" range and
-    of AdamW's own; the step runs on one stream), the head and loss (aten
-    ops outside that range with a vocab-wide operand; CUDA runtime rows
+    of AdamW's own; the step runs on one stream), the head and loss (the
+    device rows of the loss head kernel #15, csrc/fused_logz_tl.cu, by name,
+    and aten ops outside that range with a vocab-wide operand; CUDA runtime rows
     such as "Command Buffer Full" can carry the device time of kernels
     launched during them, so only ops with shapes count), the MLP (a
     4D-wide operand) and the
@@ -242,6 +243,9 @@ def profile_breakdown(ctx, state, batch, cfg, steps: int = 3) -> dict:
 
     def ours(name: str) -> bool:
         return "attention_fwd_kernel" in name or "attention_bwd_" in name
+
+    def loss_head(name: str) -> bool:
+        return "fused_logz_tl" in name
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
@@ -274,6 +278,8 @@ def profile_breakdown(ctx, state, batch, cfg, steps: int = 3) -> dict:
     for e in device:
         if ours(e.name):
             parts["attention kernels"] += e.self_device_time_total
+        elif loss_head(e.name):
+            parts["head + loss"] += e.self_device_time_total
         elif any(a <= e.time_range.start < b for a, b in opt_spans):
             parts["optimizer"] += e.self_device_time_total
         elif any(a <= e.time_range.start < b for a, b in merge_spans):
@@ -283,7 +289,7 @@ def profile_breakdown(ctx, state, batch, cfg, steps: int = 3) -> dict:
         # a CPU op's self device time is that of the kernels it launched
         if (evt.device_type != DeviceType.CPU or evt.is_user_annotation
                 or evt.self_device_time_total <= 0
-                or any(ours(k.name) for k in evt.kernels)):
+                or any(ours(k.name) or loss_head(k.name) for k in evt.kernels)):
             continue
         node = evt
         while node is not None and node.name not in ("optimizer", MERGE_RANGE):

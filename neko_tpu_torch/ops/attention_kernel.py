@@ -316,25 +316,26 @@ def _check_aligned16(**tensors) -> None:
                              f"strides {t.stride()}")
 
 
-def _entry(library: str, symbol: str):
+def _entry(library: str, symbol: str, args_type=_Args):
     from neko_tpu_torch.ops.cuda_build import load_library
 
     fn = getattr(load_library(library), symbol)
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.POINTER(_Args), ctypes.c_void_p]
+        fn.argtypes = [ctypes.POINTER(args_type), ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
 
 
-def _call(library: str, symbol: str, args: _Args, device) -> None:
-    fn = _entry(library, symbol)
+def _call(library: str, symbol: str, args: ctypes.Structure, device) -> None:
+    """Launch `symbol(&args, stream)` of a kernel library on `device`'s
+    current stream; `args` is its argument struct (`_Args` or another)."""
+    fn = _entry(library, symbol, type(args))
     with torch.cuda.device(device):
         err = fn(ctypes.byref(args), torch.cuda.current_stream(device).cuda_stream)
     if err != 0:
-        raise RuntimeError(
-            f"{symbol} kernel launch failed: cudaError_t {err} (B={args.B}, "
-            f"H={args.H}, S={args.S}, hd={args.D}, dtype code {args.dtype})"
-        )
+        shape = ", ".join(f"{n}={getattr(args, n)}" for n, _ in args._fields_
+                          if n in ("B", "H", "S", "D", "dtype"))
+        raise RuntimeError(f"{symbol} kernel launch failed: cudaError_t {err} ({shape})")
 
 
 def _kernel_args(q, k, v, start, end, seed, sm_scale, q_thr, q_off=0, k_off=0,
@@ -452,6 +453,13 @@ def whole_head_attention_bwd(
 whole_head_attention_bwd.launches = 0
 
 
+class _MaskArgs(ctypes.Structure):
+    """csrc/dropout_keep_scale.cu `MaskArgs`, field for field."""
+    _fields_ = [("out", ctypes.c_void_p), ("seed", ctypes.c_void_p),
+                ("B", ctypes.c_int), ("H", ctypes.c_int), ("S", ctypes.c_int),
+                ("drop_threshold", ctypes.c_int), ("drop_scale", ctypes.c_float)]
+
+
 def dropout_keep_scale(seed: torch.Tensor, B: int, H: int, S: int, dropout_rate: float):
     """fp32 [B, H, S, S] keep/scale matrices the kernels apply, on the
     seed's device: kernel #5 on the card, the plain Philox on the CPU."""
@@ -461,8 +469,8 @@ def dropout_keep_scale(seed: torch.Tensor, B: int, H: int, S: int, dropout_rate:
         raise ValueError(f"seed must be an int32 [1] tensor on the card, got {seed}")
     out = torch.empty(B, H, S, S, dtype=torch.float32, device=seed.device)
     q_thr = keep_threshold(dropout_rate)
-    args = _Args(o=_View(out.data_ptr(), H * S * S, S * S, S), seed=seed.data_ptr(),
-                 B=B, H=H, S=S, drop_threshold=q_thr, drop_scale=survivor_scale(q_thr))
+    args = _MaskArgs(out=out.data_ptr(), seed=seed.data_ptr(), B=B, H=H, S=S,
+                     drop_threshold=q_thr, drop_scale=survivor_scale(q_thr))
     _call("dropout_keep_scale", "dropout_keep_scale", args, seed.device)
     dropout_keep_scale.launches += 1
     return out

@@ -16,19 +16,20 @@ logits outlive its own forward or backward.
   `jax.checkpoint`; the gradient is the same).
 
 `weight` is the torch head weight [V, D] (the JAX kernel is its transpose).
-The head matmuls stay cuBLAS products in the hidden dtype: the JAX package
-computes them in XLA, outside any Pallas kernel.  The logits come out in
-fp32 from bf16 operands (fp32 sums, no bf16 rounding of the [C, V] result),
-as the JAX package asks with `preferred_element_type=float32`: on the card
+The forward's (logz, target logit), the JAX package's `_logz_tl`, goes
+through `loss_kernel.fused_logz_tl` wherever `loss_kernel.fused_supported`
+takes the shape and dtype (bf16, D % 8 == 0): on the card the fused
+loss-head kernel #15 (no [C, V] logits), on the CPU its plain version.  Any
+other chunk (fp32 hidden, an odd D) takes the logits route: the cuBLAS
+product, then torch's logsumexp and gather.  The JAX package computes the
+same function in XLA.  The logits come out in fp32 from bf16 operands (fp32
+sums, no bf16 rounding of the [C, V] result), as the JAX package asks with
+`preferred_element_type=float32`: on the card
 `torch.mm(..., out_dtype=torch.float32)`, on the CPU the product of the
-bf16 values in fp32 (exact products, fp32 sums).  The backward's dx and dW
-products stay in the hidden dtype, as the JAX package's do.  So does the
-forward's (logz, target logit), the JAX package's `_logz_tl`: logits, then
-torch's logsumexp and gather.  The fused loss-head kernel #15
-(`ops/loss_kernel.py`, no [C, V] logits) is a check kernel, as its Pallas
-counterpart is in the JAX package, whose loss never dispatches it.  Padded
-vocab columns (>= `valid_vocab`) are excluded from the partition function
-with a finite -1e30 fill.
+bf16 values in fp32 (exact products, fp32 sums).  The backward recomputes
+them that way; its dx and dW products stay in the hidden dtype, as the JAX
+package's do.  Padded vocab columns (>= `valid_vocab`) are excluded from
+the partition function with a finite -1e30 fill.
 """
 
 from __future__ import annotations
@@ -38,22 +39,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-_NEG = -1e30
-
-
-def _chunk_logits(x, W, valid_vocab):
-    """fp32 [C, V] logits of x [C, D] against W [V, D] (both in the hidden
-    dtype), masked past `valid_vocab`."""
-    if x.dtype == torch.float32:
-        logits = F.linear(x, W)
-    elif x.is_cuda:
-        logits = torch.mm(x, W.t(), out_dtype=torch.float32)
-    else:
-        logits = F.linear(x.float(), W.float())
-    if valid_vocab is not None and valid_vocab < W.shape[0]:
-        col = torch.arange(W.shape[0], device=x.device)
-        logits = logits.masked_fill(col >= valid_vocab, _NEG)
-    return logits
+from neko_tpu_torch.ops import loss_kernel
+from neko_tpu_torch.ops.loss_kernel import _chunk_logits
 
 
 class _ChunkNLL(torch.autograd.Function):
@@ -62,9 +49,10 @@ class _ChunkNLL(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, t, m, W, valid_vocab):
-        logits = _chunk_logits(x, W, valid_vocab)
-        logz = torch.logsumexp(logits, dim=-1)
-        tl = logits.gather(1, t[:, None])[:, 0]
+        if x.dtype == W.dtype and loss_kernel.fused_supported(*x.shape, W.shape[0], x.dtype):
+            logz, tl = loss_kernel.fused_logz_tl(x, t, W, valid_vocab)
+        else:
+            logz, tl = loss_kernel.logits_logz_tl(x, t, W, valid_vocab)
         ctx.save_for_backward(x, t, m, W, logz)
         ctx.valid_vocab = valid_vocab
         return torch.where(m > 0, logz - tl, 0.0).sum()

@@ -242,6 +242,16 @@ def test_dropout_keep_scale_is_the_plain_philox_on_the_cpu():
     assert torch.equal(got, whk.dropout_keep_scale_reference(seed, 2, 3, 1100, RATE))
 
 
+@pytest.mark.parametrize("S", [1, 17, 130])
+def test_dropout_keep_scale_at_S_is_the_corner_of_a_longer_mask(S):
+    """The keep byte depends on (seed, b, h, row, col) alone: the blocked
+    mask (#10) at S is the top-left [S, S] corner of the one at 200."""
+    seed = torch.tensor([SEED], dtype=torch.int32)
+    got = ba.dropout_keep_scale(seed, 2, 3, S, RATE)
+    full = whk.dropout_keep_scale_reference(seed, 2, 3, 200, RATE)
+    assert torch.equal(got, full[:, :, :S, :S])
+
+
 def test_dispatch_by_length_and_no_kernel_launch_on_the_cpu(monkeypatch):
     assert attn.packed_ok(2048, 32, 24) and attn.packed_ok(8192, 128, 6)
     assert attn.packed_ok(3000, 64, 12) and attn.packed_ok(2048, 48, 16)

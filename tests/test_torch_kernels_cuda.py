@@ -1,5 +1,6 @@
-"""The decode-attention (#14), fused loss-head (#15) and fused AdamW (#16)
-CUDA kernels against their plain torch versions on the card.
+"""The decode-attention (#14), fused loss-head (#15), fused AdamW (#16) and
+dropout-mask (#5/#10) CUDA kernels against their plain torch versions on the
+card.
 
 Needs an NVIDIA Hopper card and nvcc; skipped elsewhere.  It imports no JAX,
 so on the card it runs with the repository conftest (which imports jax) left
@@ -99,6 +100,62 @@ def test_loss_kernel_matches_plain(cuda, N, D, V, valid):
     # fp32 sums of the same exact bf16 products, in another order
     torch.testing.assert_close(logz, want_logz, atol=1e-4, rtol=1e-5)
     torch.testing.assert_close(tl, want_tl, atol=1e-4, rtol=1e-5)
+
+
+# fused loss head: fp32 sums of the same exact bf16 products, in another
+# order, and exp through ex2.approx (2 ulp): logz ~ 11, target logits ~ 0.5
+LOSS_TOL = dict(atol=1e-4, rtol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [64, 96, 768])          # 96: a ragged last 64-deep slice
+@pytest.mark.parametrize("V,valid", [(52480, 52305), (1000, 1000)])
+@pytest.mark.parametrize("N", [1, 3328, 4097])         # 4097: one row past a row block
+def test_loss_kernel_ragged_edges_match_plain(cuda, N, D, V, valid):
+    """Every edge TMA zero-fills (rows past N, columns past V, depth past D)
+    and the targets at column 0, at a tile's last column and at the last
+    valid column."""
+    g = torch.Generator(device=cuda).manual_seed(N + D + V)
+    x = torch.randn(N, D, device=cuda, generator=g).bfloat16()
+    W = (torch.randn(V, D, device=cuda, generator=g) * 0.02).bfloat16()
+    t = torch.randint(0, valid, (N,), device=cuda, generator=g)
+    t[0::3] = 0
+    t[1::3] = 127
+    t[2::3] = valid - 1
+    before = lk.fused_logz_tl.launches
+    logz, tl = lk.fused_logz_tl(x, t, W, valid)
+    torch.cuda.synchronize()
+    assert lk.fused_logz_tl.launches == before + 1
+    want_logz, want_tl = lk.fused_logz_tl_reference(x, t, W, valid)
+    assert torch.isfinite(logz).all() and torch.isfinite(tl).all()
+    torch.testing.assert_close(logz, want_logz, **LOSS_TOL)
+    torch.testing.assert_close(tl, want_tl, **LOSS_TOL)
+
+
+@pytest.mark.cuda
+def test_loss_kernel_refuses_unsupported_shapes(cuda):
+    x = torch.randn(16, 100, device=cuda).bfloat16()  # D % 8 != 0
+    t = torch.zeros(16, dtype=torch.long, device=cuda)
+    with pytest.raises(ValueError):
+        lk.fused_logz_tl(x, t, torch.randn(300, 100, device=cuda).bfloat16())
+    with pytest.raises(ValueError):
+        lk.fused_logz_tl(x[:, :96].float(), t, torch.randn(300, 96, device=cuda))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,S", [
+    (2, 3, 1), (2, 3, 17), (3, 4, 128), (2, 3, 1024), (1, 2, 2048),
+    (2, 2, 1000),                                    # S no multiple of 16
+])
+def test_mask_kernel_bit_for_bit_at_every_width(cuda, B, H, S):
+    seed = torch.tensor([20240601], dtype=torch.int32, device=cuda)
+    before = whk.dropout_keep_scale.launches
+    got = whk.dropout_keep_scale(seed, B, H, S, 0.1)
+    torch.cuda.synchronize()
+    assert whk.dropout_keep_scale.launches == before + 1
+    want = whk.dropout_keep_scale_reference(seed, B, H, S, 0.1)
+    assert got.shape == want.shape
+    assert torch.equal(got, want)
 
 
 @pytest.mark.cuda
