@@ -119,8 +119,29 @@
    half of the step both ways; the flagship train step with
    `fused_adamw=True` (launches = steps); three steps against the default
    AdamW route, and 20 steps of falling loss.
+14. The training entry point: `python -m neko_tpu_torch.cli.train` in this
+   process (TRAIN_CLI: the flagship width, 16 rows of the synthetic text /
+   continuous / image mix, bf16, dropout 0.1): 30 steps with an evaluation
+   and a checkpoint every 15.  The per-step losses must fall (the mean of
+   the last 10 below the first 10 by LOSS_DROP_MIN; a run at learning rate
+   0 must not); the launches are whole-head forward = layers x (steps +
+   evaluation prefills), backward = layers x steps, decode = layers x
+   decode steps, loss head = loss chunks x steps; the evaluation metrics
+   finite under their keys; the Trainer's step time against phase 6's
+   flagship step (the bench's batch, `train_step_check`) and its queue
+   wait.  A run stopped inside step
+   21 (its emergency checkpoint) and resumed to 30 must replay the packed
+   arrays of steps 21-30 bit for bit and their losses within
+   RESUME_LOSS_TOL, which the resume from a copy without the host-state
+   sidecar must exceed; the same with `--fused_adamw` (#16 launches =
+   steps) resumed at 10 of 15.  The last checkpoint loads through
+   `convert.load_model_dir` and answers /v1/generate and /v1/action.
+   Then one continuous-env episode longer than the ring through
+   `RolloutSession` on the kernels against the same session on the plain
+   prefill and decode attention, teacher-forced (ROLLOUT_*).  The runs write
+   under `_smoke_runs/`, removed at the end.
 
-Every train run (phases 6, 8, 10, 13) takes its loss forward through #15:
+Every train run (phases 6, 8, 10, 13, 14) takes its loss forward through #15:
 its launches must be loss chunks x steps (2 a flagship and `long` step, 3 a
 `long4k` step), and the plain side of each kernels-vs-plain step check runs
 the plain loss forward too.
@@ -128,7 +149,8 @@ the plain loss forward too.
 Prints a JSON line of the kernels that only the checks launch
 ({"check_kernels": ...}), then one JSON line of the kernels the main path
 runs ({"kernels": ...}; launches counted in the serving and train runs
-alone, each with its bound from this run's shapes), then, as the last line,
+alone, phase 14's among them (`train_cli_launches`), each with its bound
+from this run's shapes), then, as the last line,
 {"ok": true, "device": {...}}.  Any failed phase exits non-zero.  The
 attention entries and the loss head carry `tflops`: the bound's FLOPs over
 their ms.
@@ -139,10 +161,12 @@ from __future__ import annotations
 import contextlib
 import itertools
 import json
+import shutil
 import sys
 import threading
 import time
 import urllib.request
+from pathlib import Path
 
 import numpy as np
 
@@ -382,6 +406,44 @@ ADAMW_FAULTS = ("bias correction dropped", "clip scale ignored")
 # the geometric mean.
 FUSED_STEP_LOSS_TOL = 3e-3
 FUSED_STEP_UPDATE_TOL = 2.5e-2
+# the training entry point (phase 14): `python -m neko_tpu_torch.cli.train` at
+# the flagship width on the root bench's mix (6 text, 5 continuous, 5 image
+# rows of 16), random weights from the seed.  Not the defaults: warmup 5 and
+# lr 5e-4, so that the loss moves within the run.
+TRAIN_CLI = ["--text_datasets", "synthetic", "--text_datasets_paths", "synthetic",
+             "--text_prop", "0.375", "--control_datasets", "neko-synth-continuous-v0",
+             "neko-synth-image-v0", "--embed_dim", "768", "--layers", "6", "--heads", "24",
+             "-k", "1024", "--batch_size", "16", "--mixed_precision", "bf16", "--dropout", "0.1",
+             "--learning_rate", "5e-4", "--warmup_steps", "5", "--seed", str(SEED),
+             "--eval_episodes", "2", "--eval_text_num_examples", "4", "--save_model",
+             "--save_mode", "checkpoint"]
+TRAIN_STEPS, TRAIN_EVAL_FREQ, TRAIN_STOP = 30, 15, 20
+FUSED_STEPS, FUSED_EVAL_FREQ, FUSED_STOP = 15, 5, 10
+# the mean loss of the first 10 steps less that of the last 10 must exceed
+# this; the planted "learning rate 0" must not
+LOSS_DROP_MIN = 1.0
+# per-step losses of a resumed run against the uninterrupted one (same
+# weights, optimizer state, batches and dropout masks; only the order of
+# atomic sums may differ); the planted "sidecar deleted" (the stream
+# restarts from the seed) must exceed it
+RESUME_LOSS_TOL = 1e-3
+# the rollout check (phase 14): one continuous-env episode longer than its
+# 93-timestep ring at k = 1024, kernels vs plain attention, teacher-forced,
+# on random weights from the seed (logit std ~0.55, as in phases 4 and 11;
+# trained logits reach |x| > 4, where one bf16 ulp is 3.1e-2); the prompt's
+# prefill logits at its last position (what phase 4 reads) and the first
+# action token's logits (after the extend) held to LOGIT_TOL, the later ones
+# (after decode steps) to DECODE_LOGIT_TOL; planted faults in the plain
+# prefill and decode attention must exceed them.  The action logits alone
+# read a prefill fault only through the prompt's cached keys and values.
+# On an H100 80GB HBM3 at 700 W the sound run read 2.344e-2 / 1.953e-2 /
+# 2.148e-2 (prefill / after the extend / after decode steps) and the
+# faintest prefill fault, "diagonal excluded", 6.445e-2 on the prefill
+# logits (4.297e-2 / 3.900e-2 on the action logits); on trained weights
+# "scale 1/hd" read 3.125e-2 on the action logits, as the sound run did.
+ROLLOUT_STEPS = 120
+ROLLOUT_PREFILL_FAULTS = LOGIT_FAULTS
+ROLLOUT_DECODE_FAULTS = ("scale 1/hd",)
 # H100 SXM published peaks (NVIDIA data sheet): dense bf16 tensor cores, HBM3
 PEAK_BF16_FLOPS, PEAK_HBM_BYTES = 989e12, 3.35e12
 
@@ -1172,15 +1234,20 @@ def _grad_gap(grads, want) -> float:
                for n, w in want.items())
 
 
-def _loss_chunks(batch) -> int:
-    """Chunks the gathered loss cuts a step's targets into: the loss head #15
-    launches once for each."""
+def _chunks_of(targets: int) -> int:
+    """Chunks the gathered loss cuts `targets` loss targets into: the loss
+    head #15 launches once for each."""
     import inspect
 
     from neko_tpu_torch.ops import losses
 
     size = inspect.signature(losses.gathered_masked_xent).parameters["chunk_size"].default
-    return -(-batch.loss_pos.shape[0] // size)
+    return -(-targets // size)
+
+
+def _loss_chunks(batch) -> int:
+    """Chunks of a batch's gathered loss targets."""
+    return _chunks_of(batch.loss_pos.shape[0])
 
 
 @contextlib.contextmanager
@@ -1332,7 +1399,7 @@ def train_step_check(card: str, dev="cuda") -> dict:
     _require(all(np.isfinite(curve)) and curve[-1] < curve[0] - 1.0,
              f"the loss did not fall: {curve}")
     return {"fwd": fwd, "bwd": bwd, "mask": mask, "mask_check": mask_launches,
-            "loss": loss_head}
+            "loss": loss_head, "step_ms": dt * 1e3 / steps}
 
 
 # ------------------------------------------------------- long context
@@ -2089,6 +2156,9 @@ def plain_decode_attention(q, k, v, start, end, key_mask=None, fault=None):
         start = torch.zeros_like(start)
     elif fault == "mask holes ignored":
         key_mask = None
+    elif fault == "scale 1/hd":
+        return da.decode_cache_attention_reference(q, k, v, start, end, 1.0 / q.shape[-1],
+                                                   key_mask=key_mask)
     return da.decode_cache_attention_reference(q, k, v, start, end, key_mask=key_mask)
 
 
@@ -2589,6 +2659,428 @@ def fused_adamw_check(card: str, dev="cuda") -> dict:
     return res
 
 
+# ------------------------------------------------- the training entry point
+def _sync(device) -> None:
+    import torch
+
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _arrays_digest(arrays) -> str:
+    import hashlib
+
+    h = hashlib.sha256()
+    for k in sorted(arrays):
+        h.update(k.encode())
+        h.update(np.ascontiguousarray(arrays[k]).tobytes())
+    return h.hexdigest()
+
+
+@contextlib.contextmanager
+def trainer_recorder():
+    """Within the block every Trainer records the digest of each batch it
+    packs (in order; the first is init_state's draw), each step's loss (a
+    device scalar, read after the run) and its queue wait and produce time."""
+    from neko_tpu_torch.training.trainer import Trainer
+
+    rec = {"stream": [], "losses": [], "wait_s": [], "produce_s": []}
+    sample, step = Trainer._sample_arrays_locked, Trainer.train_step
+
+    def sampled(self):
+        arrays = sample(self)
+        rec["stream"].append(_arrays_digest(arrays))
+        return arrays
+
+    def stepped(self):
+        loss, logs = step(self)
+        rec["losses"].append(loss)
+        rec["wait_s"].append(logs["time/sample_batch"])
+        rec["produce_s"].append(logs.get("time/host_pipeline", 0.0))
+        return loss, logs
+
+    Trainer._sample_arrays_locked, Trainer.train_step = sampled, stepped
+    try:
+        yield rec
+    finally:
+        Trainer._sample_arrays_locked, Trainer.train_step = sample, step
+
+
+@contextlib.contextmanager
+def model_call_counter():
+    """Counts NekoModel.prefill / decode_step calls within the block."""
+    from neko_tpu_torch.models.policy import NekoModel
+
+    calls = {"prefill": 0, "decode_step": 0}
+    orig = {name: getattr(NekoModel, name) for name in calls}
+
+    def counted(name):
+        def call(self, *a, **kw):
+            calls[name] += 1
+            return orig[name](self, *a, **kw)
+        return call
+
+    for name in calls:
+        setattr(NekoModel, name, counted(name))
+    try:
+        yield calls
+    finally:
+        for name, fn in orig.items():
+            setattr(NekoModel, name, fn)
+
+
+def _launch_counters():
+    from neko_tpu_torch.ops import attention_kernel as whk
+    from neko_tpu_torch.ops import decode_attention as da
+    from neko_tpu_torch.ops import fused_adamw as fa
+    from neko_tpu_torch.ops import loss_kernel as lk
+
+    return {"fwd": whk.whole_head_attention, "bwd": whk.whole_head_attention_bwd,
+            "mask": whk.dropout_keep_scale, "decode": da.decode_cache_attention,
+            "loss": lk.fused_logz_tl, "adamw": fa.fused_adamw_apply}
+
+
+def train_cli(argv, save_dir):
+    """One in-process `python -m neko_tpu_torch.cli.train` run.  -> (the
+    Trainer, the record, the launch counts, the model calls)."""
+    import gc
+
+    import torch
+
+    from neko_tpu_torch.cli import train as cli_train
+
+    gc.collect()
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()
+    counters = _launch_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    with trainer_recorder() as rec, model_call_counter() as calls:
+        trainer = cli_train.main(list(argv) + ["--save_dir", str(save_dir)])
+    launches = {k: fn.launches for k, fn in counters.items()}
+    rec["losses"] = [float(x) for x in rec["losses"]]
+    gc.collect()
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()
+    return trainer, rec, launches, calls
+
+
+def _iteration_logs(exp_dir):
+    with open(f"{exp_dir}/metrics.jsonl") as f:
+        return [json.loads(line) for line in f]
+
+
+@contextlib.contextmanager
+def recording_decode(gen, record, forced=None):
+    """Within the block `gen._decode` records each call's tokens and window
+    logits ([B, T] and [B, T, W]).  With `forced` (the records of another
+    run) it feeds the tokens of the matching call instead of its own choices
+    (teacher forcing; the rollout's decode: no ring, no inner positions, no
+    per-step limits, every token fed)."""
+    import torch
+
+    orig = gen._decode
+
+    def decode(last_logits, caches, pos, next_pos, *, n_steps, start, end, **kw):
+        if forced is None:
+            toks, windows, _ = orig(last_logits, caches, pos, next_pos, n_steps=n_steps,
+                                    start=start, end=end, **{**kw, "return_logits": True})
+            record.append((toks, windows))
+            return toks, None, None
+        _require(kw.get("feed_last") and not kw.get("ring") and not kw.get("with_pos")
+                 and kw.get("limits") is None, f"teacher forcing of another decode: {kw}")
+        toks = forced[len(record)][0]
+        windows = []
+        for i in range(n_steps):
+            windows.append(last_logits[:, start:end + 1])
+            last_logits = gen.model.decode_step(gen.model.embed_tokens(toks[:, i:i + 1]), pos,
+                                                caches)[:, 0]
+            pos = pos + 1
+        record.append((toks, torch.stack(windows, dim=1)))
+        return toks, None, None
+
+    gen._decode = decode
+    try:
+        yield record
+    finally:
+        del gen._decode
+
+
+@contextlib.contextmanager
+def recording_prefill(gen, record):
+    """Within the block `gen.model.prefill` records the logits at each row's
+    last prompt position (`RolloutSession.start` asks for position 0 and
+    drops them)."""
+    orig = gen.model.prefill
+
+    def prefill(emb, mask, last=None):
+        logits, caches = orig(emb, mask, last=(mask.sum(1) - 1).clamp(min=0))
+        record.append(logits)
+        return logits, caches
+
+    gen.model.prefill = prefill
+    try:
+        yield record
+    finally:
+        del gen.model.prefill
+
+
+def rollout_vs_plain(gen, steps: int):
+    """One continuous-env episode of `steps` env steps (more than the ring
+    holds) through `RolloutSession` on the kernels, then the same session on
+    the plain prefill and decode attention fed the kernel run's observations
+    and action tokens, and again with each of ROLLOUT_PREFILL_FAULTS and
+    ROLLOUT_DECODE_FAULTS planted in the plain side.  -> ((max abs error of
+    the prompt's prefill logits, of the first action token's logits (after
+    the extend), of the later ones (after decode steps)), {fault: the same
+    three}, ring timesteps, rollout step ms)."""
+    import torch
+
+    from neko_tpu_torch.envs.synthetic import load_synthetic
+    from neko_tpu_torch.tasks.control import ControlTask
+
+    env, ds = load_synthetic("neko-synth-continuous-v0")
+    env.horizon = steps
+    task = ControlTask("neko-synth-continuous-v0", env, ds, context_len=gen.cfg.context_len,
+                       seed=SEED)
+    prompt = task._sample_eval_prompt(gen)
+    observations = []
+    kernel, kernel_prefill = [], []
+    with torch.inference_mode(), recording_decode(gen, kernel), \
+            recording_prefill(gen, kernel_prefill):
+        sess = task._make_session(gen)
+        sess.start([prompt])
+        obs, _ = env.reset(seed=SEED)
+        _sync(gen.device)
+        t0 = time.perf_counter()
+        done = False
+        while not done:
+            new = task._obs_entries(np.asarray(obs)[None])
+            observations.append(new)
+            action = sess.step([new])[0]
+            obs, _, term, trunc, _ = env.step(task._env_action(action))
+            done = term or trunc
+        _sync(gen.device)
+        step_ms = (time.perf_counter() - t0) * 1e3 / len(observations)
+
+    def plain(prefill_fault=None, decode_fault=None):
+        record, record_prefill = [], []
+        with torch.inference_mode(), recording_decode(gen, record, forced=kernel), \
+                recording_prefill(gen, record_prefill), \
+                prefill_attention_through(
+                    lambda *a: plain_prefill_attention(*a, fault=prefill_fault)), \
+                decode_attention_through(
+                    lambda *a: plain_decode_attention(*a, fault=decode_fault)):
+            sess = task._make_session(gen)
+            sess.start([prompt])
+            for new in observations:
+                sess.step([new])
+        pre = (kernel_prefill[0] - record_prefill[0]).abs().max().item()
+        first = max((k[1][:, 0] - p[1][:, 0]).abs().max().item()
+                    for k, p in zip(kernel, record))
+        later = max((k[1][:, 1:] - p[1][:, 1:]).abs().max().item()
+                    for k, p in zip(kernel, record))
+        return pre, first, later
+
+    sound = plain()
+    faults = {f"prefill: {f}": plain(prefill_fault=f) for f in ROLLOUT_PREFILL_FAULTS}
+    faults.update({f"decode: {f}": plain(decode_fault=f) for f in ROLLOUT_DECODE_FAULTS})
+    return sound, faults, sess.L // sess.tpt, step_ms
+
+
+def train_entry_point(card: str, bench_step_ms: float, workdir, dev="cuda") -> dict:
+    """Phase 14.  -> launch counts of the kernels in the uninterrupted run
+    ("fwd", "bwd", "decode", "loss") and in the fused run ("adamw"), and the
+    readings."""
+    import shutil
+
+    import torch
+
+    from neko_tpu_torch.config import ModelConfig
+    from neko_tpu_torch.convert import build_model, init_state_dict, load_model_dir
+    from neko_tpu_torch.inference.generator import Generator
+    from neko_tpu_torch.serving.server import NekoServer
+    from neko_tpu_torch.utils.checkpoint import latest_checkpoint
+
+    base = TRAIN_CLI + ["--training_steps", str(TRAIN_STEPS),
+                        "--log_eval_freq", str(TRAIN_EVAL_FREQ)]
+    t0 = time.perf_counter()
+    tr, rec, launches, calls = train_cli(base, workdir / "a")
+    run_s = time.perf_counter() - t0
+    cfg, layers = tr.ctx.model_cfg, tr.ctx.model_cfg.layers
+    exp_a, target_budget = tr.exp_dir, tr.target_budget
+    del tr
+    losses = rec["losses"]
+    _require(len(losses) == TRAIN_STEPS and all(np.isfinite(losses)),
+             f"{len(losses)} losses, or not finite: {losses}")
+    drop = float(np.mean(losses[:10]) - np.mean(losses[-10:]))
+    print(f"train CLI {cfg.embed_dim}d/{layers}L/{cfg.heads}h k={cfg.context_len} B=16 "
+          f"(6 text, 5 continuous, 5 image rows) bf16 dropout {cfg.dropout}, {TRAIN_STEPS} "
+          f"steps in {run_s:.1f} s with 2 evaluations and 2 checkpoints; losses "
+          + ", ".join(f"{x:.4f}" for x in losses))
+    logs = _iteration_logs(exp_a)
+    _require(len(logs) == TRAIN_STEPS // TRAIN_EVAL_FREQ, f"{len(logs)} iteration logs")
+    trainer_ms = logs[1]["time/training"] / TRAIN_EVAL_FREQ * 1e3
+    waits = np.asarray(rec["wait_s"][TRAIN_EVAL_FREQ:]) * 1e3
+    produce = np.asarray(rec["produce_s"][TRAIN_EVAL_FREQ:]) * 1e3
+    print(f"Trainer step (steps {TRAIN_EVAL_FREQ + 1}-{TRAIN_STEPS}, time/training / "
+          f"{TRAIN_EVAL_FREQ}): {trainer_ms:.3f} ms against phase 6's flagship step (the "
+          f"bench's batch) "
+          f"{bench_step_ms:.3f} ms ({trainer_ms / bench_step_ms:.3f} of it); time/sample_batch "
+          f"(queue wait) median {np.median(waits):.3f} ms, max {waits.max():.3f} ms; "
+          f"time/host_pipeline (produce) median {np.median(produce):.3f} ms ({card})")
+    metrics = {}
+    for i, it in enumerate(logs):
+        ev = {k: v for k, v in it.items() if k.startswith("evaluation/")}
+        print(f"evaluation at step {it['_step']}: " + ", ".join(
+            f"{k.split('/', 1)[1]} {v:.4f}" for k, v in sorted(ev.items()))
+            + f" in {it['time/evaluation']:.3f} s")
+        metrics = ev
+    want_keys = {f"evaluation/{n}/{m}" for n in ("neko-synth-continuous-v0",
+                                                  "neko-synth-image-v0")
+                 for m in ("mean_return", "mean_episode_len")}
+    want_keys |= {"evaluation/text/loss", "evaluation/text/perplexity"}
+    _require(set(metrics) == want_keys and all(np.isfinite(v) for v in metrics.values()),
+             f"evaluation metrics: {metrics}")
+    chunks = _chunks_of(target_budget)
+    print(f"kernel launches in the run: whole-head forward {launches['fwd']} ({TRAIN_STEPS} steps "
+          f"+ {calls['prefill']} evaluation prefills, x {layers} layers), backward "
+          f"{launches['bwd']}, decode {launches['decode']} ({calls['decode_step']} decode steps "
+          f"x {layers}), loss head {launches['loss']} ({chunks} chunks a step of "
+          f"{target_budget} targets), mask {launches['mask']}")
+    _require(launches["fwd"] == layers * (TRAIN_STEPS + calls["prefill"])
+             and calls["prefill"] > 0, f"whole-head forward launches {launches['fwd']}")
+    _require(launches["bwd"] == layers * TRAIN_STEPS, f"backward launches {launches['bwd']}")
+    _require(launches["decode"] == layers * calls["decode_step"] and calls["decode_step"] > 0,
+             f"decode launches {launches['decode']}")
+    _require(launches["loss"] == chunks * TRAIN_STEPS, f"loss head launches {launches['loss']}")
+    _require(launches["mask"] == 0 and launches["adamw"] == 0, f"launches {launches}")
+
+    # the planted fault of the loss check: the same run at learning rate 0
+    _, rec0, _, _ = train_cli(TRAIN_CLI + [
+        "--training_steps", "20", "--log_eval_freq", "20", "--learning_rate", "0",
+        "--init_lr", "0", "--eval_episodes", "0", "--eval_text_num_examples", "0",
+        "--no_save_model"], workdir / "lr0")
+    drop0 = float(np.mean(rec0["losses"][:10]) - np.mean(rec0["losses"][-10:]))
+    print(f"loss drop, mean of the first 10 steps less the last 10: {drop:.4f} (limit "
+          f"{LOSS_DROP_MIN:g}); planted 'learning rate 0': {drop0:.4f}")
+    _require(drop > LOSS_DROP_MIN, f"the loss did not fall: {drop}")
+    _require(not drop0 > LOSS_DROP_MIN, f"the loss check cannot tell lr 0: {drop0}")
+
+    # exact resume: stop at TRAIN_STOP (an interrupt inside the next step
+    # leaves the emergency checkpoint), then resume to TRAIN_STEPS
+    from neko_tpu_torch.training.trainer import Trainer
+
+    step = Trainer.train_step
+
+    def stop_after(self):
+        if self.steps > TRAIN_STOP:
+            raise KeyboardInterrupt(f"stopped inside step {self.steps}")
+        return step(self)
+
+    Trainer.train_step = stop_after
+    try:
+        train_cli(base, workdir / "b")
+    except KeyboardInterrupt as e:
+        print(f"run b: {e}")
+    finally:
+        Trainer.train_step = step
+    ckpt_b = latest_checkpoint(str(next((workdir / "b").iterdir())))
+    _require(ckpt_b.endswith(f"checkpoint_{TRAIN_STOP}"), f"emergency checkpoint {ckpt_b}")
+    _, rec_c, _, _ = train_cli(base + ["--resume_from", ckpt_b], workdir / "c")
+    got = rec_c["losses"]
+    want = losses[TRAIN_STOP:]
+    stream_ok = rec_c["stream"][1:1 + len(want)] == rec["stream"][1 + TRAIN_STOP:1 + TRAIN_STEPS]
+    gap = max(abs(a - b) for a, b in zip(got, want)) if len(got) == len(want) else float("inf")
+    sidecar = f"host_state_{TRAIN_STOP}_p0.pkl"
+    bare = workdir / "b_bare"
+    shutil.copytree(ckpt_b, bare / f"checkpoint_{TRAIN_STOP}")
+    _, rec_f, _, _ = train_cli(base + ["--resume_from", str(bare / f"checkpoint_{TRAIN_STOP}"),
+                                       "--eval_episodes", "0", "--eval_text_num_examples", "0",
+                                       "--no_save_model"], workdir / "f")
+    gap_f = max(abs(a - b) for a, b in zip(rec_f["losses"], want))
+    stream_f = rec_f["stream"][1:1 + len(want)] == rec["stream"][1 + TRAIN_STOP:1 + TRAIN_STEPS]
+    print(f"resume at step {TRAIN_STOP} (emergency checkpoint) to {TRAIN_STEPS}: packed arrays of "
+          f"steps {TRAIN_STOP + 1}-{TRAIN_STEPS} {'bit for bit equal' if stream_ok else 'DIFFER'}; "
+          f"largest loss difference {gap:.3e} (tolerance {RESUME_LOSS_TOL:g}); planted "
+          f"'{sidecar} deleted': stream {'equal' if stream_f else 'differs'}, loss difference "
+          f"{gap_f:.3e}")
+    _require(stream_ok, "the resumed run did not replay the packed arrays")
+    _require(gap <= RESUME_LOSS_TOL, f"resumed losses {got} against {want}")
+    _require(not stream_f and gap_f > RESUME_LOSS_TOL,
+             "the resume check cannot tell a missing sidecar")
+    for d in ("b", "b_bare", "c", "f", "lr0"):
+        shutil.rmtree(workdir / d, ignore_errors=True)
+
+    # the same with the fused AdamW kernel #16, evaluation off
+    fused = TRAIN_CLI + ["--fused_adamw", "--training_steps", str(FUSED_STEPS),
+                         "--log_eval_freq", str(FUSED_EVAL_FREQ), "--eval_episodes", "0",
+                         "--eval_text_num_examples", "0"]
+    tr_d, rec_d, launches_d, _ = train_cli(fused, workdir / "d")
+    exp_d = tr_d.exp_dir
+    del tr_d
+    _require(launches_d["adamw"] == FUSED_STEPS, f"fused AdamW launches {launches_d['adamw']}")
+    _, rec_e, launches_e, _ = train_cli(
+        fused + ["--resume_from", f"{exp_d}/checkpoint_{FUSED_STOP}"], workdir / "e")
+    want_d = rec_d["losses"][FUSED_STOP:]
+    gap_d = max(abs(a - b) for a, b in zip(rec_e["losses"], want_d))
+    stream_d = (rec_e["stream"][1:1 + len(want_d)]
+                == rec_d["stream"][1 + FUSED_STOP:1 + FUSED_STEPS])
+    print(f"fused AdamW run: {FUSED_STEPS} steps, kernel #16 launches {launches_d['adamw']}; "
+          f"resumed at {FUSED_STOP} (the moments through the checkpoint): packed arrays "
+          f"{'bit for bit equal' if stream_d else 'DIFFER'}, largest loss difference "
+          f"{gap_d:.3e}, #16 launches {launches_e['adamw']}")
+    _require(stream_d and gap_d <= RESUME_LOSS_TOL and launches_e["adamw"] == len(want_d),
+             "the fused resume did not replay the run")
+    shutil.rmtree(workdir / "d", ignore_errors=True)
+    shutil.rmtree(workdir / "e", ignore_errors=True)
+
+    # the last checkpoint serves
+    path = latest_checkpoint(exp_a)
+    _require(path.endswith(f"checkpoint_{TRAIN_STEPS}"), f"last checkpoint {path}")
+    cfg2, model = load_model_dir(path, dev)
+    _require(cfg2 == cfg, "the checkpoint's config differs from the run's")
+    gen = Generator(model, seed=SEED)
+    with NekoServer(gen, port=0, request_timeout=600.0) as server:
+        url = f"http://{server.address[0]}:{server.address[1]}"
+        status, body, dt_g = _post(url + "/v1/generate", {"text": list(b"the robot moves"),
+                                                          "max_new_tokens": 8})
+        _require(status == 200 and len(body["tokens"]) == 8, body)
+        obs = np.random.default_rng(SEED).standard_normal((4, 8)).tolist()
+        status, body2, dt_a = _post(url + "/v1/action", {
+            "continuous_obs": obs, "action_kind": "continuous", "action_tokens": 2})
+        act = np.asarray(body2["action"])
+        _require(status == 200 and act.shape == (2,) and np.all(np.abs(act) <= 1.0), body2)
+    print(f"{path.rsplit('/', 1)[-1]} served: /v1/generate {body['tokens']} in "
+          f"{dt_g * 1e3:.1f} ms, /v1/action {act.tolist()} in {dt_a * 1e3:.1f} ms ({card})")
+
+    del gen, model
+    # the rollout cache, kernels against plain attention, past the ring, on
+    # random weights from the seed (where phase 4's logit limits were set)
+    rcfg = ModelConfig(**dict(FLAGSHIP, max_patches=0, dropout=0.0))
+    gen = Generator(build_model(rcfg, init_state_dict(rcfg, SEED), dev), seed=SEED)
+    (pre, first, later), faults, ring_ts, step_ms = rollout_vs_plain(gen, ROLLOUT_STEPS)
+    limits = (LOGIT_TOL, LOGIT_TOL, DECODE_LOGIT_TOL)
+    print(f"rollout cache over {ROLLOUT_STEPS} env steps (the ring holds {ring_ts} timesteps, "
+          f"after a {ring_ts}-timestep-or-shorter prompt), kernels vs plain attention, "
+          f"teacher-forced: prompt prefill logits {pre:.3e} and action logits after the "
+          f"extend {first:.3e} (tolerance {LOGIT_TOL:g}), after decode steps {later:.3e} "
+          f"(tolerance {DECODE_LOGIT_TOL:g}); {step_ms:.3f} ms a rollout step ({card})")
+    for f, errs in faults.items():
+        print(f"control '{f}': prefill {errs[0]:.3e}, after the extend {errs[1]:.3e}, "
+              f"after decode steps {errs[2]:.3e}")
+    _require(all(e <= t for e, t in zip((pre, first, later), limits)),
+             f"the rollout's logits disagree: {pre}, {first}, {later}")
+    blind = [f for f, errs in faults.items()
+             if not any(e > t for e, t in zip(errs, limits))]
+    _require(not blind, f"the rollout check cannot tell these planted faults: {blind}")
+    del gen
+    return {"fwd": launches["fwd"], "bwd": launches["bwd"], "decode": launches["decode"],
+            "loss": launches["loss"], "adamw": launches_d["adamw"] + launches_e["adamw"],
+            "trainer_ms": trainer_ms, "bench_step_ms": bench_step_ms,
+            "rollout_step_ms": step_ms}
+
+
 def main() -> int:
     import torch
 
@@ -2653,6 +3145,12 @@ def main() -> int:
     decode.update(generate=decode_generate(card))
     loss_head = loss_kernel_vs_plain(card, libs)
     adamw = fused_adamw_check(card)
+    workdir = Path(__file__).resolve().parent / "_smoke_runs"
+    shutil.rmtree(workdir, ignore_errors=True)
+    try:
+        cli = train_entry_point(card, launches["step_ms"], workdir)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
 
     src = "neko_tpu_torch/csrc/"
     tpu = "neko_tpu/ops/attention_kernel.py"
@@ -2672,11 +3170,13 @@ def main() -> int:
         # timed at the train shape (#3); the prefill shape's times (#1) beside
         {"name": "whole_head_attention", "route": "cuda",
          "source": src + "whole_head_attention.cu", "replaces": f"{tpu}:206,236",
-         "launches": serve_launches + launches["fwd"],
+         "launches": serve_launches + launches["fwd"] + cli["fwd"],
+         "train_cli_launches": cli["fwd"],
          "max_abs_err": max(err, trained["fwd_err"]), **timing("fwd"), "prefill": prefill},
         {"name": "whole_head_attention_bwd", "route": "cuda",
          "source": src + "whole_head_attention_bwd.cu", "replaces": f"{tpu}:220,256",
-         "launches": launches["bwd"], "max_abs_err": trained["bwd_err"], **timing("bwd")},
+         "launches": launches["bwd"] + cli["bwd"], "train_cli_launches": cli["bwd"],
+         "max_abs_err": trained["bwd_err"], **timing("bwd")},
     ] + [
         {"name": name, "route": "cuda", "source": src + source,
          "replaces": f"{tpu_b}:{line}", "launches": long_path[key],
@@ -2701,7 +3201,8 @@ def main() -> int:
         # decode timed at B=8, H=24, S=1024, hd=32 bf16 on a full cache; launches
         # are the serving run's (layers x decode steps)
         {"name": "decode_cache_attention", "route": "cuda", "source": src + "decode_attention.cu",
-         "replaces": "neko_tpu/ops/decode_attention.py:80", "launches": decode_launches,
+         "replaces": "neko_tpu/ops/decode_attention.py:80",
+         "launches": decode_launches + cli["decode"], "train_cli_launches": cli["decode"],
          "check_launches": decode["check_launches"] + decode["generate"]["launches"],
          "max_abs_err": decode["err"], **decode["times"], "b1": decode["times_b1"],
          "generate_per_token_ms": {k: decode["generate"][k] for k in ("kernel_ms", "plain_ms")}},
@@ -2711,12 +3212,14 @@ def main() -> int:
         {"name": "fused_logz_tl", "route": "cuda", "source": src + "fused_logz_tl.cu",
          "replaces": "neko_tpu/ops/loss_kernel.py:54",
          "launches": (launches["loss"] + long_path["loss head"] + seq_path["loss head"]
-                      + adamw["loss_launches"]),
+                      + adamw["loss_launches"] + cli["loss"]),
+         "train_cli_launches": cli["loss"],
          "check_launches": loss_head["launches"], "max_abs_err": loss_head["err"],
          **{k: v for k, v in loss_head.items() if k not in ("err", "launches")}},
         # AdamW over the flagship tree; launches are the fused train steps'
         {"name": "fused_adamw", "route": "cuda", "source": src + "fused_adamw.cu",
-         "replaces": "neko_tpu/ops/fused_adamw.py:101", "launches": adamw["launches"],
+         "replaces": "neko_tpu/ops/fused_adamw.py:101",
+         "launches": adamw["launches"] + cli["adamw"], "train_cli_launches": cli["adamw"],
          "check_launches": adamw["check_launches"], "max_abs_err": adamw["err"],
          **{k: adamw[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
                                   "optimizer_ms", "default_optimizer_ms")}},

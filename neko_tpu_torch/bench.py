@@ -13,8 +13,12 @@ loss-target budgets (JAX-free copies of its `build_examples`,
 bench.py is not imported).  Weights are random, from `--seed`.
 
 Prints one JSON line: metric (named by `metric_name`, the root bench's
-rule), value (tokens/s), unit, vs_baseline (value over the root bench's
-REFERENCE_TOKENS_PER_SEC_PER_CHIP), mfu (against the
+rule), value (tokens/s of the device step on one resident batch), unit,
+end_to_end (tokens/s when every step's batch is packed afresh and copied to
+the device by the port's `HostPrefetcher`, as the Trainer feeds its steps:
+the root bench's measurement, 5 warm-up steps and then the best of 3
+windows of 40 steps), e2e_over_device_step (their ratio), vs_baseline
+(value over the root bench's REFERENCE_TOKENS_PER_SEC_PER_CHIP), mfu (against the
 dense bf16 peak of the card, keyed by its name), flops_per_token (MFLOPs),
 step_ms, peak_mem_gb, and the card's name and power limit as nvidia-smi
 reports them; `--profile` adds `profile_ms_per_step` (device time by part)
@@ -33,14 +37,14 @@ configuration the root bench does not have (chip_smoke.py's k = 8192 step).
 `FusedAdamW`: the global norm and one launch of the fused AdamW kernel,
 in place of the clip pass and torch's AdamW.
 
-Not here yet: the root bench's `end_to_end` (it waits for the port of
-data/pipeline.py) and its measured-reference keys (their JSON files describe
-other hardware).
+The root bench's measured-reference keys are not printed: their JSON files
+describe other hardware.
 """
 
 from __future__ import annotations
 
 import argparse
+import itertools
 import json
 import subprocess
 import sys
@@ -185,15 +189,74 @@ def card() -> str:
     ).stdout.strip().splitlines()[0]
 
 
-def time_steps(ctx, state, batch, n: int):
-    """n train steps between two synchronizations.  -> (seconds, losses)."""
+def _sync(device) -> None:
     import torch
 
-    torch.cuda.synchronize()
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def time_steps(ctx, state, batch, n: int):
+    """n train steps between two synchronizations.  -> (seconds, losses)."""
+    _sync(ctx.device)
     t0 = time.perf_counter()
     losses = [ctx.train_step(state, batch)[1] for _ in range(n)]
-    torch.cuda.synchronize()
+    _sync(ctx.device)
     return time.perf_counter() - t0, [float(x) for x in losses]
+
+
+def end_to_end(ctx, state, cfg, batch_size: int, seed: int = 0, steps: int = 40,
+               windows: int = 3, warmup: int = 5) -> float:
+    """Tokens/s of train steps whose batches are packed afresh (from one of
+    four example pools, in turn) and copied to the device by a
+    `HostPrefetcher` thread, as the Trainer feeds its steps (the root
+    bench's end_to_end): `warmup` steps, then the best of `windows` windows
+    of `steps` steps."""
+    from neko_tpu_torch.data.batch import to_device_batch
+    from neko_tpu_torch.data.packing import SequencePacker
+    from neko_tpu_torch.data.pipeline import HostPrefetcher
+
+    packer = SequencePacker(cfg)
+    pools = [build_examples(cfg, batch_size, seed=s) for s in range(seed, seed + 4)]
+    turn = itertools.count()
+    budgets = dict(patch_budget=patch_budget(cfg, batch_size),
+                   target_budget=tgt_budget(batch_size, cfg))
+
+    def produce():
+        arrays = packer.pack_batch(pools[next(turn) % len(pools)], **budgets)
+        arrays.pop("lengths")
+        return to_device_batch(arrays, ctx.device, non_blocking=True)
+
+    pf = HostPrefetcher(produce, depth=2, device=ctx.device)
+    try:
+        for _ in range(warmup):
+            ctx.train_step(state, pf.get())
+        best = float("inf")
+        for _ in range(windows):
+            _sync(ctx.device)
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                ctx.train_step(state, pf.get())
+            _sync(ctx.device)
+            best = min(best, time.perf_counter() - t0)
+    finally:
+        pf.close()
+    return batch_size * cfg.context_len * steps / best
+
+
+def measure(ctx, state, batch, cfg, batch_size: int, steps: int = 10, warmup: int = 3,
+            seed: int = 0, e2e: dict = None) -> dict:
+    """The device step on one resident batch, then `end_to_end` (`e2e`: its
+    keyword arguments).  -> {"tokens_per_sec", "step_ms", "end_to_end"
+    (tokens/s), "e2e_over_device_step"}."""
+    time_steps(ctx, state, batch, warmup)
+    dt, losses = time_steps(ctx, state, batch, steps)
+    if not all(np.isfinite(losses)):
+        raise RuntimeError(f"non-finite loss: {losses}")
+    tokens_per_sec = batch_size * cfg.context_len * steps / dt
+    e2e_tps = end_to_end(ctx, state, cfg, batch_size, seed, **(e2e or {}))
+    return {"tokens_per_sec": tokens_per_sec, "step_ms": dt * 1e3 / steps,
+            "end_to_end": e2e_tps, "e2e_over_device_step": e2e_tps / tokens_per_sec}
 
 
 def optimizer_ms(ctx, state, batch, steps: int = 3) -> float:
@@ -338,23 +401,21 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
     cfg, ctx, state, batch, batch_size = setup(args.config, "cuda", args.seed,
                                                args.mesh_seq_axis, args.fused_adamw)
-    time_steps(ctx, state, batch, args.warmup)
     torch.cuda.reset_peak_memory_stats()
-    dt, losses = time_steps(ctx, state, batch, args.steps)
-    if not all(np.isfinite(losses)):
-        raise RuntimeError(f"non-finite loss: {losses}")
-    tokens_per_step = batch_size * cfg.context_len
-    tokens_per_sec = tokens_per_step * args.steps / dt
-    fpt = train_flops_per_token(cfg, tgt_budget(batch_size, cfg) / tokens_per_step)
+    m = measure(ctx, state, batch, cfg, batch_size, args.steps, args.warmup, args.seed)
+    tokens_per_sec = m["tokens_per_sec"]
+    fpt = train_flops_per_token(cfg, tgt_budget(batch_size, cfg) / (batch_size * cfg.context_len))
     name = torch.cuda.get_device_name(0)
     out = {
         "metric": metric_name(cfg),
         "value": round(tokens_per_sec, 1),
         "unit": "tokens/sec/chip",
+        "end_to_end": round(m["end_to_end"], 1),
+        "e2e_over_device_step": round(m["e2e_over_device_step"], 3),
         "vs_baseline": round(tokens_per_sec / REFERENCE_TOKENS_PER_SEC_PER_CHIP, 3),
         "mfu": round(tokens_per_sec * fpt / PEAK_FLOPS[name], 4) if name in PEAK_FLOPS else None,
         "flops_per_token": round(fpt / 1e6, 1),
-        "step_ms": round(dt * 1e3 / args.steps, 3),
+        "step_ms": round(m["step_ms"], 3),
         "peak_mem_gb": round(torch.cuda.max_memory_allocated() / 2 ** 30, 3),
         "device": name,
         "card": card(),

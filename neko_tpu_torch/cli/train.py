@@ -1,0 +1,105 @@
+"""`python -m neko_tpu_torch.cli.train` -- the training entry point
+(counterpart of neko_tpu/cli/train.py, `python train.py`).
+
+    python -m neko_tpu_torch.cli.train --text_datasets synthetic \\
+        --text_datasets_paths synthetic --text_prop 0.375 \\
+        --control_datasets neko-synth-continuous-v0 neko-synth-image-v0 \\
+        --embed_dim 768 --layers 6 --heads 24 -k 1024 --batch_size 16 \\
+        --training_steps 30 --log_eval_freq 15 --save_model --save_mode checkpoint
+
+The flags are the JAX package's (training/arguments.py).  The run trains on
+the CUDA device (`--cpu` for the CPU), evaluates every `log_eval_freq`
+steps, and with `--save_model` writes <save_dir>/<exp>/checkpoint_<N>/
+(utils/checkpoint.py).  `--resume_from DIR` continues a run exactly: the
+weights, optimizer state and step from the checkpoint, and the host sampler
+state from its sidecar, so the data stream replays the uninterrupted run's.
+`--init_checkpoint DIR` loads the weights of a checkpoint of this package.
+"""
+
+from __future__ import annotations
+
+import datetime
+from typing import Optional
+
+from neko_tpu_torch.cli.build import build_context
+from neko_tpu_torch.training.arguments import TrainingArgs
+from neko_tpu_torch.training.trainer import Trainer
+from neko_tpu_torch.utils.typed_argparser import TypedArgumentParser
+
+
+def run(args: TrainingArgs, exp_name: Optional[str] = None) -> Trainer:
+    import torch
+
+    from neko_tpu_torch.utils import checkpoint as ckpt
+    from neko_tpu_torch.utils.host_state import load_host_state_for
+
+    ctx, tasks = build_context(args)
+    exp_name = exp_name or datetime.datetime.now().strftime("%Y-%m-%d_%H-%M-%S") + "_neko"
+    trainer = Trainer(ctx, tasks, exp_name, args)
+    trainer.init_state(ckpt_weights(args, ctx))
+
+    if args.resume_from is not None:
+        path = ckpt.resolve_checkpoint_dir(args.resume_from)
+        trainer.state = ckpt.load_checkpoint(path, ctx)
+        trainer.steps = trainer.state.step
+        host = load_host_state_for(path, trainer.proc_index, trainer.proc_count)
+        if host is not None:
+            trainer.load_host_state(host)
+            print(f"resumed full train state from {path} at step {trainer.steps} "
+                  "(host sampler state restored: exact)")
+        else:
+            # the stream restarts from the seed: it is this step's host state
+            trainer.load_host_state(trainer.host_state())
+            print(f"resumed device train state from {path} at step {trainer.steps} "
+                  "(no host_state sidecar: the data stream restarts from the seed: "
+                  "approximate resume)")
+
+    n_params = sum(p.numel() for p in trainer.state.model.parameters())
+    where = torch.cuda.get_device_name(ctx.device) if ctx.device.type == "cuda" else "cpu"
+    print(f"device: {ctx.device} ({where})")
+    print(f"mesh: {dict(ctx.mesh.shape) if ctx.mesh is not None else {}}")
+    print(f"parameters: {n_params:,}")
+    trainer.train()
+    return trainer
+
+
+def ckpt_weights(args: TrainingArgs, ctx):
+    """The weights of `--init_checkpoint` (a checkpoint dir of this package,
+    or an experiment dir: its latest), or None."""
+    from neko_tpu_torch.utils import checkpoint as ckpt
+
+    if args.init_checkpoint is None:
+        return None
+    return ckpt.load_params_only(ckpt.resolve_checkpoint_dir(args.init_checkpoint),
+                                 ctx.model_cfg)
+
+
+def validate_args(args: TrainingArgs) -> None:
+    """The reference's startup checks."""
+    def need(ok, msg):
+        if not ok:
+            raise ValueError(msg)
+
+    for name in ("text_prop", "caption_prop", "vqa_prop"):
+        need(0.0 <= getattr(args, name) <= 1.0, f"--{name} must lie in [0, 1]")
+    need(args.text_prop + args.caption_prop + args.vqa_prop <= 1.0,
+         "text/caption/vqa proportions must sum to <= 1")
+    if 1 - args.text_prop - args.caption_prop - args.vqa_prop > 1e-6:
+        need(args.control_datasets,
+             "control data proportion > 0 but no --control_datasets specified")
+    if args.text_prop > 0:
+        need(args.text_datasets and args.text_datasets_paths,
+             "text proportion > 0 but no --text_datasets/--text_datasets_paths")
+    need(args.training_steps >= args.log_eval_freq, "training_steps must be >= log_eval_freq")
+    if args.lora:
+        need(args.pretrained_lm is not None, "--lora requires --pretrained_lm")
+
+
+def main(argv: Optional[list] = None) -> Trainer:
+    (args,) = TypedArgumentParser(TrainingArgs).parse_args_into_dataclasses(argv)
+    validate_args(args)
+    return run(args)
+
+
+if __name__ == "__main__":
+    main()

@@ -101,10 +101,15 @@ _FIELDS = ("tokens", "input_mask", "target_mask", "inner_pos",
            "loss_pos", "loss_tgt")
 
 
-def to_device_batch(arrays: dict, device) -> PackedBatch:
+def to_device_batch(arrays: dict, device, non_blocking: bool = False) -> PackedBatch:
     """Packer arrays -> PackedBatch of tensors on `device` (extra keys such
-    as the packer's `lengths` are ignored)."""
-    return PackedBatch(**{
-        k: torch.from_numpy(np.ascontiguousarray(arrays[k])).to(device)
-        for k in _FIELDS if k in arrays
-    })
+    as the packer's `lengths` are ignored).  `non_blocking` to a CUDA
+    device copies from pinned host memory without waiting, on the current
+    stream: the caller orders its use (data/pipeline.py)."""
+    pin = non_blocking and torch.device(device).type == "cuda"
+
+    def put(a):
+        t = torch.from_numpy(np.ascontiguousarray(a))
+        return (t.pin_memory() if pin else t).to(device, non_blocking=pin)
+
+    return PackedBatch(**{k: put(arrays[k]) for k in _FIELDS if k in arrays})

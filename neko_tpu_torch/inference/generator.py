@@ -1,5 +1,6 @@
 """KV-cache autoregressive generation (counterpart of
-neko_tpu/inference/generator.py: batched generation and control).
+neko_tpu/inference/generator.py: batched generation, control and the
+rollout cache).
 
 One prefill over the right-padded prompts (through the whole-head attention
 kernel on the card), then one single-token decode step per generated token.
@@ -19,11 +20,23 @@ Semantics kept from the JAX package:
 * when a row would overflow the context, decode writes token i at
   `pos % context_len`: a ring over the cache that evicts the oldest token
 * continuous actions decoded with the uniform-bin inverse
+* `targets` [N, T]: the per-token NLL of given target ids under the
+  restricted window, computed on the device (text evaluation reads only
+  those [N, T] floats)
+* `RolloutSession` (the rollout cache of control evaluation): the KV cache
+  lives across env steps; each step ring-extends it with the new timestep's
+  [obs | sep] tokens (`NekoModel.extend_step`, evicting the oldest timestep
+  slot) and decodes the action tokens through the decode kernel, every
+  generated token written into the cache
+
+The Generator serves from the model it is given, cast in place to the
+activation dtype: a caller that trains the weights hands it a copy
+(`set_params` refreshes the copy from a state dict).
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -105,6 +118,58 @@ class Generator:
         self._rng = torch.Generator(device=self.device)
         self._rng.manual_seed(seed)
 
+    @torch.no_grad()
+    def set_params(self, state_dict: Dict[str, torch.Tensor]) -> None:
+        """Copy weights (any dtype, any device) into the served model with
+        the serve cast: the caller's tensors are read, never changed."""
+        self.model.load_state_dict(state_dict)
+
+    @torch.inference_mode()
+    def _decode(self, last_logits, caches, pos, next_pos, *, n_steps: int, start: int,
+                end: int, deterministic: bool, rng, with_pos: bool, ring: bool,
+                limits=None, targets=None, return_logits: bool = True,
+                feed_last: bool = False, sampling=(1.0, 0, 1.0)):
+        """n_steps tokens restricted to [start, end] from `last_logits`
+        [N, V]; each token but the last (every one with `feed_last`) goes
+        through a decode step at `pos` (`pos % context_len` with `ring`).
+        -> (tokens [N, T] on the device, window logits [N, T, W] or None,
+        target NLL [N, T] or None)."""
+        temperature, top_k, top_p = sampling
+        model, S = self.model, self.cfg.context_len
+        cols = torch.arange(end - start + 1, device=last_logits.device)
+        toks, windows, nlls = [], [], []
+        for i in range(n_steps):
+            window = last_logits[:, start:end + 1]
+            if limits is not None:
+                # per-STEP legal sub-range (MultiDiscrete components)
+                window = window.masked_fill(cols[None, :] >= limits[i], -torch.inf)
+            if deterministic:
+                tok = window.argmax(dim=-1)
+            else:
+                warped = apply_logit_filters(
+                    window, temperature=temperature, top_k=top_k, top_p=top_p)
+                tok = torch.multinomial(torch.softmax(warped, dim=-1), 1, generator=rng)[:, 0]
+            tok = tok + start
+            toks.append(tok)
+            if return_logits:
+                windows.append(window)
+            if targets is not None:
+                tl = window.gather(1, targets[:, i:i + 1].long())[:, 0]
+                nlls.append(torch.logsumexp(window, dim=-1) - tl)
+            if i == n_steps - 1 and not feed_last:
+                break  # the last token's decode step would feed nothing
+            if with_pos:
+                emb = model.embed_tokens_with_pos(tok[:, None], next_pos[:, None])
+            else:
+                emb = model.embed_tokens(tok[:, None])
+            write_pos = pos % S if ring else pos
+            last_logits = model.decode_step(emb, write_pos, caches)[:, 0]
+            pos = pos + 1
+            next_pos = next_pos + 1
+        return (torch.stack(toks, dim=1),
+                torch.stack(windows, dim=1) if return_logits else None,
+                torch.stack(nlls, dim=1) if targets is not None else None)
+
     # ------------------------------------------------------------- batched
     @torch.inference_mode()
     def generate_batch(
@@ -118,6 +183,7 @@ class Generator:
         drop_trailing: int = 0,
         generator: Optional[torch.Generator] = None,
         inner_pos_continuation: bool = False,
+        targets: Optional[np.ndarray] = None,
         return_logits: bool = True,
         temperature: Optional[float] = None,
         top_k: Optional[int] = None,
@@ -125,9 +191,10 @@ class Generator:
         step_limits: Optional[Sequence[int]] = None,
     ):
         """Generate for a batch of prompts in lockstep (right-padded prompts,
-        per-row decode positions).  Returns (tokens int64 [N, T],
-        window_logits fp32 [N, T, end-start+1]), or (tokens,) when
-        return_logits=False.  All rows generate max_new_tokens."""
+        per-row decode positions).  Returns (tokens int64 [N, T][,
+        window_logits fp32 [N, T, end-start+1]][, target NLL fp32 [N, T]]):
+        the logits when return_logits, the NLL of `targets` (ids within the
+        window, int [N, T]) when given.  All rows generate max_new_tokens."""
         temperature, top_k, top_p = _resolve_sampling(
             self._default_sampling, temperature, top_k, top_p
         )
@@ -151,42 +218,28 @@ class Generator:
 
         limits = (None if step_limits is None
                   else torch.as_tensor(list(step_limits), device=dev))
-        cols = torch.arange(end - start + 1, device=dev)
-        toks, windows = [], []
-        for i in range(max_new_tokens):
-            window = last_logits[:, start:end + 1]
-            if limits is not None:
-                # per-STEP legal sub-range (MultiDiscrete components)
-                window = window.masked_fill(cols[None, :] >= limits[i], -torch.inf)
-            if deterministic:
-                tok = window.argmax(dim=-1)
-            else:
-                warped = apply_logit_filters(
-                    window, temperature=temperature, top_k=top_k, top_p=top_p
-                )
-                probs = torch.softmax(warped, dim=-1)
-                tok = torch.multinomial(probs, 1, generator=rng)[:, 0]
-            tok = tok + start
-            toks.append(tok)
-            if return_logits:
-                windows.append(window)
-            if i == max_new_tokens - 1:
-                break  # the last token's decode step would feed nothing
-            if inner_pos_continuation:
-                emb = model.embed_tokens_with_pos(tok[:, None], next_pos[:, None])
-            else:
-                emb = model.embed_tokens(tok[:, None])
-            write_pos = pos % S if ring else pos
-            last_logits = model.decode_step(emb, write_pos, caches)[:, 0]
-            pos = pos + 1
-            next_pos = next_pos + 1
-
-        tokens = torch.stack(toks, dim=1).cpu().numpy().astype(np.int64)
-        if not return_logits:
-            return (tokens,)
-        return tokens, torch.stack(windows, dim=1).float().cpu().numpy()
+        tgt = None if targets is None else torch.as_tensor(np.asarray(targets), device=dev)
+        toks, windows, nlls = self._decode(
+            last_logits, caches, pos, next_pos, n_steps=max_new_tokens, start=start, end=end,
+            deterministic=deterministic, rng=rng, with_pos=inner_pos_continuation, ring=ring,
+            limits=limits, targets=tgt, return_logits=return_logits,
+            sampling=(temperature, top_k, top_p))
+        out = [toks.cpu().numpy().astype(np.int64)]
+        for y in (windows, nlls):
+            if y is not None:
+                out.append(y.float().cpu().numpy())
+        return tuple(out)
 
     # ------------------------------------------------------ task-level API
+    def predict_control(self, example: Dict, **kw):
+        """`predict_control_batch` for one example (the re-pack path of
+        control evaluation): an int for Discrete, an int array for
+        MultiDiscrete, a float array for Box."""
+        return self.predict_control_batch([example], **kw)[0]
+
+    def rollout_session(self, **kw) -> "RolloutSession":
+        return RolloutSession(self, **kw)
+
     def predict_control_batch(
         self,
         examples: Sequence[Dict],
@@ -244,3 +297,139 @@ class Generator:
             )
             for t in tokens
         ]
+
+
+class RolloutSession:
+    """Ring KV cache kept across the env steps of control rollouts (the
+    JAX package's RolloutSession, the "rollout cache").
+
+    `start` prefills the cache with whole-timestep prompts (or starts empty);
+    each `step` ring-extends it with the new timestep's [obs | sep] tokens,
+    evicting the oldest timestep slot, then decodes the action tokens, each
+    written into the cache (so the slot leaves the step complete).  The ring
+    holds context_timesteps whole timesteps, so the attended key set is the
+    re-pack path's trimmed window; cached tokens keep the hidden states
+    they were computed with (TransformerXL-style memory).  Until the first
+    eviction the actions equal the re-pack path's.
+    """
+
+    def __init__(
+        self,
+        generator: Generator,
+        *,
+        obs_str: Optional[str],
+        action_str: str,
+        obs_tokens: int,
+        action_tokens: int,
+        action_kind: str,
+        num_actions: Optional[int] = None,
+        action_nvec: Optional[Sequence[int]] = None,
+        context_timesteps: int,
+        patches_per_timestep: int = 0,
+    ):
+        self.g = generator
+        self.cfg = generator.cfg
+        self.obs_str = obs_str
+        self.action_str = action_str
+        self.obs_tokens = obs_tokens
+        self.action_tokens = action_tokens
+        self.action_kind = action_kind
+        self.action_nvec = None if action_nvec is None else [int(n) for n in action_nvec]
+        self.patches_per_timestep = patches_per_timestep
+        self.tpt = obs_tokens + 1 + action_tokens
+        self.L = context_timesteps * self.tpt
+        if self.L > self.cfg.context_len:
+            raise ValueError(f"ring buffer {self.L} exceeds the cache length "
+                             f"{self.cfg.context_len}")
+        ts = self.cfg.token_space
+        self.sel_start = ts.start(action_kind)
+        self.sel_end = ts.end(action_kind)
+        if action_kind == "discrete":
+            if self.action_nvec is not None:
+                if len(self.action_nvec) != action_tokens:
+                    raise ValueError("action_nvec needs one range per action token")
+                self.sel_end = self.sel_start + max(self.action_nvec) - 1
+            else:
+                if action_tokens != 1 or num_actions is None:
+                    raise ValueError(
+                        "plain discrete actions need action_tokens=1 and num_actions")
+                self.sel_end = self.sel_start + num_actions - 1
+        self._act_dtype = np.float32 if action_kind == "continuous" else np.int32
+        self.caches = None
+        self.slot_start = None
+
+    @torch.inference_mode()
+    def start(self, prompts: Sequence[Optional[Dict]]) -> None:
+        """Begin episodes: prefill the cache with full-timestep prompts (real
+        actions included), or start empty for promptless evaluation.  All
+        rows must be prompted or all promptless."""
+        g, model = self.g, self.g.model
+        B, S, D = len(prompts), self.cfg.context_len, self.cfg.embed_dim
+        if all(p is None for p in prompts):
+            emb = torch.zeros(B, S, D, dtype=self.cfg.activation_dtype, device=g.device)
+            lengths = np.zeros(B, np.int64)
+        elif any(p is None for p in prompts):
+            raise ValueError("mixed prompted / promptless rows are not supported")
+        else:
+            arrays = g.packer.pack_batch(list(prompts), pad_side="right")
+            lengths = arrays.pop("lengths")
+            if (lengths % self.tpt).any():
+                raise ValueError("prompts must be whole timesteps")
+            emb = model.embed_batch(to_device_batch(arrays, g.device))
+        mask = torch.from_numpy(np.arange(S)[None, :] < lengths[:, None]).to(g.device)
+        last = torch.zeros(B, dtype=torch.long, device=g.device)  # logits unused
+        _, self.caches = model.prefill(emb, mask, last=last)
+        self.slot_start = (lengths % self.L).astype(np.int64)
+
+    @torch.inference_mode()
+    def step(
+        self,
+        observations: Sequence,
+        deterministic: bool = True,
+        generator: Optional[torch.Generator] = None,
+        temperature: Optional[float] = None,
+        top_k: Optional[int] = None,
+        top_p: Optional[float] = None,
+    ) -> List:
+        """One env step for every row.  `observations` holds one
+        single-timestep obs per row: an array with leading dim 1, or a dict
+        of packer modality entries.  Returns decoded actions (ints for
+        discrete, int arrays for MultiDiscrete, float arrays for
+        continuous)."""
+        if self.caches is None:
+            raise RuntimeError("call start() first")
+        g, model = self.g, self.g.model
+        sampling = _resolve_sampling(g._default_sampling, temperature, top_k, top_p)
+        B = len(observations)
+        examples = [
+            {**obs, self.action_str: np.zeros((1, self.action_tokens), self._act_dtype)}
+            if isinstance(obs, dict)
+            else {self.obs_str: obs,
+                  self.action_str: np.zeros((1, self.action_tokens), self._act_dtype)}
+            for obs in observations
+        ]
+        arrays = g.packer.pack_batch(examples, pad_side="right", seq_len=self.tpt,
+                                     patch_budget=B * self.patches_per_timestep)
+        arrays.pop("lengths")
+        emb = model.embed_batch(to_device_batch(arrays, g.device))  # [B, tpt, D]
+        k = self.obs_tokens + 1
+        slot = torch.as_tensor(self.slot_start, device=g.device)
+        last_logits = model.extend_step(emb[:, :k], slot, slot, self.tpt, self.L,
+                                        self.caches)[:, -1]
+        limits = (None if self.action_nvec is None
+                  else torch.as_tensor(self.action_nvec, device=g.device))
+        toks, _, _ = g._decode(
+            last_logits, self.caches, slot + k, torch.zeros_like(slot),
+            n_steps=self.action_tokens, start=self.sel_start, end=self.sel_end,
+            deterministic=deterministic, rng=g._rng if generator is None else generator,
+            with_pos=False, ring=False, limits=limits, return_logits=False,
+            feed_last=True, sampling=sampling)
+        self.slot_start = (self.slot_start + self.tpt) % self.L
+        tokens = toks.cpu().numpy().astype(np.int64)
+        ts = self.cfg.token_space
+        if self.action_kind == "discrete":
+            if self.action_nvec is not None:
+                return [np.asarray(t - self.sel_start, np.int64) for t in tokens]
+            return [int(t[0] - self.sel_start) for t in tokens]
+        return [decode_np(t.astype(np.int32), n_bins=ts.continuous_tokens,
+                          offset=ts.continuous_start) for t in tokens]

@@ -152,6 +152,26 @@ class NekoModel(nn.Module):
         )
         return self._head(hidden)
 
+    def extend_step(
+        self,
+        emb: torch.Tensor,
+        start: torch.Tensor,
+        clear_start: torch.Tensor,
+        clear_len: int,
+        buffer_len: int,
+        caches: List[KVCache],
+    ) -> torch.Tensor:
+        """Ring append of a chunk into the KV caches (the rollout cache):
+        emb [B, K, D] of the new tokens, start int [B] the ring position of
+        chunk token 0; the timestep slot at clear_start (clear_len tokens) is
+        evicted first, and token i lands at (start + i) % buffer_len.  Updates
+        `caches` in place.  Returns fp32 logits [B, K, V]."""
+        hidden, _ = self.transformer(
+            emb, None, mode="extend", caches=caches, decode_index=start.long(),
+            extend_clear=(clear_start, clear_len, buffer_len),
+        )
+        return self._head(hidden)
+
     def embed_tokens(self, tokens: torch.Tensor) -> torch.Tensor:
         """Plain token-id embedding in the activation dtype (decode loop
         helper)."""

@@ -30,6 +30,17 @@ neko_tpu/models/transformer.py).
   row, computed once a step; rows inside the window that the mask clears
   are skipped, so a mask with holes is attended as the JAX package attends
   it (attention over the cache does not depend on the order of its rows).
+* `mode='extend'`: the rollout cache's ring append (the JAX package's
+  'extend' mode with `extend_clear`).  The timestep slot
+  [clear_start, clear_start + clear_len) modulo buffer_len is cleared from
+  the cache mask, the K new tokens are written at (decode_index + i) %
+  buffer_len and set in it, and each new token attends the cache mask minus
+  the chunk tokens written after it (a suffix-OR over their one-hot
+  positions).  The attention is plain torch, as the JAX package computes it
+  in XLA outside any kernel: fp32 scores with a finite -1e9 fill, fp32
+  softmax, probabilities cast to the value dtype.  The caches are updated
+  in place.  The JAX package's append mode (no `extend_clear`, for
+  speculative decoding) is not ported.
 
 Mixed precision by explicit casts, as flax does it (not torch.autocast,
 whose LayerNorm returns fp32): each Linear casts its input and its fp32
@@ -39,7 +50,7 @@ the activation dtype, so there every cast is a no-op.  Attention logits and
 softmax are fp32.
 
 Not ported yet (configs asking for them raise NotImplementedError): the
-'extend' mode, the int8 cache, LoRA, GEGLU and the tanh GELU ('gelu_new');
+int8 cache, LoRA, GEGLU and the tanh GELU ('gelu_new');
 in train mode also stochastic depth and `remat`.
 """
 
@@ -53,11 +64,35 @@ from torch import nn
 
 from neko_tpu_torch.config import ModelConfig
 from neko_tpu_torch.ops import attention as attn_ops
-from neko_tpu_torch.ops.attention_kernel import mask_bounds_from_key_mask
+from neko_tpu_torch.ops.attention_kernel import mask_bounds_from_key_mask, masked_attention
 from neko_tpu_torch.ops.dropout import Dropout
 from neko_tpu_torch.ops.gelu import gelu_erf
 
 KVCache = Dict[str, torch.Tensor]  # {"key", "value": [B,H,S,hd], "mask": [B,S]}
+# the JAX package's finite fill of disallowed scores in its XLA attention
+_BIG_NEG = -1e9
+
+
+def extend_positions(decode_index, clear_start, K: int, clear_len: int, buffer_len: int):
+    """(ring positions of the K chunk tokens [B, K], of the cleared slot
+    [B, clear_len]) for `mode='extend'`."""
+    dev = decode_index.device
+    wpos = (decode_index.long()[:, None] + torch.arange(K, device=dev)) % buffer_len
+    cidx = (clear_start.long()[:, None] + torch.arange(clear_len, device=dev)) % buffer_len
+    return wpos, cidx
+
+
+def extend_mask(mask, wpos, cidx):
+    """The cache mask after the extend (in place: the slot cleared, the
+    chunk set) and the allowed keys of each chunk token, bool [B, K, S]:
+    the mask minus the chunk tokens written after it."""
+    B, S = mask.shape
+    rows = torch.arange(B, device=mask.device)[:, None]
+    mask[rows, cidx] = False
+    mask[rows, wpos] = True
+    onehot = torch.nn.functional.one_hot(wpos, S).int()            # [B, K, S]
+    later = onehot.flip(1).cumsum(1).flip(1) - onehot               # written after token i
+    return mask[:, None, :] & (later == 0)
 
 
 def _not_ported(cfg: ModelConfig) -> None:
@@ -125,6 +160,7 @@ class Attention(nn.Module):
         cache: Optional[KVCache] = None,
         decode_index: Optional[torch.Tensor] = None,
         decode_bounds=None,
+        extend=None,
         generator: Optional[torch.Generator] = None,
     ):
         cfg = self.cfg
@@ -147,6 +183,13 @@ class Attention(nn.Module):
             # the mask is copied: decode steps flip its entries in place
             cache = {"key": k, "value": v, "mask": input_mask.clone()}
             out = attn_ops.prefill_attention(q, k, v, input_mask)
+        elif mode == "extend":
+            wpos, allowed = extend
+            rows = torch.arange(B, device=x.device)[:, None]
+            cache["key"][rows, :, wpos] = k.transpose(1, 2)
+            cache["value"][rows, :, wpos] = v.transpose(1, 2)
+            out = masked_attention(q, cache["key"], cache["value"], allowed[:, None],
+                                   fill=_BIG_NEG)
         elif mode == "decode":
             if S != 1:
                 raise ValueError("decode mode consumes one token at a time")
@@ -194,11 +237,12 @@ class Block(nn.Module):
         self.mlp = MLP(cfg)
 
     def forward(self, x, input_mask, *, mode, cache=None, decode_index=None,
-                decode_bounds=None, generator=None):
+                decode_bounds=None, extend=None, generator=None):
         dtype = self.cfg.activation_dtype
         a, cache = self.attn(
             layer_norm(self.ln_1, x, dtype), input_mask, mode=mode, cache=cache,
-            decode_index=decode_index, decode_bounds=decode_bounds, generator=generator,
+            decode_index=decode_index, decode_bounds=decode_bounds, extend=extend,
+            generator=generator,
         )
         x = x + a
         x = x + self.mlp(layer_norm(self.ln_2, x, dtype), generator)
@@ -223,12 +267,18 @@ class Transformer(nn.Module):
         mode: str,
         caches: Optional[List[KVCache]] = None,
         decode_index: Optional[torch.Tensor] = None,
+        extend_clear: Optional[tuple] = None,
         generator: Optional[torch.Generator] = None,
     ):
         """Returns (hidden [B, S, D], per-layer KV caches; None in train
-        mode).  `generator` (train mode only) turns dropout on."""
-        if mode == "decode" and caches is None:
-            raise ValueError("decode mode needs the caches prefill returned")
+        mode).  `generator` (train mode only) turns dropout on.
+        `extend_clear` = (clear_start int [B], clear_len, buffer_len) in
+        extend mode."""
+        if mode in ("decode", "extend") and caches is None:
+            raise ValueError(f"{mode} mode needs the caches prefill returned")
+        if mode == "extend" and extend_clear is None:
+            raise NotImplementedError("extend without extend_clear (the append mode of "
+                                      "speculative decoding) is not yet ported")
         if mode == "train":
             _train_not_ported(self.cfg, x.shape[1])
         bounds = None
@@ -238,12 +288,24 @@ class Transformer(nn.Module):
             mask = caches[0]["mask"].clone()
             mask[torch.arange(x.shape[0], device=x.device), decode_index] = True
             bounds = mask_bounds_from_key_mask(mask)
+        extend = None
+        if mode == "extend":
+            clear_start, clear_len, buffer_len = extend_clear
+            wpos, cidx = extend_positions(decode_index, clear_start, x.shape[1],
+                                          clear_len, buffer_len)
+            # the layers' masks are equal: compute the allowed keys once, then
+            # leave every layer's mask as the first one's
+            allowed = extend_mask(caches[0]["mask"], wpos, cidx)
+            for c in caches[1:]:
+                c["mask"].copy_(caches[0]["mask"])
+            extend = (wpos, allowed)
         out_caches = []
         for i, block in enumerate(self.h):
             x, c = block(
                 x, input_mask, mode=mode,
                 cache=None if caches is None else caches[i],
-                decode_index=decode_index, decode_bounds=bounds, generator=generator,
+                decode_index=decode_index, decode_bounds=bounds, extend=extend,
+                generator=generator,
             )
             out_caches.append(c)
         hidden = layer_norm(self.ln_f, x, self.cfg.activation_dtype)

@@ -206,6 +206,9 @@ class TrainState:
     model: NekoModel          # fp32 parameters on the device
     optimizer: torch.optim.Optimizer  # AdamW, or FusedAdamW
     seed: int
+    # True from the optimizer update until `step` counts it: the parameters
+    # may then be ahead of `step` (what a checkpoint must not be taken from)
+    updating: bool = False
 
 
 class TrainContext:
@@ -303,8 +306,10 @@ class TrainContext:
             lr = self.schedule(state.optimizer.count if fused else state.step)
             for group in state.optimizer.param_groups:
                 group["lr"] = lr
+            state.updating = True
             state.optimizer.step()
         state.step += 1
+        state.updating = False
 
     @torch.no_grad()
     def eval_step(self, state: TrainState, batch: PackedBatch) -> torch.Tensor:

@@ -1,0 +1,397 @@
+"""Training orchestration: mixture sampling, train / eval cadence,
+checkpoints (counterpart of neko_tpu/training/trainer.py).
+
+* `train()` runs (training_steps - steps) // log_eval_freq iterations of
+  log_eval_freq steps, then the remainder, each followed by evaluation,
+  logging and (with `--save_mode checkpoint`) a checkpoint; any exception
+  leaves an emergency checkpoint first (with `--save_model`).
+* each step's batch is split over text / control by `text_prop` with the
+  remainder handed to one component by a multinomial over the fractional
+  residuals; the control rows go to the tasks round-robin without
+  replacement, a `prompt_ep_proportion` share of them prompted, half 'end'
+  and half 'uniform'.
+* the examples are packed on the host into one static-shape batch with the
+  worst-case patch pool and loss-target budgets of the mixture, so every
+  step has the same shapes; a prefetch thread samples, packs and copies the
+  next batches to the device while the step runs (data/pipeline.py).
+* exact resume: the host RNG state right after each batch is sampled rides
+  the prefetch queue with it, and the state of the batch consumed at step N
+  is written beside checkpoint_N (utils/host_state.py).  No emergency
+  checkpoint is taken from a state torn between the optimizer update and
+  the step count, or between the step and its host state: the last
+  checkpoint stands.
+* evaluation runs from an activation-dtype copy of the weights that it
+  refreshes each time (`Generator.set_params`), never from the fp32
+  training parameters, under the sampling lock (the tasks' RNGs are shared
+  with the prefetch thread).
+
+The JAX package's caption and VQA tasks, multi-process batches and the
+profiler hook are not ported.
+"""
+
+from __future__ import annotations
+
+import os
+import threading
+import time
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+
+from neko_tpu_torch.data.batch import to_device_batch
+from neko_tpu_torch.data.packing import SequencePacker
+from neko_tpu_torch.parallel import multihost as mh
+from neko_tpu_torch.tasks.base import Task
+from neko_tpu_torch.tasks.control import ControlTask
+from neko_tpu_torch.tasks.text import TextTask
+from neko_tpu_torch.training.arguments import resolve_parallel_episodes
+from neko_tpu_torch.training.train_state import TrainContext, TrainState
+from neko_tpu_torch.utils import host_state as hs
+from neko_tpu_torch.utils.checkpoint import save_checkpoint
+from neko_tpu_torch.utils.logging import MetricsLogger
+
+
+class Trainer:
+    def __init__(
+        self,
+        ctx: TrainContext,
+        tasks: List[Task],
+        exp_name: str,
+        args,
+        logger: Optional[MetricsLogger] = None,
+    ):
+        if args.save_model and args.prefetch_workers > 1 and args.prefetch_batches > 0:
+            raise ValueError(
+                f"--save_model with --prefetch_workers {args.prefetch_workers}: with more "
+                "than one prefetch worker the batch order depends on thread scheduling, so "
+                "a checkpoint's host state could not replay it; use --prefetch_workers 1")
+        self.ctx = ctx
+        self.tasks = tasks
+        self.args = args
+        self.exp_name = exp_name
+        self.exp_dir = os.path.join(args.save_dir, exp_name)
+        self.packer = SequencePacker(ctx.model_cfg)
+        self.proc_index, self.proc_count = mh.process_info()
+        self.is_main_process = self.proc_index == 0
+        self.local_batch_size = mh.local_batch_size(args.batch_size, self.proc_count)
+        self.logger = logger or MetricsLogger(
+            exp_dir=self.exp_dir if (args.save_model or args.log_jsonl) else None,
+            use_wandb=args.use_wandb, print_logs=self.is_main_process, jsonl=args.log_jsonl)
+        self.rng = np.random.default_rng(mh.host_seed(args.seed, self.proc_index))
+        self.deterministic = args.eval_mode == "deterministic"
+        self.steps = 0
+        self.state: Optional[TrainState] = None
+        self.start_time = None
+        self.control_tasks = [t for t in tasks if isinstance(t, ControlTask)]
+        self.text_tasks = [t for t in tasks if isinstance(t, TextTask)]
+        self.patch_budget = self._compute_patch_budget()
+        self.target_budget = self._compute_target_budget()
+        self._prefetcher = None
+        self._generator = None
+        # host state right after sampling the batch most recently consumed
+        # by train_step: what a checkpoint persists (the live RNGs run ahead
+        # of it by the prefetch depth)
+        self._host_snapshot = None
+        # the prefetch thread and evaluation share the tasks' RNGs
+        self._sample_lock = threading.Lock()
+
+    # ------------------------------------------------------------- budgets
+    def _component_counts(self):
+        """Base per-component row counts and the residual remainder, which
+        `_mixture_sizes` hands to exactly one component a step."""
+        bs = self.local_batch_size
+        base = {"text": int(self.args.text_prop * bs) if self.text_tasks else 0}
+        control_prop = 1 - self.args.text_prop - self.args.caption_prop - self.args.vqa_prop
+        base["control"] = int(control_prop * bs) if self.control_tasks else 0
+        return base, bs - sum(base.values())
+
+    def _compute_patch_budget(self) -> int:
+        """Worst-case image patches in one mixture batch (constant across
+        steps, so every step has the same shapes), rounded up to 256."""
+        base, remainder = self._component_counts()
+        per_row = {"text": 0, "control": max(
+            [t.required_patches for t in self.control_tasks], default=0)}
+        budget = sum(base[c] * per_row[c] for c in base) + remainder * max(per_row.values())
+        return 0 if budget == 0 else -(-budget // 256) * 256
+
+    def _compute_target_budget(self) -> int:
+        """Worst-case loss targets a batch (the gathered loss); 0 selects the
+        loss without gathered targets."""
+        bs, S = self.local_batch_size, self.args.sequence_length
+        base, remainder = self._component_counts()
+        per_row = {"text": S - 1, "control": 0}
+        if self.control_tasks:
+            per_row["control"] = max(
+                t.context_timesteps * (t.action_tokens + (
+                    t.observation_tokens if self.args.observation_loss else 0))
+                for t in self.control_tasks)
+        has = {"text": bool(self.text_tasks), "control": bool(self.control_tasks)}
+        budget = sum(base[c] * per_row[c] for c in base if has[c])
+        budget += remainder * max((per_row[c] for c in base if has[c]), default=0)
+        budget = -(-budget // 256) * 256
+        return 0 if budget >= bs * S else budget
+
+    # ----------------------------------------------------------- lifecycle
+    def init_state(self, state_dict: Optional[Dict[str, torch.Tensor]] = None) -> None:
+        """The train state from `state_dict` (random weights from the seed
+        when None).  One batch is sampled first, as the JAX Trainer samples
+        the batch it traces the model with, so the data stream that follows
+        is the JAX package's."""
+        self.sample_arrays()
+        self.state = self.ctx.init_state(state_dict)
+        self._host_snapshot = (self.state.step, self.host_state())
+
+    def train(self):
+        self.start_time = time.time()
+        if self.state is None:
+            self.init_state()
+        # the REMAINING steps: a run resumed at step N ends at training_steps
+        remaining = max(0, self.args.training_steps - self.steps)
+        iters, tail = divmod(remaining, self.args.log_eval_freq)
+        try:
+            for i in range(iters):
+                logs = self.train_iteration(self.args.log_eval_freq, i)
+                self.logger.log(logs, step=self.steps, header=f"Iteration {i}")
+            if tail:
+                logs = self.train_iteration(tail, iters)
+                self.logger.log(logs, step=self.steps, header=f"Iteration {iters}")
+            if self.args.save_model and self.args.save_mode == "last":
+                self._save()
+        except BaseException:
+            # preemption / failure: persist the state so --resume_from
+            # continues exactly, then re-raise
+            if self.args.save_model and self.state is not None:
+                torn = self._torn()
+                if torn:
+                    print(f"[neko-tpu-torch] no emergency checkpoint: {torn}; "
+                          "--resume_from the last checkpoint")
+                else:
+                    try:
+                        print(f"[neko-tpu-torch] emergency checkpoint: {self._save()}")
+                    except Exception as e:  # noqa: BLE001 -- the original error matters more
+                        print(f"[neko-tpu-torch] emergency checkpoint failed: {e!r}")
+            raise
+        finally:
+            if self._prefetcher is not None:
+                self._prefetcher.close()
+                self._prefetcher = None
+
+    def train_iteration(self, num_steps: int, it: int) -> Dict:
+        logs: Dict = {}
+        train_start = time.time()
+        losses = []
+        step_logs: Dict = {}
+        for _ in range(num_steps):
+            self.steps += 1
+            loss, step_logs = self.train_step()
+            losses.append(loss)
+        losses = [float(x) for x in losses]  # waits for the last step
+        logs.update(step_logs)
+        train_time = time.time() - train_start
+        logs["time/training"] = train_time
+        logs["training/tokens_per_sec"] = (
+            num_steps * self.args.batch_size * self.args.sequence_length
+            / max(train_time, 1e-9))
+        eval_start = time.time()
+        logs.update(self.evaluate())
+        logs["time/total"] = time.time() - self.start_time
+        logs["time/evaluation"] = time.time() - eval_start
+        logs["training/train_loss_mean"] = float(np.mean(losses))
+        logs["training/train_loss_std"] = float(np.std(losses))
+        if self.args.save_model and self.args.save_mode == "checkpoint":
+            self._save()
+        return logs
+
+    # ------------------------------------------------------------ training
+    def _mixture_sizes(self) -> Dict[str, int]:
+        bs = self.local_batch_size
+        text_prop, caption_prop, vqa_prop = (
+            self.args.text_prop, self.args.caption_prop, self.args.vqa_prop)
+        control_prop = 1 - text_prop - caption_prop - vqa_prop
+        sizes = {"text": int(text_prop * bs), "caption": int(caption_prop * bs),
+                 "vqa": int(vqa_prop * bs), "control": int(control_prop * bs)}
+        remainder = bs - sum(sizes.values())
+        if remainder > 0:
+            residuals = np.array([text_prop * bs - sizes["text"],
+                                  caption_prop * bs - sizes["caption"],
+                                  vqa_prop * bs - sizes["vqa"],
+                                  control_prop * bs - sizes["control"]])
+            total = residuals.sum()
+            probs = residuals / total if total > 0 else np.ones(4) / 4
+            idx = self.rng.choice(4, p=probs)
+            sizes[["text", "caption", "vqa", "control"][idx]] += remainder
+        return sizes
+
+    def host_state(self):
+        """Current host data-stream state (trainer RNG + per-task RNGs)."""
+        return hs.collect(self.rng, self.tasks)
+
+    def load_host_state(self, snapshot) -> None:
+        """Restore the host stream of the current state's step."""
+        hs.restore(snapshot, self.rng, self.tasks)
+        self._host_snapshot = (self.state.step, snapshot)
+
+    def _torn(self) -> Optional[str]:
+        """Why the state cannot be checkpointed as one step, or None.  An
+        interrupt inside the optimizer update leaves parameters ahead of the
+        step count; one between the step and the commit of its host state
+        leaves the host state a step behind."""
+        if self.state.updating:
+            return (f"stopped inside the optimizer update of step {self.state.step + 1}, "
+                    "the parameters may be ahead of the step count")
+        if self._host_snapshot is not None and self._host_snapshot[0] != self.state.step:
+            return f"the host state of step {self.state.step} was not committed"
+        return None
+
+    def _checkpoint_host_state(self):
+        """The host state right after sampling the batch of the current
+        step (the live state where none was recorded)."""
+        if self._host_snapshot is not None:
+            return self._host_snapshot[1]
+        with self._sample_lock:
+            return self.host_state()
+
+    def _save(self) -> str:
+        # named by the steps the state has taken: an interrupt inside step N
+        # leaves N - 1 (the JAX Trainer names that checkpoint N)
+        step = self.state.step
+        path = save_checkpoint(self.exp_dir, self.state, step, self.args)
+        hs.save_host_state(self.exp_dir, step, self._checkpoint_host_state(), self.proc_index)
+        return path
+
+    def sample_arrays(self):
+        """Sample the task mixture and pack it into host numpy arrays."""
+        with self._sample_lock:
+            return self._sample_arrays_locked()
+
+    def _sample_arrays_locked(self):
+        sizes = self._mixture_sizes()
+        examples: List[Dict] = []
+        if sizes["text"] > 0:
+            for task in self.text_tasks:
+                examples += task.sample_batch(sizes["text"])
+        if sizes["control"] > 0:
+            examples += self.sample_control_batch(sizes["control"])
+        arrays = self.packer.pack_batch(examples, patch_budget=self.patch_budget,
+                                        target_budget=self.target_budget)
+        arrays.pop("lengths")
+        return arrays
+
+    def build_batch(self, arrays):
+        """The packed arrays as a batch on the device; the copy is
+        non-blocking from pinned memory on a CUDA device."""
+        return to_device_batch(arrays, self.ctx.device, non_blocking=True)
+
+    def _produce_batch(self):
+        """(device batch, host state right after sampling it): the unit the
+        prefetch queue carries."""
+        with self._sample_lock:
+            arrays = self._sample_arrays_locked()
+            snapshot = self.host_state()
+        return self.build_batch(arrays), snapshot
+
+    def _next_batch(self):
+        depth = self.args.prefetch_batches
+        if depth <= 0:  # the copy runs on this thread's stream
+            return self._produce_batch()
+        if self._prefetcher is None:
+            from neko_tpu_torch.data.pipeline import HostPrefetcher
+
+            self._prefetcher = HostPrefetcher(self._produce_batch, depth=depth,
+                                              workers=self.args.prefetch_workers,
+                                              device=self.ctx.device)
+        return self._prefetcher.get()
+
+    def train_step(self):
+        logs: Dict = {"training/learning_rate": self.ctx.current_lr(max(0, self.steps - 1))}
+        t0 = time.time()
+        batch, pending_snapshot = self._next_batch()
+        # with prefetch this is the queue wait: ~0 while the host keeps up
+        logs["time/sample_batch"] = time.time() - t0
+        if self._prefetcher is not None:
+            logs["time/host_pipeline"] = self._prefetcher.last_produce_time
+        self.state, loss = self.ctx.train_step(self.state, batch)
+        # commit after the step: an interrupt mid-step leaves the snapshot at
+        # the previous batch, so resume replays the batch never applied
+        self._host_snapshot = (self.state.step, pending_snapshot)
+        return loss, logs
+
+    def sample_control_batch(self, batch_size: int) -> List[Dict]:
+        tasks = self.control_tasks
+        n_tasks = len(tasks)
+        if n_tasks == 0:
+            raise ValueError("control batch requested but no control tasks")
+        sampled: List[int] = []
+        while len(sampled) < batch_size:
+            take = min(n_tasks, batch_size - len(sampled))
+            sampled += list(self.rng.choice(n_tasks, size=take, replace=False))
+        n_prompted = round(batch_size * self.args.prompt_ep_proportion)
+        prompt_slots = list(self.rng.choice(batch_size, size=n_prompted, replace=False))
+        end_slots = set(
+            self.rng.choice(prompt_slots, size=round(len(prompt_slots) / 2), replace=False)
+            if prompt_slots else [])
+        uniform_slots = set(s for s in prompt_slots if s not in end_slots)
+        out: List[Dict] = []
+        for i, task in enumerate(tasks):
+            vanilla = 0
+            prompted: Dict[str, int] = {}
+            for slot, task_idx in enumerate(sampled):
+                if task_idx != i:
+                    continue
+                if slot in end_slots:
+                    prompted["end"] = prompted.get("end", 0) + 1
+                elif slot in uniform_slots:
+                    prompted["uniform"] = prompted.get("uniform", 0) + 1
+                else:
+                    vanilla += 1
+            if vanilla + sum(prompted.values()) > 0:
+                out += task.sample_batch(vanilla, prompted,
+                                         max_tokens=self.args.sequence_length)
+        return out
+
+    # ---------------------------------------------------------- evaluation
+    def _eval_generator(self):
+        """The Generator over the activation-dtype copy, refreshed from the
+        training weights (which it reads, never changes)."""
+        from neko_tpu_torch.convert import build_model
+        from neko_tpu_torch.inference.generator import Generator
+
+        weights = self.state.model.state_dict()
+        if self._generator is None:
+            dtype = self.ctx.model_cfg.activation_dtype
+            copy = {k: v.detach().to(dtype, copy=True) for k, v in weights.items()}
+            self._generator = Generator(
+                build_model(self.ctx.model_cfg, copy, self.ctx.device), self.packer)
+        else:
+            self._generator.set_params(weights)
+        return self._generator
+
+    def evaluate(self) -> Dict:
+        if not ((self.control_tasks and self.args.eval_episodes > 0)
+                or (self.text_tasks and self.args.eval_text_num_examples > 0)):
+            return {}  # no copy of the weights when nothing is evaluated
+        gen = self._eval_generator()
+        with self._sample_lock:
+            return self._evaluate_locked(gen)
+
+    def _evaluate_locked(self, gen) -> Dict:
+        logs: Dict = {}
+        for task in self.tasks:
+            if isinstance(task, ControlTask) and self.args.eval_episodes > 0:
+                m = task.evaluate(
+                    gen, n_iterations=self.args.eval_episodes,
+                    deterministic=self.deterministic,
+                    promptless_eval=self.args.promptless_eval,
+                    parallel_episodes=resolve_parallel_episodes(
+                        self.args.eval_parallel_episodes, self.args.eval_episodes))
+                for k, v in m.items():
+                    logs[f"evaluation/{task.name}/{k}"] = v
+            elif isinstance(task, TextTask) and self.args.eval_text_num_examples > 0:
+                m = task.evaluate(
+                    gen, num_examples_to_test=self.args.eval_text_num_examples,
+                    deterministic=self.deterministic,
+                    log_examples_to_output=self.args.eval_text_log_examples)
+                for k, v in m.items():
+                    logs[f"evaluation/text/{k}"] = v
+        return logs

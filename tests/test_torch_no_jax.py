@@ -1,6 +1,9 @@
 """neko_tpu_torch stands alone: it imports with JAX (and the JAX package)
-blocked, its sources import neither, its serve CLI answers over HTTP on the
-CPU, and chip_smoke.py refuses to run without a CUDA device."""
+blocked, and with the packages the card lacks (gymnasium, h5py,
+transformers, datasets, minari, wandb) blocked too; its sources import none
+of them, its serve CLI answers over HTTP on the CPU, its train CLI trains,
+checkpoints and resumes on the CPU with all of them blocked, and
+chip_smoke.py refuses to run without a CUDA device."""
 
 import json
 import os
@@ -17,7 +20,8 @@ pytest.importorskip("torch")
 
 ROOT = Path(__file__).resolve().parents[1]
 PKG = ROOT / "neko_tpu_torch"
-BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax", "neko_tpu")
+BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax", "neko_tpu", "gymnasium", "h5py",
+           "transformers", "datasets", "minari", "wandb")
 
 
 def _modules():
@@ -51,7 +55,8 @@ def test_every_module_imports_with_jax_blocked():
 
 
 def test_sources_import_no_jax():
-    pat = re.compile(r"^\s*(import|from)\s+(jax|flax|optax|orbax|neko_tpu)\b", re.M)
+    pat = re.compile(r"^\s*(import|from)\s+(jax|flax|optax|orbax|neko_tpu|gymnasium|h5py|"
+                     r"transformers|datasets|minari|wandb)\b", re.M)
     files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
     hits = [f"{f.relative_to(ROOT)}: {m.group(0).strip()}"
             for f in files for m in pat.finditer(f.read_text())]
@@ -115,3 +120,38 @@ def test_serve_cli_random_init_answers_on_cpu():
     finally:
         proc.terminate()
         proc.communicate(timeout=30)
+
+
+def test_train_cli_trains_checkpoints_and_resumes_with_them_blocked(tmp_path):
+    """4 steps on the CPU with a checkpoint every 2, then a resume from the
+    step-2 checkpoint to step 4, each in a process where every module of
+    BLOCKED raises on import."""
+    def run(*extra):
+        argv = ["--cpu", "--text_datasets", "synthetic", "--text_datasets_paths", "synthetic",
+                "--text_prop", "0.5", "--control_datasets", "neko-synth-continuous-v0",
+                "neko-synth-image-v0", "--embed_dim", "32", "--layers", "1", "--heads", "2",
+                "-k", "64", "--batch_size", "4", "--training_steps", "4", "--log_eval_freq", "2",
+                "--eval_episodes", "1", "--eval_text_num_examples", "1", "--mixed_precision",
+                "no", "--save_model", "--save_mode", "checkpoint", "--save_dir", str(tmp_path),
+                *extra]
+        code = (
+            "import runpy, sys\n"
+            f"for name in {BLOCKED!r}:\n"
+            "    sys.modules[name] = None\n"
+            f"sys.argv = ['train'] + {argv!r}\n"
+            "runpy.run_module('neko_tpu_torch.cli.train', run_name='__main__')\n"
+        )
+        r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=_env(),
+                           capture_output=True, text=True, timeout=300)
+        assert r.returncode == 0, r.stdout[-2000:] + r.stderr[-3000:]
+        return r.stdout
+
+    out = run()
+    (exp,) = [d for d in tmp_path.iterdir() if d.is_dir()]
+    names = sorted(p.name for p in exp.iterdir())
+    assert {"checkpoint_2", "checkpoint_4", "host_state_2_p0.pkl", "host_state_4_p0.pkl",
+            "args.json", "metrics.jsonl"} <= set(names), names
+    assert out.count("training/train_loss_mean") == 2
+    out = run("--resume_from", str(exp / "checkpoint_2"))
+    assert "at step 2 (host sampler state restored: exact)" in out
+    assert out.count("training/train_loss_mean") == 1
