@@ -140,8 +140,26 @@
    `RolloutSession` on the kernels against the same session on the plain
    prefill and decode attention, teacher-forced (ROLLOUT_*).  The runs write
    under `_smoke_runs/`, removed at the end.
+15. The evaluation entry point (EVAL_*): the Trainer at the flagship width
+   on a mix of every task kind (16 rows: 4 synthetic text, 4 caption and 2
+   VQA rows of 256x256 uint8 images made from the seed, 6 rows of the Text,
+   Dict-observation and Dict-action envs), 10 steps ending in an in-loop
+   evaluation of all six tasks and a checkpoint; the launches are #1/#3 =
+   layers x (steps + evaluation prefills), #4 = layers x steps, #15 = loss
+   chunks x steps, #14 = layers x decode steps.  Then `python -m
+   neko_tpu_torch.cli.evaluate` in this process on that checkpoint (control
+   and text), and the caption and VQA evaluations on the Generator its
+   restore helpers build (a task-less restore: the pool sized from the
+   checkpoint's image embedder); every `evaluation/...` key present and
+   finite, a second CLI run giving the same logs, #1 = layers x prefills and
+   #14 = layers x decode steps over it; seconds per evaluation by task, the
+   caption group's prefill ms and ms per decode step.  Then the caption and
+   VQA groups through generate_batch(targets=) on random weights, kernels
+   against plain attention, teacher-forced: prefill logits (LOGIT_TOL),
+   decode windows (DECODE_LOGIT_TOL) and the target NLL (EVAL_NLL_TOL),
+   with planted prefill and decode faults that must exceed one of them.
 
-Every train run (phases 6, 8, 10, 13, 14) takes its loss forward through #15:
+Every train run (phases 6, 8, 10, 13, 14, 15) takes its loss forward through #15:
 its launches must be loss chunks x steps (2 a flagship and `long` step, 3 a
 `long4k` step), and the plain side of each kernels-vs-plain step check runs
 the plain loss forward too.
@@ -149,7 +167,8 @@ the plain loss forward too.
 Prints a JSON line of the kernels that only the checks launch
 ({"check_kernels": ...}), then one JSON line of the kernels the main path
 runs ({"kernels": ...}; launches counted in the serving and train runs
-alone, phase 14's among them (`train_cli_launches`), each with its bound
+alone, phase 14's among them (`train_cli_launches`), phase 15's training
+(`mix_train_launches`) and evaluation (`eval_cli_launches`), each with its bound
 from this run's shapes), then, as the last line,
 {"ok": true, "device": {...}}.  Any failed phase exits non-zero.  The
 attention entries and the loss head carry `tflops`: the bound's FLOPs over
@@ -444,6 +463,38 @@ RESUME_LOSS_TOL = 1e-3
 ROLLOUT_STEPS = 120
 ROLLOUT_PREFILL_FAULTS = LOGIT_FAULTS
 ROLLOUT_DECODE_FAULTS = ("scale 1/hd",)
+# the evaluation entry point (phase 15): the Trainer at the flagship width on
+# a mix of every task kind the evaluation CLI reads -- synthetic text, the
+# Text / Dict-observation / Dict-action envs, caption and VQA rows of
+# 256x256 uint8 images from the seed (in memory: no Pillow on the card) --
+# then `python -m neko_tpu_torch.cli.evaluate` on its checkpoint, and the
+# caption and VQA evaluations on the Generator the CLI's restore helpers build
+EVAL_ENVS = ["neko-synth-text-v0", "neko-synth-dict-v0", "neko-synth-dictact-v0"]
+EVAL_STEPS, EVAL_EVAL_FREQ, EVAL_IMAGE, EVAL_GROUP = 10, 5, 256, 8
+EVAL_MIX = ["--text_datasets", "synthetic", "--text_datasets_paths", "synthetic",
+            "--control_datasets", *EVAL_ENVS, "--text_prop", "0.25", "--caption_prop", "0.25",
+            "--vqa_prop", "0.125", "--embed_dim", "768", "--layers", "6", "--heads", "24",
+            "-k", "1024", "--batch_size", "16", "--mixed_precision", "bf16", "--dropout", "0.1",
+            "--learning_rate", "5e-4", "--warmup_steps", "5", "--seed", str(SEED),
+            "--training_steps", str(EVAL_STEPS), "--log_eval_freq", str(EVAL_EVAL_FREQ),
+            "--eval_episodes", "2", "--eval_text_num_examples", "4",
+            "--eval_caption_num_examples", str(EVAL_GROUP), "--eval_vqa_num_examples",
+            str(EVAL_GROUP), "--save_model", "--save_mode", "last"]
+# the caption / VQA prompts (one group of 8 each: 256 patches, + the question)
+# through generate_batch(targets=), kernels vs plain attention, teacher-forced
+# on the kernel run's tokens, on random weights from the seed (where phase
+# 4's limits were set): the prefill logits at each prompt's last position to
+# LOGIT_TOL, the decode windows after decode steps to DECODE_LOGIT_TOL, and
+# the per-target NLL to EVAL_NLL_TOL.  Planted faults in the plain prefill
+# and decode attention must exceed one of them.  On an H100 80GB HBM3 at
+# 700 W the sound run read 2.344e-2 / 2.344e-2 / 1.370e-2 (prefill / decode /
+# NLL) and the faintest planted fault, "decode: newest key excluded", 2.344e-2
+# / 3.125e-2 / 2.153e-2: under the two logit limits, so the NLL limit lies
+# between 1.370e-2 and 2.153e-2, near their geometric mean ("prefill:
+# diagonal excluded" read 4.297e-2 / 4.590e-2 / 2.538e-2).
+EVAL_NLL_TOL = 1.8e-2
+EVAL_PREFILL_FAULTS = LOGIT_FAULTS
+EVAL_DECODE_FAULTS = ("newest key excluded", "scale 1/hd")
 # H100 SXM published peaks (NVIDIA data sheet): dense bf16 tensor cores, HBM3
 PEAK_BF16_FLOPS, PEAK_HBM_BYTES = 989e12, 3.35e12
 
@@ -3081,6 +3132,335 @@ def train_entry_point(card: str, bench_step_ms: float, workdir, dev="cuda") -> d
             "rollout_step_ms": step_ms}
 
 
+# ------------------------------------------------ the evaluation entry point
+def image_text_data(n: int, seed: int):
+    """n uint8 [256, 256, 3] images (a coloured square on noise) with a
+    caption each, and VQA items over them (the image as an array)."""
+    rng = np.random.default_rng(seed)
+    colours = {"red": (220, 30, 30), "green": (30, 200, 40), "blue": (30, 40, 220),
+               "yellow": (230, 220, 30)}
+    names, sizes = list(colours), ("small", "large")
+    images = rng.integers(0, 64, (n, EVAL_IMAGE, EVAL_IMAGE, 3), dtype=np.uint8)
+    captions, items = [], []
+    for i in range(n):
+        c, s = names[rng.integers(len(names))], sizes[rng.integers(2)]
+        w = 48 if s == "small" else 128
+        y, x = rng.integers(0, EVAL_IMAGE - w, 2)
+        images[i, y:y + w, x:x + w] = colours[c]
+        where = "top" if y + w // 2 < EVAL_IMAGE // 2 else "bottom"
+        captions.append(f"a {s} {c} square near the {where} of the frame")
+        items.append({"image": images[i], "question": f"what colour is the {s} square?",
+                      "answers": [c, f"{c} colour"]})
+    return images, captions, items
+
+
+def eval_mix_tasks(args, workdir):
+    """The mix's tasks, as cli/build.py's build_tasks orders them: the
+    control envs, synthetic text, captions (an ArrayCaptionSource, its split
+    persisted under `workdir`) and VQA (items carrying their images)."""
+    from neko_tpu_torch.cli.build import build_control_tasks
+    from neko_tpu_torch.data.caption_data import ArrayCaptionSource
+    from neko_tpu_torch.tasks.caption import CaptionTask
+    from neko_tpu_torch.tasks.text import TextTask
+    from neko_tpu_torch.tasks.vqa import VqaTask
+
+    images, captions, _ = image_text_data(48, SEED)
+    _, _, train_items = image_text_data(32, SEED + 1)
+    _, _, test_items = image_text_data(EVAL_GROUP, SEED + 2)
+    (workdir / "caption").mkdir(parents=True, exist_ok=True)
+    kw = dict(image_size=EVAL_IMAGE, patch_size=args.patch_size,
+              context_length=args.sequence_length, seed=args.seed)
+    return build_control_tasks(args, args.sequence_length, args.seed) + [
+        TextTask(args.text_datasets, args.text_datasets_paths,
+                 context_length=args.sequence_length, seed=args.seed),
+        CaptionTask(str(workdir / "caption"), test_data_prop=EVAL_GROUP / len(captions),
+                    source_factory=lambda dirs, image_size: ArrayCaptionSource(images, captions),
+                    **kw),
+        VqaTask("", [], [], items=(train_items, test_items), **kw),
+    ]
+
+
+@contextlib.contextmanager
+def recording_score_decode(gen, record, forced=None):
+    """Within the block `gen._decode` records each call's tokens, window
+    logits and target NLL ([B, T], [B, T, W], [B, T]).  With `forced` (the
+    records of another run) it feeds the tokens of the matching call instead
+    of its own choices: the caption / VQA decode (inner positions continued,
+    no ring, no limits), teacher-forced."""
+    import torch
+
+    orig = gen._decode
+
+    def decode(last_logits, caches, pos, next_pos, *, n_steps, start, end, **kw):
+        if forced is None:
+            toks, windows, nlls = orig(last_logits, caches, pos, next_pos, n_steps=n_steps,
+                                       start=start, end=end, **{**kw, "return_logits": True})
+            record.append((toks, windows, nlls))
+            return toks, None, nlls
+        _require(kw.get("with_pos") and not kw.get("ring") and kw.get("limits") is None
+                 and kw.get("targets") is not None, f"teacher forcing of another decode: {kw}")
+        toks, tgt = forced[len(record)][0], kw["targets"].long()
+        windows, nlls = [], []
+        for i in range(n_steps):
+            w = last_logits[:, start:end + 1]
+            windows.append(w)
+            nlls.append(torch.logsumexp(w, dim=-1) - w.gather(1, tgt[:, i:i + 1])[:, 0])
+            if i == n_steps - 1:
+                break
+            emb = gen.model.embed_tokens_with_pos(toks[:, i:i + 1], next_pos[:, None])
+            last_logits = gen.model.decode_step(emb, pos, caches)[:, 0]
+            pos, next_pos = pos + 1, next_pos + 1
+        record.append((toks, torch.stack(windows, dim=1), torch.stack(nlls, dim=1)))
+        return toks, None, record[-1][2]
+
+    gen._decode = decode
+    try:
+        yield record
+    finally:
+        del gen._decode
+
+
+def _score_groups(tasks):
+    """The caption and VQA evaluations' decode groups: (name, prompts,
+    targets) as their `evaluate` builds them, one group of EVAL_GROUP each."""
+    cap, vqa = tasks
+    tok = cap.text_tokenizer
+    caps = [cap.test_source.get(int(i)) for i in cap.test_indices[:EVAL_GROUP]]
+    groups = [("caption", [{"images": s["image"][None], "text": []} for s in caps],
+               [tok.encode(s["caption"]) for s in caps])]
+    items = vqa.test_items[:EVAL_GROUP]
+    groups.append(("VQA", [{"images": vqa._image(it)[None], "text": tok.encode(it["question"])}
+                           for it in items],
+                   [tok.encode(" " + it["answers"][0]) for it in items]))
+    return groups
+
+
+def caption_vqa_vs_plain(gen, tasks):
+    """Phase 15's logit check.  -> ({reading: error} of the sound run, {fault:
+    the same readings}) over the caption and VQA groups: "prefill" (logits
+    at the prompts' last position), "decode" (the windows after decode
+    steps), "nll" (per target token)."""
+    import torch
+
+    from neko_tpu_torch.tasks.caption import score_targets
+
+    def run(forced=None, prefill_fault=None, decode_fault=None, plain=True):
+        recs, pres = [], []
+        ctx = [recording_score_decode(gen, recs, forced), recording_prefill(gen, pres)]
+        if plain:
+            ctx += [prefill_attention_through(
+                        lambda *a: plain_prefill_attention(*a, fault=prefill_fault)),
+                    decode_attention_through(
+                        lambda *a: plain_decode_attention(*a, fault=decode_fault))]
+        with torch.inference_mode(), contextlib.ExitStack() as stack:
+            for c in ctx:
+                stack.enter_context(c)
+            for _, prompts, targets in _score_groups(tasks):
+                score_targets(gen, prompts, targets, deterministic=True)
+        return recs, pres
+
+    V = gen.cfg.vocab_size
+    kernel, kernel_pre = run(plain=False)
+    valid = []  # [B, T] masks of the target positions
+    for _, _, targets in _score_groups(tasks):
+        T = max(len(t) for t in targets)
+        valid.append(torch.tensor([[j < len(t) for j in range(T)] for t in targets],
+                                  device=gen.device))
+
+    def readings(recs, pres):
+        return {
+            "prefill": max((a[:, :V] - b[:, :V]).abs().max().item()
+                           for a, b in zip(kernel_pre, pres)),
+            "decode": max((k[1][:, 1:] - r[1][:, 1:]).abs().max().item()
+                          for k, r in zip(kernel, recs)),
+            "nll": max(((k[2] - r[2]).abs() * m).max().item()
+                       for k, r, m in zip(kernel, recs, valid)),
+        }
+
+    sound = readings(*run(forced=kernel))
+    faults = {f"prefill: {f}": readings(*run(forced=kernel, prefill_fault=f))
+              for f in EVAL_PREFILL_FAULTS}
+    faults.update({f"decode: {f}": readings(*run(forced=kernel, decode_fault=f))
+                   for f in EVAL_DECODE_FAULTS})
+    return sound, faults
+
+
+def eval_entry_point(card: str, workdir, dev="cuda") -> dict:
+    """Phase 15.  -> launch counts of the mix's train run ("fwd", "bwd",
+    "loss", "decode") and of the evaluation ("eval_fwd", "eval_decode"), and
+    the readings."""
+    import torch
+
+    from neko_tpu_torch.cli import evaluate as cli_eval
+    from neko_tpu_torch.cli.build import (
+        build_context, load_state_for, resolve_checkpoint_and_args)
+    from neko_tpu_torch.config import ModelConfig
+    from neko_tpu_torch.convert import build_model, init_state_dict
+    from neko_tpu_torch.inference.generator import Generator
+    from neko_tpu_torch.training.arguments import TrainingArgs
+    from neko_tpu_torch.training.trainer import Trainer, evaluate_task
+    from neko_tpu_torch.utils.typed_argparser import TypedArgumentParser
+
+    # 1. the Trainer on the mix, ending in an evaluation and a checkpoint
+    (args,) = TypedArgumentParser(TrainingArgs).parse_args_into_dataclasses(
+        EVAL_MIX + ["--save_dir", str(workdir), "--device", dev])
+    tasks = eval_mix_tasks(args, workdir)
+    ctx, tasks = build_context(args, tasks=tasks)
+    tr = Trainer(ctx, tasks, "eval_mix", args)
+    counters = _launch_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    with trainer_recorder() as rec, model_call_counter() as calls:
+        tr.train()
+    run_s = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in counters.items()}
+    losses = [float(x) for x in rec["losses"]]
+    cfg, layers = ctx.model_cfg, ctx.model_cfg.layers
+    rows = tr._component_counts()[0]
+    logs = _iteration_logs(tr.exp_dir)
+    step_ms = logs[-1]["time/training"] / EVAL_EVAL_FREQ * 1e3
+    print(f"phase 15 Trainer {cfg.embed_dim}d/{layers}L/{cfg.heads}h k={cfg.context_len} B=16 "
+          f"(rows a step {rows}; caption and VQA images {EVAL_IMAGE}x{EVAL_IMAGE}, "
+          f"patch pool {tr.patch_budget}, target budget {tr.target_budget}) bf16 dropout "
+          f"{cfg.dropout}: {EVAL_STEPS} steps and {len(logs)} evaluations in {run_s:.1f} s, "
+          f"{step_ms:.3f} ms a step over steps {EVAL_STEPS - EVAL_EVAL_FREQ + 1}-{EVAL_STEPS} "
+          f"(time/training) ({card}); losses " + ", ".join(f"{x:.4f}" for x in losses))
+    _require(len(losses) == EVAL_STEPS and all(np.isfinite(losses)), f"losses {losses}")
+    _require(len(logs) == EVAL_STEPS // EVAL_EVAL_FREQ, f"{len(logs)} iteration logs")
+    logs = logs[-1]
+    ev = {k: v for k, v in logs.items() if k.startswith("evaluation/")}
+    print("in-loop evaluation: " + ", ".join(f"{k.split('/', 1)[1]} {v:.4f}"
+                                             for k, v in sorted(ev.items()))
+          + f" in {logs['time/evaluation']:.3f} s")
+    want = {f"evaluation/{n}/{m}" for n in EVAL_ENVS for m in ("mean_return",
+                                                               "mean_episode_len")}
+    want |= {f"evaluation/{t}/{m}" for t in ("text", "caption", "VQA")
+             for m in ("loss", "perplexity")}
+    _require(set(ev) == want and all(np.isfinite(v) for v in ev.values()), f"in-loop {ev}")
+    chunks = _chunks_of(tr.target_budget)
+    print(f"kernel launches in the mix's run: whole-head forward {launches['fwd']} "
+          f"({EVAL_STEPS} steps + {calls['prefill']} evaluation prefills, x {layers}), backward "
+          f"{launches['bwd']}, loss head {launches['loss']} ({chunks} chunks a step), decode "
+          f"{launches['decode']} ({calls['decode_step']} decode steps x {layers})")
+    _require(launches["fwd"] == layers * (EVAL_STEPS + calls["prefill"]), f"fwd {launches}")
+    _require(launches["bwd"] == layers * EVAL_STEPS, f"backward launches {launches['bwd']}")
+    _require(launches["loss"] == chunks * EVAL_STEPS, f"loss head launches {launches['loss']}")
+    _require(launches["decode"] == layers * calls["decode_step"] and calls["decode_step"] > 0,
+             f"decode launches {launches['decode']}")
+    exp_dir, eval_tasks = tr.exp_dir, tasks[-2:]
+    del tr
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+
+    # 2-3. the evaluation CLI on the checkpoint (control and text), then the
+    # caption and VQA evaluations on the Generator of the CLI's restore
+    # helpers; seconds per task, launches over all of it
+    seconds = {}
+    orig = cli_eval.evaluate_task
+
+    def timed(task, *a, **kw):
+        _sync(dev)
+        t0 = time.perf_counter()
+        out = orig(task, *a, **kw)
+        _sync(dev)
+        seconds[next(iter(out)).split("/")[1] if out else task.name] = time.perf_counter() - t0
+        return out
+
+    argv = ["--model_path", exp_dir] + (["--cpu"] if dev == "cpu" else [])
+    for fn in counters.values():
+        fn.launches = 0
+    cli_eval.evaluate_task = timed
+    try:
+        with model_call_counter() as ecalls:
+            got = cli_eval.main(argv)
+            ckpt, rargs = resolve_checkpoint_and_args(exp_dir)
+            rargs.cpu, rargs.device = dev == "cpu", dev
+            rctx, _ = build_context(rargs, tasks=[], ckpt_path=ckpt)
+            model, packer = load_state_for(rctx, ckpt)
+            gen = Generator(model, packer, seed=rargs.seed)
+            for task in eval_tasks:
+                got.update(timed(task, gen, rargs, True))
+        eval_launches = {k: counters[k].launches for k in ("fwd", "decode")}
+    finally:
+        cli_eval.evaluate_task = orig
+    again = cli_eval.main(argv)
+    print(f"evaluation CLI on {ckpt.rsplit('/', 2)[-2]}/{ckpt.rsplit('/', 1)[-1]} + caption / "
+          f"VQA on its restore (pool {rctx.model_cfg.max_patches} patches an example): "
+          + ", ".join(f"{k.split('/', 1)[1]} {v:.4f}" for k, v in sorted(got.items())))
+    print("seconds per evaluation: " + ", ".join(f"{k} {v:.3f}" for k, v in seconds.items())
+          + f" ({card})")
+    _require(set(got) == want and all(np.isfinite(v) for v in got.values()), f"eval {got}")
+    cli_keys = {k for k in want if "/caption/" not in k and "/VQA/" not in k}
+    _require(set(again) == cli_keys and all(again[k] == got[k] for k in again),
+             f"a second deterministic CLI run differs: {again}")
+    print(f"kernel launches over the evaluation: whole-head forward {eval_launches['fwd']} "
+          f"({ecalls['prefill']} prefills x {layers}), decode {eval_launches['decode']} "
+          f"({ecalls['decode_step']} decode steps x {layers})")
+    _require(eval_launches["fwd"] == layers * ecalls["prefill"] and ecalls["prefill"] > 0,
+             f"evaluation prefills {eval_launches}")
+    _require(eval_launches["decode"] == layers * ecalls["decode_step"]
+             and ecalls["decode_step"] > 0, f"evaluation decode steps {eval_launches}")
+
+    # 5. the caption group's prefill and a decode step, on the restored model
+    (name, prompts, targets), _ = _score_groups(eval_tasks)
+    from neko_tpu_torch.data.batch import to_device_batch
+
+    S = gen.cfg.context_len
+    arrays = gen.packer.pack_batch(prompts, pad_side="right")
+    lengths = arrays.pop("lengths") - 1
+    with torch.inference_mode():
+        emb = model.embed_batch(to_device_batch(arrays, gen.device))
+        mask = torch.from_numpy(np.arange(S)[None, :] < lengths[:, None]).to(gen.device)
+        last = torch.as_tensor(lengths - 1, device=gen.device)
+        prefill = lambda: model.prefill(emb, mask, last=last)  # noqa: E731
+        prefill_ms = _time_ms(prefill, 10) if dev == "cuda" else float("nan")
+        prefill_dev = _device_ms(prefill, 10) if dev == "cuda" else float("nan")
+    ts = gen.cfg.token_space
+    kw = dict(start=ts.start("text"), end=ts.end("text"), drop_trailing=1,
+              inner_pos_continuation=True, return_logits=False)
+    T = 32
+
+    def per_token(runs=3):
+        gen.generate_batch(prompts, max_new_tokens=T, **kw)
+        full, one = [], []
+        for _ in range(runs):
+            _sync(dev)
+            t0 = time.perf_counter()
+            gen.generate_batch(prompts, max_new_tokens=T, **kw)
+            full.append(time.perf_counter() - t0)
+            t0 = time.perf_counter()
+            gen.generate_batch(prompts, max_new_tokens=1, **kw)
+            one.append(time.perf_counter() - t0)
+        return (float(np.median(full)) - float(np.median(one))) / (T - 1) * 1e3
+
+    decode_ms = per_token()
+    print(f"caption group of {len(prompts)} ({int(lengths[0])}-token prompts: "
+          f"{EVAL_IMAGE}x{EVAL_IMAGE} images): prefill {prefill_ms:.3f} ms (CUDA events), "
+          f"{prefill_dev:.3f} ms device time; decode {decode_ms:.3f} ms a step (generate_batch, "
+          f"host clock, {T} tokens less 1, median of 3) ({card})")
+    del gen, model
+
+    # 4. the caption / VQA prompts, kernels vs plain attention, random weights
+    rcfg = ModelConfig(**dict(FLAGSHIP, max_patches=(EVAL_IMAGE // 16) ** 2, dropout=0.0))
+    rgen = Generator(build_model(rcfg, init_state_dict(rcfg, SEED), dev), seed=SEED)
+    sound, faults = caption_vqa_vs_plain(rgen, eval_tasks)
+    limits = {"prefill": LOGIT_TOL, "decode": DECODE_LOGIT_TOL, "nll": EVAL_NLL_TOL}
+    print("caption / VQA groups, kernels vs plain attention, teacher-forced: "
+          + ", ".join(f"{k} {v:.3e} (tolerance {limits[k]:g})" for k, v in sound.items()))
+    for f, errs in faults.items():
+        print(f"control '{f}': " + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()))
+    _require(all(sound[k] <= limits[k] for k in limits), f"caption / VQA disagree: {sound}")
+    blind = [f for f, errs in faults.items() if not any(errs[k] > limits[k] for k in limits)]
+    _require(not blind, f"the caption / VQA check cannot tell these planted faults: {blind}")
+    del rgen
+    return {"fwd": launches["fwd"], "bwd": launches["bwd"], "loss": launches["loss"],
+            "decode": launches["decode"], "eval_fwd": eval_launches["fwd"],
+            "eval_decode": eval_launches["decode"], "seconds": seconds,
+            "prefill_ms": prefill_ms, "prefill_device_ms": prefill_dev,
+            "decode_step_ms": decode_ms, "trainer_step_ms": step_ms, "readings": sound}
+
+
 def main() -> int:
     import torch
 
@@ -3149,6 +3529,8 @@ def main() -> int:
     shutil.rmtree(workdir, ignore_errors=True)
     try:
         cli = train_entry_point(card, launches["step_ms"], workdir)
+        shutil.rmtree(workdir, ignore_errors=True)
+        ev = eval_entry_point(card, workdir)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
 
@@ -3170,12 +3552,14 @@ def main() -> int:
         # timed at the train shape (#3); the prefill shape's times (#1) beside
         {"name": "whole_head_attention", "route": "cuda",
          "source": src + "whole_head_attention.cu", "replaces": f"{tpu}:206,236",
-         "launches": serve_launches + launches["fwd"] + cli["fwd"],
-         "train_cli_launches": cli["fwd"],
+         "launches": serve_launches + launches["fwd"] + cli["fwd"] + ev["fwd"] + ev["eval_fwd"],
+         "train_cli_launches": cli["fwd"], "mix_train_launches": ev["fwd"],
+         "eval_cli_launches": ev["eval_fwd"],
          "max_abs_err": max(err, trained["fwd_err"]), **timing("fwd"), "prefill": prefill},
         {"name": "whole_head_attention_bwd", "route": "cuda",
          "source": src + "whole_head_attention_bwd.cu", "replaces": f"{tpu}:220,256",
-         "launches": launches["bwd"] + cli["bwd"], "train_cli_launches": cli["bwd"],
+         "launches": launches["bwd"] + cli["bwd"] + ev["bwd"], "train_cli_launches": cli["bwd"],
+         "mix_train_launches": ev["bwd"],
          "max_abs_err": trained["bwd_err"], **timing("bwd")},
     ] + [
         {"name": name, "route": "cuda", "source": src + source,
@@ -3202,7 +3586,9 @@ def main() -> int:
         # are the serving run's (layers x decode steps)
         {"name": "decode_cache_attention", "route": "cuda", "source": src + "decode_attention.cu",
          "replaces": "neko_tpu/ops/decode_attention.py:80",
-         "launches": decode_launches + cli["decode"], "train_cli_launches": cli["decode"],
+         "launches": decode_launches + cli["decode"] + ev["decode"] + ev["eval_decode"],
+         "train_cli_launches": cli["decode"], "mix_train_launches": ev["decode"],
+         "eval_cli_launches": ev["eval_decode"],
          "check_launches": decode["check_launches"] + decode["generate"]["launches"],
          "max_abs_err": decode["err"], **decode["times"], "b1": decode["times_b1"],
          "generate_per_token_ms": {k: decode["generate"][k] for k in ("kernel_ms", "plain_ms")}},
@@ -3212,8 +3598,8 @@ def main() -> int:
         {"name": "fused_logz_tl", "route": "cuda", "source": src + "fused_logz_tl.cu",
          "replaces": "neko_tpu/ops/loss_kernel.py:54",
          "launches": (launches["loss"] + long_path["loss head"] + seq_path["loss head"]
-                      + adamw["loss_launches"] + cli["loss"]),
-         "train_cli_launches": cli["loss"],
+                      + adamw["loss_launches"] + cli["loss"] + ev["loss"]),
+         "train_cli_launches": cli["loss"], "mix_train_launches": ev["loss"],
          "check_launches": loss_head["launches"], "max_abs_err": loss_head["err"],
          **{k: v for k, v in loss_head.items() if k not in ("err", "launches")}},
         # AdamW over the flagship tree; launches are the fused train steps'

@@ -1,8 +1,10 @@
-"""Shared construction: TrainingArgs -> (TrainContext, tasks) (counterpart
-of neko_tpu/cli/build.py)."""
+"""Shared construction: TrainingArgs -> (TrainContext, tasks), and the
+restore recipe that evaluation shares with serving (counterpart of
+neko_tpu/cli/build.py)."""
 
 from __future__ import annotations
 
+import os
 from typing import List, Optional, Tuple
 
 import torch
@@ -62,13 +64,40 @@ def build_tasks(args: TrainingArgs) -> List[Task]:
         tasks.append(TextTask(args.text_datasets, args.text_datasets_paths,
                               context_length=args.sequence_length,
                               tokenizer_model=args.tokenizer_model_name, seed=seed))
+    if args.caption_dataset:
+        from neko_tpu_torch.tasks.caption import CaptionTask
+
+        tasks.append(CaptionTask(
+            args.caption_dataset, train_data=args.caption_train_data,
+            test_data=args.caption_test_data, test_data_prop=args.test_data_prop,
+            tokenizer_model=args.tokenizer_model_name, patch_size=args.patch_size,
+            image_size=args.caption_image_size, context_length=args.sequence_length,
+            seed=seed))
+    if args.vqa_dataset:
+        from neko_tpu_torch.tasks.vqa import VqaTask
+
+        tasks.append(VqaTask(
+            args.vqa_dataset, train_data=args.vqa_train_data, test_data=args.vqa_test_data,
+            train_img_name_prefix=args.train_img_name_prefix,
+            train_img_file_name_len=args.train_img_file_name_len,
+            test_img_name_prefix=args.test_img_name_prefix,
+            test_img_file_name_len=args.test_img_file_name_len,
+            questions_file=args.questions_file, annotations_file=args.annotations_file,
+            tokenizer_model=args.tokenizer_model_name, patch_size=args.patch_size,
+            image_size=args.vqa_image_size, context_length=args.sequence_length, seed=seed))
     return tasks
 
 
 def derive_max_patches(args: TrainingArgs, tasks: List[Task]) -> int:
     if args.max_patches >= 0:
         return args.max_patches
-    return max([0] + [t.required_patches for t in tasks if isinstance(t, ControlTask)])
+    required = [0]
+    for t in tasks:
+        if isinstance(t, ControlTask):
+            required.append(t.required_patches)
+        elif getattr(t, "task_kind", "") in ("caption", "vqa"):
+            required.append(t.patches_per_image)
+    return max(required)
 
 
 def model_config_from_args(args: TrainingArgs, max_patches: int) -> ModelConfig:
@@ -128,15 +157,37 @@ def optimizer_config_from_args(args: TrainingArgs) -> OptimizerConfig:
     )
 
 
-def build_context(args: TrainingArgs,
-                  tasks: Optional[List[Task]] = None) -> Tuple[TrainContext, List[Task]]:
-    """(TrainContext on the selected device, tasks).  `--mesh_seq_axis N`
-    puts N sequence shards on the one device (ring attention); the other
-    mesh axes wait for the port of multi-device training."""
+def serving_max_patches(ckpt_path: str, args: TrainingArgs) -> int:
+    """Patch-pool size for a task-less (serving) restore.  A task-less build
+    derives max_patches 0 when args leave it at -1, and its model would lack
+    the image embedder an image-trained checkpoint carries.  The
+    checkpoint's config says whether the embedder exists; one full 256x256
+    image (the caption / VQA serving shape) is then enough for
+    predict_response."""
+    if args.max_patches >= 0:
+        return args.max_patches
+    from neko_tpu_torch.utils.checkpoint import saved_model_config
+
+    try:
+        saved = saved_model_config(ckpt_path)
+    except (OSError, ValueError):
+        return -1
+    return (256 // args.patch_size) ** 2 if saved.max_patches > 0 else -1
+
+
+def build_context(args: TrainingArgs, tasks: Optional[List[Task]] = None,
+                  ckpt_path: Optional[str] = None) -> Tuple[TrainContext, List[Task]]:
+    """(TrainContext on the selected device, tasks).  With no tasks and a
+    `ckpt_path` (a serving restore) the patch pool is sized from the
+    checkpoint.  `--mesh_seq_axis N` puts N sequence shards on the one
+    device (ring attention); the other mesh axes wait for the port of
+    multi-device training."""
     check_ported(args)
     device = select_device(args)
     if tasks is None:
         tasks = build_tasks(args)
+    elif not tasks and ckpt_path is not None:
+        args.max_patches = serving_max_patches(ckpt_path, args)
     model_cfg = model_config_from_args(args, derive_max_patches(args, tasks))
     if args.sequence_length % args.mesh_seq_axis:
         raise ValueError(f"context len {args.sequence_length} must divide evenly over "
@@ -148,3 +199,36 @@ def build_context(args: TrainingArgs,
     ctx = TrainContext(model_cfg, optimizer_config_from_args(args), device=device,
                        seed=args.seed, fsdp=args.fsdp, mesh=mesh)
     return ctx, tasks
+
+
+def resolve_checkpoint_and_args(model_path: str, overrides: Optional[dict] = None):
+    """The inference restore recipe, step 1: resolve `model_path` (a
+    checkpoint_<N> dir, or an experiment dir whose latest checkpoint is
+    used), load the adjacent args.json and merge the non-None `overrides`.
+    -> (checkpoint path, TrainingArgs)."""
+    from neko_tpu_torch.utils.checkpoint import load_args_dict, resolve_checkpoint_dir
+
+    ckpt_path = resolve_checkpoint_dir(model_path)
+    saved = load_args_dict(os.path.dirname(os.path.abspath(ckpt_path)))
+    saved.update({k: v for k, v in (overrides or {}).items() if v is not None})
+    known = set(TrainingArgs.__dataclass_fields__)
+    return ckpt_path, TrainingArgs(**{k: v for k, v in saved.items() if k in known})
+
+
+def load_state_for(ctx: TrainContext, ckpt_path: str):
+    """The inference restore recipe, step 2: the checkpoint's weights in a
+    model of `ctx`'s configuration on `ctx`'s device.  The patch pool
+    (`max_patches`) sizes the packer, not the weights, so it may differ from
+    the checkpoint's; every other field must match.  -> (model, packer)."""
+    from neko_tpu_torch.convert import build_model
+    from neko_tpu_torch.data.packing import SequencePacker
+    from neko_tpu_torch.utils.checkpoint import load_params_only
+
+    from neko_tpu_torch.utils.checkpoint import saved_model_config
+
+    if (saved_model_config(ckpt_path).max_patches > 0) != (ctx.model_cfg.max_patches > 0):
+        raise ValueError(
+            f"{ckpt_path} was trained {'with' if ctx.model_cfg.max_patches == 0 else 'without'} "
+            "an image embedder, the restore's tasks derive the opposite; set --max_patches")
+    sd = load_params_only(ckpt_path, ctx.model_cfg, ignore=("max_patches",))
+    return build_model(ctx.model_cfg, sd, ctx.device), SequencePacker(ctx.model_cfg)

@@ -16,8 +16,8 @@ import numpy as np
 
 @dataclasses.dataclass
 class Episode:
-    observations: np.ndarray  # [T(+1), ...]
-    actions: np.ndarray       # [T, ...]
+    observations: np.ndarray  # [T(+1), ...]; observations/actions may be
+    actions: np.ndarray       # dict[str, array] for Dict/Tuple spaces
     rewards: np.ndarray       # [T]
 
     @property
@@ -28,8 +28,27 @@ class Episode:
         return int(a.shape[0])
 
 
+def component_dict(value):
+    """A Tuple space's value as a dict with indexed keys ("0", "1", ...),
+    the keys `DictObsCodec` / `DictActCodec` read; a Dict value or an
+    array passes through."""
+    if isinstance(value, tuple):
+        return {str(i): x for i, x in enumerate(value)}
+    return value
+
+
+def stack_steps(values):
+    """Per-step values -> [T, ...]: one array, or for Dict / Tuple spaces a
+    dict of per-component arrays sharing the leading time dim."""
+    values = [component_dict(v) for v in values]
+    if isinstance(values[0], dict):
+        return {k: np.asarray([v[k] for v in values]) for k in values[0]}
+    return np.asarray(values)
+
+
 def slice_obs(obs, start: int, end: int):
-    """observations[start:end], dict-aware."""
+    """observations[start:end], dict-aware (Dict/Tuple spaces store a dict
+    of per-component arrays sharing the leading time dim)."""
     if isinstance(obs, dict):
         return {k: v[start:end] for k, v in obs.items()}
     return obs[start:end]

@@ -12,7 +12,7 @@ from __future__ import annotations
 from typing import Dict, List, Optional, Tuple
 
 from neko_tpu_torch.data.episodes import EpisodeDataset
-from neko_tpu_torch.envs.synthetic import NOT_PORTED, SYNTHETIC_SPECS, load_synthetic
+from neko_tpu_torch.envs.synthetic import SYNTHETIC_SPECS, load_synthetic
 
 
 def expand_dataset_names(dataset_names: List[str]) -> List[str]:
@@ -22,7 +22,7 @@ def expand_dataset_names(dataset_names: List[str]) -> List[str]:
 
 def load_env_dataset(dataset_name: str,
                      load_kwargs: Optional[Dict] = None) -> Tuple[object, EpisodeDataset]:
-    if dataset_name in SYNTHETIC_SPECS or dataset_name in NOT_PORTED:
+    if dataset_name in SYNTHETIC_SPECS:
         return load_synthetic(dataset_name, load_kwargs)
     raise NotImplementedError(
         f"dataset {dataset_name!r} needs Minari or ALE (or h5py for an HDF5 file), which "

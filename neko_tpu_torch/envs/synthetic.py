@@ -6,11 +6,13 @@ Registered dataset names (usable in --control_datasets):
     neko-synth-discrete-v0       Box(obs 4) / Discrete(4)
     neko-synth-image-v0          Box(0..255, 16x16 grayscale) / Discrete(3)
     neko-synth-multidiscrete-v0  MultiDiscrete(obs [6,4,8]) / MultiDiscrete(act [4,3])
+    neko-synth-text-v0           Text obs / Text action echo task
+    neko-synth-dict-v0           Dict obs {image 16x16, state vec} / Discrete(3)
+    neko-synth-dictact-v0        MultiDiscrete obs / Dict action
+                                 {arm MultiDiscrete([3,3]), gripper Discrete(2)}
 
 Each env draws from `self.np_random`, seeded as gymnasium seeds it, so a
-seed gives the JAX package's observations, rewards and expert actions.  The
-JAX package's `neko-synth-text-v0`, `-dict-v0` and `-dictact-v0` need the
-Text and Dict spaces, which are not ported: their names raise.
+seed gives the JAX package's observations, rewards and expert actions.
 """
 
 from __future__ import annotations
@@ -19,8 +21,8 @@ from typing import Optional
 
 import numpy as np
 
-from neko_tpu_torch.data.episodes import Episode, InMemoryEpisodeDataset
-from neko_tpu_torch.envs.spaces import Box, Discrete, Env, MultiDiscrete
+from neko_tpu_torch.data.episodes import Episode, InMemoryEpisodeDataset, stack_steps
+from neko_tpu_torch.envs.spaces import Box, Dict, Discrete, Env, MultiDiscrete, Text
 
 
 class SyntheticContinuousEnv(Env):
@@ -123,6 +125,43 @@ class SyntheticMultiDiscreteEnv(Env):
         return self._state.copy(), reward, False, self._t >= self.horizon, {}
 
 
+class SyntheticTextEnv(Env):
+    """Text obs AND action, an echo task: the expert action repeats the
+    observed word; reward = fraction of character positions matched."""
+
+    def __init__(self, charset: str = "abcde", max_length: int = 4, horizon: int = 16,
+                 seed: int = 0):
+        self.observation_space = Text(max_length=max_length, min_length=1, charset=charset)
+        self.action_space = Text(max_length=max_length, min_length=1, charset=charset)
+        self._chars = self.observation_space.characters
+        self.max_length = max_length
+        self.horizon = horizon
+        self._t = 0
+        self._word = self._chars[0]
+
+    def _new_word(self) -> str:
+        n = int(self.np_random.integers(1, self.max_length + 1))
+        return "".join(self._chars[int(i)]
+                       for i in self.np_random.integers(0, len(self._chars), size=n))
+
+    def expert_action(self, obs=None) -> str:
+        return self._word
+
+    def reset(self, *, seed: Optional[int] = None, options=None):
+        super().reset(seed=seed)
+        self._t = 0
+        self._word = self._new_word()
+        return self._word, {}
+
+    def step(self, action):
+        action, want = str(action), self._word
+        L = max(len(want), len(action), 1)
+        reward = sum(1 for a, b in zip(action.ljust(L), want.ljust(L)) if a == b) / L
+        self._word = self._new_word()
+        self._t += 1
+        return self._word, reward, False, self._t >= self.horizon, {}
+
+
 class SyntheticImageEnv(Env):
     """Grayscale-image obs (HxW uint8); the expert action is encoded in a
     bright bar whose position the policy must read."""
@@ -158,6 +197,87 @@ class SyntheticImageEnv(Env):
         return self._render_obs(), reward, False, self._t >= self.horizon, {}
 
 
+class SyntheticDictEnv(Env):
+    """Dict observation: camera image + proprioceptive state vector in one
+    timestep.  The image shows a bright band at index b, the state's first
+    entry carries a shift s in {0, 1}; expert = (b + s) % n_actions."""
+
+    def __init__(self, size: int = 16, n_actions: int = 3, state_dim: int = 4,
+                 horizon: int = 16):
+        self.observation_space = Dict({
+            "image": Box(0, 255, (size, size), np.uint8),
+            "state": Box(-np.inf, np.inf, (state_dim,), np.float32),
+        })
+        self.action_space = Discrete(n_actions)
+        self.size = size
+        self.n_actions = n_actions
+        self.state_dim = state_dim
+        self.horizon = horizon
+        self._t = 0
+        self._band = 0
+        self._state = np.zeros(state_dim, np.float32)
+
+    def _obs(self):
+        img = np.zeros((self.size, self.size), np.uint8)
+        band = self.size // self.n_actions
+        img[:, self._band * band : (self._band + 1) * band] = 255
+        return {"image": img, "state": self._state.copy()}
+
+    def _randomize(self):
+        self._band = int(self.np_random.integers(self.n_actions))
+        self._state = self.np_random.standard_normal(self.state_dim).astype(np.float32)
+
+    def expert_action(self, obs=None) -> int:
+        shift = 1 if self._state[0] > 0 else 0
+        return (self._band + shift) % self.n_actions
+
+    def reset(self, *, seed: Optional[int] = None, options=None):
+        super().reset(seed=seed)
+        self._t = 0
+        self._randomize()
+        return self._obs(), {}
+
+    def step(self, action):
+        reward = float(int(action) == self.expert_action())
+        self._randomize()
+        self._t += 1
+        return self._obs(), reward, False, self._t >= self.horizon, {}
+
+
+class SyntheticDictActEnv(Env):
+    """Dict ACTION space of discrete components (arm MultiDiscrete([3, 3]),
+    gripper Discrete(2)); the expert action is an affine hash of the
+    integer obs."""
+
+    def __init__(self, obs_dim: int = 3, horizon: int = 16, seed: int = 0):
+        self.observation_space = MultiDiscrete([5] * obs_dim)
+        self.action_space = Dict({"arm": MultiDiscrete([3, 3]), "gripper": Discrete(2)})
+        self.horizon = horizon
+        rng = np.random.RandomState(seed)
+        self._W = rng.randint(1, 5, size=(3, obs_dim))
+        self._obs_dim = obs_dim
+        self._t = 0
+        self._state = np.zeros(obs_dim, np.int64)
+
+    def expert_action(self, obs=None):
+        h = self._W @ self._state
+        return {"arm": np.asarray([h[0] % 3, h[1] % 3], np.int64), "gripper": int(h[2] % 2)}
+
+    def reset(self, *, seed: Optional[int] = None, options=None):
+        super().reset(seed=seed)
+        self._t = 0
+        self._state = self.np_random.integers(0, 5, self._obs_dim).astype(np.int64)
+        return self._state.copy(), {}
+
+    def step(self, action):
+        want = self.expert_action()
+        hits = float(np.mean(np.asarray(action["arm"]) == want["arm"])) + \
+            float(int(action["gripper"]) == want["gripper"])
+        self._state = (self._state + 1 + int(action["gripper"])) % 5
+        self._t += 1
+        return self._state.copy(), hits / 2, False, self._t >= self.horizon, {}
+
+
 def collect_expert_dataset(
     env: Env,
     n_episodes: int = 32,
@@ -182,11 +302,11 @@ def collect_expert_dataset(
                     a = env.action_space.sample()
             obs, r, term, trunc, _ = env.step(a)
             observations.append(obs)
-            actions.append(np.asarray(a))
+            actions.append(a if isinstance(a, (dict, tuple)) else np.asarray(a))
             rewards.append(r)
             done = term or trunc
-        episodes.append(Episode(observations=np.asarray(observations),
-                                actions=np.asarray(actions),
+        episodes.append(Episode(observations=stack_steps(observations),
+                                actions=stack_steps(actions),
                                 rewards=np.asarray(rewards, np.float32)))
     return InMemoryEpisodeDataset(episodes, spec_env_id=env_id)
 
@@ -196,16 +316,14 @@ SYNTHETIC_SPECS = {
     "neko-synth-discrete-v0": lambda kw: SyntheticDiscreteEnv(**kw),
     "neko-synth-image-v0": lambda kw: SyntheticImageEnv(**kw),
     "neko-synth-multidiscrete-v0": lambda kw: SyntheticMultiDiscreteEnv(**kw),
+    "neko-synth-text-v0": lambda kw: SyntheticTextEnv(**kw),
+    "neko-synth-dict-v0": lambda kw: SyntheticDictEnv(**kw),
+    "neko-synth-dictact-v0": lambda kw: SyntheticDictActEnv(**kw),
 }
-# the JAX package's synthetic names whose spaces the port lacks
-NOT_PORTED = ("neko-synth-text-v0", "neko-synth-dict-v0", "neko-synth-dictact-v0")
 
 
 def load_synthetic(name: str, load_kwargs: Optional[dict] = None):
     """(env, dataset) pair for a registered synthetic name."""
-    if name in NOT_PORTED:
-        raise NotImplementedError(
-            f"{name}: its Text / Dict spaces are not yet ported to neko_tpu_torch")
     load_kwargs = dict(load_kwargs or {})
     n_episodes = load_kwargs.pop("n_episodes", 32)
     seed = load_kwargs.pop("seed", 0)

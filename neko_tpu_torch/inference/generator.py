@@ -1,6 +1,6 @@
 """KV-cache autoregressive generation (counterpart of
-neko_tpu/inference/generator.py: batched generation, control and the
-rollout cache).
+neko_tpu/inference/generator.py: single and batched generation, the
+task-level predict_* calls, control and the rollout cache).
 
 One prefill over the right-padded prompts (through the whole-head attention
 kernel on the card), then one single-token decode step per generated token.
@@ -23,6 +23,13 @@ Semantics kept from the JAX package:
 * `targets` [N, T]: the per-token NLL of given target ids under the
   restricted window, computed on the device (text evaluation reads only
   those [N, T] floats)
+* `generate` (one prompt, or a precomputed prompt embedding): the batched
+  path when the prompt and its tokens fit the context, else a per-token
+  loop that re-prefills the last context_len embeddings once the context is
+  full (`exact_window`, the reference's sliding window);
+  `predict_text` / `predict_response` / `predict_caption` /
+  `predict_answer` on top of it; `num_beams > 1` (beam search) raises
+  `NotYetPorted`
 * `RolloutSession` (the rollout cache of control evaluation): the KV cache
   lives across env steps; each step ring-extends it with the new timestep's
   [obs | sep] tokens (`NekoModel.extend_step`, evicting the oldest timestep
@@ -45,6 +52,16 @@ from neko_tpu_torch.data.batch import to_device_batch
 from neko_tpu_torch.data.packing import SequencePacker
 from neko_tpu_torch.models.policy import NekoModel
 from neko_tpu_torch.tokenizers.continuous import decode_np
+
+
+class NotYetPorted(ValueError):
+    """A feature of the JAX package that neko_tpu_torch does not run yet."""
+
+
+def _refuse_beams(num_beams: int) -> None:
+    if num_beams > 1:
+        raise NotYetPorted(f"beam search (num_beams={num_beams} > 1) is not yet ported to "
+                           "neko_tpu_torch")
 
 
 def apply_logit_filters(window: torch.Tensor, *, temperature: float = 1.0,
@@ -87,6 +104,16 @@ def _resolve_sampling(defaults, temperature, top_k, top_p):
     p = defaults[2] if top_p is None else top_p
     _check_sampling_args(t, k, p)
     return float(t), int(k), float(p)
+
+
+def _pick(window: torch.Tensor, deterministic: bool, rng, sampling) -> torch.Tensor:
+    """Token index within `window` [N, W] per row: the first maximum, or a
+    draw from the warped distribution."""
+    if deterministic:
+        return window.argmax(dim=-1)
+    temperature, top_k, top_p = sampling
+    warped = apply_logit_filters(window, temperature=temperature, top_k=top_k, top_p=top_p)
+    return torch.multinomial(torch.softmax(warped, dim=-1), 1, generator=rng)[:, 0]
 
 
 class Generator:
@@ -134,7 +161,6 @@ class Generator:
         through a decode step at `pos` (`pos % context_len` with `ring`).
         -> (tokens [N, T] on the device, window logits [N, T, W] or None,
         target NLL [N, T] or None)."""
-        temperature, top_k, top_p = sampling
         model, S = self.model, self.cfg.context_len
         cols = torch.arange(end - start + 1, device=last_logits.device)
         toks, windows, nlls = [], [], []
@@ -143,13 +169,7 @@ class Generator:
             if limits is not None:
                 # per-STEP legal sub-range (MultiDiscrete components)
                 window = window.masked_fill(cols[None, :] >= limits[i], -torch.inf)
-            if deterministic:
-                tok = window.argmax(dim=-1)
-            else:
-                warped = apply_logit_filters(
-                    window, temperature=temperature, top_k=top_k, top_p=top_p)
-                tok = torch.multinomial(torch.softmax(warped, dim=-1), 1, generator=rng)[:, 0]
-            tok = tok + start
+            tok = _pick(window, deterministic, rng, sampling) + start
             toks.append(tok)
             if return_logits:
                 windows.append(window)
@@ -169,6 +189,99 @@ class Generator:
         return (torch.stack(toks, dim=1),
                 torch.stack(windows, dim=1) if return_logits else None,
                 torch.stack(nlls, dim=1) if targets is not None else None)
+
+    # ---------------------------------------------------------- one prompt
+    @torch.inference_mode()
+    def generate(
+        self,
+        example: Optional[Dict] = None,
+        *,
+        max_new_tokens: int,
+        start: int,
+        end: int,
+        deterministic: bool = True,
+        drop_trailing: int = 0,
+        generator: Optional[torch.Generator] = None,
+        prompt_emb: Optional[torch.Tensor] = None,
+        prompt_len: Optional[int] = None,
+        inner_pos_continuation: bool = False,
+        exact_window: bool = False,
+        temperature: Optional[float] = None,
+        top_k: Optional[int] = None,
+        top_p: Optional[float] = None,
+        step_limits: Optional[Sequence[int]] = None,
+    ):
+        """Generate tokens restricted to [start, end] for one prompt.
+
+        Returns (token ids int64 [n], window logits fp32 [n, end-start+1]).
+        Either pass `example` (packed here; `drop_trailing` tokens cut from
+        its end) or a precomputed (`prompt_emb` [1, S, D], `prompt_len`).
+        `inner_pos_continuation`: generated tokens embed with continuing
+        inner-timestep positions (predict_response) instead of as plain
+        tokens (predict_text / predict_control).  `step_limits` (one width
+        per generated token): step i may only select [start, start +
+        limits[i] - 1].
+
+        An example that fits the context with its tokens runs as
+        `generate_batch` of one row (so does an overflowing one: the ring
+        decode).  `exact_window=True`, or a precomputed embedding, runs one
+        token at a time instead, re-prefilling the last context_len
+        embeddings for every token past the context: the reference's
+        sliding window, exactly."""
+        sampling = _resolve_sampling(self._default_sampling, temperature, top_k, top_p)
+        S, model, dev = self.cfg.context_len, self.model, self.device
+        next_pos = 0
+        if prompt_emb is None:
+            arrays = self.packer.pack_batch([example], pad_side="right")
+            L = int(arrays.pop("lengths")[0]) - drop_trailing
+            if L + max_new_tokens <= S or not exact_window:
+                toks, windows = self.generate_batch(
+                    [example], max_new_tokens=max_new_tokens, start=start, end=end,
+                    deterministic=deterministic, drop_trailing=drop_trailing,
+                    generator=generator, inner_pos_continuation=inner_pos_continuation,
+                    temperature=temperature, top_k=top_k, top_p=top_p,
+                    step_limits=step_limits)
+                return toks[0], windows[0]
+            next_pos = int(arrays["inner_pos"][0, :max(L, 1)].max()) + 1
+            emb = model.embed_batch(to_device_batch(arrays, dev))
+        else:
+            emb, L = prompt_emb.to(dev), int(prompt_len)
+        if step_limits is not None:
+            raise ValueError("step_limits is not supported on the exact-window path "
+                             "(control prompts always fit the context)")
+        rng = self._rng if generator is None else generator
+
+        mask = torch.arange(S, device=dev)[None, :] < L
+        last_logits, caches = model.prefill(emb, mask, last=torch.tensor([L - 1], device=dev))
+        out_tokens, out_logits = [], []
+        pos = L
+        for i in range(max_new_tokens):
+            window = last_logits[:, start:end + 1]
+            tok = _pick(window, deterministic, rng, sampling) + start  # [1]
+            out_tokens.append(tok)
+            out_logits.append(window[0])
+            if i == max_new_tokens - 1:
+                break
+            if inner_pos_continuation:
+                tok_emb = model.embed_tokens_with_pos(
+                    tok[:, None], torch.full((1, 1), next_pos + i, device=dev))
+            else:
+                tok_emb = model.embed_tokens(tok[:, None])
+            if pos >= S:
+                # slide the window: re-prefill on the last S - 1 embeddings
+                emb = torch.cat([emb[:, 1:], tok_emb], dim=1)
+                last_logits, caches = model.prefill(
+                    emb, torch.ones(1, S, dtype=torch.bool, device=dev),
+                    last=torch.tensor([S - 1], device=dev))
+                continue
+            last_logits = model.decode_step(
+                tok_emb, torch.tensor([pos], device=dev), caches)[:, 0]
+            # the embedding stream stays in sync for later slides
+            emb = emb.clone()
+            emb[:, pos] = tok_emb[:, 0]
+            pos += 1
+        return (torch.cat(out_tokens).cpu().numpy().astype(np.int64),
+                torch.stack(out_logits).float().cpu().numpy())
 
     # ------------------------------------------------------------- batched
     @torch.inference_mode()
@@ -231,6 +344,60 @@ class Generator:
         return tuple(out)
 
     # ------------------------------------------------------ task-level API
+    def predict_text(
+        self,
+        example: Dict,
+        max_length: int = 20,
+        deterministic: bool = True,
+        generator: Optional[torch.Generator] = None,
+        temperature: Optional[float] = None,
+        top_k: Optional[int] = None,
+        top_p: Optional[float] = None,
+        num_beams: int = 1,
+    ):
+        """Greedy / sampled text continuation -> (window logits [n, W],
+        text ids [n]).  The prompt keeps its trailing separator: the first
+        token is generated from the SEP position, as the reference does."""
+        _refuse_beams(num_beams)
+        ts = self.cfg.token_space
+        tokens, logits = self.generate(
+            example, max_new_tokens=max_length, start=ts.start("text"), end=ts.end("text"),
+            deterministic=deterministic, generator=generator,
+            temperature=temperature, top_k=top_k, top_p=top_p)
+        return logits, tokens - ts.start("text")
+
+    def predict_response(
+        self,
+        image: np.ndarray,
+        prompt_tokens: Sequence[int] = (),
+        max_length: int = 128,
+        deterministic: bool = True,
+        generator: Optional[torch.Generator] = None,
+        temperature: Optional[float] = None,
+        top_k: Optional[int] = None,
+        top_p: Optional[float] = None,
+        num_beams: int = 1,
+    ):
+        """Text response to an image ([1, H, W, 3], 0..255): a caption when
+        `prompt_tokens` is empty, an answer when it holds a question's ids.
+        The trailing SEP is dropped (it is causally invisible to the read
+        position) and generated tokens continue the text's inner positions.
+        -> (window logits [n, W], text ids [n])."""
+        _refuse_beams(num_beams)
+        ts = self.cfg.token_space
+        tokens, logits = self.generate(
+            {"images": np.asarray(image), "text": list(prompt_tokens)},
+            max_new_tokens=max_length, start=ts.start("text"), end=ts.end("text"),
+            deterministic=deterministic, drop_trailing=1, generator=generator,
+            inner_pos_continuation=True, temperature=temperature, top_k=top_k, top_p=top_p)
+        return logits, tokens - ts.start("text")
+
+    def predict_caption(self, image, max_length: int = 128, **kw):
+        return self.predict_response(image, (), max_length, **kw)
+
+    def predict_answer(self, image, question_tokens, max_length: int = 16, **kw):
+        return self.predict_response(image, question_tokens, max_length, **kw)
+
     def predict_control(self, example: Dict, **kw):
         """`predict_control_batch` for one example (the re-pack path of
         control evaluation): an int for Discrete, an int array for

@@ -33,7 +33,7 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
-from neko_tpu_torch.inference.generator import _check_sampling_args
+from neko_tpu_torch.inference.generator import NotYetPorted, _check_sampling_args
 
 
 class _Pending:
@@ -96,10 +96,6 @@ def _example_from_payload(p: Dict) -> Dict:
     if not ex:
         raise ValueError("request carries no model inputs")
     return ex
-
-
-class NotYetPorted(ValueError):
-    pass
 
 
 def _refuse_unported(payload: Dict) -> None:

@@ -1,6 +1,7 @@
 """Control task: offline-RL episode sampling + live-env rollout evaluation
-(counterpart of neko_tpu/tasks/control.py) for Box, Discrete and
-MultiDiscrete observation and action spaces, images included.
+(counterpart of neko_tpu/tasks/control.py) for Box, Discrete,
+MultiDiscrete, MultiBinary and Text spaces, images included, and Dict /
+Tuple spaces of them.
 
 * timestep budget = max_tokens // tokens_per_timestep
 * main chunk: the whole episode if it fits (ep_len - 1 steps, the
@@ -14,9 +15,10 @@ MultiDiscrete observation and action spaces, images included.
   rollout cache (`Generator.rollout_session`: one ring extend + action
   decode per env step) or the re-pack path (`predict_control` over the
   trimmed window), serial or in lockstep over cloned envs
-
-The JAX package's Dict / Tuple / Text / MultiBinary spaces (`DictObsCodec`,
-`DictActCodec`, the Text codecs) are not ported: those spaces raise.
+* Text spaces become one discrete token per character slot (0 = padding);
+  Dict / Tuple observations map onto several packer modalities in one
+  timestep (`DictObsCodec`), Dict / Tuple actions onto one token run
+  (`DictActCodec`)
 """
 
 from __future__ import annotations
@@ -26,18 +28,19 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
-from neko_tpu_torch.data.episodes import EpisodeDataset, concat_obs, slice_obs
-from neko_tpu_torch.envs.spaces import Box, Discrete, MultiDiscrete
+from neko_tpu_torch.data.episodes import (
+    EpisodeDataset, component_dict, concat_obs, slice_obs)
+from neko_tpu_torch.envs import spaces
+from neko_tpu_torch.envs.spaces import Box, Discrete, MultiBinary, MultiDiscrete, Text
 from neko_tpu_torch.tasks.base import Task
 
-SUPPORTED_SPACES = (Box, Discrete, MultiDiscrete)
+SUPPORTED_SPACES = (Box, Discrete, MultiDiscrete, MultiBinary, Text)
+COMPOSITE_SPACES = (spaces.Dict, spaces.Tuple)
 
 
 def _check_space(space, what: str) -> None:
-    if not isinstance(space, SUPPORTED_SPACES):
-        raise NotImplementedError(
-            f"{what} space {space!r}: only Box, Discrete and MultiDiscrete are ported "
-            "to neko_tpu_torch (Dict, Tuple, Text and MultiBinary are not yet)")
+    if not isinstance(space, SUPPORTED_SPACES + COMPOSITE_SPACES):
+        raise NotImplementedError(f"{what} space {space!r} is not supported")
 
 
 def tokens_per_space(space) -> int:
@@ -47,6 +50,10 @@ def tokens_per_space(space) -> int:
         return 1
     if isinstance(space, MultiDiscrete):
         return int(len(space.nvec))
+    if isinstance(space, MultiBinary):
+        return int(np.prod(space.shape))
+    if isinstance(space, Text):
+        return int(space.max_length)
     raise NotImplementedError(f"Unsupported space: {space}")
 
 
@@ -54,7 +61,40 @@ def space_nvec(space):
     """Per-component discrete ranges, or None for non-multi spaces."""
     if isinstance(space, MultiDiscrete):
         return [int(n) for n in np.asarray(space.nvec).reshape(-1)]
+    if isinstance(space, MultiBinary):
+        return [2] * int(np.prod(space.shape))
+    if isinstance(space, Text):
+        # one slot per character; index 0 = padding for strings shorter than
+        # max_length, 1..len(charset) = space.characters (sorted)
+        return [len(space.characters) + 1] * int(space.max_length)
     return None
+
+
+def encode_text(space: Text, strings) -> np.ndarray:
+    """[T] strings -> [T, max_length] int32 (0 = pad, i+1 = characters[i])."""
+    index = {c: i + 1 for i, c in enumerate(space.characters)}
+    out = np.zeros((len(strings), int(space.max_length)), np.int32)
+    for t, s in enumerate(strings):
+        for j, ch in enumerate(str(s)[: int(space.max_length)]):
+            out[t, j] = index[ch]
+    return out
+
+
+def decode_text(space: Text, indices) -> str:
+    """[max_length] component indices -> string (pads stripped, min_length
+    enforced with the charset's first character so env.contains holds)."""
+    chars = space.characters
+    s = "".join(chars[int(i) - 1] for i in np.asarray(indices).reshape(-1) if int(i) > 0)
+    if len(s) < int(space.min_length):
+        s = s + chars[0] * (int(space.min_length) - len(s))
+    return s
+
+
+def _items(space):
+    """(key, subspace) pairs: a Tuple's indexed keys, a Dict's sorted keys."""
+    if isinstance(space, spaces.Tuple):
+        return [(str(i), s) for i, s in enumerate(space.spaces)]
+    return sorted(space.spaces.items())
 
 
 class ControlImageTransform:
@@ -62,7 +102,7 @@ class ControlImageTransform:
     Accepts an env or a Box space."""
 
     def __init__(self, env, patch_size: int = 16):
-        space = getattr(env, "observation_space", env)
+        space = getattr(env, "observation_space", env)  # an env or a Box space
         if not isinstance(space, Box) or len(space.shape) not in (2, 3):
             raise ValueError(f"image observations need a 2-D or 3-D Box, got {space!r}")
         self.patch_size = patch_size
@@ -95,6 +135,132 @@ class ControlImageTransform:
         return images
 
 
+class DictObsCodec:
+    """Maps a Dict / Tuple observation space onto the packer's per-timestep
+    modality slots in its canonical interleave order [image |
+    continuous_obs | discrete_obs]: at most one image Box; all 1-D Boxes
+    concatenate (sorted by key) into continuous_obs; Discrete /
+    MultiDiscrete / MultiBinary / Text concatenate into discrete_obs."""
+
+    def __init__(self, space, patch_size: int = 16):
+        self.image_key = None
+        self.image_transform = None
+        self.cont_items = []
+        self.disc_items = []
+        for k, s in _items(space):
+            if isinstance(s, Box) and len(s.shape) in (2, 3):
+                if self.image_key is not None:
+                    raise ValueError("at most one image component per Dict obs space")
+                self.image_key = k
+                self.image_transform = ControlImageTransform(s, patch_size)
+            elif isinstance(s, Box):
+                if len(s.shape) != 1:
+                    raise ValueError(f"unsupported Box shape {s.shape}")
+                self.cont_items.append((k, int(s.shape[0])))
+            elif isinstance(s, SUPPORTED_SPACES):
+                self.disc_items.append((k, s))
+            else:
+                raise NotImplementedError(f"unsupported Dict component {s}")
+        t = self.image_transform
+        self.patches_per_timestep = (
+            0 if t is None else (t.out_height // patch_size) * (t.out_width // patch_size))
+        self.cont_tokens = sum(n for _, n in self.cont_items)
+        self.disc_tokens = sum(tokens_per_space(s) for _, s in self.disc_items)
+        self.obs_tokens = self.patches_per_timestep + self.cont_tokens + self.disc_tokens
+        self.entry_keys = (["images"] if self.image_key is not None else []) + \
+            (["continuous_obs"] if self.cont_items else []) + \
+            (["discrete_obs"] if self.disc_items else [])
+
+    def _disc_component(self, s, v, T: int) -> np.ndarray:
+        if isinstance(s, Text):
+            return encode_text(s, list(v))
+        return np.asarray(v, np.int32).reshape(T, -1)
+
+    def encode(self, obs: Dict) -> Dict[str, np.ndarray]:
+        """{component key: [T, ...]} -> packer modality entries."""
+        T = len(next(iter(obs.values())))
+        out: Dict[str, np.ndarray] = {}
+        if self.image_key is not None:
+            out["images"] = self.image_transform.transform(obs[self.image_key])
+        if self.cont_items:
+            out["continuous_obs"] = np.concatenate(
+                [np.asarray(obs[k], np.float32).reshape(T, -1) for k, _ in self.cont_items],
+                axis=1)
+        if self.disc_items:
+            out["discrete_obs"] = np.concatenate(
+                [self._disc_component(s, obs[k], T) for k, s in self.disc_items], axis=1)
+        return out
+
+
+def _obs_tail(h, n: int):
+    """history[-n:], dict-aware (slice_obs with a tail window)."""
+    return slice_obs(h, -n, None)
+
+
+class DictActCodec:
+    """Maps a Dict / Tuple ACTION space onto one token run per timestep.
+    Every component discrete-family (Discrete / MultiDiscrete / MultiBinary
+    / Text: the concatenated per-component nvec rides the MultiDiscrete
+    decode limits) or every component a 1-D Box (concatenated continuous
+    tokens); mixed kinds raise."""
+
+    def __init__(self, space):
+        self.is_tuple = isinstance(space, spaces.Tuple)
+        items = _items(space)
+        kinds = set()
+        for _, s in items:
+            if isinstance(s, Box):
+                if len(s.shape) != 1:
+                    raise ValueError(f"unsupported Box action {s.shape}")
+                kinds.add("continuous")
+            elif isinstance(s, SUPPORTED_SPACES):
+                kinds.add("discrete")
+            else:
+                raise NotImplementedError(f"unsupported Dict component {s}")
+        if len(kinds) != 1:
+            raise ValueError("Dict action components must all be continuous or all discrete")
+        self.kind = kinds.pop()
+        self.items = items
+        self.widths = [int(s.shape[0]) if isinstance(s, Box) else tokens_per_space(s)
+                       for _, s in items]
+        self.tokens = sum(self.widths)
+        self.nvec = None
+        if self.kind == "discrete":
+            self.nvec = []
+            for _, s in items:
+                self.nvec += [int(s.n)] if isinstance(s, Discrete) else space_nvec(s)
+
+    def _enc_component(self, s, v, T: int) -> np.ndarray:
+        if isinstance(s, Text):
+            return encode_text(s, list(v)).astype(np.float32)
+        return np.asarray(v, np.float32).reshape(T, -1)
+
+    def encode(self, actions) -> np.ndarray:
+        """{component key: [T, ...]} -> [T, tokens] (int32 / float32)."""
+        T = len(next(iter(actions.values())))
+        out = np.concatenate([self._enc_component(s, actions[k], T) for k, s in self.items],
+                             axis=1)
+        return out.astype(np.float32 if self.kind == "continuous" else np.int32)
+
+    def decode(self, vec):
+        """[tokens] decoded components -> the Dict (or Tuple) action for
+        env.step, each component in its own range and dtype."""
+        vec = np.asarray(vec).reshape(-1)
+        out, i = {}, 0
+        for (k, s), w in zip(self.items, self.widths):
+            part = vec[i : i + w]
+            i += w
+            if isinstance(s, Text):
+                out[k] = decode_text(s, part)
+            elif isinstance(s, Discrete):
+                out[k] = int(part[0])
+            else:  # Box / MultiDiscrete / MultiBinary
+                out[k] = np.asarray(part, s.dtype).reshape(s.shape)
+        if self.is_tuple:
+            return tuple(out[str(j)] for j in range(len(self.items)))
+        return out
+
+
 class ControlTask(Task):
     def __init__(
         self,
@@ -121,21 +287,46 @@ class ControlTask(Task):
         act_space, obs_space = env.action_space, env.observation_space
         _check_space(act_space, f"{env_name} action")
         _check_space(obs_space, f"{env_name} observation")
-        if isinstance(obs_space, Box):
+        # Text obs become per-character discrete tokens (pad index 0);
+        # Dict / Tuple obs map to several packer modalities in one timestep
+        self.dict_obs = (DictObsCodec(obs_space, patch_size)
+                         if isinstance(obs_space, COMPOSITE_SPACES) else None)
+        if self.dict_obs is not None:
+            self.obs_str = None
+        elif isinstance(obs_space, Box):
             self.obs_str = "images" if len(obs_space.shape) in (2, 3) else "continuous_obs"
         else:
             self.obs_str = "discrete_obs"
         self.image_transform = (
             ControlImageTransform(env, patch_size) if self.obs_str == "images" else None)
-        self.obs_entry_keys = [self.obs_str]
+        self.text_obs_space = obs_space if isinstance(obs_space, Text) else None
+        self.obs_entry_keys = (self.dict_obs.entry_keys if self.dict_obs is not None
+                               else [self.obs_str])
 
-        self.action_kind = "continuous" if isinstance(act_space, Box) else "discrete"
-        self.action_tokens = tokens_per_space(act_space)
-        self.num_actions = int(act_space.n) if isinstance(act_space, Discrete) else None
-        self.action_nvec = space_nvec(act_space)
+        # Dict / Tuple actions: the components concatenate into one token run
+        self.dict_act = (DictActCodec(act_space)
+                         if isinstance(act_space, COMPOSITE_SPACES) else None)
+        self.text_action_space = None
+        if self.dict_act is not None:
+            self.action_kind = self.dict_act.kind
+            self.action_tokens = self.dict_act.tokens
+            self.num_actions = None
+            self.action_nvec = self.dict_act.nvec
+        else:
+            self.action_kind = "continuous" if isinstance(act_space, Box) else "discrete"
+            self.action_tokens = tokens_per_space(act_space)
+            self.num_actions = int(act_space.n) if isinstance(act_space, Discrete) else None
+            # MultiDiscrete / MultiBinary / Text: one token per component, each
+            # restricted to its own range at decode time
+            self.action_nvec = space_nvec(act_space)
+            if isinstance(act_space, Text):
+                self.text_action_space = act_space
         self.action_str = f"{self.action_kind}_actions"
 
-        if self.obs_str == "images":
+        if self.dict_obs is not None:
+            self.patches_per_timestep = self.dict_obs.patches_per_timestep
+            self.observation_tokens = self.dict_obs.obs_tokens
+        elif self.obs_str == "images":
             t = self.image_transform
             self.patches_per_timestep = (t.out_height // patch_size) * (t.out_width // patch_size)
             self.observation_tokens = self.patches_per_timestep
@@ -172,16 +363,33 @@ class ControlTask(Task):
         return self.context_timesteps * self.patches_per_timestep
 
     def _obs_entries(self, observations) -> Dict[str, np.ndarray]:
-        """[T, ...] raw obs -> packer modality entries."""
+        """[T, ...] raw obs (a dict of arrays for Dict / Tuple spaces) ->
+        packer modality entries."""
+        if self.dict_obs is not None:
+            return self.dict_obs.encode(observations)
         if self.image_transform is not None:
             obs = self.image_transform.transform(observations)
+        elif self.text_obs_space is not None:
+            obs = encode_text(self.text_obs_space, list(observations))
         elif self.obs_str == "discrete_obs":
             obs = np.asarray(observations, np.int32)
         else:
             obs = np.asarray(observations, np.float32)
         return {self.obs_str: obs}
 
-    def _act_array(self, actions: np.ndarray) -> np.ndarray:
+    def _raw_obs_step(self, observation):
+        """One env observation -> a [1, ...] raw batch (dict-aware; Tuple obs
+        take indexed keys)."""
+        observation = component_dict(observation)
+        if isinstance(observation, dict):
+            return {k: np.asarray(v)[None] for k, v in observation.items()}
+        return np.asarray(observation)[None]
+
+    def _act_array(self, actions) -> np.ndarray:
+        if self.dict_act is not None:
+            return self.dict_act.encode(actions)
+        if self.text_action_space is not None:
+            return encode_text(self.text_action_space, list(actions))
         a = np.asarray(actions, np.float32 if self.action_kind == "continuous" else np.int32)
         return a.reshape(a.shape[0], self.action_tokens)
 
@@ -272,8 +480,12 @@ class ControlTask(Task):
 
     def _env_action(self, action):
         """Decoded action -> what env.step expects."""
+        if self.dict_act is not None:
+            return self.dict_act.decode(action)
         if self.action_kind != "discrete":
             return np.asarray(action, np.float32)
+        if self.text_action_space is not None:
+            return decode_text(self.text_action_space, action)
         if self.action_nvec is not None:
             return np.asarray(action, np.int64)
         return int(action)
@@ -330,7 +542,7 @@ class ControlTask(Task):
             ep_return = ep_clip = 0.0
             ep_len = 0
             while not done:
-                new_obs = self._obs_entries(np.asarray(observation)[None])
+                new_obs = self._obs_entries(self._raw_obs_step(observation))
                 if session is not None:
                     action = session.step([new_obs], deterministic=deterministic)[0]
                 else:
@@ -340,7 +552,7 @@ class ControlTask(Task):
                     else:
                         obs_hist = concat_obs(obs_hist, new_obs)
                         act_hist = np.concatenate([act_hist, new_act], axis=0)
-                    obs_hist = slice_obs(obs_hist, -ctx_ts, None)
+                    obs_hist = _obs_tail(obs_hist, ctx_ts)
                     act_hist = act_hist[-ctx_ts:]
                     action = generator.predict_control(
                         {**obs_hist, self.action_str: act_hist},
@@ -393,19 +605,19 @@ class ControlTask(Task):
                     # done rows keep stepping on their stale obs (static
                     # batch shape); their actions are ignored below
                     actions = session.step(
-                        [self._obs_entries(np.asarray(obs[i])[None]) for i in range(G)],
+                        [self._obs_entries(self._raw_obs_step(obs[i])) for i in range(G)],
                         deterministic=deterministic)
                 else:
                     examples = []
                     for i in range(G):
                         if not done[i]:
-                            new_obs = self._obs_entries(np.asarray(obs[i])[None])
+                            new_obs = self._obs_entries(self._raw_obs_step(obs[i]))
                             new_act = np.zeros((1, self.action_tokens), act_dtype)
                             if obs_hist[i] is None:
                                 obs_hist[i], act_hist[i] = new_obs, new_act
                             else:
-                                obs_hist[i] = slice_obs(concat_obs(obs_hist[i], new_obs),
-                                                        -ctx_ts, None)
+                                obs_hist[i] = _obs_tail(concat_obs(obs_hist[i], new_obs),
+                                                        ctx_ts)
                                 act_hist[i] = np.concatenate([act_hist[i], new_act],
                                                              axis=0)[-ctx_ts:]
                         examples.append({**obs_hist[i], self.action_str: act_hist[i]})

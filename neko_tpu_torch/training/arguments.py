@@ -167,8 +167,6 @@ def not_ported(args: TrainingArgs) -> List[str]:
         "--pretrained_lm": args.pretrained_lm is not None,
         "--init_checkpoint <file>.pt": str(args.init_checkpoint or "").endswith(".pt"),
         f"--mixed_precision {args.mixed_precision}": args.mixed_precision in ("fp16", "fp8"),
-        "--caption_dataset / --caption_prop": bool(args.caption_dataset) or args.caption_prop > 0,
-        "--vqa_dataset / --vqa_prop": bool(args.vqa_dataset) or args.vqa_prop > 0,
         "--stochastic_depth > 0": args.stochastic_depth > 0.0,
         "--remat": args.remat,
         "--kv_cache_dtype int8": args.kv_cache_dtype != "native",

@@ -5,9 +5,10 @@ checkpoints (counterpart of neko_tpu/training/trainer.py).
   log_eval_freq steps, then the remainder, each followed by evaluation,
   logging and (with `--save_mode checkpoint`) a checkpoint; any exception
   leaves an emergency checkpoint first (with `--save_model`).
-* each step's batch is split over text / control by `text_prop` with the
-  remainder handed to one component by a multinomial over the fractional
-  residuals; the control rows go to the tasks round-robin without
+* each step's batch is split over text / caption / VQA / control by
+  `text_prop`, `caption_prop` and `vqa_prop`, with the remainder handed to
+  one component by a multinomial over the fractional residuals; the
+  control rows go to the tasks round-robin without
   replacement, a `prompt_ep_proportion` share of them prompted, half 'end'
   and half 'uniform'.
 * the examples are packed on the host into one static-shape batch with the
@@ -25,8 +26,8 @@ checkpoints (counterpart of neko_tpu/training/trainer.py).
   training parameters, under the sampling lock (the tasks' RNGs are shared
   with the prefetch thread).
 
-The JAX package's caption and VQA tasks, multi-process batches and the
-profiler hook are not ported.
+The JAX package's multi-process batches and the profiler hook are not
+ported.
 """
 
 from __future__ import annotations
@@ -85,6 +86,9 @@ class Trainer:
         self.start_time = None
         self.control_tasks = [t for t in tasks if isinstance(t, ControlTask)]
         self.text_tasks = [t for t in tasks if isinstance(t, TextTask)]
+        # caption / VQA tasks are matched by their task_kind
+        self.caption_tasks = [t for t in tasks if getattr(t, "task_kind", "") == "caption"]
+        self.vqa_tasks = [t for t in tasks if getattr(t, "task_kind", "") == "vqa"]
         self.patch_budget = self._compute_patch_budget()
         self.target_budget = self._compute_target_budget()
         self._prefetcher = None
@@ -100,18 +104,27 @@ class Trainer:
     def _component_counts(self):
         """Base per-component row counts and the residual remainder, which
         `_mixture_sizes` hands to exactly one component a step."""
-        bs = self.local_batch_size
-        base = {"text": int(self.args.text_prop * bs) if self.text_tasks else 0}
-        control_prop = 1 - self.args.text_prop - self.args.caption_prop - self.args.vqa_prop
+        bs, a = self.local_batch_size, self.args
+        base = {"text": int(a.text_prop * bs) if self.text_tasks else 0,
+                "caption": int(a.caption_prop * bs) if self.caption_tasks else 0,
+                "vqa": int(a.vqa_prop * bs) if self.vqa_tasks else 0}
+        control_prop = 1 - a.text_prop - a.caption_prop - a.vqa_prop
         base["control"] = int(control_prop * bs) if self.control_tasks else 0
         return base, bs - sum(base.values())
+
+    def _has_tasks(self, component: str) -> bool:
+        return bool({"text": self.text_tasks, "caption": self.caption_tasks,
+                     "vqa": self.vqa_tasks, "control": self.control_tasks}[component])
 
     def _compute_patch_budget(self) -> int:
         """Worst-case image patches in one mixture batch (constant across
         steps, so every step has the same shapes), rounded up to 256."""
         base, remainder = self._component_counts()
         per_row = {"text": 0, "control": max(
-            [t.required_patches for t in self.control_tasks], default=0)}
+            [t.required_patches for t in self.control_tasks], default=0),
+            "caption": max([t.patches_per_image for t in self.caption_tasks], default=0),
+            "vqa": max([t.patches_per_image for t in self.vqa_tasks], default=0)}
+        # the remainder lands on one component: take the costliest recipient
         budget = sum(base[c] * per_row[c] for c in base) + remainder * max(per_row.values())
         return 0 if budget == 0 else -(-budget // 256) * 256
 
@@ -120,15 +133,17 @@ class Trainer:
         loss without gathered targets."""
         bs, S = self.local_batch_size, self.args.sequence_length
         base, remainder = self._component_counts()
-        per_row = {"text": S - 1, "control": 0}
+        per_row = {"text": S - 1, "caption": 0, "vqa": 0, "control": 0}
         if self.control_tasks:
             per_row["control"] = max(
                 t.context_timesteps * (t.action_tokens + (
                     t.observation_tokens if self.args.observation_loss else 0))
                 for t in self.control_tasks)
-        has = {"text": bool(self.text_tasks), "control": bool(self.control_tasks)}
-        budget = sum(base[c] * per_row[c] for c in base if has[c])
-        budget += remainder * max((per_row[c] for c in base if has[c]), default=0)
+        for key, tasks in (("caption", self.caption_tasks), ("vqa", self.vqa_tasks)):
+            if tasks:
+                per_row[key] = max(S - t.patches_per_image - 1 for t in tasks)
+        budget = sum(base[c] * per_row[c] for c in base if self._has_tasks(c))
+        budget += remainder * max((per_row[c] for c in base if self._has_tasks(c)), default=0)
         budget = -(-budget // 256) * 256
         return 0 if budget >= bs * S else budget
 
@@ -268,9 +283,11 @@ class Trainer:
     def _sample_arrays_locked(self):
         sizes = self._mixture_sizes()
         examples: List[Dict] = []
-        if sizes["text"] > 0:
-            for task in self.text_tasks:
-                examples += task.sample_batch(sizes["text"])
+        for kind, tasks in (("text", self.text_tasks), ("caption", self.caption_tasks),
+                            ("vqa", self.vqa_tasks)):
+            if sizes[kind] > 0:
+                for task in tasks:
+                    examples += task.sample_batch(sizes[kind])
         if sizes["control"] > 0:
             examples += self.sample_control_batch(sizes["control"])
         arrays = self.packer.pack_batch(examples, patch_budget=self.patch_budget,
@@ -368,30 +385,47 @@ class Trainer:
         return self._generator
 
     def evaluate(self) -> Dict:
-        if not ((self.control_tasks and self.args.eval_episodes > 0)
-                or (self.text_tasks and self.args.eval_text_num_examples > 0)):
+        if not any(eval_count(task, self.args)[1] > 0 for task in self.tasks):
             return {}  # no copy of the weights when nothing is evaluated
         gen = self._eval_generator()
         with self._sample_lock:
-            return self._evaluate_locked(gen)
+            logs: Dict = {}
+            for task in self.tasks:
+                logs.update(evaluate_task(task, gen, self.args, self.deterministic))
+            return logs
 
-    def _evaluate_locked(self, gen) -> Dict:
-        logs: Dict = {}
-        for task in self.tasks:
-            if isinstance(task, ControlTask) and self.args.eval_episodes > 0:
-                m = task.evaluate(
-                    gen, n_iterations=self.args.eval_episodes,
-                    deterministic=self.deterministic,
-                    promptless_eval=self.args.promptless_eval,
-                    parallel_episodes=resolve_parallel_episodes(
-                        self.args.eval_parallel_episodes, self.args.eval_episodes))
-                for k, v in m.items():
-                    logs[f"evaluation/{task.name}/{k}"] = v
-            elif isinstance(task, TextTask) and self.args.eval_text_num_examples > 0:
-                m = task.evaluate(
-                    gen, num_examples_to_test=self.args.eval_text_num_examples,
-                    deterministic=self.deterministic,
-                    log_examples_to_output=self.args.eval_text_log_examples)
-                for k, v in m.items():
-                    logs[f"evaluation/text/{k}"] = v
-        return logs
+
+def eval_count(task, args):
+    """(log prefix, examples or episodes to evaluate) of a task under the
+    args; a count of 0 skips the task."""
+    if isinstance(task, ControlTask):
+        return task.name, args.eval_episodes
+    if isinstance(task, TextTask):
+        return "text", args.eval_text_num_examples
+    kind = getattr(task, "task_kind", "")
+    if kind == "caption":
+        return "caption", args.eval_caption_num_examples
+    if kind == "vqa":
+        return "VQA", args.eval_vqa_num_examples
+    return kind, 0
+
+
+def evaluate_task(task, gen, args, deterministic: bool,
+                  parallel_episodes: Optional[int] = None) -> Dict:
+    """One task's `evaluation/<prefix>/<metric>` logs through `gen`.
+    `parallel_episodes` overrides the args' lockstep width (control)."""
+    prefix, n = eval_count(task, args)
+    if n <= 0:
+        return {}
+    if isinstance(task, ControlTask):
+        if parallel_episodes is None:
+            parallel_episodes = resolve_parallel_episodes(args.eval_parallel_episodes, n)
+        m = task.evaluate(gen, n_iterations=n, deterministic=deterministic,
+                          promptless_eval=args.promptless_eval,
+                          parallel_episodes=parallel_episodes)
+    else:
+        log = {"text": args.eval_text_log_examples, "caption": args.eval_caption_log_examples,
+               "VQA": args.eval_vqa_log_examples}[prefix]
+        m = task.evaluate(gen, num_examples_to_test=n, deterministic=deterministic,
+                          log_examples_to_output=log)
+    return {f"evaluation/{prefix}/{k}": v for k, v in m.items()}

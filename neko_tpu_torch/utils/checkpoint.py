@@ -94,18 +94,25 @@ def resolve_checkpoint_dir(model_path: str) -> str:
     return model_path
 
 
-def _checked_config(path: str, cfg: ModelConfig) -> None:
+def saved_model_config(path: str) -> ModelConfig:
+    """The ModelConfig a checkpoint dir was written with."""
     with open(os.path.join(path, "config.json")) as f:
-        saved = ModelConfig.from_dict(json.load(f))
-    if saved != cfg:
-        diff = {k: (getattr(saved, k), getattr(cfg, k))
-                for k in dataclasses.asdict(cfg) if getattr(saved, k) != getattr(cfg, k)}
+        return ModelConfig.from_dict(json.load(f))
+
+
+def _checked_config(path: str, cfg: ModelConfig, ignore=()) -> None:
+    saved = saved_model_config(path)
+    diff = {k: (getattr(saved, k), getattr(cfg, k)) for k in dataclasses.asdict(cfg)
+            if k not in ignore and getattr(saved, k) != getattr(cfg, k)}
+    if diff:
         raise ValueError(f"{path} holds another model configuration (saved, run): {diff}")
 
 
-def load_params_only(path: str, cfg: ModelConfig) -> Dict[str, torch.Tensor]:
-    """The weights of a checkpoint (a warm start: `--init_checkpoint`)."""
-    _checked_config(path, cfg)
+def load_params_only(path: str, cfg: ModelConfig, ignore=()) -> Dict[str, torch.Tensor]:
+    """The weights of a checkpoint (a warm start: `--init_checkpoint`; an
+    inference restore).  `cfg` must equal the saved configuration but for
+    the fields in `ignore`."""
+    _checked_config(path, cfg, ignore)
     return torch.load(os.path.join(path, "model.pt"), map_location="cpu", weights_only=True)
 
 

@@ -1,9 +1,10 @@
 """neko_tpu_torch stands alone: it imports with JAX (and the JAX package)
 blocked, and with the packages the card lacks (gymnasium, h5py,
-transformers, datasets, minari, wandb) blocked too; its sources import none
-of them, its serve CLI answers over HTTP on the CPU, its train CLI trains,
-checkpoints and resumes on the CPU with all of them blocked, and
-chip_smoke.py refuses to run without a CUDA device."""
+transformers, datasets, minari, wandb, Pillow) blocked too; its sources
+import none of them (Pillow only inside the image decoder), its serve CLI
+answers over HTTP on the CPU, its train CLI trains, checkpoints and resumes
+on the CPU and its evaluation CLI evaluates such a checkpoint with all of
+them blocked, and chip_smoke.py refuses to run without a CUDA device."""
 
 import json
 import os
@@ -21,7 +22,7 @@ pytest.importorskip("torch")
 ROOT = Path(__file__).resolve().parents[1]
 PKG = ROOT / "neko_tpu_torch"
 BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax", "neko_tpu", "gymnasium", "h5py",
-           "transformers", "datasets", "minari", "wandb")
+           "transformers", "datasets", "minari", "wandb", "PIL")
 
 
 def _modules():
@@ -122,6 +123,22 @@ def test_serve_cli_random_init_answers_on_cpu():
         proc.communicate(timeout=30)
 
 
+def _run_blocked(module, argv):
+    """`python -m module argv` in a process where every module of BLOCKED
+    raises on import -> its stdout."""
+    code = (
+        "import runpy, sys\n"
+        f"for name in {BLOCKED!r}:\n"
+        "    sys.modules[name] = None\n"
+        f"sys.argv = [{module!r}] + {argv!r}\n"
+        f"runpy.run_module({module!r}, run_name='__main__')\n"
+    )
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=_env(),
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stdout[-2000:] + r.stderr[-3000:]
+    return r.stdout
+
+
 def test_train_cli_trains_checkpoints_and_resumes_with_them_blocked(tmp_path):
     """4 steps on the CPU with a checkpoint every 2, then a resume from the
     step-2 checkpoint to step 4, each in a process where every module of
@@ -134,17 +151,7 @@ def test_train_cli_trains_checkpoints_and_resumes_with_them_blocked(tmp_path):
                 "--eval_episodes", "1", "--eval_text_num_examples", "1", "--mixed_precision",
                 "no", "--save_model", "--save_mode", "checkpoint", "--save_dir", str(tmp_path),
                 *extra]
-        code = (
-            "import runpy, sys\n"
-            f"for name in {BLOCKED!r}:\n"
-            "    sys.modules[name] = None\n"
-            f"sys.argv = ['train'] + {argv!r}\n"
-            "runpy.run_module('neko_tpu_torch.cli.train', run_name='__main__')\n"
-        )
-        r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=_env(),
-                           capture_output=True, text=True, timeout=300)
-        assert r.returncode == 0, r.stdout[-2000:] + r.stderr[-3000:]
-        return r.stdout
+        return _run_blocked("neko_tpu_torch.cli.train", argv)
 
     out = run()
     (exp,) = [d for d in tmp_path.iterdir() if d.is_dir()]
@@ -155,3 +162,27 @@ def test_train_cli_trains_checkpoints_and_resumes_with_them_blocked(tmp_path):
     out = run("--resume_from", str(exp / "checkpoint_2"))
     assert "at step 2 (host sampler state restored: exact)" in out
     assert out.count("training/train_loss_mean") == 1
+
+
+def test_evaluate_cli_evaluates_a_checkpoint_with_them_blocked(tmp_path):
+    """A 2-step checkpoint of the train CLI (text, a Text-space env and a
+    Dict-observation env), then `python -m neko_tpu_torch.cli.evaluate --cpu`
+    on it, each with every module of BLOCKED raising on import."""
+    envs = ["neko-synth-text-v0", "neko-synth-dict-v0"]
+    _run_blocked("neko_tpu_torch.cli.train", [
+        "--cpu", "--text_datasets", "synthetic", "--text_datasets_paths", "synthetic",
+        "--text_prop", "0.5", "--control_datasets", *envs, "--embed_dim", "32", "--layers",
+        "1", "--heads", "2", "-k", "64", "--batch_size", "4", "--training_steps", "2",
+        "--log_eval_freq", "2", "--eval_episodes", "0", "--eval_text_num_examples", "0",
+        "--mixed_precision", "no", "--save_model", "--save_mode", "checkpoint",
+        "--save_dir", str(tmp_path)])
+    (exp,) = [d for d in tmp_path.iterdir() if d.is_dir()]
+    out = _run_blocked("neko_tpu_torch.cli.evaluate", [
+        "--model_path", str(exp), "--cpu", "--eval_episodes", "1",
+        "--eval_text_num_examples", "2"])
+    lines = dict(line.split(": ", 1) for line in out.splitlines()
+                 if line.startswith("evaluation/"))
+    want = {f"evaluation/{e}/{m}" for e in envs for m in ("mean_return", "mean_episode_len")}
+    want |= {"evaluation/text/loss", "evaluation/text/perplexity"}
+    assert set(lines) == want, out[-2000:]
+    assert all(float(v) == float(v) for v in lines.values())  # not NaN

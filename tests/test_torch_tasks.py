@@ -10,7 +10,11 @@
 * `TextTask.evaluate` and `ControlTask.evaluate` (serial and lockstep,
   through the rollout cache and the re-pack path), greedy, at converted
   weights (32d, 1 layer, 2 heads, k = 64, fp32): text loss within 1e-4
-  relative, control returns and episode lengths within 1e-5.
+  relative, control returns and episode lengths within 1e-5;
+* the same for the Text, Dict-observation and Dict-action envs
+  (`neko-synth-text-v0`, `-dict-v0`, `-dictact-v0`: the Text codecs,
+  `DictObsCodec`, `DictActCodec`) through the rollout cache, and the
+  re-pack path on the Dict envs.
 """
 
 import pickle
@@ -41,9 +45,21 @@ from neko_tpu_torch.tasks.text import TextTask  # noqa: E402
 
 ENVS = ["neko-synth-continuous-v0", "neko-synth-discrete-v0", "neko-synth-image-v0",
         "neko-synth-multidiscrete-v0"]
+# Text, Dict-observation and Dict-action spaces
+CODEC_ENVS = ["neko-synth-text-v0", "neko-synth-dict-v0", "neko-synth-dictact-v0"]
 TINY = dict(embed_dim=32, layers=1, heads=2, context_len=64, max_patches=16,
             dtype="float32", text_tokens=50257, continuous_tokens=64,
             discrete_tokens=64, dropout=0.0)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread for this module: its tensors are tiny, and in a
+    parallel test run the thread pools of the workers contend."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _space_fields(space):
@@ -104,7 +120,7 @@ def test_spaces_sample_from_their_seed():
 
 
 def test_unported_names_raise():
-    for name in synthetic.NOT_PORTED + ("CartPole-v1", "TOP1_ATARI_TRAIN", "x.h5"):
+    for name in ("CartPole-v1", "TOP1_ATARI_TRAIN", "x.h5"):
         with pytest.raises(NotImplementedError):
             setup_env.load_env_dataset(name)
     with pytest.raises(NotImplementedError):
@@ -128,7 +144,7 @@ def _equal_examples(got, want):
 
 
 @pytest.mark.parametrize("variant", ["shared", "rotated", "top_k"])
-@pytest.mark.parametrize("name", ENVS)
+@pytest.mark.parametrize("name", ENVS + CODEC_ENVS)
 def test_control_sample_batch_matches_jax(name, variant):
     kw = {"rotated": dict(share_prompt_episodes=False), "top_k": dict(top_k_prompting=5),
           "shared": {}}[variant]
@@ -195,7 +211,10 @@ MODES = {
 # prefill anew for every history length there (~10 s a case)
 @pytest.mark.parametrize("name, mode", [
     ("neko-synth-continuous-v0", m) for m in MODES] + [
-    ("neko-synth-image-v0", m) for m in ("serial-cache", "lockstep-cache")])
+    ("neko-synth-image-v0", m) for m in ("serial-cache", "lockstep-cache")] + [
+    (name, m) for name in CODEC_ENVS for m in ("serial-cache", "lockstep-cache")] + [
+    ("neko-synth-dictact-v0", "serial-repack"),
+    ("neko-synth-dict-v0", "lockstep-repack-promptless")])
 def test_control_evaluate_matches_jax(gens, name, mode):
     mode = MODES[mode]
     jgen, gen = gens

@@ -18,7 +18,12 @@ tiny width (32d, 1 layer, 2 heads, k = 64, batch 8, fp32; byte tokenizer):
   approximately with the JAX package's message;
 * evaluation leaves the training parameters fp32 and unchanged (bf16
   activations: it runs from its own bf16 copy);
-* the package bench's end_to_end keys, the CLI's refusals.
+* the package bench's end_to_end keys, the CLI's refusals;
+* with caption and VQA rows (32x32 JPEG data, 4 patches an image) in the
+  mix: the packed arrays and budgets equal neko_tpu's Trainer's, four steps
+  from its weights give its losses (both sides' train-mode patch positions
+  set to the interval midpoint, the one draw neither can share), and a run
+  resumed at step 2 replays the packed arrays and losses bit for bit.
 """
 
 import dataclasses
@@ -51,6 +56,16 @@ from tests.test_torch_train import LOSS_TOL  # noqa: E402
 
 CONTROL = ["neko-synth-continuous-v0", "neko-synth-discrete-v0",
            "neko-synth-multidiscrete-v0"]
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread for this module: its tensors are tiny, and in a
+    parallel test run the thread pools of the workers contend."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def make_args(tmp_path, cls=TrainingArgs, **kw):
@@ -349,7 +364,7 @@ def test_cli_refuses_what_is_not_ported(tmp_path):
     for flag in (["--lora", "--pretrained_lm", "gpt2"], ["--ema_decay", "0.99"],
                  ["--gradient_accumulation_steps", "2"], ["--mesh_model_axis", "2"],
                  ["--mesh_pipe_axis", "2"], ["--multihost"], ["--mixed_precision", "fp16"],
-                 ["--init_checkpoint", "ref.pt"], ["--caption_dataset", "x"]):
+                 ["--init_checkpoint", "ref.pt"], ["--stochastic_depth", "0.1"], ["--remat"]):
         argv = ["--cpu", "--control_datasets", CONTROL[0], "--training_steps", "1",
                 "--log_eval_freq", "1", "--save_dir", str(tmp_path)] + flag
         with pytest.raises(NotImplementedError):
@@ -430,3 +445,114 @@ def test_prefetcher_many_workers_lose_no_batch_and_forward_errors():
     with pytest.raises(RuntimeError, match="sampling failed"):
         pf.get()
     pf.close()
+
+
+# ------------------------------------------------------ caption and VQA rows
+def _image_args(tmp_path, cls=TrainingArgs, data="data", **kw):
+    """The mix with caption and VQA rows, their data under tmp_path/<data>
+    (a caption pool persists its split there: a second task over the same
+    dir reads it and draws nothing, so each side gets its own copy)."""
+    from tests.test_torch_caption_vqa import IMG, make_datasets, vqa_kwargs
+
+    root = tmp_path / data
+    if not (root / "caption").exists():
+        make_datasets(root)
+    v = vqa_kwargs(root)
+    image = dict(
+        caption_dataset=str(root / "caption"), vqa_dataset=str(root / "vqa"),
+        vqa_train_data=v["train_data"], vqa_test_data=v["test_data"],
+        train_img_name_prefix=v["train_img_name_prefix"],
+        train_img_file_name_len=v["train_img_file_name_len"],
+        test_img_name_prefix=v["test_img_name_prefix"],
+        test_img_file_name_len=v["test_img_file_name_len"], caption_image_size=IMG,
+        vqa_image_size=IMG, text_prop=0.25, caption_prop=0.25, vqa_prop=0.25,
+        control_datasets=CONTROL[:2], test_data_prop=0.3)
+    return make_args(tmp_path, cls, **{**image, **kw})
+
+
+def _midpoint_patch_positions(monkeypatch):
+    """Train-mode patch positions at the interval midpoint (eval mode's
+    rule) on both sides: the JAX package draws them from jax.random, the
+    port from the step's torch.Generator."""
+    import types
+
+    import jax.numpy as jnp
+
+    from neko_tpu.models import embeddings as jax_embeddings
+
+    from neko_tpu_torch.models.embeddings import PatchPosEncoding
+
+    def mid(key, shape, lo, hi, *a, **kw):
+        return jnp.round((lo + hi - 1) / 2.0).astype(jnp.int32)
+
+    shim = types.SimpleNamespace(random=types.SimpleNamespace(split=jax.random.split,
+                                                              randint=mid))
+    monkeypatch.setattr(jax_embeddings, "jax", shim)
+    monkeypatch.setattr(PatchPosEncoding, "sample", staticmethod(
+        lambda lo, hi, g: torch.round((lo + torch.clamp(hi, min=lo + 1) - 1) / 2.0).long()))
+
+
+def test_caption_vqa_rows_match_jax_trainer(tmp_path, monkeypatch):
+    pytest.importorskip("PIL")
+    _midpoint_patch_positions(monkeypatch)
+    jargs = _image_args(tmp_path, JaxArgs, data="jax")
+    jtr = JaxTrainer(*jax_build_context(jargs), "jax", jargs)
+    args = _image_args(tmp_path, data="port")
+    ctx, tasks = build_context(args)
+    tr = Trainer(ctx, tasks, "port", args)
+    assert [t.name for t in tr.tasks] == [t.name for t in jtr.tasks]
+    assert tr.caption_tasks and tr.vqa_tasks and ctx.model_cfg.max_patches == 4
+    assert (tr.patch_budget, tr.target_budget) == (jtr.patch_budget, jtr.target_budget)
+    assert tr.patch_budget > 0
+    for _ in range(3):
+        same_arrays(tr.sample_arrays(), jtr.sample_arrays())
+    assert pickle.dumps(tr.host_state()) == pickle.dumps(jtr.host_state())
+
+    # four steps from neko_tpu's weights, fresh trainers on both sides
+    jtr = JaxTrainer(*jax_build_context(jargs), "jax2", jargs)
+    jtr.init_state()
+    jlosses, jstep = [], jtr.ctx.train_step
+
+    def jstepped(state, batch):
+        state, loss = jstep(state, batch)
+        jlosses.append(float(loss))
+        return state, loss
+
+    jtr.ctx.train_step = jstepped
+    sd = convert.jax_params_to_state_dict(
+        jax.tree_util.tree_map(np.asarray, jtr.state.params), jtr.ctx.model_cfg)
+    tr = Trainer(*build_context(args), "port2", args)
+    tr.init_state(sd)
+    losses, stream = record(tr)
+    jtr.train()
+    tr.train()
+    assert len(losses) == len(jlosses) == 4
+    assert all((a["patch_batch"] < args.batch_size).sum() >= 4 for a in stream)  # images
+    np.testing.assert_allclose(losses, jlosses, **LOSS_TOL)
+
+
+def test_resume_with_caption_vqa_rows_replays_the_stream(tmp_path):
+    pytest.importorskip("PIL")
+    from neko_tpu_torch.cli.build import build_tasks
+
+    # in-loop evaluation of the VQA task (its answer draws) alone
+    kw = dict(dropout=0.1, eval_episodes=0, eval_text_num_examples=0,
+              eval_caption_num_examples=0, eval_vqa_num_examples=2)
+    build_tasks(_image_args(tmp_path, **kw))  # persists the caption split every run reads
+    a = Trainer(*build_context(_image_args(tmp_path, **kw)), "a", _image_args(tmp_path, **kw))
+    a.init_state()
+    losses_a, stream_a = record(a)
+    a.train()
+    b1_args = _image_args(tmp_path, **kw, training_steps=2, save_model=True)
+    b1 = Trainer(*build_context(b1_args), "b1", b1_args)
+    b1.train()
+    host = load_host_state_for(os.path.join(b1.exp_dir, "checkpoint_2"))
+    assert [t["name"] for t in host["tasks"]][-2:] == ["caption", "vqa"]
+    tr, losses, stream = _resume(tmp_path, "b2", b1.exp_dir, **{
+        k: v for k, v in vars(_image_args(tmp_path, **kw)).items()
+        if k not in RESUME and k != "resume_from"})
+    assert tr.steps == 4 and losses == losses_a[2:4]
+    n = min(len(stream), len(stream_a) - 3)
+    assert n >= 2
+    for got, want in zip(stream[1:1 + n], stream_a[3:3 + n]):
+        same_arrays(got, want)
