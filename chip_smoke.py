@@ -158,6 +158,27 @@
    against plain attention, teacher-forced: prefill logits (LOGIT_TOL),
    decode windows (DECODE_LOGIT_TOL) and the target NLL (EVAL_NLL_TOL),
    with planted prefill and decode faults that must exceed one of them.
+16. The serving engine (ENGINE_*), the flagship width in bf16 (and a fp32
+   copy for the exact checks), random weights from the seed: eight greedy
+   requests submitted to a ContinuousEngine before it starts (admitted in
+   one prefill) give generate_batch's tokens on the same 8 prompts; 16
+   concurrent /v1/generate requests (8 greedy, 8 sampled; 32-512-token
+   prompts, 16-128 new tokens), streamed through
+   `NekoServer(continuous_slots=8, continuous_chunk=8)` and then through the
+   coalescing server: requests/s, tokens/s, p50 / p99 latency and time to
+   first token of each (the coalescing server's first token comes with its
+   reply), the greedy replies against generate_batch up to the first step
+   whose top-two logits lie within DECODE_LOGIT_TOL; a stream against the
+   same request's reply; /metrics.  Beams: predict_caption with 4 beams on
+   two 256x256 caption prompts, generate_beam kernels vs plain attention
+   (fp32 tokens identical; bf16 window logits within DECODE_LOGIT_TOL on
+   the steps whose beams agree), ms per beam step.  Speculation on a
+   repeated phrase (lookup K = 4; a 2-layer truncated draft): fp32 tokens
+   equal generate()'s, bf16 rounds, tokens per round, ms per token against
+   plain decode.  The engine's spec rounds then a plain chunk against
+   generate_batch in fp32 (ENGINE_FP32_LOGIT_TOL), with the cache-mask
+   refresh skipped as a planted fault.  #1 = layers x prefills and #14 =
+   layers x decode steps over the main-path runs (`serving_engine_launches`).
 
 Every train run (phases 6, 8, 10, 13, 14, 15) takes its loss forward through #15:
 its launches must be loss chunks x steps (2 a flagship and `long` step, 3 a
@@ -168,7 +189,8 @@ Prints a JSON line of the kernels that only the checks launch
 ({"check_kernels": ...}), then one JSON line of the kernels the main path
 runs ({"kernels": ...}; launches counted in the serving and train runs
 alone, phase 14's among them (`train_cli_launches`), phase 15's training
-(`mix_train_launches`) and evaluation (`eval_cli_launches`), each with its bound
+(`mix_train_launches`) and evaluation (`eval_cli_launches`), phase 16's
+(`serving_engine_launches`), each with its bound
 from this run's shapes), then, as the last line,
 {"ok": true, "device": {...}}.  Any failed phase exits non-zero.  The
 attention entries and the loss head carry `tflops`: the bound's FLOPs over
@@ -495,6 +517,22 @@ EVAL_MIX = ["--text_datasets", "synthetic", "--text_datasets_paths", "synthetic"
 EVAL_NLL_TOL = 1.8e-2
 EVAL_PREFILL_FAULTS = LOGIT_FAULTS
 EVAL_DECODE_FAULTS = ("newest key excluded", "scale 1/hd")
+# the serving engine (phase 16) at the flagship width, random weights from
+# the seed: 16 concurrent /v1/generate requests (8 greedy, 8 sampled at
+# temperature 0.8 / top-p 0.9; text prompts of 32-512 tokens; 16-128 new
+# tokens) through the continuous engine (8 slots, 8-token chunks) and
+# through the coalescing server; beams (4) on 2 caption prompts of 256x256
+# uint8 images; prompt-lookup (K = 4) and truncated-draft (2 layers)
+# speculation on a 16-token phrase repeated to 256 tokens
+ENGINE = dict(slots=8, chunk=8, requests=16, prompt=(32, 512), new=(16, 128))
+ENGINE_BEAMS, ENGINE_BEAM_STEPS, ENGINE_IMAGE = 4, 32, 256
+ENGINE_SPEC = dict(K=4, new=64, phrase=16, repeats=16, draft_layers=2)
+# fp32 logits after spec rounds and a plain chunk, the engine against
+# generate_batch on the same tokens: both sides compute the same fp32 sums,
+# the rounds' attention in plain torch (extend) and the decode steps' in
+# #14, in other orders.  The planted "cache-mask refresh skipped" leaves
+# holes where the accepted tokens lie, which the decode steps then skip.
+ENGINE_FP32_LOGIT_TOL = 1e-3
 # H100 SXM published peaks (NVIDIA data sheet): dense bf16 tensor cores, HBM3
 PEAK_BF16_FLOPS, PEAK_HBM_BYTES = 989e12, 3.35e12
 
@@ -2759,19 +2797,23 @@ def trainer_recorder():
 
 @contextlib.contextmanager
 def model_call_counter():
-    """Counts NekoModel.prefill / decode_step calls within the block."""
+    """Counts NekoModel.prefill / decode_step calls within the block, and
+    under "<name>_layers" the layers they run (a truncated draft counts its
+    own): what #1 and #14 launch."""
     from neko_tpu_torch.models.policy import NekoModel
 
-    calls = {"prefill": 0, "decode_step": 0}
-    orig = {name: getattr(NekoModel, name) for name in calls}
+    names = ("prefill", "decode_step")
+    calls = {k: 0 for name in names for k in (name, name + "_layers")}
+    orig = {name: getattr(NekoModel, name) for name in names}
 
     def counted(name):
         def call(self, *a, **kw):
             calls[name] += 1
+            calls[name + "_layers"] += self.cfg.layers
             return orig[name](self, *a, **kw)
         return call
 
-    for name in calls:
+    for name in names:
         setattr(NekoModel, name, counted(name))
     try:
         yield calls
@@ -3461,6 +3503,410 @@ def eval_entry_point(card: str, workdir, dev="cuda") -> dict:
             "decode_step_ms": decode_ms, "trainer_step_ms": step_ms, "readings": sound}
 
 
+# ------------------------------------------------------------ serving engine
+class _MainPath:
+    """Kernel launches and the layers that should launch them, over the
+    phase's main-path segments (driven through the entry points, kernel
+    route); the reference and plain-route runs lie outside them."""
+
+    def __init__(self):
+        from neko_tpu_torch.ops import attention_kernel as whk
+        from neko_tpu_torch.ops import decode_attention as da
+
+        self.kernels = {"fwd": whk.whole_head_attention, "decode": da.decode_cache_attention}
+        self.launches = {"fwd": 0, "decode": 0}
+        self.layers = {"fwd": 0, "decode": 0}
+
+    @contextlib.contextmanager
+    def segment(self):
+        for fn in self.kernels.values():
+            fn.launches = 0
+        with model_call_counter() as calls:
+            yield
+        for k, fn in self.kernels.items():
+            self.launches[k] += fn.launches
+        self.layers["fwd"] += calls["prefill_layers"]
+        self.layers["decode"] += calls["decode_step_layers"]
+
+
+def _engine_payloads(ts, rng):
+    """The 16 requests: (payload, prompt ids) with greedy and sampled ones
+    interleaved."""
+    out = []
+    for i in range(ENGINE["requests"]):
+        L = int(rng.integers(ENGINE["prompt"][0], ENGINE["prompt"][1] + 1))
+        p = {"text": rng.integers(0, ts.text_tokens, L).tolist(),
+             "max_new_tokens": int(rng.integers(ENGINE["new"][0], ENGINE["new"][1] + 1))}
+        if i % 2:
+            p.update(deterministic=False, temperature=0.8, top_p=0.9)
+        out.append(p)
+    return out
+
+
+def _stream_post(url: str, payload: dict):
+    """-> (body of the done event, seconds to the first tokens event,
+    seconds to the end)."""
+    req = urllib.request.Request(url, data=json.dumps({**payload, "stream": True}).encode(),
+                                 headers={"Content-Type": "application/json"}, method="POST")
+    t0, first, done = time.perf_counter(), None, None
+    with urllib.request.urlopen(req, timeout=600) as r:
+        for line in r:
+            ev = json.loads(line)
+            if "error" in ev:
+                raise AssertionError(f"stream error: {ev['error']}")
+            if ev.get("done"):
+                done = ev
+            elif first is None:
+                first = time.perf_counter() - t0
+    _require(done is not None, "the stream ended without a done event")
+    return done, first, time.perf_counter() - t0
+
+
+def _http_load(base: str, payloads, stream: bool):
+    """Every payload at once, one client thread each.  -> (replies, TTFTs,
+    latencies, wall seconds)."""
+    n = len(payloads)
+    replies, ttft, lat, errors = [None] * n, [0.0] * n, [0.0] * n, []
+
+    def go(i):
+        try:
+            if stream:
+                replies[i], ttft[i], lat[i] = _stream_post(base + "/v1/generate", payloads[i])
+            else:
+                status, replies[i], lat[i] = _post(base + "/v1/generate", payloads[i])
+                _require(status == 200, replies[i])
+                ttft[i] = lat[i]  # no stream: the first token comes with the reply
+        except Exception as e:  # noqa: BLE001 -- re-raised below
+            errors.append(e)
+
+    threads = [threading.Thread(target=go, args=(i,)) for i in range(n)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=900)
+    wall = time.perf_counter() - t0
+    _require(not errors and not any(t.is_alive() for t in threads), f"requests failed: {errors}")
+    return replies, ttft, lat, wall
+
+
+def _load_summary(name, replies, ttft, lat, wall, card):
+    toks = sum(len(r["tokens"]) for r in replies)
+    out = {"requests_per_s": len(replies) / wall, "tokens_per_s": toks / wall,
+           "p50_ms": float(np.percentile(lat, 50)) * 1e3,
+           "p99_ms": float(np.percentile(lat, 99)) * 1e3,
+           "ttft_p50_ms": float(np.percentile(ttft, 50)) * 1e3,
+           "ttft_p99_ms": float(np.percentile(ttft, 99)) * 1e3, "wall_s": wall, "tokens": toks}
+    print(f"{name}: {len(replies)} requests, {toks} tokens in {wall:.3f} s: "
+          f"{out['requests_per_s']:.3f} requests/s, {out['tokens_per_s']:.1f} tokens/s, latency "
+          f"p50 {out['p50_ms']:.1f} / p99 {out['p99_ms']:.1f} ms, time to first token p50 "
+          f"{out['ttft_p50_ms']:.1f} / p99 {out['ttft_p99_ms']:.1f} ms ({card})")
+    return out
+
+
+def _reference(gen, prompts, T):
+    """generate_batch's greedy tokens [N, T] (window ids) and, per step, the
+    gap between the top two window logits (fp32)."""
+    ts = gen.cfg.token_space
+    toks, windows = gen.generate_batch([{"text": p} for p in prompts], max_new_tokens=T,
+                                       start=ts.start("text"), end=ts.end("text"))
+    top2 = np.partition(windows, -2, axis=-1)[..., -2:]
+    return toks - ts.start("text"), top2[..., 1] - top2[..., 0]
+
+
+def _near_tie_check(name, got, ref, gaps) -> int:
+    """Tokens equal up to the first step whose reference top-two logits lie
+    within DECODE_LOGIT_TOL (where the kernels' rounding may flip the
+    argmax).  -> the steps held."""
+    ties = np.flatnonzero(gaps[:len(got)] < DECODE_LOGIT_TOL)
+    held = int(ties[0]) if len(ties) else len(got)
+    diff = [i for i, (a, b) in enumerate(zip(got, ref)) if a != b]
+    if diff:
+        j = diff[0]
+        print(f"  {name}: diverges at step {j} of {len(got)} (reference top-two gap there "
+              f"{gaps[j]:.3e}; first near tie at step {held})")
+    _require(list(got[:held]) == list(ref[:held]),
+             f"{name}: tokens differ before the first near tie (step {held})")
+    return held
+
+
+def _engine_exact(gen, payloads, main):
+    """Eight greedy requests submitted before the engine starts, so its first
+    call admits all eight in one prefill: the shapes of generate_batch on the
+    same 8 prompts, token for token."""
+    from neko_tpu_torch.serving.continuous import ContinuousEngine
+    from neko_tpu_torch.serving.server import _Pending
+
+    greedy = [p for p in payloads if p.get("deterministic", True)]
+    eng = ContinuousEngine(gen, slots=ENGINE["slots"], chunk=ENGINE["chunk"])
+    reqs = [_Pending(dict(p), None) for p in greedy]
+    with main.segment(), model_call_counter() as calls:
+        for r in reqs:
+            eng.submit(r)
+        eng.start()
+        for r in reqs:
+            _require(r.event.wait(600), "engine request timed out")
+        eng.close()
+    _require(all(r.error is None for r in reqs), [r.error for r in reqs])
+    _require(calls["prefill"] == 1, f"{calls['prefill']} prefills: the eight were not "
+             "admitted in one")
+    ref, _ = _reference(gen, [p["text"] for p in greedy], max(p["max_new_tokens"] for p in greedy))
+    for i, (r, p) in enumerate(zip(reqs, greedy)):
+        want = ref[i, :p["max_new_tokens"]].tolist()
+        _require(r.result["tokens"] == want, f"engine row {i} differs from generate_batch")
+    print(f"engine, 8 greedy requests admitted in one prefill: tokens equal generate_batch's "
+          f"on the same 8 prompts ({sum(p['max_new_tokens'] for p in greedy)} tokens)")
+    return greedy
+
+
+def _beam_phase(gen, gen32, main, card):
+    """Beams on two caption prompts: predict_caption (4 beams) per prompt on
+    the main path; generate_beam on both, kernels vs plain attention (fp32
+    tokens identical, bf16 window logits within DECODE_LOGIT_TOL on the
+    steps whose beams agree); ms per beam step."""
+    import torch
+
+    rng = np.random.default_rng(SEED + 16)
+    images = rng.integers(0, 256, (2, 1, ENGINE_IMAGE, ENGINE_IMAGE, 3), dtype=np.uint8)
+    ts = gen.cfg.token_space
+    B, T = ENGINE_BEAMS, ENGINE_BEAM_STEPS
+    with main.segment():
+        caps = [gen.predict_caption(img, max_length=T, num_beams=B)[1] for img in images]
+    _require(all(c.shape == (T,) and ((c >= 0) & (c < ts.text_tokens)).all() for c in caps),
+             "beam captions out of range")
+    examples = [{"images": img, "text": []} for img in images]
+    kw = dict(start=ts.start("text"), end=ts.end("text"), num_beams=B, drop_trailing=1,
+              inner_pos_continuation=True, return_logits=True)
+
+    def routes(g):
+        got = g.generate_beam(examples, max_new_tokens=T, **kw)
+        with prefill_attention_through(plain_prefill_attention), \
+                decode_attention_through(plain_decode_attention):
+            want = g.generate_beam(examples, max_new_tokens=T, **kw)
+        return got, want
+
+    (t32, s32, _), (w32, ws32, _) = routes(gen32)
+    print(f"beams fp32, kernels vs plain: tokens {'identical' if np.array_equal(t32, w32) else 'DIFFER'}"
+          f", scores max abs err {np.abs(s32 - ws32).max():.3e}")
+    _require(np.array_equal(t32, w32), "fp32 beam tokens differ between the kernel and plain routes")
+    (tk, _, lk), (tp, _, lp) = routes(gen)
+    same = [i for i in range(T) if np.array_equal(tk[..., :i + 1], tp[..., :i + 1])]
+    steps = len(same)
+    err = float(np.abs(lk[:, :, :steps] - lp[:, :, :steps]).max()) if steps else float("nan")
+    print(f"beams bf16, kernels vs plain: beams agree on {steps} of {T} steps; window logits "
+          f"there max abs err {err:.3e} (tolerance {DECODE_LOGIT_TOL:g})")
+    _require(steps >= 1 and err <= DECODE_LOGIT_TOL, f"bf16 beam logits disagree: {err}")
+
+    kw.pop("return_logits")
+
+    def run(n):
+        _sync(gen.device)
+        t0 = time.perf_counter()
+        gen.generate_beam(examples, max_new_tokens=n, **kw)
+        _sync(gen.device)
+        return time.perf_counter() - t0
+
+    with main.segment():
+        run(T)
+        full = float(np.median([run(T) for _ in range(3)]))
+        one = float(np.median([run(1) for _ in range(3)]))
+    step_ms = (full - one) / (T - 1) * 1e3
+    print(f"beam step, {len(examples)} prompts x {B} beams ({len(examples) * B} rows, "
+          f"{ENGINE_IMAGE}x{ENGINE_IMAGE} images): {step_ms:.3f} ms (generate_beam, host clock, "
+          f"{T} steps less 1, median of 3) ({card})")
+    return {"beam_step_ms": step_ms, "beam_steps_agreeing_bf16": steps, "beam_logit_err": err}
+
+
+def _spec_phase(gen, gen32, main, card):
+    """Prompt-lookup and truncated-draft speculation on a repetitive prompt:
+    fp32 greedy tokens equal generate()'s; bf16 rounds, tokens per round,
+    ms per generated token against plain decode."""
+    rng = np.random.default_rng(SEED + 17)
+    ts = gen.cfg.token_space
+    phrase = rng.integers(0, ts.text_tokens, ENGINE_SPEC["phrase"]).tolist()
+    ex = {"text": phrase * ENGINE_SPEC["repeats"]}
+    K, T = ENGINE_SPEC["K"], ENGINE_SPEC["new"]
+    kw = dict(max_new_tokens=T, start=ts.start("text"), end=ts.end("text"), speculate_k=K)
+    out = {}
+    for g, name in ((gen32, "fp32"), (gen, "bf16")):
+        draft = g.truncated_draft(ENGINE_SPEC["draft_layers"])
+        plain, windows = g.generate(ex, max_new_tokens=T, start=kw["start"], end=kw["end"])
+        top2 = np.partition(windows, -2, axis=-1)[..., -2:]
+        gaps = top2[..., 1] - top2[..., 0]
+        for route, fn in (("lookup", lambda: g.generate_spec(ex, **kw)),
+                          ("draft", lambda: g.generate_spec_draft(ex, draft, **kw))):
+            if name == "bf16":
+                with main.segment():
+                    toks, rounds = fn()
+            else:
+                toks, rounds = fn()
+            if name == "fp32":
+                _require(np.array_equal(toks, plain),
+                         f"fp32 {route} speculation differs from generate()")
+                print(f"speculation fp32 ({route}): tokens equal generate()'s, {rounds} rounds")
+                continue
+            _near_tie_check(f"speculation bf16 ({route})", toks, plain, gaps)
+
+            def timed(f):
+                _sync(g.device)
+                t0 = time.perf_counter()
+                f()
+                _sync(g.device)
+                return time.perf_counter() - t0
+
+            with main.segment():
+                spec_s = float(np.median([timed(fn) for _ in range(3)]))
+                gen_one = float(np.median([timed(lambda: g.generate_batch(
+                    [ex], max_new_tokens=1, start=kw["start"], end=kw["end"],
+                    return_logits=False)) for _ in range(3)]))
+                gen_full = float(np.median([timed(lambda: g.generate_batch(
+                    [ex], max_new_tokens=T, start=kw["start"], end=kw["end"],
+                    return_logits=False)) for _ in range(3)]))
+            spec_ms = (spec_s - gen_one) / T * 1e3
+            plain_ms = (gen_full - gen_one) / (T - 1) * 1e3
+            out[route] = {"rounds": rounds, "tokens_per_round": T / rounds,
+                          "ms_per_token": spec_ms, "plain_ms_per_token": plain_ms}
+            print(f"speculation bf16 ({route}, K={K}"
+                  + (f", draft {ENGINE_SPEC['draft_layers']} layers" if route == "draft" else "")
+                  + f"), {len(ex['text'])}-token repetitive prompt, {T} tokens: {rounds} rounds, "
+                  f"{T / rounds:.2f} tokens a round, {spec_ms:.3f} ms a generated token against "
+                  f"plain decode's {plain_ms:.3f} (host clock, less the 1-token run, median of 3) "
+                  f"({card})")
+    return out
+
+
+def _stale_mask_check(gen32):
+    """The engine after spec rounds, then a plain chunk, against
+    generate_batch (fp32): tokens equal and the logits after the chunk
+    within ENGINE_FP32_LOGIT_TOL; with the cache-mask refresh skipped
+    (planted) the logits must leave the limit."""
+    import torch
+
+    ts = gen32.cfg.token_space
+    s, e = ts.start("text"), ts.end("text")
+    rng = np.random.default_rng(SEED + 18)
+    ex = {"text": rng.integers(0, ts.text_tokens, 200).tolist()}
+    L = gen32.packer.pack_example(ex).length
+    K = ENGINE_SPEC["K"]
+
+    def run(skip):
+        st = gen32.engine_init(2, speculate_k=K)
+        st = gen32.engine_admit(st, 0, ex)
+        chunks, advs, st = gen32.engine_spec_chunk(st, rounds=4, start=s, end=e, K=K)
+        if skip:  # the refresh undone: the masks as they stood before the rounds
+            with torch.inference_mode():
+                S = gen32.cfg.context_len
+                stale = torch.arange(S, device=gen32.device)[None, :] < torch.tensor(
+                    [[L], [0]], device=gen32.device)
+                for c in st["caches"]:
+                    c["mask"].copy_(stale)
+        toks, st = gen32.engine_chunk(st, n_steps=8, start=s, end=e, det=[True, True],
+                                      temp=[1.0, 1.0], top_p=[1.0, 1.0])
+        ids = [int(t) for r in range(chunks.shape[1]) for t in chunks[0, r, :int(advs[0, r])]]
+        return ids + [int(t) for t in toks[0]], st["last"][0, s:e + 1].float().cpu().numpy()
+
+    ids, last = run(False)
+    (ref, win) = gen32.generate_batch([ex], max_new_tokens=len(ids) + 1, start=s, end=e)
+    _require(ids == ref[0, :len(ids)].tolist(), "engine spec + plain chunk tokens differ (fp32)")
+    sound = float(np.abs(last - win[0, len(ids)]).max())
+    bad_ids, bad_last = run(True)
+    fault = float(np.abs(bad_last - win[0, len(ids)]).max()) if bad_ids == ids else float("inf")
+    print(f"engine spec rounds + a plain chunk vs generate_batch (fp32, {len(ids)} tokens): "
+          f"logits max abs err {sound:.3e} (tolerance {ENGINE_FP32_LOGIT_TOL:g})")
+    print(f"control 'cache-mask refresh skipped after spec rounds': "
+          + ("tokens differ" if bad_ids != ids else f"logits max abs err {fault:.3e}")
+          + (": caught" if fault > ENGINE_FP32_LOGIT_TOL else ": NOT caught"))
+    _require(sound <= ENGINE_FP32_LOGIT_TOL, f"engine logits disagree: {sound}")
+    _require(fault > ENGINE_FP32_LOGIT_TOL, "the check cannot tell a stale cache mask")
+
+
+def serving_engine(card: str, dev="cuda", width=None) -> dict:
+    """Phase 16 (at `width`, the flagship's unless given).  -> the main
+    path's launches of #1 and #14 ("fwd", "decode") and the readings."""
+    import torch
+
+    from neko_tpu_torch.config import ModelConfig
+    from neko_tpu_torch.convert import build_model, init_state_dict
+    from neko_tpu_torch.inference.generator import Generator
+    from neko_tpu_torch.serving.server import NekoServer
+
+    width = dict(width or FLAGSHIP, max_patches=(ENGINE_IMAGE // 16) ** 2, dropout=0.0)
+    cfg = ModelConfig(**width)
+    gen = Generator(build_model(cfg, init_state_dict(cfg, SEED), dev), seed=SEED)
+    cfg32 = ModelConfig(**dict(width, dtype="float32"))
+    gen32 = Generator(build_model(cfg32, init_state_dict(cfg32, SEED), dev), seed=SEED)
+    cuda = torch.device(dev).type == "cuda"
+    ts = cfg.token_space
+    payloads = _engine_payloads(ts, np.random.default_rng(SEED + 15))
+    main = _MainPath()
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    t_phase = time.perf_counter()
+
+    greedy = _engine_exact(gen, payloads, main)
+
+    # the 16 requests over HTTP: the engine (streamed), then the coalescing server
+    with main.segment():
+        with NekoServer(gen, port=0, continuous_slots=ENGINE["slots"],
+                        continuous_chunk=ENGINE["chunk"], request_timeout=600.0) as server:
+            base = f"http://{server.address[0]}:{server.address[1]}"
+            replies, ttft, lat, wall = _http_load(base, payloads, stream=True)
+            engine_load = _load_summary(f"continuous engine ({ENGINE['slots']} slots, chunk "
+                                        f"{ENGINE['chunk']}, streamed)", replies, ttft, lat,
+                                        wall, card)
+            probe = dict(greedy[0])
+            done, _, _ = _stream_post(base + "/v1/generate", probe)
+            status, body, _ = _post(base + "/v1/generate", probe)
+            with urllib.request.urlopen(base + "/metrics", timeout=60) as r:
+                metrics = json.loads(r.read())
+        with NekoServer(gen, port=0, max_batch=8, batch_window_ms=20.0,
+                        request_timeout=600.0) as server:
+            base = f"http://{server.address[0]}:{server.address[1]}"
+            c_replies, c_ttft, c_lat, c_wall = _http_load(base, payloads, stream=False)
+            coalesced_load = _load_summary("coalescing server (max_batch 8, window 20 ms)",
+                                           c_replies, c_ttft, c_lat, c_wall, card)
+            calls = server.coalesced_calls
+    print(f"coalescing server: {calls} generation calls for {len(payloads)} requests")
+    _require(status == 200 and done["tokens"] == body["tokens"],
+             "the streamed tokens differ from the same request's reply")
+    print(f"streaming: {len(done['tokens'])} streamed tokens equal the reply's")
+    print("metrics: " + json.dumps(metrics))
+    _require(metrics["continuous"]["finished"] == len(payloads) + 2
+             and metrics["responses"] == len(payloads) + 2, f"metrics {metrics}")
+    for rs in (replies, c_replies):
+        for p, r in zip(payloads, rs):
+            _require(len(r["tokens"]) == p["max_new_tokens"]
+                     and all(0 <= t < ts.text_tokens for t in r["tokens"]), r)
+    g_idx = [i for i, p in enumerate(payloads) if p.get("deterministic", True)]
+    ref, gaps = _reference(gen, [payloads[i]["text"] for i in g_idx],
+                           max(payloads[i]["max_new_tokens"] for i in g_idx))
+    held = [_near_tie_check(f"{name} greedy request {i}", rs[i]["tokens"], ref[j], gaps[j])
+            for name, rs in (("engine", replies), ("coalescing", c_replies))
+            for j, i in enumerate(g_idx)]
+    print(f"greedy HTTP replies vs generate_batch: tokens equal up to the first near tie "
+          f"(top-two gap < {DECODE_LOGIT_TOL:g}) on every request ({sum(held)} steps held)")
+
+    beams = _beam_phase(gen, gen32, main, card)
+    spec = _spec_phase(gen, gen32, main, card)
+    _stale_mask_check(gen32)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30 if cuda else float("nan")
+    phase_s = time.perf_counter() - t_phase
+
+    layers = main.layers
+    print(f"phase 16 kernel launches: whole-head forward {main.launches['fwd']} ({layers['fwd']} "
+          f"prefill layers), decode {main.launches['decode']} ({layers['decode']} decode-step "
+          f"layers); peak memory {peak:.2f} GiB (both models, {card}); {phase_s:.1f} s")
+    for k in ("fwd", "decode"):
+        _require(main.launches[k] == layers[k] and layers[k] > 0,
+                 f"{k}: {main.launches[k]} launches for {layers[k]} layers")
+    del gen, gen32
+    if cuda:
+        torch.cuda.empty_cache()
+    return {"fwd": main.launches["fwd"], "decode": main.launches["decode"],
+            "engine": engine_load, "coalescing": coalesced_load, "beams": beams, "spec": spec,
+            "peak_gib": peak, "seconds": phase_s}
+
+
 def main() -> int:
     import torch
 
@@ -3533,6 +3979,7 @@ def main() -> int:
         ev = eval_entry_point(card, workdir)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
+    se = serving_engine(card)
 
     src = "neko_tpu_torch/csrc/"
     tpu = "neko_tpu/ops/attention_kernel.py"
@@ -3552,9 +3999,10 @@ def main() -> int:
         # timed at the train shape (#3); the prefill shape's times (#1) beside
         {"name": "whole_head_attention", "route": "cuda",
          "source": src + "whole_head_attention.cu", "replaces": f"{tpu}:206,236",
-         "launches": serve_launches + launches["fwd"] + cli["fwd"] + ev["fwd"] + ev["eval_fwd"],
+         "launches": (serve_launches + launches["fwd"] + cli["fwd"] + ev["fwd"] + ev["eval_fwd"]
+                      + se["fwd"]),
          "train_cli_launches": cli["fwd"], "mix_train_launches": ev["fwd"],
-         "eval_cli_launches": ev["eval_fwd"],
+         "eval_cli_launches": ev["eval_fwd"], "serving_engine_launches": se["fwd"],
          "max_abs_err": max(err, trained["fwd_err"]), **timing("fwd"), "prefill": prefill},
         {"name": "whole_head_attention_bwd", "route": "cuda",
          "source": src + "whole_head_attention_bwd.cu", "replaces": f"{tpu}:220,256",
@@ -3586,9 +4034,10 @@ def main() -> int:
         # are the serving run's (layers x decode steps)
         {"name": "decode_cache_attention", "route": "cuda", "source": src + "decode_attention.cu",
          "replaces": "neko_tpu/ops/decode_attention.py:80",
-         "launches": decode_launches + cli["decode"] + ev["decode"] + ev["eval_decode"],
+         "launches": (decode_launches + cli["decode"] + ev["decode"] + ev["eval_decode"]
+                      + se["decode"]),
          "train_cli_launches": cli["decode"], "mix_train_launches": ev["decode"],
-         "eval_cli_launches": ev["eval_decode"],
+         "eval_cli_launches": ev["eval_decode"], "serving_engine_launches": se["decode"],
          "check_launches": decode["check_launches"] + decode["generate"]["launches"],
          "max_abs_err": decode["err"], **decode["times"], "b1": decode["times_b1"],
          "generate_per_token_ms": {k: decode["generate"][k] for k in ("kernel_ms", "plain_ms")}},

@@ -156,19 +156,26 @@ class NekoModel(nn.Module):
         self,
         emb: torch.Tensor,
         start: torch.Tensor,
-        clear_start: torch.Tensor,
-        clear_len: int,
-        buffer_len: int,
-        caches: List[KVCache],
+        clear_start: Optional[torch.Tensor] = None,
+        clear_len: int = 0,
+        buffer_len: int = 0,
+        caches: Optional[List[KVCache]] = None,
     ) -> torch.Tensor:
-        """Ring append of a chunk into the KV caches (the rollout cache):
-        emb [B, K, D] of the new tokens, start int [B] the ring position of
-        chunk token 0; the timestep slot at clear_start (clear_len tokens) is
-        evicted first, and token i lands at (start + i) % buffer_len.  Updates
-        `caches` in place.  Returns fp32 logits [B, K, V]."""
+        """Chunked append into the KV caches: emb [B, K, D] of the new
+        tokens, start int [B] the position of chunk token 0.  Updates
+        `caches` in place.  Returns fp32 logits [B, K, V].
+
+        clear_start given: RING mode (the rollout cache); the timestep slot
+        at clear_start (clear_len tokens) is evicted first, and token i lands
+        at (start + i) % buffer_len.  clear_start None: APPEND mode
+        (speculative verify rounds); token i lands at start + i and attends
+        every column <= start + i.  It needs right-padded prompts, no context
+        overflow, and rounds whose writes cover the previous round's
+        rejected tail; the cache mask is not maintained."""
         hidden, _ = self.transformer(
             emb, None, mode="extend", caches=caches, decode_index=start.long(),
-            extend_clear=(clear_start, clear_len, buffer_len),
+            extend_clear=(None if clear_start is None
+                          else (clear_start, clear_len, buffer_len)),
         )
         return self._head(hidden)
 

@@ -36,11 +36,15 @@ neko_tpu/models/transformer.py).
   the cache mask, the K new tokens are written at (decode_index + i) %
   buffer_len and set in it, and each new token attends the cache mask minus
   the chunk tokens written after it (a suffix-OR over their one-hot
-  positions).  The attention is plain torch, as the JAX package computes it
-  in XLA outside any kernel: fp32 scores with a finite -1e9 fill, fp32
-  softmax, probabilities cast to the value dtype.  The caches are updated
-  in place.  The JAX package's append mode (no `extend_clear`, for
-  speculative decoding) is not ported.
+  positions).  Without `extend_clear` it is the APPEND mode of speculative
+  decoding's verify rounds: the K tokens are written at decode_index + i
+  (no ring, no eviction) and query i attends every column c <= decode_index
+  + i, whatever the cache mask says; the mask is not maintained (right-padded
+  prompts leave no hole below the write position, and each round's writes
+  cover the previous round's rejected tail).  Either way the attention is
+  plain torch, as the JAX package computes it in XLA outside any kernel:
+  fp32 scores with a finite -1e9 fill, fp32 softmax, probabilities cast to
+  the value dtype.  The caches are updated in place.
 
 Mixed precision by explicit casts, as flax does it (not torch.autocast,
 whose LayerNorm returns fp32): each Linear casts its input and its fp32
@@ -273,12 +277,9 @@ class Transformer(nn.Module):
         """Returns (hidden [B, S, D], per-layer KV caches; None in train
         mode).  `generator` (train mode only) turns dropout on.
         `extend_clear` = (clear_start int [B], clear_len, buffer_len) in
-        extend mode."""
+        the ring extend mode; None is the append mode."""
         if mode in ("decode", "extend") and caches is None:
             raise ValueError(f"{mode} mode needs the caches prefill returned")
-        if mode == "extend" and extend_clear is None:
-            raise NotImplementedError("extend without extend_clear (the append mode of "
-                                      "speculative decoding) is not yet ported")
         if mode == "train":
             _train_not_ported(self.cfg, x.shape[1])
         bounds = None
@@ -289,7 +290,12 @@ class Transformer(nn.Module):
             mask[torch.arange(x.shape[0], device=x.device), decode_index] = True
             bounds = mask_bounds_from_key_mask(mask)
         extend = None
-        if mode == "extend":
+        if mode == "extend" and extend_clear is None:
+            # append: monotone writes, validity by the column compare alone
+            wpos = decode_index[:, None] + torch.arange(x.shape[1], device=x.device)
+            col = torch.arange(caches[0]["key"].shape[2], device=x.device)
+            extend = (wpos, col[None, None, :] <= wpos[:, :, None])
+        elif mode == "extend":
             clear_start, clear_len, buffer_len = extend_clear
             wpos, cidx = extend_positions(decode_index, clear_start, x.shape[1],
                                           clear_len, buffer_len)

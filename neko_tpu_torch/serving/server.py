@@ -1,23 +1,26 @@
 """HTTP inference server over the KV-cache Generator (counterpart of
-neko_tpu/serving/server.py, coalescing path).
+neko_tpu/serving/server.py).
 
 A stdlib `http.server` JSON API with MICRO-BATCHING: concurrent requests
-with compatible decode parameters are coalesced into one `generate_batch`
-call, padded to a power-of-two batch.
+with compatible decode parameters are coalesced into one generation call,
+padded to a power-of-two batch.  With `continuous_slots` > 0, plain
+/v1/generate requests (no beams, no speculation, top_k == 0) join the
+continuous-batching engine instead (serving/continuous.py), which also
+streams their tokens; everything else keeps the coalescing path.
 
 Endpoints:
   GET  /healthz       -> {"status": "ok", "model": {...}}
+  GET  /metrics       -> request / response / error / token counters, and
+                         the engine's under "continuous"
   POST /v1/generate   -> {"tokens": [...]} for {"text": [ids], "max_new_tokens": N,
                          "deterministic": bool, "temperature"/"top_k"/"top_p",
-                         "stop": [ids]}
+                         "stop": [ids], "num_beams": B, "speculative": true |
+                         "lookup" | "draft", "speculate_k": K, "stream": bool};
+                         a stream is chunked NDJSON: {"tokens": [...]} lines,
+                         then {"done": true, ...} or {"error": ...}
   POST /v1/action     -> {"action": ...} for {"continuous_obs"/"discrete_obs"/
                          "images": ..., "action_kind": "continuous"|"discrete",
                          "action_tokens": N[, "num_actions": M | "action_nvec": [...]]}
-
-Not yet ported, answered with 400: beam search ("num_beams" > 1),
-speculative decoding ("speculative", prompt lookup or a draft model) and
-streaming ("stream").  Continuous batching (`continuous_slots` > 0) is
-refused when the server is built.
 
 Run it with `python -m neko_tpu_torch.cli.serve`.
 """
@@ -33,12 +36,12 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
-from neko_tpu_torch.inference.generator import NotYetPorted, _check_sampling_args
+from neko_tpu_torch.inference.generator import _check_sampling_args
 
 
 class _Pending:
     __slots__ = ("payload", "event", "result", "error", "key", "status",
-                 "cancelled")
+                 "cancelled", "stream_q")
 
     def __init__(self, payload: Dict, key):
         self.payload = payload
@@ -48,6 +51,9 @@ class _Pending:
         self.status = 200
         self.cancelled = False
         self.key = key
+        # a streaming request's events from the continuous engine:
+        # ("tokens", [ids]) / ("done", result) / ("error", msg)
+        self.stream_q: Optional[queue.Queue] = None
 
 
 def _opt(payload: Dict, key: str, default, cast):
@@ -98,17 +104,6 @@ def _example_from_payload(p: Dict) -> Dict:
     return ex
 
 
-def _refuse_unported(payload: Dict) -> None:
-    features = {
-        "num_beams > 1 (beam search)": _opt(payload, "num_beams", 1, int) > 1,
-        "speculative decoding": bool(payload.get("speculative")),
-        "streaming": bool(payload.get("stream")),
-    }
-    for name, asked in features.items():
-        if asked:
-            raise NotYetPorted(f"{name} is not yet ported to neko_tpu_torch")
-
-
 class NekoServer:
     """Owns the request queue, the batching worker, and the HTTP server."""
 
@@ -121,25 +116,42 @@ class NekoServer:
         max_batch: int = 8,
         batch_window_ms: float = 5.0,
         max_tokens: int = 256,
+        max_beams: int = 8,
         continuous_slots: int = 0,
+        continuous_chunk: int = 8,
+        continuous_spec_k: int = 0,
+        continuous_spec_threshold: int = 48,
+        draft_generator=None,
         request_timeout: float = 120.0,
     ):
-        if continuous_slots > 0:
-            raise NotYetPorted(
-                "continuous batching (continuous_slots > 0) is not yet "
-                "ported to neko_tpu_torch"
-            )
+        """`continuous_slots` > 0 serves plain /v1/generate requests through
+        the continuous-batching engine (`continuous_chunk` tokens a call,
+        adaptive prompt-lookup speculation with `continuous_spec_k` > 0).
+        `draft_generator`: a smaller Generator of the same token space;
+        {"speculative": true} then verifies its proposals
+        (generate_spec_draft) instead of prompt-lookup ones ("lookup" forces
+        those)."""
         self.gen = generator
+        self.draft = draft_generator
         self.max_batch = max_batch
         self.batch_window = batch_window_ms / 1000.0
         self.max_tokens = max_tokens
         self.request_timeout = request_timeout
+        self.max_beams = min(max_beams, generator.cfg.token_space.text_tokens)
         self._q: "queue.Queue[_Pending]" = queue.Queue()
         self._stop = threading.Event()
         self._worker = threading.Thread(target=self._run_worker, daemon=True)
-        # generate_batch / predict_control_batch calls made (one prefill
-        # each); written by the worker thread only
-        self.coalesced_calls = 0
+        # advisory counters (GET /metrics); coalesced_calls counts the
+        # coalescing worker's generation calls (one prefill each)
+        self.stats = {"requests": 0, "responses": 0, "errors": 0, "tokens_out": 0,
+                      "coalesced_calls": 0}
+        self._cont = None
+        if continuous_slots > 0:
+            from neko_tpu_torch.serving.continuous import ContinuousEngine
+
+            self._cont = ContinuousEngine(
+                generator, slots=continuous_slots, chunk=continuous_chunk,
+                speculate_k=continuous_spec_k, spec_threshold=continuous_spec_threshold)
 
         server = self
 
@@ -158,6 +170,11 @@ class NekoServer:
                 self.wfile.write(body)
 
             def do_GET(self):
+                if self.path == "/metrics":
+                    m = dict(server.stats)
+                    if server._cont is not None:
+                        m["continuous"] = server._cont.metrics()
+                    return self._json(200, m)
                 if self.path != "/healthz":
                     return self._json(404, {"error": "not found"})
                 cfg = server.gen.cfg
@@ -186,14 +203,61 @@ class NekoServer:
                     payload["_kind"] = "action"
                 else:
                     return self._json(404, {"error": "not found"})
+                server.stats["requests"] += 1
                 try:
                     result = server.submit(payload, timeout=server.request_timeout)
                 except (ValueError, TypeError, KeyError, OverflowError) as e:
                     # raised BEFORE queueing: payload-induced, a client error
+                    server.stats["errors"] += 1
                     return self._json(400, {"error": str(e)})
+                if result.stream_q is not None:
+                    return self._stream(result)
                 if result.error is not None:
+                    server.stats["errors"] += 1
                     return self._json(result.status, {"error": result.error})
+                server.stats["responses"] += 1
+                server.stats["tokens_out"] += len(result.result.get("tokens", ()))
                 self._json(200, result.result)
+
+            def _stream(self, req) -> None:
+                """Chunked NDJSON: one {"tokens": [...]} line per engine
+                chunk, then {"done": true, ...} (or {"error": ...})."""
+                self.send_response(200)
+                self.send_header("Content-Type", "application/x-ndjson")
+                self.send_header("Transfer-Encoding", "chunked")
+                self.end_headers()
+
+                def line(obj):
+                    data = (json.dumps(obj) + "\n").encode()
+                    self.wfile.write(f"{len(data):X}\r\n".encode() + data + b"\r\n")
+
+                deadline = time.time() + server.request_timeout
+                try:
+                    while True:
+                        try:
+                            kind, val = req.stream_q.get(
+                                timeout=max(0.1, deadline - time.time()))
+                        except queue.Empty:
+                            req.cancelled = True  # the engine frees the slot
+                            server.stats["errors"] += 1
+                            line({"error": "timed out"})
+                            break
+                        if kind == "tokens":
+                            line({"tokens": val})
+                        elif kind == "done":
+                            server.stats["responses"] += 1
+                            server.stats["tokens_out"] += len(val["tokens"])
+                            line({"done": True, **val})
+                            break
+                        else:
+                            server.stats["errors"] += 1
+                            line({"error": val})
+                            break
+                    self.wfile.write(b"0\r\n\r\n")
+                except (BrokenPipeError, ConnectionResetError):
+                    # the client went away mid-stream: free its slot rather
+                    # than decode the rest for nobody
+                    req.cancelled = True
 
         self.httpd = ThreadingHTTPServer((host, port), Handler)
         self._serve_thread = threading.Thread(
@@ -205,8 +269,14 @@ class NekoServer:
     def address(self):
         return self.httpd.server_address
 
+    @property
+    def coalesced_calls(self) -> int:
+        return self.stats["coalesced_calls"]
+
     def start(self) -> "NekoServer":
         self._worker.start()
+        if self._cont is not None:
+            self._cont.start()
         self._serve_thread.start()
         return self
 
@@ -215,6 +285,8 @@ class NekoServer:
         self.httpd.shutdown()
         self.httpd.server_close()
         self._worker.join(timeout=30)
+        if self._cont is not None:
+            self._cont.close()
         # release any handler threads still waiting on queued requests
         while True:
             try:
@@ -231,16 +303,22 @@ class NekoServer:
         self.close()
 
     # ------------------------------------------------------------- requests
+    def _prompt_len(self, payload: Dict) -> int:
+        return self.gen.packer.pack_example(_example_from_payload(payload)).length
+
     def submit(self, payload: Dict, timeout: float = 120.0) -> _Pending:
         kind = payload["_kind"]
+        use_cont = False
         if kind == "generate":
-            _refuse_unported(payload)
             want = _opt(payload, "max_new_tokens", 16, int)
             if not 1 <= want <= self.max_tokens:
                 raise ValueError(
                     f"max_new_tokens must be in [1, {self.max_tokens}]"
                 )
             top_k = _opt(payload, "top_k", 0, int)
+            num_beams = _opt(payload, "num_beams", 1, int)
+            if not 1 <= num_beams <= self.max_beams:
+                raise ValueError(f"num_beams must be in [1, {self.max_beams}]")
             temperature = _opt(payload, "temperature", 1.0, float)
             top_p = _opt(payload, "top_p", 1.0, float)
             _check_sampling_args(temperature, top_k, top_p)
@@ -256,10 +334,45 @@ class NekoServer:
                 temperature,
                 top_k,
                 top_p,
+                num_beams,
             )
+            S = self.gen.cfg.context_len
+            if num_beams > 1:
+                # beams run at the exact requested length (the winning
+                # hypothesis depends on it) and must fit the context
+                L = self._prompt_len(payload)
+                if L + want > S:
+                    raise ValueError(f"beam search needs prompt+max_new_tokens <= context "
+                                     f"({L} + {want} > {S})")
+                key = key + (want,)
+            if payload.get("speculative"):
+                # lossless speculative decoding, from the draft model when
+                # the server has one, else prompt lookup; "lookup" / "draft"
+                # force a mode
+                if num_beams > 1:
+                    raise ValueError("speculative excludes num_beams")
+                mode = payload["speculative"]
+                if mode not in (True, "lookup", "draft"):
+                    raise ValueError("speculative must be true, 'lookup' or 'draft'")
+                if mode == "draft" and self.draft is None:
+                    raise ValueError("no draft model loaded (--draft_model_path)")
+                spec_mode = ("draft" if mode == "draft" or (mode is True and self.draft)
+                             else "lookup")
+                if spec_mode == "lookup" and "text" not in payload:
+                    raise ValueError("prompt-lookup speculation needs a text prompt")
+                spec_k = _opt(payload, "speculate_k", 4, int)
+                if not 1 <= spec_k <= 16:
+                    raise ValueError("speculate_k must be in [1, 16]")
+                if self._prompt_len(payload) + want + spec_k + 1 > S:
+                    raise ValueError("speculative decode needs prompt + max_new_tokens "
+                                     "+ speculate_k + 1 <= context")
+                key = ("spec", spec_mode, want, spec_k,
+                       bool(payload.get("deterministic", True)), temperature, top_k, top_p)
+            # the engine's per-row knobs cover greedy / temperature / top-p /
+            # stop / length; top_k, beams and speculation stay coalesced
+            use_cont = (self._cont is not None and num_beams == 1
+                        and not payload.get("speculative") and top_k == 0)
         elif kind == "action":
-            if payload.get("stream"):
-                raise NotYetPorted("streaming is not yet ported to neko_tpu_torch")
             action_kind = str(payload["action_kind"])
             if action_kind not in ("continuous", "discrete"):
                 raise ValueError("action_kind must be continuous|discrete")
@@ -298,11 +411,22 @@ class NekoServer:
             "obs" in k or k == "images" for k in ex
         ):
             raise ValueError("action requests need an observation input")
+        stream = bool(payload.get("stream"))
+        if stream and not use_cont:
+            raise ValueError("streaming needs continuous batching (--continuous_slots) and a "
+                             "plain generate request (no beams / speculative / top_k)")
         req = _Pending(payload, key)
         if self._stop.is_set():
             req.error, req.status = "server closing", 503
             return req
-        self._q.put(req)
+        if stream:  # the handler writes the events as the engine's chunks land
+            req.stream_q = queue.Queue()
+            self._cont.submit(req)
+            return req
+        if use_cont:
+            self._cont.submit(req)
+        else:
+            self._q.put(req)
         if not req.event.wait(timeout):
             req.cancelled = True  # worker will skip it
             req.error, req.status = "timed out", 504
@@ -331,10 +455,12 @@ class NekoServer:
                     continue
                 groups.setdefault(r.key, []).append(r)
             for key, rs in groups.items():
-                self.coalesced_calls += 1
+                self.stats["coalesced_calls"] += 1
                 try:
                     if key[0] == "generate":
                         self._serve_generate(key, rs)
+                    elif key[0] == "spec":
+                        self._serve_spec(key, rs)
                     else:
                         self._serve_action(key, rs)
                 except Exception as e:  # noqa: BLE001 -- payloads were
@@ -347,10 +473,19 @@ class NekoServer:
                     r.event.set()
 
     def _serve_generate(self, key, rs: List[_Pending]) -> None:
-        _, bucket, det, temp, top_k, top_p = key
+        _, bucket, det, temp, top_k, top_p, num_beams = key[:7]
         ts = self.gen.cfg.token_space
         start, end = ts.start("text"), ts.end("text")
         examples = [_example_from_payload(r.payload) for r in rs]
+        if num_beams > 1:  # at the exact requested length, which the key carries
+            tokens, scores = self.gen.generate_beam(
+                _pad_pow2(examples), max_new_tokens=key[7], start=start, end=end,
+                num_beams=num_beams)
+            for i, r in enumerate(rs):
+                ids = (tokens[i, 0] - start).tolist()
+                r.result = {"tokens": _truncate_at_stop(ids, r.payload.get("stop")),
+                            "score": float(scores[i, 0]), "batched_with": len(rs) - 1}
+            return
         # generate the bucket length, return each request's own prefix
         (tokens,) = self.gen.generate_batch(
             _pad_pow2(examples), max_new_tokens=bucket, start=start, end=end,
@@ -364,6 +499,22 @@ class NekoServer:
                 "tokens": _truncate_at_stop(ids, r.payload.get("stop")),
                 "batched_with": len(rs) - 1,
             }
+
+    def _serve_spec(self, key, rs: List[_Pending]) -> None:
+        _, spec_mode, want, spec_k, det, temp, top_k, top_p = key
+        ts = self.gen.cfg.token_space
+        kw = dict(max_new_tokens=want, start=ts.start("text"), end=ts.end("text"),
+                  speculate_k=spec_k, deterministic=det, temperature=temp, top_k=top_k,
+                  top_p=top_p)
+        examples = _pad_pow2([_example_from_payload(r.payload) for r in rs])
+        if spec_mode == "draft":
+            tokens, rounds = self.gen.generate_spec_draft(examples, self.draft, **kw)
+        else:
+            tokens, rounds = self.gen.generate_spec(examples, **kw)
+        for i, r in enumerate(rs):
+            ids = (tokens[i] - kw["start"]).tolist()
+            r.result = {"tokens": _truncate_at_stop(ids, r.payload.get("stop")),
+                        "rounds": int(rounds), "batched_with": len(rs) - 1}
 
     def _serve_action(self, key, rs: List[_Pending]) -> None:
         _, action_kind, action_tokens, num_actions, nvec, det = key

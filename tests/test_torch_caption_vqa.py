@@ -12,8 +12,8 @@ layer, 2 heads, k = 64, fp32, 32x32 images: 4 patches; byte tokenizer):
   relative; a VQA item carrying its image as an array evaluates as the file;
 * `generate` (one prompt, the exact sliding window, a precomputed prompt
   embedding, per-step limits), `predict_text`, `predict_caption` and
-  `predict_answer`: tokens equal, window logits within 1e-5;
-  `num_beams > 1` raises NotYetPorted naming beam search.
+  `predict_answer`: tokens equal, window logits within 1e-5, also with
+  `num_beams > 1` (beam search).
 """
 
 import io
@@ -44,7 +44,7 @@ from neko_tpu_torch import convert  # noqa: E402
 from neko_tpu_torch.config import ModelConfig  # noqa: E402
 from neko_tpu_torch.data import caption_data  # noqa: E402
 from neko_tpu_torch.data.batch import to_device_batch  # noqa: E402
-from neko_tpu_torch.inference.generator import Generator, NotYetPorted  # noqa: E402
+from neko_tpu_torch.inference.generator import Generator  # noqa: E402
 from neko_tpu_torch.tasks.caption import CaptionTask  # noqa: E402
 from neko_tpu_torch.tasks.vqa import VqaTask  # noqa: E402
 
@@ -328,11 +328,12 @@ def test_generate_matches_jax(gens, case):
         assert all(t - ts.start("discrete") < lim for t, lim in zip(got[0], [3, 1, 5]))
 
 
-def test_num_beams_raises(gens):
-    _, gen = gens
-    for call in (lambda: gen.predict_text({"text": [1, 2]}, num_beams=2),
-                 lambda: gen.predict_caption(_image(0), num_beams=3),
-                 lambda: gen.predict_answer(_image(0), [5], num_beams=4),
-                 lambda: gen.predict_response(_image(0), num_beams=2)):
-        with pytest.raises(NotYetPorted, match="beam search"):
-            call()
+@pytest.mark.parametrize("case", ["caption", "answer"])
+def test_predict_calls_with_beams_match_jax(gens, case):
+    jgen, gen = gens
+    name, args = {"caption": ("predict_caption", (_image(6),)),
+                  "answer": ("predict_answer", (_image(7), [104, 105, 33]))}[case]
+    want_logits, want_ids = getattr(jgen, name)(*args, max_length=4, num_beams=3)
+    got_logits, got_ids = getattr(gen, name)(*args, max_length=4, num_beams=3)
+    np.testing.assert_array_equal(got_ids, want_ids)
+    np.testing.assert_allclose(got_logits, np.asarray(want_logits), rtol=0, atol=LOGIT_ATOL)

@@ -124,3 +124,61 @@ def test_bad_sampling_args_raise(gens, bad):
     _, gen = gens
     with pytest.raises(ValueError):
         gen.generate_batch([{"text": [1]}], max_new_tokens=2, **bad, **TEXT)
+
+
+def _history(H=5, seed=21):
+    rng = np.random.default_rng(seed)
+    hist = {"discrete_obs": np.stack([rng.integers(0, v, H) for v in (6, 4, 8)], 1),
+            "discrete_actions": rng.integers(0, 3, (H, 2))}
+    return hist, rng.integers(0, 3, (12, 2))
+
+
+@pytest.mark.parametrize("case", ["discrete", "trimmed", "context_timesteps", "continuous"])
+def test_imagine_matches_jax(gens, case):
+    """Generator.imagine (neko_tpu's world-model rollout) identical to
+    neko_tpu's: per-component ranges, the history re-packed every step and
+    trimmed to the context, continuous observations through the mu-law
+    bins."""
+    jgen, gen = gens
+    hist, acts = _history(H=8 if case == "trimmed" else 5)
+    kw = dict(obs_nvec=[6, 4, 8])
+    if case == "discrete":
+        acts = acts[:3]
+    elif case == "context_timesteps":
+        acts, kw = acts[:4], dict(kw, context_timesteps=3)
+    elif case == "continuous":
+        rng = np.random.default_rng(5)
+        hist = {"continuous_obs": rng.uniform(-1, 1, (4, 3)).astype(np.float32),
+                "continuous_actions": rng.uniform(-1, 1, (4, 2)).astype(np.float32)}
+        acts, kw = rng.uniform(-1, 1, (2, 2)).astype(np.float32), dict(obs_kind="continuous")
+    want = jgen.imagine(hist, acts, **kw)
+    got = gen.imagine(hist, acts, **kw)
+    assert got.shape == want.shape and got.dtype == want.dtype
+    np.testing.assert_array_equal(got, want)
+    if case != "continuous":
+        assert (got < np.asarray([6, 4, 8])).all() and (got >= 0).all()
+
+
+def test_generate_with_inner_pos_start_matches_jax(gens):
+    jgen, gen = gens
+    hist, _ = _history()
+    ts = gen.cfg.token_space
+    kw = dict(max_new_tokens=3, start=ts.start("discrete"), end=ts.start("discrete") + 7,
+              step_limits=[6, 4, 8], inner_pos_start=0)
+    (want_t, want_w), (got_t, got_w) = jgen.generate(hist, **kw), gen.generate(hist, **kw)
+    np.testing.assert_array_equal(got_t, want_t)
+    np.testing.assert_allclose(got_w, np.asarray(want_w), rtol=1e-4, atol=1e-4)
+
+
+def test_predict_control_refuses_an_nvec_wider_than_the_discrete_range(gens):
+    """neko_tpu's predict_control asserts max(action_nvec) <= the discrete
+    range; its batch call (and the port's) does not check."""
+    _, gen = gens
+    ex = {"discrete_obs": np.asarray([[3], [5]]), "discrete_actions": np.zeros((2, 2), int)}
+    kw = dict(action_kind="discrete", action_tokens=2)
+    width = TINY["discrete_tokens"]
+    got = gen.predict_control(ex, action_nvec=(3, width), **kw)
+    assert got.shape == (2,) and (got < (3, width)).all()
+    with pytest.raises(ValueError, match="discrete range"):
+        gen.predict_control(ex, action_nvec=(3, width + 1), **kw)
+    assert len(gen.predict_control_batch([ex], action_nvec=(3, width + 1), **kw)) == 1

@@ -3,8 +3,9 @@ blocked, and with the packages the card lacks (gymnasium, h5py,
 transformers, datasets, minari, wandb, Pillow) blocked too; its sources
 import none of them (Pillow only inside the image decoder), its serve CLI
 answers over HTTP on the CPU, its train CLI trains, checkpoints and resumes
-on the CPU and its evaluation CLI evaluates such a checkpoint with all of
-them blocked, and chip_smoke.py refuses to run without a CUDA device."""
+on the CPU, its evaluation CLI evaluates such a checkpoint and its serve
+CLI serves it (the continuous engine, a stream, /metrics, a draft) with all
+of them blocked, and chip_smoke.py refuses to run without a CUDA device."""
 
 import json
 import os
@@ -186,3 +187,57 @@ def test_evaluate_cli_evaluates_a_checkpoint_with_them_blocked(tmp_path):
     want |= {"evaluation/text/loss", "evaluation/text/perplexity"}
     assert set(lines) == want, out[-2000:]
     assert all(float(v) == float(v) for v in lines.values())  # not NaN
+
+
+def test_serve_cli_serves_a_train_checkpoint_with_them_blocked(tmp_path):
+    """A 2-step checkpoint of the train CLI, then `python -m
+    neko_tpu_torch.cli.serve --model_path <experiment dir> --cpu` with the
+    continuous engine and a truncated draft: a generate request, a stream,
+    a speculative request and /metrics, each process with every module of
+    BLOCKED raising on import."""
+    _run_blocked("neko_tpu_torch.cli.train", [
+        "--cpu", "--text_datasets", "synthetic", "--text_datasets_paths", "synthetic",
+        "--text_prop", "1.0", "--embed_dim", "32", "--layers", "2", "--heads", "2", "-k", "64",
+        "--batch_size", "4", "--training_steps", "2", "--log_eval_freq", "2",
+        "--eval_text_num_examples", "0", "--mixed_precision", "no", "--save_model",
+        "--save_mode", "checkpoint", "--save_dir", str(tmp_path)])
+    (exp,) = [d for d in tmp_path.iterdir() if d.is_dir()]
+    argv = ["--model_path", str(exp), "--cpu", "--port", "0", "--continuous_slots", "2",
+            "--continuous_chunk", "4", "--self_draft_layers", "1"]
+    code = (
+        "import runpy, sys\n"
+        f"for name in {BLOCKED!r}:\n"
+        "    sys.modules[name] = None\n"
+        f"sys.argv = ['neko_tpu_torch.cli.serve'] + {argv!r}\n"
+        "runpy.run_module('neko_tpu_torch.cli.serve', run_name='__main__')\n"
+    )
+    proc = subprocess.Popen([sys.executable, "-c", code], cwd=ROOT, env=_env(),
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        line = proc.stdout.readline()
+        m = re.search(r"http://([\d.]+):(\d+)", line)
+        if not m:
+            proc.kill()
+            raise AssertionError(line + proc.communicate(timeout=30)[1])
+        base = f"http://{m.group(1)}:{m.group(2)}"
+
+        def post(payload):
+            req = urllib.request.Request(base + "/v1/generate", data=json.dumps(payload).encode(),
+                                         headers={"Content-Type": "application/json"},
+                                         method="POST")
+            with urllib.request.urlopen(req, timeout=60) as r:
+                return r.read().decode()
+
+        body = json.loads(post({"text": [1, 2, 3], "max_new_tokens": 6}))
+        assert body["continuous"] is True and len(body["tokens"]) == 6
+        events = [json.loads(x) for x in post({"text": [1, 2, 3], "max_new_tokens": 6,
+                                               "stream": True}).splitlines()]
+        assert [t for e in events[:-1] for t in e["tokens"]] == body["tokens"]
+        spec = json.loads(post({"text": [1, 2, 3], "max_new_tokens": 6, "speculative": True}))
+        assert spec["tokens"] == body["tokens"] and spec["rounds"] >= 1
+        with urllib.request.urlopen(base + "/metrics", timeout=60) as r:
+            metrics = json.loads(r.read())
+        assert metrics["continuous"]["finished"] == 2 and metrics["responses"] == 3
+    finally:
+        proc.terminate()
+        proc.communicate(timeout=30)

@@ -1,6 +1,9 @@
 """neko_tpu_torch's HTTP server: real round trips whose replies equal the
-JAX Generator's at converted weights, coalescing of concurrent requests,
-400s for bad payloads and for features not yet ported."""
+JAX Generator's at converted weights (greedy, actions, beams, prompt-lookup
+speculation), coalescing of concurrent requests, /metrics, and the 400s
+neko_tpu gives for bad payloads (the continuous engine and streaming are in
+tests/test_torch_continuous.py, draft speculation in
+tests/test_torch_serve_cli.py)."""
 
 import json
 import threading
@@ -23,7 +26,7 @@ from neko_tpu.models.policy import NekoModel as JaxModel  # noqa: E402
 from neko_tpu_torch import convert  # noqa: E402
 from neko_tpu_torch.config import ModelConfig  # noqa: E402
 from neko_tpu_torch.inference.generator import Generator  # noqa: E402
-from neko_tpu_torch.serving.server import NekoServer, NotYetPorted  # noqa: E402
+from neko_tpu_torch.serving.server import NekoServer  # noqa: E402
 
 TINY = dict(embed_dim=32, layers=2, heads=2, context_len=64, max_patches=4,
             dtype="float32", text_tokens=128, continuous_tokens=32,
@@ -166,16 +169,59 @@ def test_bad_action_payload_is_400(server, payload):
     assert code == 400 and "error" in body
 
 
-@pytest.mark.parametrize("extra", [
-    {"num_beams": 2}, {"speculative": True}, {"speculative": "draft"},
-    {"stream": True},
+def test_beams_match_jax_generator(server, jgen):
+    code, body = _post(server, "/v1/generate",
+                       {"text": [5, 6, 7], "max_new_tokens": 5, "num_beams": 3})
+    assert code == 200
+    toks, scores = jgen.generate_beam([{"text": [5, 6, 7]}], max_new_tokens=5, start=0,
+                                      end=TINY["text_tokens"] - 1, num_beams=3)
+    assert body["tokens"] == np.asarray(toks)[0, 0].tolist()
+    np.testing.assert_allclose(body["score"], float(scores[0, 0]), rtol=1e-5)
+
+
+@pytest.mark.parametrize("mode", [True, "lookup"])
+def test_lookup_speculation_matches_jax_generator(server, jgen, mode):
+    payload = {"text": [7, 8, 7, 8, 7], "max_new_tokens": 8, "speculative": mode,
+               "speculate_k": 3}
+    code, body = _post(server, "/v1/generate", payload)
+    assert code == 200
+    toks, rounds = jgen.generate_spec({"text": [7, 8, 7, 8, 7]}, max_new_tokens=8, start=0,
+                                      end=TINY["text_tokens"] - 1, speculate_k=3)
+    assert body["tokens"] == np.asarray(toks).tolist() and body["rounds"] == rounds
+
+
+@pytest.mark.parametrize("extra,message", [
+    ({"speculative": "draft"}, "no draft model"),
+    ({"speculative": True, "num_beams": 2}, "excludes num_beams"),
+    ({"speculative": "yes"}, "speculative must be"),
+    ({"speculative": True, "speculate_k": 17}, "speculate_k"),
+    ({"speculative": True, "max_new_tokens": 60}, "context"),
+    ({"num_beams": 9}, "num_beams must be"),
+    ({"num_beams": 2, "max_new_tokens": 62}, "beam search needs"),
+    ({"stream": True}, "continuous batching"),
 ])
-def test_unported_features_are_400(server, extra):
+def test_neko_tpu_400s(server, extra, message):
     code, body = _post(server, "/v1/generate", {"text": [1, 2], **extra})
-    assert code == 400
-    assert "not yet ported" in body["error"]
+    assert code == 400 and message in body["error"]
+    code, body = _post(server, "/v1/generate", {
+        "continuous_obs": [[0.5]], "speculative": "lookup"})
+    assert code == 400 and "text prompt" in body["error"]
 
 
-def test_continuous_batching_not_yet_ported(server):
-    with pytest.raises(NotYetPorted, match="not yet ported"):
-        NekoServer(server.gen, continuous_slots=4)
+def test_metrics_count_requests(server):
+    before = _metrics(server)
+    _post(server, "/v1/generate", {"text": [3, 4], "max_new_tokens": 3})
+    _post(server, "/v1/generate", {"text": [3, 4], "max_new_tokens": 0})
+    after = _metrics(server)
+    assert after["requests"] == before["requests"] + 2
+    assert after["responses"] == before["responses"] + 1
+    assert after["errors"] == before["errors"] + 1
+    assert after["tokens_out"] == before["tokens_out"] + 3
+    assert after["coalesced_calls"] == before["coalesced_calls"] + 1
+    assert "continuous" not in after
+
+
+def _metrics(server):
+    with urllib.request.urlopen(_url(server, "/metrics"), timeout=30) as r:
+        assert r.status == 200
+        return json.loads(r.read())
