@@ -179,8 +179,32 @@
    generate_batch in fp32 (ENGINE_FP32_LOGIT_TOL), with the cache-mask
    refresh skipped as a planted fault.  #1 = layers x prefills and #14 =
    layers x decode steps over the main-path runs (`serving_engine_launches`).
+17. The train CLI's remaining one-device flags (FEATURES_*), the flagship
+   width, random weights from the seed: (a) `python -m
+   neko_tpu_torch.cli.train` in this process on synthetic text and the two
+   committed HDF5 fixtures (`h5:<path>:<EnvId>` and a bare `.h5`), with
+   `--mixed_precision fp16` (bf16), stochastic depth 0.1, remat, GEGLU, EMA
+   0.999, gradient accumulation k = 2 and `--profile_dir`: 12 calls (6
+   updates), finite losses, the schedule's 6 updates, a Chrome trace of 2
+   steps naming the kernels of #3, #4 and #15, #3 = 2 x layers x calls
+   (remat recomputes it); a stop after call 7 (inside a window) resumed to
+   12 within RESUME_LOSS_TOL, with the planted "accumulator dropped at the
+   resume" outside it; `python -m neko_tpu_torch.cli.evaluate --use_ema` on
+   the checkpoint, whose text NLL differs from the weights'.  The Trainer's
+   step ms at k = 2 and the ms to read one fixture episode.  (b) one
+   flagship step (dropout 0.1, stochastic depth 0.1) with remat and
+   without, from the same weights, batch and step generator: loss and
+   gradients within REMAT_LOSS_TOL / REMAT_GRAD_TOL, the planted "recompute
+   from the live generator" outside; #3 12 launches with remat and 6
+   without, #4 6 both ways; step ms and peak memory both ways.  (c) three
+   steps with `fused_adamw` and EMA against the default route with EMA
+   (FUSED_STEP_LOSS_TOL), #16 3 launches, the EMA update's device ms.  (d)
+   prefill and decode of a LoRA (a non-zero `lora_b`) + GEGLU model
+   through #1 and #14 against plain attention: last-position prefill logits
+   within LOGIT_TOL, teacher-forced decode logits within DECODE_LOGIT_TOL,
+   with planted faults outside (`train_features_launches`).
 
-Every train run (phases 6, 8, 10, 13, 14, 15) takes its loss forward through #15:
+Every train run (phases 6, 8, 10, 13, 14, 15, 17) takes its loss forward through #15:
 its launches must be loss chunks x steps (2 a flagship and `long` step, 3 a
 `long4k` step), and the plain side of each kernels-vs-plain step check runs
 the plain loss forward too.
@@ -190,7 +214,8 @@ Prints a JSON line of the kernels that only the checks launch
 runs ({"kernels": ...}; launches counted in the serving and train runs
 alone, phase 14's among them (`train_cli_launches`), phase 15's training
 (`mix_train_launches`) and evaluation (`eval_cli_launches`), phase 16's
-(`serving_engine_launches`), each with its bound
+(`serving_engine_launches`), phase 17's (`train_features_launches`), each
+with its bound
 from this run's shapes), then, as the last line,
 {"ok": true, "device": {...}}.  Any failed phase exits non-zero.  The
 attention entries and the loss head carry `tflops`: the bound's FLOPs over
@@ -533,6 +558,52 @@ ENGINE_SPEC = dict(K=4, new=64, phrase=16, repeats=16, draft_layers=2)
 # #14, in other orders.  The planted "cache-mask refresh skipped" leaves
 # holes where the accepted tokens lie, which the decode steps then skip.
 ENGINE_FP32_LOGIT_TOL = 1e-3
+# the train CLI's remaining one-device flags (phase 17): the flagship width on
+# synthetic text and the committed HDF5 fixtures, one of each name form
+FIXTURES = Path(__file__).resolve().parent / "tests" / "torch_fixtures"
+FEATURES_CLI = [
+    "--text_datasets", "synthetic", "--text_datasets_paths", "synthetic", "--text_prop", "0.375",
+    "--control_datasets",
+    f"h5:{FIXTURES}/neko-synth-continuous-v0.h5:neko-synth-continuous-v0",
+    f"{FIXTURES}/neko-synth-dict-v0.h5",
+    "--embed_dim", "768", "--layers", "6", "--heads", "24", "-k", "1024", "--batch_size", "16",
+    "--mixed_precision", "fp16", "--dropout", "0.1", "--stochastic_depth", "0.1", "--remat",
+    "--activation_fn", "geglu", "--ema_decay", "0.999", "--gradient_accumulation_steps", "2",
+    "--learning_rate", "5e-4", "--warmup_steps", "2", "--seed", str(SEED),
+    "--eval_episodes", "0", "--eval_text_num_examples", "0", "--save_model",
+    "--save_mode", "last", "--profile_steps", "2"]
+FEATURES_CALLS, FEATURES_EVAL_FREQ, FEATURES_STOP, FEATURES_K = 12, 6, 7, 2
+# text examples `cli.evaluate` scores (target NLL) with and without --use_ema
+FEATURES_EVAL_TEXT = 8
+# the planted fault of the resume check: the window's accumulator and
+# mini-step lost at the restore (the update then lands a call late); its
+# losses must leave RESUME_LOSS_TOL
+FEATURES_RESUME_FAULT = "accumulator dropped at the resume"
+# (b) one flagship step with remat against the same step without, from the
+# same weights, batch and step generator (dropout 0.1, stochastic depth
+# 0.1): the loss difference and the largest relative L2 error of a
+# parameter's gradient.  The forward runs the same kernels on the same
+# inputs, and the recompute replays the generator: the loss is the same
+# value, and the gradients are too but for the order of atomic sums in the
+# backward (the same step without remat, run twice, shows that gap).  On an
+# H100 80GB HBM3 at 700 W the sound run read a loss difference of 0 and a
+# gradient error of 5.351e-10; the planted "recompute from the live
+# generator" (other dropout and drop-path masks in the backward) 0.810.
+# REMAT_GRAD_TOL lies near their geometric mean.
+REMAT_LOSS_TOL = 0.0
+REMAT_GRAD_TOL = 2e-5
+REMAT_FAULT = "recompute from the live generator"
+# (c) steps of the fused AdamW route with EMA against the default route with
+# EMA, on one batch at lr 1e-3 (FUSED_STEP_LOSS_TOL, phase 13's limit)
+FEATURES_FUSED_STEPS = 3
+# (d) LoRA (rank 8, alpha 32, lora_b drawn N(0, LORA_B_STD)) and GEGLU at the
+# flagship width: 4 text prompts of 256 tokens, 16 new tokens; LOGIT_TOL and
+# DECODE_LOGIT_TOL hold the logits, and each planted fault below (in the
+# plain prefill / decode attention) must exceed its limit
+LORA_SERVE = dict(lora_r=8, lora_alpha=32, activation_fn="geglu", B=4, prompt=256, new=16)
+LORA_B_STD = 0.02
+LORA_PREFILL_FAULTS = LOGIT_FAULTS
+LORA_DECODE_FAULTS = EVAL_DECODE_FAULTS
 # H100 SXM published peaks (NVIDIA data sheet): dense bf16 tensor cores, HBM3
 PEAK_BF16_FLOPS, PEAK_HBM_BYTES = 989e12, 3.35e12
 
@@ -3907,6 +3978,349 @@ def serving_engine(card: str, dev="cuda", width=None) -> dict:
             "peak_gib": peak, "seconds": phase_s}
 
 
+# --------------------------------------- the train CLI's remaining flags
+def _with_width(argv, dev, width):
+    """FEATURES_CLI at `width` (a dict of flag -> value: a small CPU run) and
+    with --cpu on the CPU."""
+    argv = list(argv)
+    for flag, value in (width or {}).items():
+        argv[argv.index(flag) + 1] = str(value)
+    return argv + (["--cpu"] if dev == "cpu" else [])
+
+
+def _trace_kernels(trace_dir):
+    """(train_step ranges, kernel names) of a `--profile_dir` Chrome trace."""
+    with open(Path(trace_dir) / "trace_p0.json") as f:
+        events = json.load(f)["traceEvents"]
+    # each range is a host event ("user_annotation"; on the card also a
+    # "gpu_user_annotation" copy)
+    steps = sum(e.get("name") == "train_step" and e.get("cat") == "user_annotation"
+                for e in events)
+    return steps, {e["name"] for e in events if e.get("cat") == "kernel"}
+
+
+def _features_cli(card, workdir, dev, width):
+    """Phase 17 (a).  -> (launches of the uninterrupted run and of the
+    evaluations, readings)."""
+    import torch
+
+    from neko_tpu_torch.cli import evaluate as cli_evaluate
+    from neko_tpu_torch.data.episodes import H5EpisodeDataset
+    from neko_tpu_torch.training.trainer import Trainer
+    from neko_tpu_torch.utils import checkpoint as ckpt
+
+    base = _with_width(FEATURES_CLI, dev, width) + [
+        "--training_steps", str(FEATURES_CALLS), "--log_eval_freq", str(FEATURES_EVAL_FREQ)]
+    trace = workdir / "trace"
+    t0 = time.perf_counter()
+    tr, rec, launches, _ = train_cli(base + ["--profile_dir", str(trace)], workdir / "a")
+    run_s = time.perf_counter() - t0
+    cfg, layers, state = tr.ctx.model_cfg, tr.ctx.model_cfg.layers, tr.state
+    updates, chunks = tr.ctx.update_count(state), _chunks_of(tr.target_budget)
+    exp_a = tr.exp_dir
+    del tr, state
+    losses = rec["losses"]
+    _require(len(losses) == FEATURES_CALLS and all(np.isfinite(losses)),
+             f"{len(losses)} losses, or not finite: {losses}")
+    _require((cfg.dtype, cfg.remat, cfg.activation_fn, cfg.stochastic_depth)
+             == ("bfloat16", True, "geglu", 0.1), f"the flags did not reach the config: {cfg}")
+    logs = _iteration_logs(exp_a)
+    trainer_ms = logs[-1]["time/training"] / FEATURES_EVAL_FREQ * 1e3
+    print(f"train CLI {cfg.embed_dim}d/{layers}L/{cfg.heads}h k={cfg.context_len} B=16 (text "
+          f"+ the two HDF5 fixtures) fp16 (bf16), stochastic depth 0.1, remat, GEGLU, EMA 0.999, "
+          f"k = {FEATURES_K}: {FEATURES_CALLS} calls in {run_s:.1f} s, {updates} updates; "
+          f"losses " + ", ".join(f"{x:.4f}" for x in losses))
+    print(f"Trainer step at k = {FEATURES_K} with remat (calls {FEATURES_EVAL_FREQ + 1}-"
+          f"{FEATURES_CALLS}, time/training / {FEATURES_EVAL_FREQ}): {trainer_ms:.3f} ms ({card})")
+    _require(updates == FEATURES_CALLS // FEATURES_K, f"the schedule counted {updates} updates")
+    steps, kernels = _trace_kernels(trace)
+    named = {what: sorted(k for k in kernels if pat in k)[:2] for what, pat in (
+        ("#3", "attention_fwd_kernel"), ("#4", "attention_bwd_"), ("#15", "fused_logz_tl"))}
+    print(f"--profile_dir trace: {steps} train_step ranges, {len(kernels)} kernel names; "
+          + "; ".join(f"{k}: {v}" for k, v in named.items()))
+    _require(steps == 2, f"the trace holds {steps} steps")
+    if dev != "cpu":
+        _require(all(named.values()), f"the trace misses a kernel: {named}")
+        print(f"kernel launches in the run: whole-head forward {launches['fwd']} (2 x {layers} "
+              f"layers x {FEATURES_CALLS} calls: remat recomputes it), backward "
+              f"{launches['bwd']}, loss head {launches['loss']} ({chunks} chunks a call)")
+        _require(launches["fwd"] == 2 * layers * FEATURES_CALLS,
+                 f"whole-head forward launches {launches['fwd']}")
+        _require(launches["bwd"] == layers * FEATURES_CALLS, f"backward launches {launches}")
+        _require(launches["loss"] == chunks * FEATURES_CALLS, f"loss head launches {launches}")
+
+    # a stop after call FEATURES_STOP (inside a window), resumed to the end
+    step = Trainer.train_step
+
+    def stop_after(self):
+        if self.steps > FEATURES_STOP:
+            raise KeyboardInterrupt(f"stopped inside call {self.steps}")
+        return step(self)
+
+    Trainer.train_step = stop_after
+    try:
+        train_cli(base, workdir / "b")
+    except KeyboardInterrupt as e:
+        print(f"run b: {e}")
+    finally:
+        Trainer.train_step = step
+    ckpt_b = ckpt.latest_checkpoint(str(next((workdir / "b").iterdir())))
+    _require(ckpt_b.endswith(f"checkpoint_{FEATURES_STOP}"), f"emergency checkpoint {ckpt_b}")
+    held = torch.load(f"{ckpt_b}/{ckpt.TRAIN_STATE}", weights_only=True)["mini_step"]
+    _require(held == FEATURES_STOP % FEATURES_K, f"the checkpoint holds mini-step {held}")
+    want = losses[FEATURES_STOP:]
+    resume = base + ["--resume_from", ckpt_b, "--no_save_model"]
+    _, rec_c, _, _ = train_cli(resume, workdir / "c")
+    gap = max(abs(a - b) for a, b in zip(rec_c["losses"], want))
+    load = ckpt.load_checkpoint
+
+    def dropped(path, ctx):
+        st = load(path, ctx)
+        for v in st.accum.values():
+            v.zero_()
+        st.mini_step = 0
+        return st
+
+    ckpt.load_checkpoint = dropped
+    try:
+        _, rec_f, _, _ = train_cli(resume, workdir / "f")
+    finally:
+        ckpt.load_checkpoint = load
+    gap_f = max(abs(a - b) for a, b in zip(rec_f["losses"], want))
+    print(f"resume after call {FEATURES_STOP} (mini-step {held} of {FEATURES_K}) to "
+          f"{FEATURES_CALLS}: largest loss difference {gap:.3e} (tolerance "
+          f"{RESUME_LOSS_TOL:g}); planted '{FEATURES_RESUME_FAULT}': {gap_f:.3e}")
+    _require(len(rec_c["losses"]) == len(want) and gap <= RESUME_LOSS_TOL,
+             f"resumed losses {rec_c['losses']} against {want}")
+    _require(gap_f > RESUME_LOSS_TOL, "the resume check cannot tell a dropped accumulator")
+
+    # the evaluation CLI on the checkpoint, the weights and the EMA shadow
+    path = ckpt.latest_checkpoint(exp_a)
+    _require(path.endswith(f"checkpoint_{FEATURES_CALLS}"), f"last checkpoint {path}")
+    counters = _launch_counters()
+    nll, eval_launches = {}, {"fwd": 0, "decode": 0}
+    for use_ema in (False, True):
+        for fn in counters.values():
+            fn.launches = 0
+        argv = ["--model_path", path, "--eval_episodes", "0", "--eval_text_num_examples",
+                str(FEATURES_EVAL_TEXT)] + (["--cpu"] if dev == "cpu" else [])
+        logs_e = cli_evaluate.main(argv + (["--use_ema"] if use_ema else []))
+        nll[use_ema] = logs_e["evaluation/text/loss"]
+        for k in eval_launches:
+            eval_launches[k] += counters[k].launches
+    print(f"cli.evaluate on {path.rsplit('/', 1)[-1]}: text target NLL {nll[False]:.6f}, with "
+          f"--use_ema {nll[True]:.6f}; #1 {eval_launches['fwd']}, #14 "
+          f"{eval_launches['decode']} launches")
+    _require(all(np.isfinite(list(nll.values()))) and nll[True] != nll[False],
+             f"--use_ema evaluated the weights: {nll}")
+
+    ds = H5EpisodeDataset(str(FIXTURES / "neko-synth-dict-v0.h5"))
+    t0 = time.perf_counter()
+    reps = 20
+    for _ in range(reps):
+        for i in range(len(ds)):
+            ds.get_episode(i)
+    read_ms = (time.perf_counter() - t0) * 1e3 / (reps * len(ds))
+    ds.close()
+    print(f"one HDF5 fixture episode (neko-synth-dict-v0, host numpy reader): {read_ms:.4f} ms")
+    return ({"fwd": launches["fwd"] + eval_launches["fwd"], "bwd": launches["bwd"],
+             "loss": launches["loss"], "decode": eval_launches["decode"]},
+            {"trainer_ms": trainer_ms, "resume_gap": gap, "episode_read_ms": read_ms,
+             "nll": nll})
+
+
+def _remat_step(card, dev, width):
+    """Phase 17 (b).  -> (launches of #3 and #4 in the two steps, readings)."""
+    import torch
+
+    from neko_tpu_torch import bench
+    from neko_tpu_torch.convert import init_state_dict
+    from neko_tpu_torch.models import transformer as tfm
+    from neko_tpu_torch.ops import attention_kernel as whk
+    from neko_tpu_torch.training.train_state import TrainContext
+
+    cfg0, ctx0, _, batch, B = bench.setup(width or "flagship", dev, SEED)
+    sd = init_state_dict(cfg0, SEED)
+    out = {}
+    for remat in (False, True):
+        cfg = cfg0.replace(stochastic_depth=0.1, remat=remat)
+        ctx = TrainContext(cfg, ctx0.opt_cfg, device=dev, seed=SEED)
+        whk.whole_head_attention.launches = whk.whole_head_attention_bwd.launches = 0
+        loss, grads = _step_loss_and_grads(ctx, sd, batch)
+        counts = (whk.whole_head_attention.launches, whk.whole_head_attention_bwd.launches)
+        fault = None
+        if not remat:  # the run-to-run gap of the step itself
+            repeat = _grad_gap(_step_loss_and_grads(ctx, sd, batch)[1], grads)
+        else:
+            replay = tfm.replay_generator
+            tfm.replay_generator = lambda generator, state: generator
+            try:
+                fault = _step_loss_and_grads(ctx, sd, batch)
+            finally:
+                tfm.replay_generator = replay
+        state = ctx.init_state({k: v.clone() for k, v in sd.items()})
+        bench.time_steps(ctx, state, batch, 2)
+        if dev != "cpu":
+            torch.cuda.reset_peak_memory_stats()
+        dt, _ = bench.time_steps(ctx, state, batch, 5)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30 if dev != "cpu" else float("nan")
+        out[remat] = dict(loss=loss, grads=grads, counts=counts, fault=fault,
+                          ms=dt * 1e3 / 5, peak=peak)
+        del state
+    off, on = out[False], out[True]
+    dloss, gap = abs(on["loss"] - off["loss"]), _grad_gap(on["grads"], off["grads"])
+    fault_gap = _grad_gap(on["fault"][1], off["grads"])
+    print(f"one flagship step {cfg0.embed_dim}d/{cfg0.layers}L B={B} dropout 0.1, stochastic "
+          f"depth 0.1, remat vs none (same weights, batch and step generator): loss "
+          f"{on['loss']:.6f} vs {off['loss']:.6f} (diff {dloss:.3e}, tolerance "
+          f"{REMAT_LOSS_TOL:g}); largest relative gradient error {gap:.3e} (tolerance "
+          f"{REMAT_GRAD_TOL:g}; the step without remat against itself {repeat:.3e}); "
+          f"planted '{REMAT_FAULT}': {fault_gap:.3e}")
+    print(f"launches in one step: #3 {on['counts'][0]} with remat, {off['counts'][0]} without; "
+          f"#4 {on['counts'][1]} and {off['counts'][1]}")
+    print(f"train step with remat {on['ms']:.3f} ms, peak memory {on['peak']:.3f} GiB; without "
+          f"{off['ms']:.3f} ms, {off['peak']:.3f} GiB ({card})")
+    _require(dloss <= REMAT_LOSS_TOL and gap <= REMAT_GRAD_TOL,
+             f"remat changes the step: {dloss}, {gap}")
+    _require(fault_gap > REMAT_GRAD_TOL, "the remat check cannot tell the live generator")
+    if dev != "cpu":
+        L = cfg0.layers
+        _require(on["counts"] == (2 * L, L) and off["counts"] == (L, L),
+                 f"launches {on['counts']} with remat, {off['counts']} without")
+    return ({"fwd": on["counts"][0] + off["counts"][0],
+             "bwd": on["counts"][1] + off["counts"][1]},
+            {"remat_ms": on["ms"], "plain_ms": off["ms"], "remat_peak_gib": on["peak"],
+             "plain_peak_gib": off["peak"], "remat_grad_gap": gap})
+
+
+def _fused_ema(card, dev, width):
+    """Phase 17 (c).  -> (#16 launches, readings)."""
+    from neko_tpu_torch import bench
+    from neko_tpu_torch.convert import init_state_dict
+    from neko_tpu_torch.ops import fused_adamw as fa
+    from neko_tpu_torch.training.train_state import OptimizerConfig, TrainContext
+
+    cfg, _, _, batch, _ = bench.setup(width or "flagship", dev, SEED)
+    sd = init_state_dict(cfg, SEED)
+    losses, ema_ms = {}, None
+    for fused in (False, True):
+        opt = OptimizerConfig(learning_rate=1e-3, init_lr=1e-3, warmup_steps=1,
+                              disable_cosine_decay=True, ema_decay=0.999, fused_adamw=fused)
+        ctx = TrainContext(cfg, opt, device=dev, seed=SEED)
+        state = ctx.init_state({k: v.clone() for k, v in sd.items()})
+        fa.fused_adamw_apply.launches = 0
+        _, losses[fused] = bench.time_steps(ctx, state, batch, FEATURES_FUSED_STEPS)
+        launches = fa.fused_adamw_apply.launches
+        moved = max((e - sd[n].to(e.device)).abs().max().item() for n, e in state.ema.items())
+        _require(moved > 0, "the EMA shadow did not move")
+        if fused and dev != "cpu":
+            ema_ms = _device_ms(lambda: ctx._update_ema(state), iters=20)
+        del state
+    gap = max(abs(a - b) for a, b in zip(losses[True], losses[False]))
+    n = sum(v.numel() for v in sd.values())
+    print(f"{FEATURES_FUSED_STEPS} steps with EMA 0.999, fused AdamW (#16 launches {launches}) "
+          f"vs the default route: largest loss difference {gap:.3e} (tolerance "
+          f"{FUSED_STEP_LOSS_TOL:g})")
+    if ema_ms is not None:
+        bound = 3 * 4 * n / PEAK_HBM_BYTES * 1e3
+        print(f"EMA update over {n:,} fp32 parameters: {ema_ms:.4f} ms device time, bound "
+              f"{bound:.4f} ms (2 reads + 1 write of the tree) ({card})")
+    _require(gap <= FUSED_STEP_LOSS_TOL, f"fused + EMA losses {losses}")
+    if dev != "cpu":
+        _require(launches == FEATURES_FUSED_STEPS, f"#16 launches {launches}")
+    return launches, {"ema_ms": ema_ms, "fused_gap": gap}
+
+
+def _lora_geglu_serving(card, dev, width):
+    """Phase 17 (d).  -> (launches of #1 and #14 on the kernel side, readings)."""
+    import torch
+
+    from neko_tpu_torch.config import ModelConfig
+    from neko_tpu_torch.convert import build_model, init_state_dict
+    from neko_tpu_torch.data.batch import to_device_batch
+    from neko_tpu_torch.inference.generator import Generator
+
+    ls = LORA_SERVE
+    cfg = ModelConfig(**dict(width or FLAGSHIP, max_patches=0, dropout=0.0, lora_r=ls["lora_r"],
+                             lora_alpha=ls["lora_alpha"], activation_fn=ls["activation_fn"]))
+    sd = init_state_dict(cfg, SEED)
+    rng = np.random.default_rng(SEED)
+    for k in sd:
+        if "lora_b" in k:
+            sd[k] = torch.from_numpy(
+                rng.standard_normal(tuple(sd[k].shape)).astype(np.float32) * LORA_B_STD)
+    gen = Generator(build_model(cfg, sd, dev), seed=SEED)
+    B, P, T = ls["B"], min(ls["prompt"], cfg.context_len // 2), ls["new"]
+    examples = [{"text": list(rng.integers(1, cfg.text_tokens, size=P))} for _ in range(B)]
+    ts = cfg.token_space
+    counters = _launch_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    (tokens,) = gen.generate_batch(examples, max_new_tokens=T, start=ts.start("text"),
+                                   end=ts.end("text"), return_logits=False)
+    launches = {k: counters[k].launches for k in ("fwd", "decode")}
+    V = cfg.vocab_size
+    arrays = gen.packer.pack_batch(examples, pad_side="right")
+    lengths = arrays.pop("lengths")
+
+    def prefill_logits():
+        with torch.inference_mode():
+            emb = gen.model.embed_batch(to_device_batch(arrays, dev))
+            mask = torch.from_numpy(np.arange(cfg.context_len)[None, :] < lengths[:, None])
+            last = torch.as_tensor(lengths - 1, device=dev)
+            return gen.model.prefill(emb, mask.to(dev), last=last)[0][:, :V]
+
+    got = prefill_logits()
+    with prefill_attention_through(plain_prefill_attention):
+        want = prefill_logits()
+    faults = {}
+    for f in LORA_PREFILL_FAULTS:
+        with prefill_attention_through(lambda *a, f=f: plain_prefill_attention(*a, fault=f)):
+            faults[f"prefill: {f}"] = ((prefill_logits() - want).abs().max().item(), LOGIT_TOL)
+    err = (got - want).abs().max().item()
+    got_d = _teacher_forced_logits(gen, examples, tokens)[:, :V]
+    with decode_attention_through(plain_decode_attention):
+        want_d = _teacher_forced_logits(gen, examples, tokens)[:, :V]
+    for f in LORA_DECODE_FAULTS:
+        with decode_attention_through(lambda *a, f=f: plain_decode_attention(*a, fault=f)):
+            bad = _teacher_forced_logits(gen, examples, tokens)[:, :V]
+        faults[f"decode: {f}"] = ((bad - want_d).abs().max().item(), DECODE_LOGIT_TOL)
+    err_d = (got_d - want_d).abs().max().item()
+    print(f"LoRA (r {cfg.lora_r}, alpha {cfg.lora_alpha}, lora_b ~ N(0, {LORA_B_STD})) + GEGLU "
+          f"{cfg.embed_dim}d/{cfg.layers}L, {B} prompts of {P} tokens, {T} new: prefill logits "
+          f"kernel vs plain {err:.3e} (tolerance {LOGIT_TOL:g}; logit std "
+          f"{want.std().item():.3f}); last-step logits after {T - 1} decode steps {err_d:.3e} "
+          f"(tolerance {DECODE_LOGIT_TOL:g}); #1 {launches['fwd']}, #14 {launches['decode']} "
+          f"launches")
+    for f, (e, _) in faults.items():
+        print(f"control '{f}': logits max abs err {e:.3e}")
+    _require(torch.isfinite(got).all() and torch.isfinite(got_d).all(), "logits not finite")
+    _require(err <= LOGIT_TOL and err_d <= DECODE_LOGIT_TOL,
+             f"LoRA + GEGLU logits disagree: {err}, {err_d}")
+    blind = [f for f, (e, tol) in faults.items() if not e > tol]
+    _require(not blind, f"the LoRA + GEGLU checks cannot tell these planted faults: {blind}")
+    if dev != "cpu":
+        _require(launches["fwd"] == cfg.layers and launches["decode"] == cfg.layers * (T - 1),
+                 f"launches {launches}")
+    return launches, {"prefill_err": err, "decode_err": err_d}
+
+
+def train_features(card: str, workdir, dev="cuda", width=None) -> dict:
+    """Phase 17 (at the flagship width unless `width`: {"cli": flag values,
+    "model": a FLAGSHIP-form dict, "bench": a CONFIGS-form dict}, for a
+    small CPU run).  -> the main path's launches ("fwd", "bwd", "loss",
+    "adamw", "decode") and the readings."""
+    width = width or {}
+    cli_launches, cli = _features_cli(card, workdir, dev, width.get("cli"))
+    remat_launches, remat = _remat_step(card, dev, width.get("bench"))
+    adamw, fused = _fused_ema(card, dev, width.get("bench"))
+    serve_launches, lora = _lora_geglu_serving(card, dev, width.get("model"))
+    return {"fwd": cli_launches["fwd"] + remat_launches["fwd"] + serve_launches["fwd"],
+            "bwd": cli_launches["bwd"] + remat_launches["bwd"], "loss": cli_launches["loss"],
+            "adamw": adamw, "decode": cli_launches["decode"] + serve_launches["decode"],
+            **cli, **remat, **fused, **lora}
+
+
 def main() -> int:
     import torch
 
@@ -3980,6 +4394,10 @@ def main() -> int:
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     se = serving_engine(card)
+    try:
+        tf = train_features(card, workdir)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
 
     src = "neko_tpu_torch/csrc/"
     tpu = "neko_tpu/ops/attention_kernel.py"
@@ -4000,14 +4418,16 @@ def main() -> int:
         {"name": "whole_head_attention", "route": "cuda",
          "source": src + "whole_head_attention.cu", "replaces": f"{tpu}:206,236",
          "launches": (serve_launches + launches["fwd"] + cli["fwd"] + ev["fwd"] + ev["eval_fwd"]
-                      + se["fwd"]),
+                      + se["fwd"] + tf["fwd"]),
          "train_cli_launches": cli["fwd"], "mix_train_launches": ev["fwd"],
          "eval_cli_launches": ev["eval_fwd"], "serving_engine_launches": se["fwd"],
+         "train_features_launches": tf["fwd"],
          "max_abs_err": max(err, trained["fwd_err"]), **timing("fwd"), "prefill": prefill},
         {"name": "whole_head_attention_bwd", "route": "cuda",
          "source": src + "whole_head_attention_bwd.cu", "replaces": f"{tpu}:220,256",
-         "launches": launches["bwd"] + cli["bwd"] + ev["bwd"], "train_cli_launches": cli["bwd"],
-         "mix_train_launches": ev["bwd"],
+         "launches": launches["bwd"] + cli["bwd"] + ev["bwd"] + tf["bwd"],
+         "train_cli_launches": cli["bwd"], "mix_train_launches": ev["bwd"],
+         "train_features_launches": tf["bwd"],
          "max_abs_err": trained["bwd_err"], **timing("bwd")},
     ] + [
         {"name": name, "route": "cuda", "source": src + source,
@@ -4035,9 +4455,10 @@ def main() -> int:
         {"name": "decode_cache_attention", "route": "cuda", "source": src + "decode_attention.cu",
          "replaces": "neko_tpu/ops/decode_attention.py:80",
          "launches": (decode_launches + cli["decode"] + ev["decode"] + ev["eval_decode"]
-                      + se["decode"]),
+                      + se["decode"] + tf["decode"]),
          "train_cli_launches": cli["decode"], "mix_train_launches": ev["decode"],
          "eval_cli_launches": ev["eval_decode"], "serving_engine_launches": se["decode"],
+         "train_features_launches": tf["decode"],
          "check_launches": decode["check_launches"] + decode["generate"]["launches"],
          "max_abs_err": decode["err"], **decode["times"], "b1": decode["times_b1"],
          "generate_per_token_ms": {k: decode["generate"][k] for k in ("kernel_ms", "plain_ms")}},
@@ -4047,14 +4468,16 @@ def main() -> int:
         {"name": "fused_logz_tl", "route": "cuda", "source": src + "fused_logz_tl.cu",
          "replaces": "neko_tpu/ops/loss_kernel.py:54",
          "launches": (launches["loss"] + long_path["loss head"] + seq_path["loss head"]
-                      + adamw["loss_launches"] + cli["loss"] + ev["loss"]),
+                      + adamw["loss_launches"] + cli["loss"] + ev["loss"] + tf["loss"]),
          "train_cli_launches": cli["loss"], "mix_train_launches": ev["loss"],
+         "train_features_launches": tf["loss"],
          "check_launches": loss_head["launches"], "max_abs_err": loss_head["err"],
          **{k: v for k, v in loss_head.items() if k not in ("err", "launches")}},
         # AdamW over the flagship tree; launches are the fused train steps'
         {"name": "fused_adamw", "route": "cuda", "source": src + "fused_adamw.cu",
          "replaces": "neko_tpu/ops/fused_adamw.py:101",
-         "launches": adamw["launches"] + cli["adamw"], "train_cli_launches": cli["adamw"],
+         "launches": adamw["launches"] + cli["adamw"] + tf["adamw"],
+         "train_cli_launches": cli["adamw"], "train_features_launches": tf["adamw"],
          "check_launches": adamw["check_launches"], "max_abs_err": adamw["err"],
          **{k: adamw[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
                                   "optimizer_ms", "default_optimizer_ms")}},

@@ -101,7 +101,9 @@ def derive_max_patches(args: TrainingArgs, tasks: List[Task]) -> int:
 
 
 def model_config_from_args(args: TrainingArgs, max_patches: int) -> ModelConfig:
-    dtype = {"no": "float32", "bf16": "bfloat16"}[args.mixed_precision]
+    # fp16 and fp8 compute in bf16, as the JAX package maps them
+    dtype = {"no": "float32", "bf16": "bfloat16", "fp16": "bfloat16",
+             "fp8": "bfloat16"}[args.mixed_precision]
     tok = get_text_tokenizer(args.tokenizer_model_name)
     return ModelConfig(
         embed_dim=args.embed_dim,
@@ -215,20 +217,21 @@ def resolve_checkpoint_and_args(model_path: str, overrides: Optional[dict] = Non
     return ckpt_path, TrainingArgs(**{k: v for k, v in saved.items() if k in known})
 
 
-def load_state_for(ctx: TrainContext, ckpt_path: str):
-    """The inference restore recipe, step 2: the checkpoint's weights in a
-    model of `ctx`'s configuration on `ctx`'s device.  The patch pool
-    (`max_patches`) sizes the packer, not the weights, so it may differ from
-    the checkpoint's; every other field must match.  -> (model, packer)."""
+def load_state_for(ctx: TrainContext, ckpt_path: str, use_ema: bool = False):
+    """The inference restore recipe, step 2: the checkpoint's weights (its
+    EMA shadow with `use_ema`) in a model of `ctx`'s configuration on
+    `ctx`'s device.  The patch pool (`max_patches`) sizes the packer, not
+    the weights, so it may differ from the checkpoint's; every other field
+    must match.  -> (model, packer)."""
     from neko_tpu_torch.convert import build_model
     from neko_tpu_torch.data.packing import SequencePacker
-    from neko_tpu_torch.utils.checkpoint import load_params_only
-
-    from neko_tpu_torch.utils.checkpoint import saved_model_config
+    from neko_tpu_torch.utils.checkpoint import (load_ema_params, load_params_only,
+                                                 saved_model_config)
 
     if (saved_model_config(ckpt_path).max_patches > 0) != (ctx.model_cfg.max_patches > 0):
         raise ValueError(
             f"{ckpt_path} was trained {'with' if ctx.model_cfg.max_patches == 0 else 'without'} "
             "an image embedder, the restore's tasks derive the opposite; set --max_patches")
-    sd = load_params_only(ckpt_path, ctx.model_cfg, ignore=("max_patches",))
+    load = load_ema_params if use_ema else load_params_only
+    sd = load(ckpt_path, ctx.model_cfg, ignore=("max_patches",))
     return build_model(ctx.model_cfg, sd, ctx.device), SequencePacker(ctx.model_cfg)

@@ -9,9 +9,11 @@ is loaded and the flags given here override it; the envs and tasks are
 rebuilt from it, the checkpoint's weights restored into a model on the CUDA
 device (`--cpu` for the CPU: without either there is no fallback), and the
 control, text, caption and VQA tasks evaluated through the KV-cache
-Generator, printing `evaluation/<task>/<metric>: value` lines.  Control
-episodes run in lockstep (`--eval_parallel_episodes`, 0 = auto), serially
-with `--render`; the sampling knobs apply with `--eval_mode stochastic`.
+Generator, printing `evaluation/<task>/<metric>: value` lines.  `--use_ema`
+evaluates the checkpoint's EMA shadow (`ema.pt`) in place of its weights.
+Control episodes run in lockstep (`--eval_parallel_episodes`, 0 = auto),
+serially with `--render`; the sampling knobs apply with `--eval_mode
+stochastic`.
 """
 
 from __future__ import annotations
@@ -35,7 +37,6 @@ def _or(value, default):
 def refuse_unported(cli) -> None:
     """The JAX package's evaluation options the port does not run yet."""
     unported = {
-        "--use_ema": bool(getattr(cli, "use_ema", False)),
         "--mesh_model_axis > 1": (getattr(cli, "mesh_model_axis", None) or 1) > 1,
         "--serve_weight_dtype fp8": getattr(cli, "serve_weight_dtype", None) == "fp8",
         "--kv_cache_dtype int8": getattr(cli, "kv_cache_dtype", None) == "int8",
@@ -66,7 +67,7 @@ def run(cli) -> dict:
         tasks = [t for t in build_tasks(args) if isinstance(t, (ControlTask, TextTask))]
 
     ctx, tasks = build_context(args, tasks=tasks, ckpt_path=ckpt_path)
-    model, packer = load_state_for(ctx, ckpt_path)
+    model, packer = load_state_for(ctx, ckpt_path, use_ema=bool(getattr(cli, "use_ema", False)))
     gen = Generator(
         model, packer, seed=args.seed,
         temperature=_or(getattr(cli, "temperature", None), 1.0),
@@ -104,7 +105,8 @@ def parser() -> argparse.ArgumentParser:
     p.add_argument("--sample_top_p", type=float, default=None,
                    help="nucleus sampling mass (1.0=off)")
     p.add_argument("--use_ema", action="store_true", default=False,
-                   help="evaluate the EMA shadow params (not yet ported)")
+                   help="evaluate the EMA shadow params (a checkpoint of a run with "
+                        "--ema_decay > 0)")
     p.add_argument("--cpu", action="store_true", default=False,
                    help="run on the CPU (default: the CUDA device, which must be visible)")
     p.add_argument("--mesh_model_axis", type=int, default=None,

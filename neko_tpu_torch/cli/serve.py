@@ -21,7 +21,8 @@ no fallback.
 `--continuous_slots` > 0 serves plain generate requests through the
 continuous-batching engine (with token streaming); `--draft_model_path`
 (restored like `--model_path`) or `--self_draft_layers N` (the target's
-first N layers) loads a draft model for speculative requests.
+first N layers) loads a draft model for speculative requests.  `--use_ema`
+serves the checkpoints' EMA shadows (`ema.pt`) in place of their weights.
 """
 
 from __future__ import annotations
@@ -45,7 +46,6 @@ _ARCH_FLAGS = {
 def refuse_unported(cli) -> None:
     """The JAX package's serving options the port does not run yet."""
     unported = {
-        "--use_ema": bool(cli.use_ema),
         "--mesh_model_axis > 1": (cli.mesh_model_axis or 1) > 1,
         "--kv_cache_dtype int8": cli.kv_cache_dtype == "int8",
         "--serve_weight_dtype fp8": cli.serve_weight_dtype == "fp8",
@@ -76,16 +76,19 @@ def load_model(cli, model_path: str):
     from neko_tpu_torch.cli.build import build_context, load_state_for
     from neko_tpu_torch.cli.build import resolve_checkpoint_and_args
     from neko_tpu_torch.convert import load_model_dir
+    from neko_tpu_torch.utils.checkpoint import NO_EMA
 
     device = _device(cli)
     if _exported_model_dir(model_path):
+        if cli.use_ema:
+            raise ValueError(f"{NO_EMA}: {model_path} is an exported model.pt")
         return load_model_dir(model_path, device)[1], None
     ckpt_path, args = resolve_checkpoint_and_args(
         model_path, {"kv_cache_dtype": cli.kv_cache_dtype})
     # the device is this command's, never the training run's
     args.cpu, args.device = device.type == "cpu", device.type
     ctx, _ = build_context(args, tasks=[], ckpt_path=ckpt_path)
-    return load_state_for(ctx, ckpt_path)
+    return load_state_for(ctx, ckpt_path, use_ema=cli.use_ema)
 
 
 def build_generator(cli, model_path: Optional[str] = None):
@@ -95,6 +98,8 @@ def build_generator(cli, model_path: Optional[str] = None):
     from neko_tpu_torch.inference.generator import Generator
 
     if model_path is None and cli.random_init:
+        if cli.use_ema:
+            raise ValueError("--use_ema serves a checkpoint's EMA shadow; --random_init has none")
         arch = {k: getattr(cli, k) for k in _ARCH_FLAGS if getattr(cli, k) is not None}
         cfg = ModelConfig(**arch)
         model, packer = build_model(cfg, init_state_dict(cfg, cli.seed), _device(cli)), None
@@ -138,7 +143,8 @@ def parser() -> argparse.ArgumentParser:
     p.add_argument("--sample_top_k", type=int, default=None)
     p.add_argument("--sample_top_p", type=float, default=None)
     p.add_argument("--use_ema", action="store_true", default=False,
-                   help="serve the EMA shadow params (not yet ported)")
+                   help="serve the EMA shadow params (a checkpoint of a run with "
+                        "--ema_decay > 0; the draft's too)")
     p.add_argument("--continuous_slots", type=int, default=0,
                    help="> 0: continuous batching for plain generate requests over "
                         "this many cache slots (serving/continuous.py)")

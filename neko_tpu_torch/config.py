@@ -85,16 +85,19 @@ class TokenSpace:
 class ModelConfig:
     """Architecture hyperparameters; field for field neko_tpu's ModelConfig.
 
-    Fields for features the port does not run yet (GEGLU, LoRA, int8 KV
-    cache, remat, stochastic depth) are kept so configs round-trip; the
-    modules that would read them raise NotImplementedError instead."""
+    `kv_cache_dtype='int8'` is kept so configs round-trip; the port does not
+    run it yet (the transformer raises NotImplementedError)."""
 
     embed_dim: int = 768
     layers: int = 8
     heads: int = 24
     dropout: float = 0.1
-    activation_fn: str = "gelu"  # only 'gelu' (exact erf) is ported
+    # 'gelu' (exact erf), 'gelu_new' (tanh approximation) or 'geglu' (erf
+    # GELU times a `gate` Linear)
+    activation_fn: str = "gelu"
     observation_loss: bool = False
+    # train-mode drop path: layer i drops each residual branch per example
+    # at stochastic_depth * i / max(layers - 1, 1)
     stochastic_depth: float = 0.0
 
     # Token space.
@@ -132,8 +135,11 @@ class ModelConfig:
     # whole-head kernel wrapper (the kernel on the card).
     attention_impl: str = "auto"
 
-    kv_cache_dtype: str = "native"
+    kv_cache_dtype: str = "native"  # 'int8' is not ported
+    # recompute each block in the backward (train mode)
     remat: bool = False
+    # LoRA on c_attn: rank (0 = off), scale lora_alpha / lora_r, dropout on
+    # the rank-r activations in train mode
     lora_r: int = 0
     lora_alpha: int = 32
     lora_dropout: float = 0.1

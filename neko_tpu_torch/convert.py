@@ -17,6 +17,11 @@ Embedding rows and head columns stay padded 1:1 (`padded_embed_rows`,
 parallelism adds no parameter (the ring has none): `TrainContext(mesh=...)`
 takes the same converted state dict.
 
+LoRA's `lora_a` / `lora_b` and GEGLU's `gate` map by the same rule (lora_b's
+[r, 3D] SplitProj kernel is the [3D, r] Linear weight), and
+`jax_train_extras_to_torch` carries neko_tpu's EMA shadow and
+`optax.MultiSteps` accumulator.
+
 A served model lives in a directory holding `model.pt` (the state_dict) and
 `config.json` (the ModelConfig fields); `save_model_dir` / `load_model_dir`
 write and read it.
@@ -96,6 +101,18 @@ def torch_fused_adamw_state_to_jax(state: Dict, cfg: ModelConfig) -> Dict:
             "nu": state_dict_to_jax_params(state["nu"], cfg)}
 
 
+def jax_train_extras_to_torch(ema_params, opt_state, cfg: ModelConfig) -> Dict:
+    """neko_tpu's EMA shadow (`TrainState.ema_params`, or None) and, when
+    `opt_state` is an `optax.MultiStepsState` (gradient accumulation), its
+    accumulator and mini-step -> {"ema", "accum", "mini_step"} keyed and laid
+    out as the state dict: what the port's `TrainState.ema` / `accum` /
+    `mini_step` hold (None where the JAX state has none)."""
+    acc = getattr(opt_state, "acc_grads", None)
+    return {"ema": None if ema_params is None else jax_params_to_state_dict(ema_params, cfg),
+            "accum": None if acc is None else jax_params_to_state_dict(acc, cfg),
+            "mini_step": int(np.asarray(getattr(opt_state, "mini_step", 0)))}
+
+
 def state_dict_to_jax_params(sd: Dict[str, torch.Tensor], cfg: ModelConfig) -> Dict:
     """NekoModel state_dict -> flax params (nested dict of numpy arrays),
     the inverse of `jax_params_to_state_dict`."""
@@ -151,17 +168,22 @@ def _check_against_model(sd: Dict[str, torch.Tensor], cfg: ModelConfig) -> None:
 
 def init_state_dict(cfg: ModelConfig, seed: int = 0) -> Dict[str, torch.Tensor]:
     """Random weights as the JAX package initializes them: N(0, 0.02) for
-    kernels and embeddings, zero biases, unit norm scales; fp32 (the
-    param dtype), drawn from numpy's generator seeded with `seed`."""
+    kernels and embeddings, zero biases, unit norm scales; LoRA's `lora_a`
+    he-uniform (bound sqrt(6 / D)) and `lora_b` zero, so the adapter starts
+    as the identity; fp32 (the param dtype), drawn from numpy's generator
+    seeded with `seed`."""
     rng = np.random.default_rng(seed)
     sd = {}
     norms = ("ln_1", "ln_2", "ln_f", "gn2")
     for key, shape in _model_shapes(cfg).items():
         mod, leaf = key.rsplit(".", 2)[-2:]
-        if leaf == "bias":
+        if leaf == "bias" or mod == "lora_b":
             a = np.zeros(shape, np.float32)
         elif mod in norms:
             a = np.ones(shape, np.float32)
+        elif mod == "lora_a":
+            bound = np.sqrt(6.0 / shape[1])
+            a = rng.uniform(-bound, bound, tuple(shape)).astype(np.float32)
         else:
             a = rng.standard_normal(tuple(shape), dtype=np.float32) * np.float32(_INIT_STD)
         sd[key] = torch.from_numpy(a)

@@ -1,9 +1,12 @@
 """Episode storage (counterpart of neko_tpu/data/episodes.py): the
-trajectory store the control tasks sample from, in memory.
+trajectory store the control tasks sample from, in memory or in a
+Minari-layout HDF5 file.
 
-The JAX package also reads Minari-layout HDF5 files through h5py and Minari
-datasets through `minari`; the port imports neither, and
-`H5EpisodeDataset` raises until the HDF5 loader is ported.
+The JAX package reads HDF5 files through h5py; the port reads them with its
+own numpy reader (`data/hdf5.py`), which takes what h5py writes by default
+and names what it refuses (filters, enums, newer file formats).  Minari
+datasets need `minari`, which the port does not import.  The JAX package's
+`save_h5` is not ported: nothing on the port's paths writes a file.
 """
 
 from __future__ import annotations
@@ -110,7 +113,37 @@ class InMemoryEpisodeDataset(EpisodeDataset):
 
 
 class H5EpisodeDataset(EpisodeDataset):
+    """Minari-style HDF5 layout: groups `episode_{i}` with datasets
+    observations / actions / rewards (a group of per-component datasets
+    for Dict / Tuple spaces), plus attrs `total_episodes` and `env_id` when
+    present.  Episodes are read on demand; threads may read at once."""
+
     def __init__(self, path: str):
-        raise NotImplementedError(
-            f"HDF5 episode file {path!r}: the HDF5 loader needs h5py and is not yet "
-            "ported to neko_tpu_torch; use a neko-synth-* dataset")
+        from neko_tpu_torch.data.hdf5 import H5File
+
+        self._file = H5File(path)
+        attrs = self._file.attrs
+        if "total_episodes" in attrs:
+            self._n = int(attrs["total_episodes"])
+        else:
+            self._n = len([k for k in self._file.keys() if k.startswith("episode_")])
+        self.spec_env_id = attrs.get("env_id")
+
+    def __len__(self) -> int:
+        return self._n
+
+    def get_episode(self, idx: int) -> Episode:
+        from neko_tpu_torch.data.hdf5 import Group
+
+        g = self._file[f"episode_{idx}"]
+
+        def _load(node):  # Dict spaces: one dataset per component key
+            if isinstance(node, Group):
+                return {k: v.read() for k, v in node.items()}
+            return node.read()
+
+        return Episode(observations=_load(g["observations"]), actions=_load(g["actions"]),
+                       rewards=g["rewards"].read())
+
+    def close(self):
+        self._file.close()

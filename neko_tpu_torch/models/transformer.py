@@ -53,24 +53,47 @@ weight to `cfg.dtype`; each LayerNorm normalizes in the dtype of its weight
 the activation dtype, so there every cast is a no-op.  Attention logits and
 softmax are fp32.
 
-Not ported yet (configs asking for them raise NotImplementedError): the
-int8 cache, LoRA, GEGLU and the tanh GELU ('gelu_new');
-in train mode also stochastic depth and `remat`.
+The MLP's activation follows `cfg.activation_fn` as the JAX package
+orders it: 'gelu_new' is the tanh approximation, anything else the erf
+GELU, and 'geglu' multiplies that erf GELU by a `gate` Linear of width 4D.
+`cfg.lora_r > 0` adds LoRA to `c_attn` in every mode: `lora_a` (D -> r,
+no bias), dropout at `lora_dropout` from the step's generator (train mode
+only), `lora_b` (r -> 3D, no bias, zero at init, its three row blocks the
+JAX package's SplitProj outputs), q, k and v each getting (alpha / r) times
+their block before the attention kernel.
+
+Train mode with a generator also applies stochastic depth: each residual
+branch of layer i keeps or drops per example ([B, 1, 1]) at keep_p =
+1 - stochastic_depth * i / max(L - 1, 1), survivors scaled by 1 / keep_p.
+`cfg.remat` recomputes each block in the backward (`torch.utils.checkpoint`,
+non-reentrant).  The checkpoint restores only torch's global RNGs, and every
+draw here comes from the step's generator, so the block's forward runs on
+the live generator and the recompute on a clone set to the live one's state
+before the block: the same masks, the live generator ending the step where
+it would without remat.  The recompute also re-enters the mesh that was
+active in the forward (the backward may run on another thread, and
+`seq_shards()` reads the thread's mesh), so it routes to the same kernel.
+
+Not ported yet (configs asking for it raise NotImplementedError): the
+int8 cache.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Dict, List, Optional
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 from neko_tpu_torch.config import ModelConfig
 from neko_tpu_torch.ops import attention as attn_ops
 from neko_tpu_torch.ops.attention_kernel import mask_bounds_from_key_mask, masked_attention
 from neko_tpu_torch.ops.dropout import Dropout
-from neko_tpu_torch.ops.gelu import gelu_erf
+from neko_tpu_torch.ops.gelu import gelu_erf, gelu_tanh
+from neko_tpu_torch.parallel.mesh import active_mesh
 
 KVCache = Dict[str, torch.Tensor]  # {"key", "value": [B,H,S,hd], "mask": [B,S]}
 # the JAX package's finite fill of disallowed scores in its XLA attention
@@ -100,27 +123,15 @@ def extend_mask(mask, wpos, cidx):
 
 
 def _not_ported(cfg: ModelConfig) -> None:
-    unported = {
-        f"activation_fn={cfg.activation_fn!r}": cfg.activation_fn != "gelu",
-        "kv_cache_dtype='int8'": cfg.kv_cache_dtype != "native",
-        "lora_r > 0": cfg.lora_r > 0,
-    }
-    bad = [name for name, on in unported.items() if on]
-    if bad:
-        raise NotImplementedError(f"not yet ported to neko_tpu_torch: {bad}")
+    if cfg.kv_cache_dtype != "native":
+        raise NotImplementedError("not yet ported to neko_tpu_torch: kv_cache_dtype='int8'")
 
 
 def _train_not_ported(cfg: ModelConfig, S: int) -> None:
-    unported = {
-        "stochastic_depth > 0": cfg.stochastic_depth > 0,
-        "remat": cfg.remat,
-        f"training at S={S}, hd={cfg.head_dim} (the head-packed kernels take "
-        "hd <= 128)":
-            not attn_ops.packed_ok(S, cfg.head_dim, cfg.heads),
-    }
-    bad = [name for name, on in unported.items() if on]
-    if bad:
-        raise NotImplementedError(f"not yet ported to neko_tpu_torch: {bad}")
+    if not attn_ops.packed_ok(S, cfg.head_dim, cfg.heads):
+        raise NotImplementedError(
+            f"not yet ported to neko_tpu_torch: training at S={S}, hd={cfg.head_dim} "
+            "(the head-packed kernels take hd <= 128)")
     n = attn_ops.seq_shards()
     if n > 1 and S % n:
         raise ValueError(f"S={S} does not split over the mesh's {n} sequence shards")
@@ -147,6 +158,10 @@ class Attention(nn.Module):
         # one [3D, D] weight; q, k, v are its three output slices, as the
         # JAX package's SplitProj computes them
         self.c_attn = nn.Linear(D, 3 * D)
+        if cfg.lora_r > 0:
+            self.lora_a = nn.Linear(D, cfg.lora_r, bias=False)
+            self.lora_dropout = Dropout(cfg.lora_dropout)
+            self.lora_b = nn.Linear(cfg.lora_r, 3 * D, bias=False)
         self.c_proj = nn.Linear(D, D)
         self.resid_dropout = Dropout(cfg.dropout)
 
@@ -171,6 +186,10 @@ class Attention(nn.Module):
         dtype = cfg.activation_dtype
         B, S, D = x.shape
         qkv = linear(self.c_attn, x, dtype)
+        if cfg.lora_r > 0:
+            a = self.lora_dropout(linear(self.lora_a, x, dtype),
+                                  generator if mode == "train" else None)
+            qkv = qkv + linear(self.lora_b, a, dtype) * (cfg.lora_alpha / cfg.lora_r)
         if mode == "train":
             seed, rate = None, 0.0
             if generator is not None and cfg.dropout > 0.0:
@@ -220,25 +239,43 @@ class MLP(nn.Module):
         super().__init__()
         self.cfg = cfg
         self.c_fc = nn.Linear(cfg.embed_dim, 4 * cfg.embed_dim)
+        if cfg.activation_fn == "geglu":
+            self.gate = nn.Linear(cfg.embed_dim, 4 * cfg.embed_dim)
         self.c_proj = nn.Linear(4 * cfg.embed_dim, cfg.embed_dim)
         self.dropout = Dropout(cfg.dropout)
 
     def forward(self, x: torch.Tensor, generator=None) -> torch.Tensor:
         dtype = self.cfg.activation_dtype
-        h = gelu_erf(linear(self.c_fc, x, dtype))
+        act = self.cfg.activation_fn
+        h = linear(self.c_fc, x, dtype)
+        h = gelu_tanh(h) if act == "gelu_new" else gelu_erf(h)
+        if act == "geglu":
+            h = h * linear(self.gate, x, dtype)
         return self.dropout(linear(self.c_proj, h, dtype), generator)
 
 
 class Block(nn.Module):
     """One pre-LN transformer block."""
 
-    def __init__(self, cfg: ModelConfig):
+    def __init__(self, cfg: ModelConfig, sd_rate: float = 0.0):
         super().__init__()
         self.cfg = cfg
+        # this block's stochastic-depth drop rate (Transformer ramps it)
+        self.sd_rate = sd_rate
         self.ln_1 = nn.LayerNorm(cfg.embed_dim, eps=1e-5)
         self.attn = Attention(cfg)
         self.ln_2 = nn.LayerNorm(cfg.embed_dim, eps=1e-5)
         self.mlp = MLP(cfg)
+
+    def _residual(self, x, branch, generator):
+        """x + branch, with per-example drop path in train mode under
+        stochastic depth: the branch is zeroed for a random subset of the
+        rows, survivors scaled by 1 / keep_p."""
+        if generator is None or self.sd_rate <= 0.0:
+            return x + branch
+        keep_p = 1.0 - self.sd_rate
+        keep = drop_path_keep((branch.shape[0], 1, 1), keep_p, generator, branch.device)
+        return x + torch.where(keep, branch / keep_p, 0.0).to(branch.dtype)
 
     def forward(self, x, input_mask, *, mode, cache=None, decode_index=None,
                 decode_bounds=None, extend=None, generator=None):
@@ -248,9 +285,44 @@ class Block(nn.Module):
             decode_index=decode_index, decode_bounds=decode_bounds, extend=extend,
             generator=generator,
         )
-        x = x + a
-        x = x + self.mlp(layer_norm(self.ln_2, x, dtype), generator)
+        x = self._residual(x, a, generator)
+        x = self._residual(x, self.mlp(layer_norm(self.ln_2, x, dtype), generator), generator)
         return x, cache
+
+
+def drop_path_keep(shape, keep_p: float, generator: torch.Generator, device) -> torch.Tensor:
+    """The rows a residual branch keeps: bool `shape`, True with
+    probability `keep_p`, drawn from `generator`."""
+    return torch.rand(shape, generator=generator, device=device) < keep_p
+
+
+def replay_generator(generator: torch.Generator, state: torch.Tensor) -> torch.Generator:
+    """A generator on `generator`'s device set to `state`: what a block's
+    recompute under remat draws from."""
+    g = torch.Generator(device=generator.device)
+    g.set_state(state)
+    return g
+
+
+def remat_block(block: Block, x: torch.Tensor, input_mask, generator):
+    """`block(x)` in train mode, its activations recomputed in the backward
+    (non-reentrant `torch.utils.checkpoint`).  The forward draws from the
+    live `generator`; the recompute from a replay of its state before the
+    block, under the mesh that was active in the forward."""
+    state = None if generator is None else generator.get_state()
+    mesh = active_mesh()
+    calls = [0]
+
+    def run(h):
+        calls[0] += 1
+        if calls[0] == 1:
+            return block(h, input_mask, mode="train", generator=generator)[0]
+        g = None if state is None else replay_generator(generator, state)
+        with mesh or contextlib.nullcontext():
+            return block(h, input_mask, mode="train", generator=g)[0]
+
+    return torch.utils.checkpoint.checkpoint(run, x, use_reentrant=False,
+                                             preserve_rng_state=False)
 
 
 class Transformer(nn.Module):
@@ -260,7 +332,11 @@ class Transformer(nn.Module):
         super().__init__()
         _not_ported(cfg)
         self.cfg = cfg
-        self.h = nn.ModuleList(Block(cfg) for _ in range(cfg.layers))
+        # linear stochastic-depth ramp: layer 0 never drops, the last drops
+        # at the configured rate
+        self.h = nn.ModuleList(
+            Block(cfg, cfg.stochastic_depth * i / max(cfg.layers - 1, 1))
+            for i in range(cfg.layers))
         self.ln_f = nn.LayerNorm(cfg.embed_dim, eps=1e-5)
 
     def forward(
@@ -306,6 +382,10 @@ class Transformer(nn.Module):
                 c["mask"].copy_(caches[0]["mask"])
             extend = (wpos, allowed)
         out_caches = []
+        if mode == "train" and self.cfg.remat and torch.is_grad_enabled():
+            for block in self.h:
+                x = remat_block(block, x, input_mask, generator)
+            return layer_norm(self.ln_f, x, self.cfg.activation_dtype), None
         for i, block in enumerate(self.h):
             x, c = block(
                 x, input_mask, mode=mode,

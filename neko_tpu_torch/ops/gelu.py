@@ -1,5 +1,6 @@
 """Exact-formulation GELU x * Phi(x) via the Abramowitz & Stegun 7.1.26 erf
-(counterpart of neko_tpu/ops/gelu.py).
+(counterpart of neko_tpu/ops/gelu.py), and the tanh approximation
+('gelu_new', `gelu_tanh`) as jax's `nn.gelu(approximate=True)` computes it.
 
 The same rational approximation as the JAX package (|erf error| <= 1.5e-7),
 so both packages compute the same activation to fp32 rounding.  Under
@@ -13,6 +14,7 @@ JAX package's custom VJP (`_gelu_fwd` / `_gelu_bwd`) does.  Without a graph
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 _P = 0.3275911
 _A1 = 0.254829592
@@ -64,3 +66,8 @@ def gelu_erf(x: torch.Tensor) -> torch.Tensor:
     x32 = x.float()
     cdf = 0.5 * (1.0 + erf_approx(x32 * _INV_SQRT2))
     return (x32 * cdf).to(x.dtype)
+
+
+def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
+    """0.5 x (1 + tanh(sqrt(2 / pi) (x + 0.044715 x^3))), in x's dtype."""
+    return F.gelu(x, approximate="tanh")

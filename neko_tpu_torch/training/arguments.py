@@ -20,7 +20,7 @@ class TrainingArgs:
     # Device / precision (reference:20-27)
     cpu: bool = field(default=False, metadata={"help": "Run on the CPU instead of the CUDA device."})
     device: Literal["cpu", "cuda"] = field(default="cuda", metadata={"help": "cuda (the default) needs a visible CUDA device; cpu runs the kernels' plain versions."})
-    mixed_precision: Literal["no", "fp16", "bf16", "fp8"] = field(default="bf16", metadata={"help": "bf16 activations over fp32 params; 'no' computes in fp32 (fp16 and fp8 are not ported)."})
+    mixed_precision: Literal["no", "fp16", "bf16", "fp8"] = field(default="bf16", metadata={"help": "bf16 activations over fp32 params; 'no' computes in fp32; fp16 and fp8 compute in bf16, as the JAX package maps them."})
 
     # Input & tokenization (reference:29-44)
     sequence_length: int = field(default=1024, metadata={"aliases": ["-k"]})
@@ -137,8 +137,8 @@ class TrainingArgs:
     seed: int = field(default=42)
     prefetch_batches: int = field(default=2, metadata={"help": "Host batches packed (and copied to the device) ahead of the step by a background thread; 0 disables."})
     prefetch_workers: int = field(default=1, metadata={"help": "Prefetch threads; > 1 makes the batch order depend on scheduling, so --save_model refuses it."})
-    profile_dir: Optional[str] = field(default=None)
-    profile_steps: int = field(default=3)
+    profile_dir: Optional[str] = field(default=None, metadata={"help": "Trace train steps [2, 2 + profile_steps) with torch.profiler and write the Chrome trace into this directory."})
+    profile_steps: int = field(default=3, metadata={"help": "Number of steps to trace when --profile_dir is set."})
     multihost: bool = field(default=False)
     compilation_cache: Optional[str] = field(default=None)
     rng_impl: Literal["threefry", "rbg", "unsafe_rbg"] = field(default="unsafe_rbg")
@@ -158,18 +158,12 @@ def not_ported(args: TrainingArgs) -> List[str]:
     """The flags of `args` that select what neko_tpu_torch does not run yet."""
     unported = {
         "--lora": args.lora,
-        "--ema_decay > 0": args.ema_decay > 0.0,
-        "--gradient_accumulation_steps > 1": args.gradient_accumulation_steps > 1,
-        "--mesh_model_axis > 1": args.mesh_model_axis > 1,
-        "--mesh_pipe_axis > 1": args.mesh_pipe_axis > 1,
-        "--fsdp": args.fsdp,
-        "--multihost": args.multihost,
         "--pretrained_lm": args.pretrained_lm is not None,
         "--init_checkpoint <file>.pt": str(args.init_checkpoint or "").endswith(".pt"),
-        f"--mixed_precision {args.mixed_precision}": args.mixed_precision in ("fp16", "fp8"),
-        "--stochastic_depth > 0": args.stochastic_depth > 0.0,
-        "--remat": args.remat,
+        "--fsdp": args.fsdp,
+        "--multihost": args.multihost,
+        "--mesh_model_axis > 1": args.mesh_model_axis > 1,
+        "--mesh_pipe_axis > 1": args.mesh_pipe_axis > 1,
         "--kv_cache_dtype int8": args.kv_cache_dtype != "native",
-        "--profile_dir": args.profile_dir is not None,
     }
     return [name for name, on in unported.items() if on]

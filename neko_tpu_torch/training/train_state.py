@@ -33,12 +33,34 @@ runs as ring attention over n sequence shards that live on the one device
 (`ops/ring_kernel.py`); the context length must split over them.  The rest
 of the step is unchanged, and the same converted weights load.
 
-Not ported yet (NotImplementedError): `lora_only`, gradient accumulation,
-EMA, FSDP, and a mesh whose 'seq' axis lies over the ranks of
-a process group (the model, the batch and the optimizer are not yet sharded
-over processes; the ring itself is, `ring_kernel.ring_attention_bsd`).  The
-pipeline fields of `OptimizerConfig` are ignored, as the JAX package ignores
-them off a 'pipe' mesh.
+The JAX package's optimizer chain clip -> AdamW, wrapped by
+`optax.multi_transform` under `lora_only` and by `optax.MultiSteps` under
+gradient accumulation, with an EMA of the parameters beside it, is mirrored
+so:
+
+* `lora_only`: every parameter under `transformer` but `lora_a` / `lora_b`
+  is frozen (no gradient, no update, no weight decay, no moments); the
+  embeddings and heads train.  The global-norm clip counts the trained
+  parameters only, as the clip inside `multi_transform` does.
+* `gradient_accumulation_steps` k > 1: each call adds its gradients to a
+  running mean (optax's acc + (g - acc) / (n + 1)); every k-th call the
+  clip and AdamW run on the mean and the accumulator is cleared.
+  `TrainState.step` counts calls; the schedule reads the update count,
+  (step - mini_step) // k.  The accumulator and the mini-step are part of
+  the state (and of checkpoints).
+* `ema_decay` d > 0: after each update, ema = ema * d + p * (1 - d) in
+  fp32 over every parameter, once per update (not per call) under k > 1.
+  It runs after either optimizer route.
+
+The fused route (`use_fused_adamw`) keeps the JAX package's gate: not under
+`lora_only` or k > 1.
+
+Not ported yet (NotImplementedError): FSDP, and a mesh whose 'seq' axis
+lies over the ranks of a process group (the model, the batch and the
+optimizer are not yet sharded over processes; the ring itself is,
+`ring_kernel.ring_attention_bsd`).  The pipeline fields of
+`OptimizerConfig` are ignored, as the JAX package ignores them off a 'pipe'
+mesh.
 """
 
 from __future__ import annotations
@@ -81,22 +103,15 @@ class OptimizerConfig:
     fused_adamw: bool = False
 
 
-def _not_ported(cfg: OptimizerConfig, fsdp: bool) -> None:
-    unported = {
-        "lora_only": cfg.lora_only,
-        "gradient_accumulation_steps > 1": cfg.gradient_accumulation_steps > 1,
-        "ema_decay > 0": cfg.ema_decay > 0.0,
-        "fsdp": fsdp,
-    }
-    bad = [name for name, on in unported.items() if on]
-    if bad:
-        raise NotImplementedError(f"not yet ported to neko_tpu_torch training: {bad}")
+def _not_ported(fsdp: bool) -> None:
+    if fsdp:
+        raise NotImplementedError("not yet ported to neko_tpu_torch training: fsdp")
 
 
 def use_fused_adamw(cfg: OptimizerConfig) -> bool:
-    """The fused path covers the plain AdamW train step (the JAX package
-    keeps LoRA freezing and accumulation on the optax chain; here both raise
-    before it matters)."""
+    """The fused path covers the plain AdamW train step; LoRA freezing and
+    accumulation stay on the AdamW route, as the JAX package keeps them on
+    the optax chain."""
     return (
         cfg.fused_adamw
         and not cfg.lora_only
@@ -200,15 +215,28 @@ def step_seed(seed: int, step: int) -> int:
     return ((seed + 1) << 32) + step
 
 
+def lora_frozen(name: str) -> bool:
+    """Whether `lora_only` freezes the parameter `name`: everything under
+    the transformer but the LoRA adapters."""
+    parts = name.split(".")
+    return parts[0] == "transformer" and "lora_a" not in parts and "lora_b" not in parts
+
+
 @dataclasses.dataclass
 class TrainState:
-    step: int
+    step: int                 # train_step calls
     model: NekoModel          # fp32 parameters on the device
     optimizer: torch.optim.Optimizer  # AdamW, or FusedAdamW
     seed: int
     # True from the optimizer update until `step` counts it: the parameters
     # may then be ahead of `step` (what a checkpoint must not be taken from)
     updating: bool = False
+    # fp32 EMA of every parameter, keyed as the state dict (ema_decay > 0)
+    ema: Optional[Dict[str, torch.Tensor]] = None
+    # gradient accumulation (k > 1): the running mean of this window's
+    # gradients, keyed by trained parameter name, and the calls in it
+    accum: Optional[Dict[str, torch.Tensor]] = None
+    mini_step: int = 0
 
 
 class TrainContext:
@@ -223,7 +251,7 @@ class TrainContext:
         fsdp: bool = False,
         mesh: Optional[Mesh] = None,
     ):
-        _not_ported(opt_cfg, fsdp)
+        _not_ported(fsdp)
         if mesh is not None and mesh.seq_group is not None:
             raise NotImplementedError(
                 "a 'seq' axis over the ranks of a process group: the model and the "
@@ -252,7 +280,18 @@ class TrainContext:
         if state_dict is None:
             state_dict = init_state_dict(self.model_cfg, self.seed)
         model = build_model(self.model_cfg, state_dict, self.device)
-        opt, _ = make_optimizer(self.opt_cfg, list(model.parameters()))
+        trained = self.trained_parameters(model)
+        if self.opt_cfg.lora_only:
+            for n, p in model.named_parameters():
+                p.requires_grad_(n in trained)
+        opt, _ = make_optimizer(self.opt_cfg, list(trained.values()))
+        ema = None
+        if self.opt_cfg.ema_decay > 0.0:
+            ema = {n: p.detach().to(torch.float32, copy=True)
+                   for n, p in model.named_parameters()}
+        accum = None
+        if self.opt_cfg.gradient_accumulation_steps > 1:
+            accum = {n: torch.zeros_like(p, dtype=torch.float32) for n, p in trained.items()}
         step = 0
         if fused_adamw_state is not None:
             if not isinstance(opt, FusedAdamW):
@@ -262,7 +301,18 @@ class TrainContext:
                 fused_adamw_state["count"], [fused_adamw_state["mu"][n] for n in names],
                 [fused_adamw_state["nu"][n] for n in names]))
             step = opt.count
-        return TrainState(step=step, model=model, optimizer=opt, seed=self.seed)
+        return TrainState(step=step, model=model, optimizer=opt, seed=self.seed, ema=ema,
+                          accum=accum)
+
+    def trained_parameters(self, model: NekoModel) -> Dict[str, torch.nn.Parameter]:
+        """The parameters the optimizer updates, by name: all of them, or
+        under `lora_only` all but the frozen transformer weights."""
+        return {n: p for n, p in model.named_parameters()
+                if not (self.opt_cfg.lora_only and lora_frozen(n))}
+
+    def update_count(self, state: TrainState) -> int:
+        """Optimizer updates applied: the schedule's count."""
+        return (state.step - state.mini_step) // self.opt_cfg.gradient_accumulation_steps
 
     def fused_adamw_state(self, state: TrainState) -> Dict:
         """{"count", "mu", "nu"} of a `FusedAdamW` state, the moments keyed
@@ -287,27 +337,63 @@ class TrainContext:
         return loss.detach()
 
     def train_step(self, state: TrainState, batch: PackedBatch):
-        """One optimizer step in place.  -> (state, loss as a device scalar:
-        reading it is the caller's choice, the step never syncs)."""
+        """One call in place: an optimizer step, or under gradient
+        accumulation one mini-step (an update every k-th).  -> (state,
+        loss as a device scalar: reading it is the caller's choice, the
+        step never syncs)."""
         loss = self.loss_and_grads(state, batch)
         self.apply_gradients(state)
         return state, loss
 
+    @torch.no_grad()
+    def _accumulate(self, state: TrainState) -> bool:
+        """Fold this call's `.grad` into the running mean (optax.MultiSteps:
+        acc + (g - acc) / (n + 1); a parameter without a gradient adds a
+        zero one).  -> True when the window is full: `.grad` then holds the
+        mean and the accumulator is cleared."""
+        n = state.mini_step
+        emit = n == self.opt_cfg.gradient_accumulation_steps - 1
+        for name, p in self.trained_parameters(state.model).items():
+            acc = state.accum[name]
+            g = torch.zeros_like(acc) if p.grad is None else p.grad
+            acc.add_((g - acc) / (n + 1))
+            if emit:
+                p.grad = acc.clone()
+                acc.zero_()
+        state.mini_step = 0 if emit else n + 1
+        return emit
+
+    @torch.no_grad()
+    def _update_ema(self, state: TrainState) -> None:
+        """ema = ema * d + p * (1 - d) over the tree, in multi-tensor passes."""
+        d = self.opt_cfg.ema_decay
+        names, ps = zip(*((n, p.detach().float()) for n, p in state.model.named_parameters()))
+        emas = [state.ema[n] for n in names]
+        torch._foreach_mul_(emas, d)
+        torch._foreach_add_(emas, torch._foreach_mul(ps, 1.0 - d))
+
     def apply_gradients(self, state: TrainState) -> None:
-        """The optimizer half of a step: clip the gradients in `.grad`, set
-        the learning rate of this update, apply AdamW, count the step
-        (`FusedAdamW` clips inside its own pass)."""
+        """The optimizer half of a call: under accumulation fold the
+        gradients in and stop unless the window is full; else clip the
+        gradients in `.grad`, set the learning rate of this update, apply
+        AdamW (`FusedAdamW` clips inside its own pass), update the EMA;
+        count the call."""
         with torch.profiler.record_function("optimizer"):
+            if state.accum is not None and not self._accumulate(state):
+                state.step += 1
+                return
             fused = isinstance(state.optimizer, FusedAdamW)
             if not fused and not self.opt_cfg.disable_grad_clip:
                 grads = [p.grad for p in state.model.parameters() if p.grad is not None]
                 clip_by_global_norm_(grads, self.opt_cfg.grad_norm_clip)
             # the update count before this update
-            lr = self.schedule(state.optimizer.count if fused else state.step)
+            lr = self.schedule(state.optimizer.count if fused else self.update_count(state))
             for group in state.optimizer.param_groups:
                 group["lr"] = lr
             state.updating = True
             state.optimizer.step()
+            if state.ema is not None:
+                self._update_ema(state)
         state.step += 1
         state.updating = False
 
@@ -319,4 +405,5 @@ class TrainContext:
         return loss
 
     def current_lr(self, step: int) -> float:
+        """The learning rate at update count `step`."""
         return self.schedule(step)

@@ -26,8 +26,12 @@ checkpoints (counterpart of neko_tpu/training/trainer.py).
   training parameters, under the sampling lock (the tasks' RNGs are shared
   with the prefetch thread).
 
-The JAX package's multi-process batches and the profiler hook are not
-ported.
+* `--profile_dir DIR` traces steps [2, 2 + profile_steps) with
+  torch.profiler (CPU and, on the card, CUDA activities; each step a
+  "train_step" range) and writes the Chrome trace
+  `DIR/trace_p<process>.json`; the other steps run without the profiler.
+
+The JAX package's multi-process batches are not ported.
 """
 
 from __future__ import annotations
@@ -92,6 +96,7 @@ class Trainer:
         self.patch_budget = self._compute_patch_budget()
         self.target_budget = self._compute_target_budget()
         self._prefetcher = None
+        self._profiler = None
         self._generator = None
         # host state right after sampling the batch most recently consumed
         # by train_step: what a checkpoint persists (the live RNGs run ahead
@@ -188,6 +193,8 @@ class Trainer:
                         print(f"[neko-tpu-torch] emergency checkpoint failed: {e!r}")
             raise
         finally:
+            if self._profiler is not None:
+                self._stop_profile()
             if self._prefetcher is not None:
                 self._prefetcher.close()
                 self._prefetcher = None
@@ -321,18 +328,50 @@ class Trainer:
         return self._prefetcher.get()
 
     def train_step(self):
-        logs: Dict = {"training/learning_rate": self.ctx.current_lr(max(0, self.steps - 1))}
+        # the schedule advances per optimizer update: under gradient
+        # accumulation the update of every k-th call
+        accum = max(1, self.args.gradient_accumulation_steps)
+        logs: Dict = {"training/learning_rate": self.ctx.current_lr(
+            max(0, self.steps - 1) // accum)}
         t0 = time.time()
         batch, pending_snapshot = self._next_batch()
         # with prefetch this is the queue wait: ~0 while the host keeps up
         logs["time/sample_batch"] = time.time() - t0
         if self._prefetcher is not None:
             logs["time/host_pipeline"] = self._prefetcher.last_produce_time
-        self.state, loss = self.ctx.train_step(self.state, batch)
+        self._maybe_profile()
+        with torch.profiler.record_function("train_step"):
+            self.state, loss = self.ctx.train_step(self.state, batch)
         # commit after the step: an interrupt mid-step leaves the snapshot at
         # the previous batch, so resume replays the batch never applied
         self._host_snapshot = (self.state.step, pending_snapshot)
         return loss, logs
+
+    def _maybe_profile(self) -> None:
+        """Start the profiler before step 2, stop it before step
+        2 + profile_steps (`--profile_dir`)."""
+        if not self.args.profile_dir:
+            return
+        if self.steps == 2 and self._profiler is None:
+            from torch.profiler import ProfilerActivity, profile
+
+            acts = [ProfilerActivity.CPU]
+            if self.ctx.device.type == "cuda":
+                acts.append(ProfilerActivity.CUDA)
+            self._profiler = profile(activities=acts)
+            self._profiler.start()
+        elif self._profiler is not None and self.steps == 2 + self.args.profile_steps:
+            self._stop_profile()
+
+    def _stop_profile(self) -> None:
+        if self.ctx.device.type == "cuda":
+            torch.cuda.synchronize(self.ctx.device)
+        prof, self._profiler = self._profiler, None
+        prof.stop()
+        os.makedirs(self.args.profile_dir, exist_ok=True)
+        path = os.path.join(self.args.profile_dir, f"trace_p{self.proc_index}.json")
+        prof.export_chrome_trace(path)
+        print(f"[neko-tpu-torch] profiler trace written to {path}")
 
     def sample_control_batch(self, batch_size: int) -> List[Dict]:
         tasks = self.control_tasks

@@ -7,13 +7,20 @@ own format.
         config.json    the ModelConfig fields
         train_state.pt {"step", "seed", "optimizer": the optimizer's
                        state_dict: torch AdamW's, or FusedAdamW's moments
-                       and count}
+                       and count; under gradient accumulation also
+                       "mini_step" and "accum", the running mean of the
+                       window's gradients}
+        ema.pt         the EMA shadow (ema_decay > 0), keyed and laid out
+                       as model.pt, fp32
     <save_dir>/<exp_name>/host_state_<N>_p0.pkl  the host sampler state
                                                  (utils/host_state.py)
 
 `model.pt` + `config.json` are what `convert.load_model_dir` and
 `python -m neko_tpu_torch.cli.serve --model_path` read, so a checkpoint
-directory serves as it is.
+directory serves as it is; `--use_ema` reads `ema.pt` in its place.  A
+checkpoint without `ema.pt` or "accum" (one written before the port had
+EMA and accumulation, or by a run without them) restores into a state
+without them, as the JAX package's pre-EMA layout does.
 """
 
 from __future__ import annotations
@@ -30,6 +37,8 @@ from neko_tpu_torch.config import ModelConfig
 from neko_tpu_torch.convert import save_model_dir
 
 TRAIN_STATE = "train_state.pt"
+EMA = "ema.pt"
+NO_EMA = "checkpoint has no EMA shadow (train with --ema_decay > 0)"
 
 
 def save_args(exp_dir: str, args: Any) -> None:
@@ -61,9 +70,14 @@ def save_checkpoint(exp_dir: str, state, step: int, args: Any = None) -> str:
     tmp = path + ".tmp"
     model = state.model
     save_model_dir(tmp, model.cfg, model.state_dict())
-    torch.save({"step": int(state.step), "seed": int(state.seed),
-                "optimizer": state.optimizer.state_dict()},
-               os.path.join(tmp, TRAIN_STATE))
+    ts = {"step": int(state.step), "seed": int(state.seed),
+          "optimizer": state.optimizer.state_dict()}
+    if state.accum is not None:
+        ts["mini_step"] = int(state.mini_step)
+        ts["accum"] = {k: v.detach().cpu() for k, v in state.accum.items()}
+    torch.save(ts, os.path.join(tmp, TRAIN_STATE))
+    if state.ema is not None:
+        torch.save({k: v.detach().cpu() for k, v in state.ema.items()}, os.path.join(tmp, EMA))
     if os.path.isdir(path):  # a re-save of the same step replaces it
         for name in os.listdir(path):
             os.remove(os.path.join(path, name))
@@ -116,13 +130,32 @@ def load_params_only(path: str, cfg: ModelConfig, ignore=()) -> Dict[str, torch.
     return torch.load(os.path.join(path, "model.pt"), map_location="cpu", weights_only=True)
 
 
+def load_ema_params(path: str, cfg: ModelConfig, ignore=()) -> Dict[str, torch.Tensor]:
+    """The EMA shadow of a checkpoint, keyed as its weights (`--use_ema`);
+    raises the JAX package's error when it has none."""
+    _checked_config(path, cfg, ignore)
+    f = os.path.join(path, EMA)
+    if not os.path.isfile(f):
+        raise ValueError(f"{NO_EMA}: {path}")
+    return torch.load(f, map_location="cpu", weights_only=True)
+
+
 def load_checkpoint(path: str, ctx):
-    """The full TrainState of a checkpoint: weights, optimizer state and
-    step, on `ctx`'s device (`ctx` a TrainContext of the same model
-    configuration and optimizer route)."""
+    """The full TrainState of a checkpoint: weights, optimizer state, step,
+    and the EMA shadow and accumulator when `ctx` keeps them, on `ctx`'s
+    device (`ctx` a TrainContext of the same model configuration and
+    optimizer route).  A run with EMA cannot restore a checkpoint without
+    one; a checkpoint without an accumulator starts a fresh window."""
     sd = load_params_only(path, ctx.model_cfg)
     ts = torch.load(os.path.join(path, TRAIN_STATE), map_location="cpu", weights_only=True)
     state = ctx.init_state(sd)
     state.optimizer.load_state_dict(ts["optimizer"])
     state.step = int(ts["step"])
+    if state.ema is not None:
+        for k, v in load_ema_params(path, ctx.model_cfg).items():
+            state.ema[k].copy_(v)
+    if state.accum is not None and "accum" in ts:
+        for k, v in ts["accum"].items():
+            state.accum[k].copy_(v)
+        state.mini_step = int(ts["mini_step"])
     return state

@@ -13,9 +13,13 @@ heads, k = 64, fp32, 32x32 images; byte tokenizer):
 * a checkpoint written by the port's train CLI with those tasks evaluates;
 * the task-less (serving) restore sizes its patch pool from the
   checkpoint's image embedder, as neko_tpu's `serving_max_patches`;
-* the refusals (`--use_ema`, `--mesh_model_axis 2`, `--serve_weight_dtype
-  fp8`, `--kv_cache_dtype int8`) name themselves, and without `--cpu` the
-  CLI needs a CUDA device (SystemExit here).
+* `--use_ema` evaluates the EMA shadow of a run trained with
+  `--ema_decay` (another text loss than its weights', the loss of the
+  shadow loaded as weights), and raises neko_tpu's message on a checkpoint
+  without one;
+* the refusals (`--mesh_model_axis 2`, `--serve_weight_dtype fp8`,
+  `--kv_cache_dtype int8`) name themselves, and without `--cpu` the CLI
+  needs a CUDA device (SystemExit here).
 """
 
 import argparse
@@ -190,13 +194,41 @@ def test_serving_restore_sizes_the_pool_from_the_checkpoint(same_weights):
         load_state_for(ctx0, ckpt)
 
 
-@pytest.mark.parametrize("flag", [["--use_ema"], ["--mesh_model_axis", "2"],
-                                  ["--serve_weight_dtype", "fp8"],
+@pytest.mark.parametrize("flag", [["--mesh_model_axis", "2"], ["--serve_weight_dtype", "fp8"],
                                   ["--kv_cache_dtype", "int8"]])
 def test_refusals_name_themselves(same_weights, flag):
     _, exp = same_weights
     with pytest.raises(NotImplementedError, match=flag[0]):
         cli_evaluate.main(["--model_path", exp, "--cpu"] + flag)
+
+
+def test_use_ema_evaluates_the_shadow(tmp_path, same_weights):
+    import shutil
+
+    from neko_tpu_torch.utils.checkpoint import EMA
+
+    trainer = cli_train.main([
+        "--cpu", "--text_datasets", "synthetic", "--text_datasets_paths", "synthetic",
+        "--text_prop", "1.0", "--embed_dim", "32", "--layers", "1", "--heads", "2", "-k", "64",
+        "--batch_size", "4", "--training_steps", "2", "--log_eval_freq", "2",
+        "--eval_text_num_examples", "0", "--mixed_precision", "no", "--learning_rate", "1e-2",
+        "--ema_decay", "0.5", "--save_model", "--save_mode", "checkpoint",
+        "--save_dir", str(tmp_path / "runs")])
+    ckpt = os.path.join(trainer.exp_dir, "checkpoint_2")
+    flags = ["--model_path", ckpt, "--cpu", "--eval_text_num_examples", "3"]
+    plain = cli_evaluate.main(flags)["evaluation/text/loss"]
+    ema = cli_evaluate.main(flags + ["--use_ema"])["evaluation/text/loss"]
+    assert np.isfinite(ema) and ema != plain
+    # the shadow as the weights of a copy of the checkpoint evaluates alike
+    copy = str(tmp_path / "runs" / "copy" / "checkpoint_2")
+    shutil.copytree(ckpt, copy)
+    shutil.copy(os.path.join(trainer.exp_dir, "args.json"), os.path.dirname(copy))
+    shutil.copy(os.path.join(copy, EMA), os.path.join(copy, "model.pt"))
+    flags[1] = copy
+    assert cli_evaluate.main(flags)["evaluation/text/loss"] == ema
+    _, exp = same_weights
+    with pytest.raises(ValueError, match="checkpoint has no EMA shadow"):
+        cli_evaluate.main(["--model_path", exp, "--cpu", "--use_ema"])
 
 
 def test_default_device_is_the_card(same_weights):

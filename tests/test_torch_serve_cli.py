@@ -10,6 +10,9 @@ env, so the task-less restore sizes the patch pool from the checkpoint):
 * `--continuous_slots`, `--draft_model_path` (restored like --model_path)
   and `--self_draft_layers` serve: engine and speculative replies equal
   the coalescing greedy ones; the two draft flags exclude each other;
+* `--use_ema` serves the EMA shadow of a run trained with `--ema_decay`
+  (the target's and the draft's), and raises neko_tpu's message on a
+  checkpoint without one;
 * each refused flag names itself; without `--cpu` the CLI needs a card.
 """
 
@@ -145,12 +148,32 @@ def test_the_draft_flags_exclude_each_other(exp):
                 "--draft_model_path", exp])
 
 
-@pytest.mark.parametrize("flag", [["--use_ema"], ["--mesh_model_axis", "2"],
-                                  ["--kv_cache_dtype", "int8"], ["--serve_weight_dtype", "fp8"],
+@pytest.mark.parametrize("flag", [["--mesh_model_axis", "2"], ["--kv_cache_dtype", "int8"],
+                                  ["--serve_weight_dtype", "fp8"],
                                   ["--compilation_cache", "/nonexistent"]])
 def test_refusals_name_themselves(exp, flag):
     with pytest.raises(NotImplementedError, match=flag[0]):
         _serve(["--model_path", exp, "--cpu"] + flag)
+
+
+def test_use_ema_serves_the_shadow(exp, tmp_path):
+    from neko_tpu_torch.utils.checkpoint import EMA
+
+    ema_exp = cli_train.main(TRAIN + ["--save_dir", str(tmp_path), "--ema_decay", "0.5",
+                                      "--learning_rate", "1e-2"]).exp_dir
+    ckpt = os.path.join(ema_exp, "checkpoint_2")
+    shadow = torch.load(os.path.join(ckpt, EMA), weights_only=True)
+    weights = torch.load(os.path.join(ckpt, "model.pt"), weights_only=True)
+    with _serve(["--model_path", ema_exp, "--cpu", "--use_ema",
+                 "--draft_model_path", ema_exp]) as server:
+        for gen in (server.gen, server.draft):
+            served = gen.model.state_dict()
+            assert all(torch.equal(served[k], v) for k, v in shadow.items())
+        assert not all(torch.equal(shadow[k], v) for k, v in weights.items())
+        code, body = _post(server, {"text": [5, 6, 7, 8], "max_new_tokens": 4})
+        assert code == 200 and len(body["tokens"]) == 4
+    with pytest.raises(ValueError, match="checkpoint has no EMA shadow"):
+        _serve(["--model_path", exp, "--cpu", "--use_ema"])
 
 
 def test_default_device_is_the_card(exp):

@@ -19,6 +19,12 @@ tiny width (32d, 1 layer, 2 heads, k = 64, batch 8, fp32; byte tokenizer):
 * evaluation leaves the training parameters fp32 and unchanged (bf16
   activations: it runs from its own bf16 copy);
 * the package bench's end_to_end keys, the CLI's refusals;
+* the CLI with every flag this port added to the train path on at once
+  (the committed HDF5 fixtures in both name forms, fp16 as bf16,
+  stochastic depth, remat, GEGLU, EMA, gradient accumulation k = 2,
+  `--profile_dir`): a stop in the middle of an accumulation window resumes
+  with the losses, the EMA and the weights of the uninterrupted run bit
+  for bit; `--profile_dir` traces exactly `profile_steps` steps;
 * with caption and VQA rows (32x32 JPEG data, 4 patches an image) in the
   mix: the packed arrays and budgets equal neko_tpu's Trainer's, four steps
   from its weights give its losses (both sides' train-mode patch positions
@@ -361,13 +367,12 @@ def test_evaluation_keeps_training_parameters_fp32_and_unchanged(tmp_path):
 
 
 def test_cli_refuses_what_is_not_ported(tmp_path):
-    for flag in (["--lora", "--pretrained_lm", "gpt2"], ["--ema_decay", "0.99"],
-                 ["--gradient_accumulation_steps", "2"], ["--mesh_model_axis", "2"],
-                 ["--mesh_pipe_axis", "2"], ["--multihost"], ["--mixed_precision", "fp16"],
-                 ["--init_checkpoint", "ref.pt"], ["--stochastic_depth", "0.1"], ["--remat"]):
+    for flag in (["--lora", "--pretrained_lm", "gpt2"], ["--pretrained_lm", "gpt2"],
+                 ["--mesh_model_axis", "2"], ["--mesh_pipe_axis", "2"], ["--multihost"],
+                 ["--fsdp"], ["--init_checkpoint", "ref.pt"], ["--kv_cache_dtype", "int8"]):
         argv = ["--cpu", "--control_datasets", CONTROL[0], "--training_steps", "1",
                 "--log_eval_freq", "1", "--save_dir", str(tmp_path)] + flag
-        with pytest.raises(NotImplementedError):
+        with pytest.raises(NotImplementedError, match=flag[0]):
             cli_train.main(argv)
     with pytest.raises(NotImplementedError, match="Minari"):
         cli_train.main(["--cpu", "--control_datasets", "CartPole-v1", "--training_steps", "1",
@@ -378,6 +383,71 @@ def test_cli_refuses_what_is_not_ported(tmp_path):
                             "--log_eval_freq", "1"])
     with pytest.raises(ValueError):  # the reference's startup checks
         cli_train.main(["--cpu", "--training_steps", "1", "--log_eval_freq", "1"])
+
+
+FIXTURES = os.path.join(os.path.dirname(__file__), "torch_fixtures")
+NEW_FLAGS = dict(
+    control_datasets=[f"h5:{FIXTURES}/neko-synth-continuous-v0.h5:neko-synth-continuous-v0",
+                      f"{FIXTURES}/neko-synth-dict-v0.h5"],
+    layers=2, mixed_precision="fp16", stochastic_depth=0.1, remat=True, activation_fn="geglu",
+    ema_decay=0.9, gradient_accumulation_steps=2, dropout=0.1, training_steps=5,
+    log_eval_freq=3, save_model=True, save_mode="checkpoint", profile_steps=2)
+
+
+def _trace_steps(trace_dir):
+    with open(os.path.join(trace_dir, "trace_p0.json")) as f:
+        events = json.load(f)["traceEvents"]
+    return sum(e.get("name") == "train_step" and e.get("cat") == "user_annotation"
+               for e in events)
+
+
+def test_every_new_flag_trains_and_resumes_mid_accumulation(tmp_path):
+    from neko_tpu_torch.utils.checkpoint import EMA
+
+    trace = str(tmp_path / "trace")
+    recorded = []
+    orig = Trainer.train
+
+    def train(self):
+        recorded.append(record(self)[0])
+        return orig(self)
+
+    Trainer.train = train
+    try:
+        tr = cli_train.run(make_args(tmp_path, **NEW_FLAGS, profile_dir=trace), exp_name="a")
+    finally:
+        Trainer.train = orig
+    (losses_a,) = recorded
+    cfg = tr.ctx.model_cfg
+    assert (cfg.dtype, cfg.remat, cfg.activation_fn, cfg.stochastic_depth) == (
+        "bfloat16", True, "geglu", 0.1)
+    assert len(losses_a) == 5 and np.isfinite(losses_a).all()
+    assert tr.state.step == 5 and tr.state.mini_step == 1 and tr.ctx.update_count(tr.state) == 2
+    assert _trace_steps(trace) == 2
+    mid = os.path.join(tr.exp_dir, "checkpoint_3")  # inside the second window
+    assert torch.load(os.path.join(mid, "train_state.pt"), weights_only=True)["mini_step"] == 1
+    resumed, losses, _ = _resume(tmp_path, "b", mid, **NEW_FLAGS)
+    assert losses == losses_a[3:5]  # bit for bit
+    assert resumed.state.mini_step == 1 and resumed.ctx.update_count(resumed.state) == 2
+    end_a = os.path.join(tr.exp_dir, "checkpoint_5")
+    end_b = os.path.join(resumed.exp_dir, "checkpoint_5")
+    for name in ("model.pt", EMA):
+        a = torch.load(os.path.join(end_a, name), weights_only=True)
+        b = torch.load(os.path.join(end_b, name), weights_only=True)
+        assert all(torch.equal(a[k], b[k]) for k in a), name
+
+
+def test_profile_dir_traces_exactly_profile_steps(tmp_path):
+    trace = str(tmp_path / "trace")
+    tr = make_trainer(tmp_path, training_steps=6, log_eval_freq=6, profile_dir=trace,
+                      profile_steps=3)
+    tr.train()
+    assert _trace_steps(trace) == 3 and tr._profiler is None
+    # a run that ends inside the window still writes its trace
+    short = str(tmp_path / "short")
+    make_trainer(tmp_path, "short", training_steps=3, log_eval_freq=3, profile_dir=short,
+                 profile_steps=3).train()
+    assert _trace_steps(short) == 2
 
 
 def test_args_parse_like_jax_and_round_trip_through_args_json(tmp_path):
