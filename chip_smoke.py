@@ -204,7 +204,32 @@
    within LOGIT_TOL, teacher-forced decode logits within DECODE_LOGIT_TOL,
    with planted faults outside (`train_features_launches`).
 
-Every train run (phases 6, 8, 10, 13, 14, 15, 17) takes its loss forward through #15:
+18. Training over processes (PARALLEL_*): two ranks on the one card over
+   gloo (NCCL refuses two ranks on one card; gloo carries the collectives
+   through host memory).  First the kernels on the shapes a rank gives them,
+   against their plain versions: #3 / #4 at (data=2)'s 8 rows x 24 heads and
+   (model=2)'s 16 rows x 12 heads (timed at the latter), #15 on each rank's
+   block of the vocabulary (26,240 columns, 26,240 and 26,065 valid) with
+   targets of both blocks, #16 over a rank's shards of the flagship tree
+   under (data=2, fsdp), bit for bit.  Then tools/check_torch_parallel_ranks.py
+   (one spawn of 2 ranks) at the flagship width on the root bench's 16 rows,
+   3 steps, dropout 0: (data=2), (data=2, fsdp, fused_adamw) and (model=2)
+   against the same steps in one process on the whole batch (losses,
+   gathered parameters, the clip's global norm: PARALLEL_LOSS_TOL,
+   PARALLEL_PARAM_TOL, PARALLEL_NORM_TOL), with the planted "mean of local
+   means", "FSDP clip norm from the local shard", "row-parallel all-reduce
+   dropped" and "out-of-shard targets clipped" outside them; (model=2) at
+   dropout 0.1 keeps the model peers' replicated leaves bit-identical, the
+   planted "model peers draw different dropout masks" does not.  Each rank's
+   launches: #3 = #4 = layers x steps, #15 = its loss chunks x steps, #16 =
+   steps under fused_adamw; step ms, collective ms / bytes / calls per step,
+   peak and resting memory per rank.  Then `python -m
+   neko_tpu_torch.cli.train --multihost --mesh_model_axis 2` in 2 spawned
+   processes given torchrun's environment: 10 steps, an evaluation on rank
+   0 (#1, #14) and a checkpoint, which one process restores to the
+   parameters the ranks gathered, bit for bit (`parallel_launches`).
+
+Every train run (phases 6, 8, 10, 13, 14, 15, 17, 18) takes its loss forward through #15:
 its launches must be loss chunks x steps (2 a flagship and `long` step, 3 a
 `long4k` step), and the plain side of each kernels-vs-plain step check runs
 the plain loss forward too.
@@ -214,8 +239,8 @@ Prints a JSON line of the kernels that only the checks launch
 runs ({"kernels": ...}; launches counted in the serving and train runs
 alone, phase 14's among them (`train_cli_launches`), phase 15's training
 (`mix_train_launches`) and evaluation (`eval_cli_launches`), phase 16's
-(`serving_engine_launches`), phase 17's (`train_features_launches`), each
-with its bound
+(`serving_engine_launches`), phase 17's (`train_features_launches`), phase
+18's over both ranks (`parallel_launches`), each with its bound
 from this run's shapes), then, as the last line,
 {"ok": true, "device": {...}}.  Any failed phase exits non-zero.  The
 attention entries and the loss head carry `tflops`: the bound's FLOPs over
@@ -606,6 +631,55 @@ LORA_PREFILL_FAULTS = LOGIT_FAULTS
 LORA_DECODE_FAULTS = EVAL_DECODE_FAULTS
 # H100 SXM published peaks (NVIDIA data sheet): dense bf16 tensor cores, HBM3
 PEAK_BF16_FLOPS, PEAK_HBM_BYTES = 989e12, 3.35e12
+# phase 18: training over processes, two ranks on the one card over gloo
+# (NCCL refuses two ranks on one card; gloo carries the collectives of CUDA
+# tensors through host memory), through
+# tools/check_torch_parallel_ranks.py: the flagship width, the root bench's
+# 16 rows (the two data halves hold different numbers of loss targets), bf16
+# over fp32, 3 steps at lr 1e-3 from the first step, dropout 0, against the
+# same steps in one process on the whole batch.  The limits, by the axis a
+# configuration splits: the losses' largest relative difference, the
+# relative L2 error of the whole tree's update (gathered from the ranks),
+# the clip's global gradient norms' largest relative difference (Adam's
+# update does not move with a gradient scale that is steady over the
+# steps, so a wrong clip norm shows first in the norm itself).  Each lies
+# between its sound reading and the faults it must see (my chip runs, PR
+# 13, NVIDIA H100 80GB HBM3, 700.00 W; the readings repeat to the last
+# digit run to run).  Sound: (data=2) / (data=2, fsdp, fused_adamw) loss
+# 4.282e-6 / 5.067e-5, update 8.327e-3 / 8.346e-3, norm 5.497e-4 /
+# 4.794e-4; (model=2) 6.466e-4, 3.755e-2, 5.778e-3.  The ranks' gradients
+# differ from one process's by 2.3e-3 (data=2) and 6.4e-3 (model=2)
+# relative at the first step (per-leaf median), bf16 rounding in other
+# orders and shapes (each rank's weight gradient is rounded to bf16 before
+# the fp32 sum over 'data'; other GEMM shapes sum in other orders); Adam
+# turns the near-zero ones into sign flips.  Faults: "mean of local means"
+# 9.977e-4, 6.329e-2, 3.801e-3; "FSDP clip norm from the local shard"
+# 8.217e-4, 1.362e-2, 2.508e-1; "row-parallel all-reduce dropped" 7.114e-2,
+# 1.171, 1.975; "out-of-shard targets clipped" 0.9508, 1.117, 32.38.
+PARALLEL_STEPS = 3
+PARALLEL_RUNS = (
+    dict(data=2), dict(data=2, fault="mean of local means"),
+    dict(data=2, fsdp=True, fused_adamw=True),
+    dict(data=2, fsdp=True, fused_adamw=True, fault="FSDP clip norm from the local shard"),
+    dict(model=2), dict(model=2, fault="row-parallel all-reduce dropped"),
+    dict(model=2, fault="out-of-shard targets clipped"),
+    dict(model=2, dropout=0.1),
+    dict(model=2, dropout=0.1, fault="model peers draw different dropout masks"))
+PARALLEL_LOSS_TOL = {"data": 2.5e-4, "model": 5e-3}
+PARALLEL_PARAM_TOL = {"data": 2.5e-2, "model": 0.2}
+PARALLEL_NORM_TOL = {"data": 1.5e-3, "model": 5e-2}
+# dropout 0.1 under model=2: the peers' own gradients of a leaf replicated
+# over 'model', before the sync averages them, differ by the order of sums
+# alone (relative to the leaf's largest gradient; sound 1.84e-7 / 2.00e-7),
+# the planted "model peers draw different dropout masks" by 0.485
+PARALLEL_PEER_TOL = 1e-4
+# the per-rank kernel shapes: #3 / #4 at (data=2) and at (model=2); #15 on
+# each rank's block of the vocabulary (52,480 / 2 columns, 52,305 valid)
+PARALLEL_ATTN = ((8, 24), (16, 12))
+# the train CLI over 2 ranks with --mesh_model_axis 2: 10 steps, an
+# evaluation and a checkpoint at step 10, restored in one process
+PARALLEL_CLI = [a for a in TRAIN_CLI] + ["--training_steps", "10", "--log_eval_freq", "10",
+                                         "--mesh_model_axis", "2"]
 
 
 def _require(ok, what) -> None:
@@ -1192,6 +1266,67 @@ def train_attention_through(fn):
         attn_ops.attention_qkv = wrapper
 
 
+def _attention_train_times(qkv, dout, seed, ks, H, card, mask=False) -> dict:
+    """Times of #3 / #4 (and with `mask` #5) on the head-packed qkv [B, S,
+    3 * H * hd] at rate RATE, in turns (plain, kernel, kernel, plain), on
+    full rows, as in the flagship batch (its rows hold 988 to 1023 tokens),
+    with SDPA's as the library yardstick.  -> {part: (ms, plain_ms,
+    library_ms, bound_ms, bound_by, flops)}."""
+    import torch
+
+    from neko_tpu_torch.ops import attention_kernel as whk
+
+    B, S, D = qkv.shape[0], qkv.shape[1], qkv.shape[2] // 3
+    hd, dev = D // H, qkv.device
+    start = torch.zeros(B, dtype=torch.int32, device=dev)
+    end = torch.full((B,), S, dtype=torch.int32, device=dev)
+    q4, k4, v4 = whk._qkv_views("qkv", (qkv,), H)
+    out = torch.empty(B, S, D, dtype=qkv.dtype, device=dev)
+    o4, do4 = whk._heads4(out, H), whk._heads4(dout, H)
+    _, lse = whk.whole_head_attention_fwd(q4, k4, v4, start, end, seed, None, RATE,
+                                          out=o4, need_lse=True)
+    dqkv = torch.empty_like(qkv)
+    dq4, dk4, dv4 = whk._qkv_views("qkv", (dqkv,), H)
+    xp = qkv.clone().requires_grad_()
+    ref = whk.whole_head_attention_reference(*whk._qkv_views("qkv", (xp,), H), start, end,
+                                             None, ks)
+
+    def turns(kernel, plain, iters):
+        p1, k1, k2, p2 = (_time_ms(f, iters) for f in (plain, kernel, kernel, plain))
+        return (k1 + k2) / 2, (p1 + p2) / 2, (k1, k2, p1, p2)
+
+    timed = {
+        "fwd": turns(lambda: whk.whole_head_attention_fwd(
+                         q4, k4, v4, start, end, seed, None, RATE, out=o4, need_lse=True),
+                     lambda: whk.whole_head_attention_reference(q4, k4, v4, start, end,
+                                                                None, ks), 10),
+        "bwd": turns(lambda: whk.whole_head_attention_bwd(
+                         q4, k4, v4, o4, do4, lse, start, end, seed, None, RATE,
+                         dq=dq4, dk=dk4, dv=dv4),
+                     lambda: torch.autograd.grad(ref, (xp,), do4, retain_graph=True), 10),
+    }
+    if mask:
+        timed["mask"] = turns(lambda: whk.dropout_keep_scale(seed, B, H, S, RATE),
+                              lambda: whk.dropout_keep_scale_reference(seed, B, H, S, RATE), 3)
+    lib = dict(zip(("fwd", "bwd"), _sdpa_ms(q4, k4, v4, do4, RATE, 10)))
+    pairs = _pairs(start, end, S, H)
+    bounds = _attention_bounds(pairs, B, H, S, hd, 2)
+    bounds = {"fwd": bounds["whole_fwd"], "bwd": bounds["whole_bwd"],
+              "mask": _bound(0, B * H * S * S * 4)}
+    flops = {"fwd": 4 * hd * pairs, "bwd": 10 * hd * pairs, "mask": 0}
+    res = {}
+    for part, (ms, plain_ms, each) in timed.items():
+        print(f"train {part} B={B} H={H} S={S} hd={hd} bf16 rate {RATE}, full rows: kernel "
+              f"{ms:.4f} ms, "
+              f"plain {plain_ms:.4f} ms (in turns k {each[0]:.4f}/{each[1]:.4f}, "
+              f"p {each[2]:.4f}/{each[3]:.4f}), library "
+              f"{'-' if part not in lib else f'{lib[part]:.4f} ms'}, bound "
+              f"{bounds[part][0]:.4f} ms ({bounds[part][1]}), {_tflops(flops[part], ms):.1f} "
+              f"TFLOP/s ({card})")
+        res[part] = (ms, plain_ms, lib.get(part), *bounds[part], flops[part])
+    return res
+
+
 def train_kernels_vs_plain(card: str, dev="cuda") -> dict:
     """Phase 5.  -> errors and times of the three training kernels."""
     import torch
@@ -1339,52 +1474,7 @@ def train_kernels_vs_plain(card: str, dev="cuda") -> dict:
             res["bwd_err"] = max([res["bwd_err"]] + [e for e, _ in errs[2:]])
         del q4, k4, v4, do4, o, grads, ksx, r, want, m_w, l_w, lse_w
 
-    # times at the train shape, rate 0.1, in turns: plain, kernel, kernel, plain; on
-    # full rows, as in the flagship batch (its rows hold 988 to 1023 tokens)
-    start = torch.zeros(B, dtype=torch.int32, device=dev)
-    end = torch.full((B,), S, dtype=torch.int32, device=dev)
-    q4, k4, v4 = whk._qkv_views("qkv", (qkv,), H)
-    out = torch.empty(B, S, D, dtype=qkv.dtype, device=dev)
-    o4, do4 = whk._heads4(out, H), whk._heads4(dout, H)
-    _, lse = whk.whole_head_attention_fwd(q4, k4, v4, start, end, seed, None, RATE,
-                                          out=o4, need_lse=True)
-    dqkv = torch.empty_like(qkv)
-    dq4, dk4, dv4 = whk._qkv_views("qkv", (dqkv,), H)
-    xp = qkv.clone().requires_grad_()
-    ref = whk.whole_head_attention_reference(*whk._qkv_views("qkv", (xp,), H), start, end,
-                                             None, ks)
-
-    def turns(kernel, plain, iters):
-        p1, k1, k2, p2 = (_time_ms(f, iters) for f in (plain, kernel, kernel, plain))
-        return (k1 + k2) / 2, (p1 + p2) / 2, (k1, k2, p1, p2)
-
-    timed = {
-        "fwd": turns(lambda: whk.whole_head_attention_fwd(
-                         q4, k4, v4, start, end, seed, None, RATE, out=o4, need_lse=True),
-                     lambda: whk.whole_head_attention_reference(q4, k4, v4, start, end,
-                                                                None, ks), 10),
-        "bwd": turns(lambda: whk.whole_head_attention_bwd(
-                         q4, k4, v4, o4, do4, lse, start, end, seed, None, RATE,
-                         dq=dq4, dk=dk4, dv=dv4),
-                     lambda: torch.autograd.grad(ref, (xp,), do4, retain_graph=True), 10),
-        "mask": turns(lambda: whk.dropout_keep_scale(seed, B, H, S, RATE),
-                      lambda: whk.dropout_keep_scale_reference(seed, B, H, S, RATE), 3),
-    }
-    lib = dict(zip(("fwd", "bwd"), _sdpa_ms(q4, k4, v4, do4, RATE, 10)))
-    pairs = _pairs(start, end, S, H)
-    bounds = _attention_bounds(pairs, B, H, S, hd, 2)
-    bounds = {"fwd": bounds["whole_fwd"], "bwd": bounds["whole_bwd"],
-              "mask": _bound(0, B * H * S * S * 4)}
-    flops = {"fwd": 4 * hd * pairs, "bwd": 10 * hd * pairs, "mask": 0}
-    for part, (ms, plain_ms, each) in timed.items():
-        print(f"train {part} B={B} H={H} S={S} hd={hd} bf16 rate {RATE}, full rows: kernel "
-              f"{ms:.4f} ms, "
-              f"plain {plain_ms:.4f} ms (in turns k {each[0]:.4f}/{each[1]:.4f}, "
-              f"p {each[2]:.4f}/{each[3]:.4f}), library "
-              f"{'-' if part not in lib else f'{lib[part]:.4f} ms'}, bound "
-              f"{bounds[part][0]:.4f} ms ({bounds[part][1]}), {_tflops(flops[part], ms):.1f} "
-              f"TFLOP/s ({card})")
-        res[part] = (ms, plain_ms, lib.get(part), *bounds[part], flops[part])
+    res.update(_attention_train_times(qkv, dout, seed, ks, H, card, mask=True))
     return res
 
 
@@ -2292,7 +2382,7 @@ def seq_parallel_train(card: str, dev="cuda") -> dict:
     opt = OptimizerConfig(learning_rate=1e-3, init_lr=1e-3, warmup_steps=1,
                           disable_cosine_decay=True)
     ctx2 = TrainContext(cfg, opt, device=dev, seed=SEED,
-                        mesh=create_mesh(data=1, seq=SEQ, seq_group=None))
+                        mesh=create_mesh(data=1, seq=SEQ))
     state2 = ctx2.init_state()
     _, curve = bench.time_steps(ctx2, state2, batch, 20)
     print(f"k={cfg.context_len} over seq={SEQ}: 20 steps on one batch at lr 1e-3: loss "
@@ -4321,6 +4411,300 @@ def train_features(card: str, workdir, dev="cuda", width=None) -> dict:
             **cli, **remat, **fused, **lora}
 
 
+# ------------------------------------------------- training over processes
+def parallel_kernels_vs_plain(card: str, dev="cuda") -> dict:
+    """Phase 18's kernels on the shapes one rank gives them: #3 / #4 on
+    each rank's rows and heads (PARALLEL_ATTN), #15 on each rank's block
+    of the vocabulary with targets of both blocks (another block's scores
+    0), #16 over a rank's shards of the flagship tree under (data=2, fsdp).
+    -> {"attn": {(B, H): times}, "loss": ..., "adamw": ..., "err": {...}}."""
+    import torch
+
+    from neko_tpu_torch import bench, convert
+    from neko_tpu_torch.ops import attention_kernel as whk
+    from neko_tpu_torch.ops import fused_adamw as fa
+    from neko_tpu_torch.ops import loss_kernel as lk
+    from neko_tpu_torch.parallel import sharding
+    from neko_tpu_torch.parallel.collectives import LOCAL, Axis
+    from neko_tpu_torch.parallel.mesh import AXES, Mesh
+
+    S, hd = TRAIN["S"], TRAIN["hd"]
+    g = torch.Generator(device=dev).manual_seed(SEED + 18)
+    seed = torch.tensor([SEED + 18], dtype=torch.int32, device=dev)
+    res = {"attn": {}, "err": {"fwd": 0.0, "bwd": 0.0}}
+    for B, H in PARALLEL_ATTN:
+        D = H * hd
+        qkv = torch.randn(B, S, 3 * D, device=dev, generator=g).bfloat16()
+        start, end = _train_bounds(B, S, dev)
+        valid = _valid_rows(start, end, S)
+        dout = torch.randn(B, S, D, device=dev, generator=g).bfloat16() * valid[..., None]
+        ks = whk.dropout_keep_scale(seed, B, H, S, RATE)
+        x = qkv.clone().requires_grad_()
+        out = whk.whole_head_attention_qkv(x, start, end, seed, heads=H, dropout_rate=RATE)
+        (dx,) = torch.autograd.grad(out, (x,), dout)
+        xp = qkv.clone().requires_grad_()
+        ref = whk.whole_head_attention_reference(*whk._qkv_views("qkv", (xp,), H), start, end,
+                                                 None, ks).transpose(1, 2).reshape(B, S, D)
+        (dxp,) = torch.autograd.grad(ref, (xp,), dout)
+        torch.cuda.synchronize()
+        err, excess, _ = _fwd_excess(out[valid], ref[valid], "bfloat16")
+        berr, bexcess = 0.0, -1.0
+        for got, want in zip(dx.chunk(3, -1), dxp.chunk(3, -1)):
+            e, x_, _ = _flip_excess(got, want, GRAD_TOL["bfloat16"], GRAD_FLIP_TOL)
+            berr, bexcess = max(berr, e), max(bexcess, x_)
+        print(f"per-rank attention B={B} H={H} S={S} hd={hd} bf16 rate {RATE}: out max abs "
+              f"err {err:.3e} (excess {excess:.3e}), dq/dk/dv {berr:.3e} (excess {bexcess:.3e})")
+        _require(excess <= 0 and bexcess <= 0, f"#3 / #4 disagree at B={B}, H={H}")
+        res["err"]["fwd"] = max(res["err"]["fwd"], err)
+        res["err"]["bwd"] = max(res["err"]["bwd"], berr)
+        res["attn"][(B, H)] = _attention_train_times(qkv, dout, seed, ks, H, card)
+        del qkv, dout, ks, x, out, dx, xp, ref, dxp
+
+    cfg = bench.model_config("flagship")
+    V, D, valid_vocab = cfg.padded_vocab_size, cfg.embed_dim, cfg.vocab_size
+    n, rows = 4096, cfg.padded_vocab_size // 2
+    x = (torch.randn(n, D, device=dev, generator=g) * 0.5).bfloat16()
+    W = (torch.randn(V, D, device=dev, generator=g) * 0.05).bfloat16()
+    t = torch.randint(0, valid_vocab, (n,), device=dev, generator=g)
+    worst, times = 0.0, {}
+    for r in range(2):
+        Wr = W[r * rows:(r + 1) * rows].contiguous()
+        tr = t - r * rows
+        vr = max(0, min(rows, valid_vocab - r * rows))
+        logz, tl = lk.fused_logz_tl(x, tr, Wr, vr)
+        want = lk.fused_logz_tl_reference(x, tr, Wr, vr)
+        torch.cuda.synchronize()
+        errs = [_excess(a, b, LOSS_TOL) for a, b in zip((logz, tl), want)]
+        outside = ((tr < 0) | (tr >= rows))
+        print(f"loss head on vocabulary block {r} ([{n}, {D}] x {rows}, {vr} valid, "
+              f"{int(outside.sum())} targets in the other block): logz, tl max abs err "
+              f"{errs[0][0]:.3e}, {errs[1][0]:.3e} (tolerance {LOSS_TOL}); other block's "
+              f"targets score {float(tl[outside].abs().max()):.1e}")
+        _require(all(x_ <= 0 for _, x_ in errs) and not tl[outside].any(),
+                 f"#15 disagrees on vocabulary block {r}")
+        worst = max(worst, errs[0][0], errs[1][0])
+        run_k = lambda: lk.fused_logz_tl(x, tr, Wr, vr)  # noqa: E731
+        route = lambda: lk.logits_logz_tl(x, tr, Wr, vr)  # noqa: E731
+        run_p = lambda: lk.fused_logz_tl_reference(x, tr, Wr, vr)  # noqa: E731
+        r1, k1, k2, r2 = (_time_ms(f, 10) for f in (route, run_k, run_k, route))
+        p1, p2 = _time_ms(run_p, 5), _time_ms(run_p, 5)
+        flops = 2 * n * D * vr
+        bound = _bound(flops, (n * D + vr * D) * 2 + n * 4 + 2 * n * 4)
+        ms = (k1 + k2) / 2
+        print(f"loss head block {r}: kernel {k1:.4f} / {k2:.4f} ms ({_tflops(flops, ms):.1f} "
+              f"TFLOP/s), loss route (cuBLAS) {r1:.4f} / {r2:.4f} ms, plain {p1:.4f} / "
+              f"{p2:.4f} ms, bound {bound[0]:.4f} ms ({bound[1]}) ({card})")
+        times[r] = {"ms": ms, "plain_ms": (p1 + p2) / 2, "bound_ms": bound[0],
+                    "bound_by": bound[1], "library_ms": (r1 + r2) / 2, "valid": vr,
+                    "tflops": _tflops(flops, ms)}
+    res["loss"], res["err"]["loss"] = times, worst
+    del x, W, t
+
+    # #16 over rank 0's shards of the flagship tree under (data=2, fsdp)
+    shapes = convert.model_shapes(cfg)
+    specs = sharding.layout(shapes, 1, 2, fsdp=True)
+    mesh = Mesh(AXES, (2, 1, 1), None, (Axis(2, 0), LOCAL, LOCAL))
+    local = [sharding.local_shape(s, specs[k], mesh) for k, s in shapes.items()]
+    ps = [torch.randn(s, device=dev, generator=g) * 0.02 for s in local]
+    grads = [torch.randn(s, device=dev, generator=g) * 1e-3 for s in local]
+    mu = [torch.randn(s, device=dev, generator=g) * 1e-4 for s in local]
+    nu = [torch.rand(s, device=dev, generator=g) * 1e-7 for s in local]
+    scale = torch.tensor(0.5, device=dev)
+    kw = dict(lr=1e-4, b1=0.9, b2=0.95, eps=1e-8, wd=0.1, bc1=1 - 0.9 ** 3, bc2=1 - 0.95 ** 3)
+
+    def run(apply):
+        p2, m2, v2 = ([t.clone() for t in ts] for ts in (ps, mu, nu))
+        apply(p2, grads, m2, v2, scale, **kw)
+        return p2 + m2 + v2
+
+    got, want = run(fa.fused_adamw_apply), run(fa.fused_adamw_apply_reference)
+    torch.cuda.synchronize()
+    unequal = sum(int((a != b).sum()) for a, b in zip(got, want))
+    n_local = sum(p.numel() for p in ps)
+    print(f"fused AdamW over a rank's shards (data=2, fsdp): {len(ps)} tensors, {n_local} of "
+          f"{sum(s.numel() for s in shapes.values())} parameters; {unequal} values not "
+          f"bit-equal to the plain version")
+    _require(unequal == 0, "#16 over the shards differs from its plain version")
+    del got, want
+    run_k = lambda: fa.fused_adamw_apply(ps, grads, mu, nu, scale, **kw)  # noqa: E731
+    run_p = lambda: fa.fused_adamw_apply_reference(ps, grads, mu, nu, scale, **kw)  # noqa: E731
+    p1, k1, k2, p2 = (_time_ms(f, 10) for f in (run_p, run_k, run_k, run_p))
+    lib_params = [torch.nn.Parameter(p.clone()) for p in ps]
+    for lp, gr in zip(lib_params, grads):
+        lp.grad = gr.clone()
+    lib = _time_ms(torch.optim.AdamW(lib_params, lr=kw["lr"], betas=(kw["b1"], kw["b2"]),
+                                     eps=kw["eps"], weight_decay=kw["wd"], fused=True).step, 10)
+    bound = _bound(20 * n_local, 28 * n_local)
+    print(f"fused AdamW over {n_local} parameters: kernel {k1:.4f} / {k2:.4f} ms, plain "
+          f"{p1:.4f} / {p2:.4f} ms, library (torch fused AdamW) {lib:.4f} ms, bound "
+          f"{bound[0]:.4f} ms ({bound[1]}) ({card})")
+    res["adamw"] = {"ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2, "bound_ms": bound[0],
+                    "bound_by": bound[1], "library_ms": lib, "parameters": n_local}
+    del ps, grads, mu, nu, lib_params
+    torch.cuda.empty_cache()
+    return res
+
+
+def _split_axis(run) -> str:
+    """The axis whose limits hold a configuration: 'model' when it splits
+    the model, else 'data'."""
+    return "model" if run["model"] > 1 else "data"
+
+
+def _parallel_runs(card: str, width="flagship", dev="cuda") -> dict:
+    """PARALLEL_RUNS through the tool: the limits against the sound and
+    planted readings, the launches of each rank.  -> {"launches" (the sound
+    runs' sums over the ranks), "readings"}."""
+    import check_torch_parallel_ranks as tool
+
+    t0 = time.perf_counter()
+    results = tool.run_ranks(list(PARALLEL_RUNS), backend="gloo", device=dev, width=width,
+                             steps=PARALLEL_STEPS, seed=SEED, timeout=900)
+    print(f"phase 18 ranks: {len(results)} configurations in {time.perf_counter() - t0:.1f} s "
+          "(one spawn of 2 ranks, gloo, both on the card)")
+    layers = tool.WIDTHS[width]["shape"]["layers"]
+    sound, faults = {}, {}
+    launches = {"fwd": 0, "bwd": 0, "loss": 0, "adamw": 0}
+    readings = []
+    for res in results:
+        run, ranks = res["run"], res["ranks"]
+        name = ", ".join([f"{k}={run[k]}" for k in ("data", "model") if run[k] > 1]
+                         + [k for k in ("fsdp", "fused_adamw") if run[k]]
+                         + ([f"dropout {run['dropout']}"] if run["dropout"] else []))
+        line = {"run": name, "fault": run["fault"], "losses": [r["losses"] for r in ranks],
+                "loss_err": res["loss_err"], "param_err": res["param_err"],
+                "norm_err": res["norm_err"], "replica_err": res["replica_err"],
+                "peer_grad_err": res["peer_grad_err"],
+                "launches": [r["launches"] for r in ranks],
+                "collective_ms_per_step": [r["collective"]["ms"] for r in ranks],
+                "collective_bytes_per_step": [r["collective"]["bytes"] for r in ranks],
+                "collective_calls_per_step": [r["collective"]["calls"] for r in ranks],
+                "step_ms": [r["step_ms"] for r in ranks],
+                "peak_gib": [(r["peak_bytes"] or 0) / 2 ** 30 for r in ranks],
+                "resting_gb": [r["resting_bytes"] / 1e9 for r in ranks],
+                "one_process_resting_gb": (res["one_process"]["resting_bytes"] / 1e9
+                                           if res["one_process"] else None)}
+        readings.append(line)
+        print(f"phase 18 [{name}{'; planted: ' + run['fault'] if run['fault'] else ''}]: "
+              + json.dumps({k: v for k, v in line.items() if k not in ("run", "fault")})
+              + f" ({card})")
+        _require(all(np.isfinite(r["losses"]).all() for r in ranks), f"non-finite loss: {name}")
+        if run["fault"]:
+            faults[run["fault"]] = res
+            continue
+        sound[name] = res
+        for r in ranks:
+            want = {"fwd": layers * PARALLEL_STEPS, "bwd": layers * PARALLEL_STEPS,
+                    "loss": r["loss_chunks"] * PARALLEL_STEPS,
+                    "adamw": PARALLEL_STEPS if run["fused_adamw"] else 0}
+            got = {k: r["launches"][k] for k in want}
+            # (a CPU rehearsal runs the plain versions: nothing launches)
+            _require(got == want or dev == "cpu",
+                     f"[{name}] rank {r['rank']} launches {got}, want {want}")
+            for k in launches:
+                launches[k] += got[k]
+        _require(res["replica_err"] == 0.0, f"[{name}] replicas differ: {res['replica_err']}")
+        if run["dropout"]:
+            _require(res["peer_grad_err"] <= PARALLEL_PEER_TOL,
+                     f"[{name}] model peers' gradients differ: {res['peer_grad_err']}")
+            continue
+        ax = _split_axis(run)
+        _require(res["loss_err"] <= PARALLEL_LOSS_TOL[ax]
+                 and res["param_err"] <= PARALLEL_PARAM_TOL[ax]
+                 and res["norm_err"] <= PARALLEL_NORM_TOL[ax],
+                 f"[{name}] the ranks disagree with one process: {res['loss_err']}, "
+                 f"{res['param_err']}, {res['norm_err']}")
+    # each limit between its sound reading and the faults it sees
+    limits = {"loss_err": PARALLEL_LOSS_TOL, "param_err": PARALLEL_PARAM_TOL,
+              "norm_err": PARALLEL_NORM_TOL}
+    for ax in ("data", "model"):
+        for key, tol in limits.items():
+            worst = max(r[key] for r in sound.values()
+                        if r[key] is not None and _split_axis(r["run"]) == ax)
+            caught = {f: r[key] for f, r in faults.items() if _split_axis(r["run"]) == ax
+                      and r[key] is not None and r[key] > tol[ax]}
+            print(f"{key} limit ({ax}) {tol[ax]:g}: sound {worst:.3e}; faults over it: "
+                  + (", ".join(f"'{f}' {v:.3e}" for f, v in caught.items()) or "none"))
+    peer = [r["peer_grad_err"] for r in sound.values() if r["run"]["dropout"]]
+    print(f"peer_grad_err limit {PARALLEL_PEER_TOL:g}: sound {max(peer):.3e}; faults: "
+          + ", ".join(f"'{f}' {r['peer_grad_err']:.3e}" for f, r in faults.items()
+                      if r["run"]["dropout"]))
+    for f, r in faults.items():
+        if r["run"]["dropout"]:
+            seen = r["peer_grad_err"] > PARALLEL_PEER_TOL
+        else:
+            seen = any(r[key] > tol[_split_axis(r["run"])] for key, tol in limits.items())
+        _require(seen, f"phase 18 cannot tell the planted '{f}'")
+    return {"launches": launches, "readings": readings}
+
+
+def _parallel_cli(card: str, workdir, argv=None, dev="cuda") -> dict:
+    """The train CLI over 2 ranks (`--multihost --mesh_model_axis 2`,
+    torchrun's environment given to each): 10 steps, an evaluation and a
+    checkpoint on rank 0; the checkpoint restored in one process holds the
+    parameters the ranks gathered, bit for bit.  -> the CLI's launches
+    summed over the ranks."""
+    import torch
+
+    import check_torch_parallel_ranks as tool
+
+    from neko_tpu_torch.cli.build import build_context, resolve_checkpoint_and_args
+    from neko_tpu_torch.utils.checkpoint import load_checkpoint
+
+    t0 = time.perf_counter()
+    argv = PARALLEL_CLI if argv is None else argv
+    ranks, final = tool.cli_ranks(argv + ["--save_dir", str(workdir)], 2, cpu=dev == "cpu",
+                                  params=True, timeout=600)
+    layers = int(argv[argv.index("--layers") + 1])
+    wall = time.perf_counter() - t0
+    exp = ranks[0]["exp_dir"]
+    logs = _iteration_logs(exp)
+    evals = {k: v for k, v in logs[-1].items() if k.startswith("evaluation/")}
+    print(f"train CLI over 2 ranks (--multihost --mesh_model_axis 2, gloo on the card): "
+          f"{ranks[0]['steps']} steps in {wall:.1f} s of wall time, train loss mean "
+          f"{logs[-1]['training/train_loss_mean']:.4f}, step time "
+          f"{logs[-1]['time/training'] / 10 * 1e3:.1f} ms; evaluation {evals}; launches "
+          f"{[r['launches'] for r in ranks]} ({card})")
+    _require(evals and all(np.isfinite(v) for v in evals.values()),
+             f"the CLI's evaluation is missing or not finite: {evals}")
+    _require(all(r["steps"] == 10 and r["mesh"]["model"] == 2 for r in ranks),
+             f"the CLI ranks did not train 10 steps over model=2: {ranks}")
+    for r in ranks:
+        _require(dev == "cpu" or (r["launches"]["bwd"] == layers * 10
+                                  and r["launches"]["loss"] >= 10),
+                 f"CLI rank launches {r['launches']}")
+    _require(dev == "cpu" or (ranks[0]["launches"]["decode"] > 0
+                              and ranks[1]["launches"]["decode"] == 0
+                              and ranks[0]["launches"]["fwd"] > ranks[1]["launches"]["fwd"]
+                              == layers * 10),
+             "the evaluation did not run on rank 0 alone")
+    ckpt, args = resolve_checkpoint_and_args(exp, {"cpu": dev == "cpu", "device": dev})
+    ctx, _ = build_context(args)
+    state = load_checkpoint(ckpt, ctx)
+    got = dict(state.model.named_parameters())
+    diff = max(float((got[k].detach().cpu() - v).abs().max()) for k, v in final.items())
+    print(f"checkpoint {ckpt} restored in one process: step {state.step}, mesh "
+          f"{ctx.mesh}, largest difference from the ranks' gathered parameters {diff:.1e}")
+    _require(state.step == 10 and ctx.mesh is None and diff == 0.0,
+             "the one-process restore differs from the ranks' parameters")
+    del state, final
+    torch.cuda.empty_cache()
+    return {k: sum(r["launches"][k] for r in ranks) for k in ranks[0]["launches"]}
+
+
+def parallel_train(card: str, workdir) -> dict:
+    """Phase 18.  -> {"kernels": parallel_kernels_vs_plain's, "launches":
+    the main path's launches (the sound runs and the CLI, over the ranks)}."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "tools"))
+    kernels = parallel_kernels_vs_plain(card)
+    runs = _parallel_runs(card)
+    cli = _parallel_cli(card, workdir)
+    launches = {k: runs["launches"].get(k, 0) + cli.get(k, 0)
+                for k in ("fwd", "bwd", "loss", "adamw", "decode")}
+    print(f"phase 18 launches over the ranks (sound runs + the CLI): {launches}")
+    return {"kernels": kernels, "launches": launches, "readings": runs["readings"]}
+
+
 def main() -> int:
     import torch
 
@@ -4398,6 +4782,19 @@ def main() -> int:
         tf = train_features(card, workdir)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
+    try:
+        par = parallel_train(card, workdir)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    pl = par["launches"]
+    pk = par["kernels"]
+
+    def at_rank_shape(key):  # #3 / #4 timed at a rank's (model=2) rows and heads
+        ms, plain_ms, library_ms, bound_ms, bound_by, flops = pk["attn"][PARALLEL_ATTN[-1]][key]
+        return {"shape": list(PARALLEL_ATTN[-1]) + [TRAIN["S"], TRAIN["hd"]], "ms": ms,
+                "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound_ms,
+                "bound_by": bound_by, "tflops": _tflops(flops, ms),
+                "data2_shape": {"ms": pk["attn"][PARALLEL_ATTN[0]][key][0]}}
 
     src = "neko_tpu_torch/csrc/"
     tpu = "neko_tpu/ops/attention_kernel.py"
@@ -4418,20 +4815,22 @@ def main() -> int:
         {"name": "whole_head_attention", "route": "cuda",
          "source": src + "whole_head_attention.cu", "replaces": f"{tpu}:206,236",
          "launches": (serve_launches + launches["fwd"] + cli["fwd"] + ev["fwd"] + ev["eval_fwd"]
-                      + se["fwd"] + tf["fwd"]),
+                      + se["fwd"] + tf["fwd"] + pl["fwd"]),
          "train_cli_launches": cli["fwd"], "mix_train_launches": ev["fwd"],
          "eval_cli_launches": ev["eval_fwd"], "serving_engine_launches": se["fwd"],
-         "train_features_launches": tf["fwd"],
-         "max_abs_err": max(err, trained["fwd_err"]), **timing("fwd"), "prefill": prefill},
+         "train_features_launches": tf["fwd"], "parallel_launches": pl["fwd"],
+         "max_abs_err": max(err, trained["fwd_err"], pk["err"]["fwd"]), **timing("fwd"),
+         "prefill": prefill, "parallel_rank_shape": at_rank_shape("fwd")},
         {"name": "whole_head_attention_bwd", "route": "cuda",
          "source": src + "whole_head_attention_bwd.cu", "replaces": f"{tpu}:220,256",
-         "launches": launches["bwd"] + cli["bwd"] + ev["bwd"] + tf["bwd"],
+         "launches": launches["bwd"] + cli["bwd"] + ev["bwd"] + tf["bwd"] + pl["bwd"],
          "train_cli_launches": cli["bwd"], "mix_train_launches": ev["bwd"],
-         "train_features_launches": tf["bwd"],
-         "max_abs_err": trained["bwd_err"], **timing("bwd")},
+         "train_features_launches": tf["bwd"], "parallel_launches": pl["bwd"],
+         "max_abs_err": max(trained["bwd_err"], pk["err"]["bwd"]), **timing("bwd"),
+         "parallel_rank_shape": at_rank_shape("bwd")},
     ] + [
         {"name": name, "route": "cuda", "source": src + source,
-         "replaces": f"{tpu_b}:{line}", "launches": long_path[key],
+         "replaces": f"{tpu_b}:{line}", "launches": long_path[key], "parallel_launches": 0,
          "check_launches": blocked["check_launches"][key],
          "max_abs_err": blocked["err"][key], **long_times[key]}
         for name, source, line, key in (
@@ -4444,6 +4843,7 @@ def main() -> int:
         # (B=2, H=24, S_local=2048, hd=32), with the diagonal pair's times beside
         {"name": name, "route": "cuda", "source": src + "ring_attention.cu",
          "replaces": f"{tpu_r}:{line}", "launches": seq_path[f"ring {key}"],
+         "parallel_launches": 0,
          "check_launches": ring["check_launches"][key], "max_abs_err": ring["err"][key],
          **ring["times"]["full"][key],
          "diagonal_pair": ring["times"]["diagonal"][key]}
@@ -4455,10 +4855,10 @@ def main() -> int:
         {"name": "decode_cache_attention", "route": "cuda", "source": src + "decode_attention.cu",
          "replaces": "neko_tpu/ops/decode_attention.py:80",
          "launches": (decode_launches + cli["decode"] + ev["decode"] + ev["eval_decode"]
-                      + se["decode"] + tf["decode"]),
+                      + se["decode"] + tf["decode"] + pl["decode"]),
          "train_cli_launches": cli["decode"], "mix_train_launches": ev["decode"],
          "eval_cli_launches": ev["eval_decode"], "serving_engine_launches": se["decode"],
-         "train_features_launches": tf["decode"],
+         "train_features_launches": tf["decode"], "parallel_launches": pl["decode"],
          "check_launches": decode["check_launches"] + decode["generate"]["launches"],
          "max_abs_err": decode["err"], **decode["times"], "b1": decode["times_b1"],
          "generate_per_token_ms": {k: decode["generate"][k] for k in ("kernel_ms", "plain_ms")}},
@@ -4468,16 +4868,20 @@ def main() -> int:
         {"name": "fused_logz_tl", "route": "cuda", "source": src + "fused_logz_tl.cu",
          "replaces": "neko_tpu/ops/loss_kernel.py:54",
          "launches": (launches["loss"] + long_path["loss head"] + seq_path["loss head"]
-                      + adamw["loss_launches"] + cli["loss"] + ev["loss"] + tf["loss"]),
+                      + adamw["loss_launches"] + cli["loss"] + ev["loss"] + tf["loss"]
+                      + pl["loss"]),
          "train_cli_launches": cli["loss"], "mix_train_launches": ev["loss"],
-         "train_features_launches": tf["loss"],
-         "check_launches": loss_head["launches"], "max_abs_err": loss_head["err"],
-         **{k: v for k, v in loss_head.items() if k not in ("err", "launches")}},
+         "train_features_launches": tf["loss"], "parallel_launches": pl["loss"],
+         "check_launches": loss_head["launches"],
+         "max_abs_err": max(loss_head["err"], pk["err"]["loss"]),
+         **{k: v for k, v in loss_head.items() if k not in ("err", "launches")},
+         "parallel_vocab_blocks": pk["loss"]},
         # AdamW over the flagship tree; launches are the fused train steps'
         {"name": "fused_adamw", "route": "cuda", "source": src + "fused_adamw.cu",
          "replaces": "neko_tpu/ops/fused_adamw.py:101",
-         "launches": adamw["launches"] + cli["adamw"] + tf["adamw"],
+         "launches": adamw["launches"] + cli["adamw"] + tf["adamw"] + pl["adamw"],
          "train_cli_launches": cli["adamw"], "train_features_launches": tf["adamw"],
+         "parallel_launches": pl["adamw"], "parallel_rank_shards": pk["adamw"],
          "check_launches": adamw["check_launches"], "max_abs_err": adamw["err"],
          **{k: adamw[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
                                   "optimizer_ms", "default_optimizer_ms")}},
@@ -4491,6 +4895,7 @@ def main() -> int:
     mask = {"name": "dropout_keep_scale", "route": "cuda",
             "source": src + "dropout_keep_scale.cu", "replaces": f"{tpu}:492,{tpu_b}:682",
             "launches": launches["mask"] + long_path["mask"] + seq_path["mask"],
+            "parallel_launches": 0,
             "check_launches": launches["mask_check"] + blocked["check_launches"]["mask"],
             "max_abs_err": 0.0, **timing("mask"), "long": long_times["mask"]}
     for shape, t in (("16x24x1024^2", mask), ("8x24x2048^2", long_times["mask"])):

@@ -170,7 +170,7 @@ def setup(name="flagship", device="cuda", seed: int = 0, mesh_seq_axis: int = 1,
     batch_size = (CONFIGS[name] if isinstance(name, str) else name)["batch_per_chip"]
     opt = OptimizerConfig(learning_rate=1e-4, init_lr=1e-7, warmup_steps=100,
                           training_steps=10_000, fused_adamw=fused_adamw)
-    mesh = create_mesh(data=1, seq=mesh_seq_axis, seq_group=None) if mesh_seq_axis > 1 else None
+    mesh = create_mesh(data=1, seq=mesh_seq_axis) if mesh_seq_axis > 1 else None
     ctx = TrainContext(cfg, opt, device=device, seed=seed, mesh=mesh)
     arrays = SequencePacker(cfg).pack_batch(
         build_examples(cfg, batch_size, seed),

@@ -44,7 +44,7 @@ def build_control_tasks(args: TrainingArgs, context_len: int,
     from neko_tpu_torch.envs.setup_env import expand_dataset_names, load_envs
 
     if seed is None:
-        seed = mh.host_seed(args.seed)
+        seed = mh.host_seed(args.seed, 0)
     envs, datasets = load_envs(args.control_datasets)
     names = expand_dataset_names(args.control_datasets)
     return [
@@ -57,8 +57,10 @@ def build_control_tasks(args: TrainingArgs, context_len: int,
     ]
 
 
-def build_tasks(args: TrainingArgs) -> List[Task]:
-    seed = mh.host_seed(args.seed)
+def build_tasks(args: TrainingArgs, data_index: int = 0) -> List[Task]:
+    """The tasks of `args`, their sampling seeded by the rank's 'data'
+    coordinate (the JAX package's per-host seed)."""
+    seed = mh.host_seed(args.seed, data_index)
     tasks: List[Task] = list(build_control_tasks(args, args.sequence_length, seed))
     if args.text_datasets:
         tasks.append(TextTask(args.text_datasets, args.text_datasets_paths,
@@ -177,27 +179,45 @@ def serving_max_patches(ckpt_path: str, args: TrainingArgs) -> int:
     return (256 // args.patch_size) ** 2 if saved.max_patches > 0 else -1
 
 
+def build_mesh(args: TrainingArgs):
+    """The mesh of `args`: over the ranks of the process group when there
+    is more than one ('data' = what --mesh_model_axis leaves), else
+    --mesh_seq_axis sequence shards on the one device, else None.  A
+    'model' axis > 1 without the ranks to carry it is refused."""
+    n = mh.process_count()
+    if n > 1:
+        return create_mesh(model=args.mesh_model_axis, seq=args.mesh_seq_axis,
+                           pipe=args.mesh_pipe_axis)
+    if args.mesh_model_axis > 1:
+        raise ValueError(f"--mesh_model_axis {args.mesh_model_axis} needs that many ranks: "
+                         "launch the ranks with torchrun and pass --multihost")
+    if args.mesh_seq_axis > 1:
+        return create_mesh(data=1, seq=args.mesh_seq_axis, pipe=args.mesh_pipe_axis)
+    return None
+
+
 def build_context(args: TrainingArgs, tasks: Optional[List[Task]] = None,
                   ckpt_path: Optional[str] = None) -> Tuple[TrainContext, List[Task]]:
     """(TrainContext on the selected device, tasks).  With no tasks and a
     `ckpt_path` (a serving restore) the patch pool is sized from the
-    checkpoint.  `--mesh_seq_axis N` puts N sequence shards on the one
-    device (ring attention); the other mesh axes wait for the port of
-    multi-device training."""
+    checkpoint.  `--multihost` joins the process group of torchrun's
+    environment first (parallel/multihost.py) and the context trains over
+    its ranks (`build_mesh`); `--mesh_seq_axis N` in one process puts N
+    sequence shards on the one device (ring attention)."""
     check_ported(args)
-    device = select_device(args)
-    if tasks is None:
-        tasks = build_tasks(args)
-    elif not tasks and ckpt_path is not None:
-        args.max_patches = serving_max_patches(ckpt_path, args)
-    model_cfg = model_config_from_args(args, derive_max_patches(args, tasks))
+    if args.multihost:
+        device = mh.init_from_env(cpu=args.cpu or args.device == "cpu")
+    else:
+        device = select_device(args)
     if args.sequence_length % args.mesh_seq_axis:
         raise ValueError(f"context len {args.sequence_length} must divide evenly over "
                          f"mesh_seq_axis={args.mesh_seq_axis} sequence shards")
-    mesh = None
-    if args.mesh_seq_axis > 1:
-        mesh = create_mesh(data=1, model=args.mesh_model_axis, seq=args.mesh_seq_axis,
-                           pipe=args.mesh_pipe_axis, seq_group=None)
+    mesh = build_mesh(args)
+    if tasks is None:
+        tasks = build_tasks(args, mh.data_info(mesh)[0])
+    elif not tasks and ckpt_path is not None:
+        args.max_patches = serving_max_patches(ckpt_path, args)
+    model_cfg = model_config_from_args(args, derive_max_patches(args, tasks))
     ctx = TrainContext(model_cfg, optimizer_config_from_args(args), device=device,
                        seed=args.seed, fsdp=args.fsdp, mesh=mesh)
     return ctx, tasks
@@ -212,6 +232,9 @@ def resolve_checkpoint_and_args(model_path: str, overrides: Optional[dict] = Non
 
     ckpt_path = resolve_checkpoint_dir(model_path)
     saved = load_args_dict(os.path.dirname(os.path.abspath(ckpt_path)))
+    # a checkpoint is canonical whatever mesh trained it: the restore runs in
+    # this one process
+    saved.update(multihost=False, fsdp=False, mesh_model_axis=1)
     saved.update({k: v for k, v in (overrides or {}).items() if v is not None})
     known = set(TrainingArgs.__dataclass_fields__)
     return ckpt_path, TrainingArgs(**{k: v for k, v in saved.items() if k in known})

@@ -14,6 +14,20 @@ steps, and with `--save_model` writes <save_dir>/<exp>/checkpoint_<N>/
 weights, optimizer state and step from the checkpoint, and the host sampler
 state from its sidecar, so the data stream replays the uninterrupted run's.
 `--init_checkpoint DIR` loads the weights of a checkpoint of this package.
+
+Over several processes, one per device, launched by torchrun (or with
+RANK, WORLD_SIZE, MASTER_ADDR and MASTER_PORT set for each):
+
+    torchrun --nproc_per_node 4 -m neko_tpu_torch.cli.train --multihost \\
+        --mesh_model_axis 2 [--fsdp] ...
+
+`--multihost` joins the group (NCCL with a card per rank, gloo when ranks
+share cards or with `--cpu`); the ranks form a (data, model) grid with
+'model' = `--mesh_model_axis` and 'data' the rest; `--batch_size` is the
+global batch, each data rank sampling its share; `--fsdp` also shards the
+large parameters, their moments and the EMA over 'data'.  Rank 0 logs,
+evaluates and writes the (canonical, mesh-independent) checkpoints, which
+restore onto any mesh or into one process.
 """
 
 from __future__ import annotations
@@ -22,6 +36,7 @@ import datetime
 from typing import Optional
 
 from neko_tpu_torch.cli.build import build_context
+from neko_tpu_torch.parallel import multihost as mh
 from neko_tpu_torch.training.arguments import TrainingArgs
 from neko_tpu_torch.training.trainer import Trainer
 from neko_tpu_torch.utils.typed_argparser import TypedArgumentParser
@@ -30,11 +45,13 @@ from neko_tpu_torch.utils.typed_argparser import TypedArgumentParser
 def run(args: TrainingArgs, exp_name: Optional[str] = None) -> Trainer:
     import torch
 
+    from neko_tpu_torch.convert import model_shapes
     from neko_tpu_torch.utils import checkpoint as ckpt
     from neko_tpu_torch.utils.host_state import load_host_state_for
 
     ctx, tasks = build_context(args)
     exp_name = exp_name or datetime.datetime.now().strftime("%Y-%m-%d_%H-%M-%S") + "_neko"
+    exp_name = mh.broadcast_object(exp_name)  # every rank writes into rank 0's directory
     trainer = Trainer(ctx, tasks, exp_name, args)
     trainer.init_state(ckpt_weights(args, ctx))
 
@@ -54,11 +71,15 @@ def run(args: TrainingArgs, exp_name: Optional[str] = None) -> Trainer:
                   "(no host_state sidecar: the data stream restarts from the seed: "
                   "approximate resume)")
 
-    n_params = sum(p.numel() for p in trainer.state.model.parameters())
+    n_local = sum(p.numel() for p in trainer.state.model.parameters())
+    n_params = sum(s.numel() for s in model_shapes(ctx.model_cfg).values())
     where = torch.cuda.get_device_name(ctx.device) if ctx.device.type == "cuda" else "cpu"
-    print(f"device: {ctx.device} ({where})")
-    print(f"mesh: {dict(ctx.mesh.shape) if ctx.mesh is not None else {}}")
-    print(f"parameters: {n_params:,}")
+    if trainer.is_main_process:
+        print(f"device: {ctx.device} ({where})")
+        print(f"mesh: {dict(ctx.mesh.shape) if ctx.mesh is not None else {}}"
+              + (", fsdp" if ctx.fsdp and ctx.on_ranks else ""))
+        print(f"parameters: {n_params:,}" + (f" (this rank holds {n_local:,})"
+                                             if ctx.on_ranks else ""))
     trainer.train()
     return trainer
 

@@ -113,6 +113,33 @@ def jax_train_extras_to_torch(ema_params, opt_state, cfg: ModelConfig) -> Dict:
             "mini_step": int(np.asarray(getattr(opt_state, "mini_step", 0)))}
 
 
+_NORMS = ("ln_1", "ln_2", "ln_f", "gn2")
+_EMBEDS = ("embed_token", "pos_embed_observation", "height", "width")
+
+
+def jax_leaf(key: str, ndim: int):
+    """(flax path, torch dim of each flax dim) of the state-dict entry `key`
+    of rank `ndim`: a Dense kernel is the transposed Linear weight, a Conv
+    kernel HWIO the OIHW weight; every other leaf keeps its dims."""
+    *mods, leaf = key.split(".")
+    path = []
+    for m in mods:
+        if m.isdigit():
+            path[-1] = f"h_{m}"
+        else:
+            path.append(m)
+    name = path[-1]
+    if leaf == "bias":
+        return tuple(path) + ("bias",), tuple(range(ndim))
+    if ndim == 4:
+        return tuple(path) + ("kernel",), (2, 3, 1, 0)
+    if name in _NORMS:
+        return tuple(path) + ("scale",), tuple(range(ndim))
+    if name in _EMBEDS:
+        return tuple(path) + ("embedding",), tuple(range(ndim))
+    return tuple(path) + ("kernel",), tuple(reversed(range(ndim)))
+
+
 def state_dict_to_jax_params(sd: Dict[str, torch.Tensor], cfg: ModelConfig) -> Dict:
     """NekoModel state_dict -> flax params (nested dict of numpy arrays),
     the inverse of `jax_params_to_state_dict`."""
@@ -120,32 +147,15 @@ def state_dict_to_jax_params(sd: Dict[str, torch.Tensor], cfg: ModelConfig) -> D
     tree: Dict = {}
     for key, t in sd.items():
         a = t.detach().cpu().numpy()
-        *mods, leaf = key.split(".")
-        path = []
-        for m in mods:
-            if m.isdigit():
-                path[-1] = f"h_{m}"
-            else:
-                path.append(m)
-        name = path[-1]
-        if leaf == "bias":
-            fl = "bias"
-        elif a.ndim == 4:
-            fl, a = "kernel", a.transpose(2, 3, 1, 0)
-        elif name in ("ln_1", "ln_2", "ln_f", "gn2"):
-            fl = "scale"
-        elif name in ("embed_token", "pos_embed_observation", "height", "width"):
-            fl = "embedding"
-        else:
-            fl, a = "kernel", a.T
+        path, dims = jax_leaf(key, a.ndim)
         node = tree
-        for m in path:
+        for m in path[:-1]:
             node = node.setdefault(m, {})
-        node[fl] = np.ascontiguousarray(a)
+        node[path[-1]] = np.ascontiguousarray(a.transpose(dims))
     return tree
 
 
-def _model_shapes(cfg: ModelConfig) -> Dict[str, torch.Size]:
+def model_shapes(cfg: ModelConfig) -> Dict[str, torch.Size]:
     from neko_tpu_torch.models.policy import NekoModel
 
     with torch.device("meta"):
@@ -154,7 +164,7 @@ def _model_shapes(cfg: ModelConfig) -> Dict[str, torch.Size]:
 
 
 def _check_against_model(sd: Dict[str, torch.Tensor], cfg: ModelConfig) -> None:
-    want = _model_shapes(cfg)
+    want = model_shapes(cfg)
     missing, extra = set(want) - set(sd), set(sd) - set(want)
     if missing or extra:
         raise ValueError(
@@ -174,12 +184,11 @@ def init_state_dict(cfg: ModelConfig, seed: int = 0) -> Dict[str, torch.Tensor]:
     seeded with `seed`."""
     rng = np.random.default_rng(seed)
     sd = {}
-    norms = ("ln_1", "ln_2", "ln_f", "gn2")
-    for key, shape in _model_shapes(cfg).items():
+    for key, shape in model_shapes(cfg).items():
         mod, leaf = key.rsplit(".", 2)[-2:]
         if leaf == "bias" or mod == "lora_b":
             a = np.zeros(shape, np.float32)
-        elif mod in norms:
+        elif mod in _NORMS:
             a = np.ones(shape, np.float32)
         elif mod == "lora_a":
             bound = np.sqrt(6.0 / shape[1])
@@ -198,17 +207,33 @@ def save_model_dir(path: str, cfg: ModelConfig, state_dict: Dict[str, torch.Tens
         json.dump(dataclasses.asdict(cfg), f, indent=1, sort_keys=True)
 
 
-def build_model(cfg: ModelConfig, state_dict: Dict[str, torch.Tensor], device="cuda"):
+def build_model(cfg: ModelConfig, state_dict: Dict[str, torch.Tensor], device="cuda",
+                mesh=None, specs=None):
     """NekoModel on `device` (the card unless the caller asks for the CPU)
     holding `state_dict` (built on the meta device first, so no throwaway
-    random init runs)."""
+    random init runs).  With a `mesh` over ranks the model is this rank's:
+    `state_dict` is canonical and each parameter takes its block of it
+    (`specs`: parallel/sharding.py's layout, by default the mesh's
+    tensor-parallel one); leaves split over 'data' (fsdp) are gathered at
+    their use."""
     from neko_tpu_torch.models.policy import NekoModel
+    from neko_tpu_torch.parallel import sharding
 
     _check_against_model(state_dict, cfg)
+    if mesh is None or not mesh.on_ranks:
+        with torch.device("meta"):
+            model = NekoModel(cfg)
+        model.load_state_dict(state_dict, assign=True)
+        return model.to(device).eval()
+    specs = specs or sharding.model_layout(cfg, mesh)
     with torch.device("meta"):
-        model = NekoModel(cfg)
-    model.load_state_dict(state_dict, assign=True)
-    return model.to(device).eval()
+        model = NekoModel(cfg, mesh)
+    for key, t in sharding.shard_state_dict(state_dict, specs, mesh).items():
+        mod, _, leaf = key.rpartition(".")
+        setattr(model.get_submodule(mod), leaf, torch.nn.Parameter(t))
+    model = model.to(device).eval()
+    sharding.enable_fsdp(model, specs, mesh.axis("data"))
+    return model
 
 
 def load_model_dir(path: str, device="cuda"):

@@ -16,6 +16,14 @@ neko_tpu/models/policy.py).
 
 Submodule names follow the flax parameter tree, so `convert.py` maps one to
 the other by name.
+
+`NekoModel(cfg, mesh)` on a mesh over ranks is one rank's model
+(`convert.build_model` fills it): the embedding rows and the head's
+columns split over 'model' (the vocabulary-parallel lookup; the loss over
+this rank's block of the vocabulary, merged across 'model', its target
+count summed over 'data'), the blocks tensor-parallel (transformer.py),
+and under FSDP the root's 'data'-split leaves gathered at the forward's
+start (`fsdp_gather`).
 """
 
 from __future__ import annotations
@@ -31,14 +39,33 @@ from neko_tpu_torch.models.embeddings import ImagePatchEmbedding
 from neko_tpu_torch.models.transformer import KVCache, Transformer
 from neko_tpu_torch.ops.dropout import Dropout
 from neko_tpu_torch.ops.losses import chunked_masked_xent, gathered_masked_xent
+from neko_tpu_torch.parallel.collectives import vocab_parallel_embedding
+from neko_tpu_torch.parallel.mesh import AXES, axis
+
+
+def seed_offset(mesh) -> int:
+    """The attention seed's offset for this rank: neko_tpu's
+    + coordinate * (100,003 + i) for axis i of ('data', 'seq', 'model'),
+    applied on a mesh of more than one device."""
+    if mesh is None or not mesh.on_ranks:
+        return 0
+    return sum(mesh.axis(name).index * (100_003 + i) for i, name in enumerate(AXES))
 
 
 class NekoModel(nn.Module):
-    def __init__(self, cfg: ModelConfig):
+    def __init__(self, cfg: ModelConfig, mesh=None):
         super().__init__()
         self.cfg = cfg
         D = cfg.embed_dim
-        self.embed_token = nn.Embedding(cfg.padded_embed_rows, D)
+        # over ranks: the vocabulary (embedding rows, head columns) split over
+        # 'model', the loss's target count summed over 'data'
+        self.tp = axis(mesh, "model")
+        self.data_axis = axis(mesh, "data")
+        # FSDP: the use-site gather of the root's 'data'-split leaves (the
+        # blocks gather their own; parallel/sharding.py enable_fsdp)
+        self.fsdp_gather = None
+        self._gathered = False
+        self.embed_token = nn.Embedding(cfg.padded_embed_rows // self.tp.size, D)
         self.image_embedding = (
             ImagePatchEmbedding(cfg) if cfg.max_patches > 0 else None
         )
@@ -46,8 +73,8 @@ class NekoModel(nn.Module):
             nn.Embedding(cfg.context_len, D) if cfg.use_pos_encoding else None
         )
         self.embed_dropout = Dropout(cfg.dropout)
-        self.transformer = Transformer(cfg)
-        self.predict_token = nn.Linear(D, cfg.padded_vocab_size, bias=False)
+        self.transformer = Transformer(cfg, self.tp, seed_offset(mesh))
+        self.predict_token = nn.Linear(D, cfg.padded_vocab_size // self.tp.size, bias=False)
 
     # ---------------------------------------------------------------- embed
     def embed_batch(self, batch: PackedBatch,
@@ -93,9 +120,21 @@ class NekoModel(nn.Module):
         materialized."""
         if train and generator is None:
             raise ValueError("train=True draws its randomness from `generator`")
+        if self.fsdp_gather is not None and not self._gathered:
+            self._gathered = True
+            try:
+                return torch.func.functional_call(
+                    self, self.fsdp_gather(), (batch,),
+                    dict(train=train, compute_loss=compute_loss, return_logits=return_logits,
+                         generator=generator))
+            finally:
+                self._gathered = False
         g = generator if train else None
         if return_logits is None:
             return_logits = not compute_loss
+        if return_logits and self.tp.on:
+            raise NotImplementedError("logits under tensor parallelism: the head's "
+                                      "columns are split over 'model'")
         emb = self.embed_dropout(self.embed_batch(batch, g), g)
         hidden, _ = self.transformer(emb, batch.input_mask, mode="train", generator=g)
         logits = self._head(hidden) if return_logits else None
@@ -107,11 +146,12 @@ class NekoModel(nn.Module):
                 logits, batch.tokens, batch.input_mask, batch.target_mask, V)
         elif batch.loss_pos is not None:
             loss = gathered_masked_xent(
-                hidden, self.predict_token.weight, batch.loss_pos, batch.loss_tgt, V)
+                hidden, self.predict_token.weight, batch.loss_pos, batch.loss_tgt, V,
+                vocab_axis=self.tp, count_axis=self.data_axis)
         else:
             loss = chunked_masked_xent(
                 hidden, self.predict_token.weight, batch.tokens, batch.input_mask,
-                batch.target_mask, V)
+                batch.target_mask, V, vocab_axis=self.tp, count_axis=self.data_axis)
         return logits, loss
 
     # -------------------------------------------------------------- decode
@@ -181,7 +221,10 @@ class NekoModel(nn.Module):
 
     def embed_tokens(self, tokens: torch.Tensor) -> torch.Tensor:
         """Plain token-id embedding in the activation dtype (decode loop
-        helper)."""
+        helper); over 'model' the lookup in this rank's rows, summed."""
+        if self.tp.on:
+            return vocab_parallel_embedding(tokens.long(), self.embed_token.weight,
+                                            self.tp).to(self.cfg.activation_dtype)
         return self.embed_token(tokens.long()).to(self.cfg.activation_dtype)
 
     def embed_tokens_with_pos(

@@ -74,6 +74,18 @@ it would without remat.  The recompute also re-enters the mesh that was
 active in the forward (the backward may run on another thread, and
 `seq_shards()` reads the thread's mesh), so it routes to the same kernel.
 
+Tensor parallelism (a 'model' axis over ranks, `tp`; parallel/sharding.py
+has the layout): c_attn, c_fc and the GEGLU gate are column-parallel (this
+rank's heads, H / m of them, and its block of the MLP width, their input's
+gradient summed over 'model'), both c_proj are row-parallel (the partial
+products summed over 'model', then the bias), and LoRA's `lora_b` follows
+c_attn's heads (parallel/collectives.py has the pair).  The
+dropout masks of the replicated activations come from the step's
+generator, which model peers share; the attention kernels' seed adds the
+rank's per-axis offset (`seed_offset`).  Only train mode runs there.
+FSDP: a block whose leaves are split over 'data' gathers them at its call
+(`call_block`, remat's recompute included).
+
 Not ported yet (configs asking for it raise NotImplementedError): the
 int8 cache.
 """
@@ -93,6 +105,8 @@ from neko_tpu_torch.ops import attention as attn_ops
 from neko_tpu_torch.ops.attention_kernel import mask_bounds_from_key_mask, masked_attention
 from neko_tpu_torch.ops.dropout import Dropout
 from neko_tpu_torch.ops.gelu import gelu_erf, gelu_tanh
+from neko_tpu_torch.parallel import collectives
+from neko_tpu_torch.parallel.collectives import LOCAL, Axis
 from neko_tpu_torch.parallel.mesh import active_mesh
 
 KVCache = Dict[str, torch.Tensor]  # {"key", "value": [B,H,S,hd], "mask": [B,S]}
@@ -143,6 +157,26 @@ def linear(layer: nn.Linear, x: torch.Tensor, dtype: torch.dtype) -> torch.Tenso
     return F.linear(x.to(dtype), layer.weight.to(dtype), bias)
 
 
+def column_parallel(layer: nn.Linear, x: torch.Tensor, dtype: torch.dtype, tp: Axis):
+    """`layer(x)` in `dtype` for a weight whose output rows are this rank's
+    block over 'model' (x replicated; its gradient summed over 'model').
+    One process: `linear`."""
+    if not tp.on:
+        return linear(layer, x, dtype)
+    bias = None if layer.bias is None else layer.bias.to(dtype)
+    return collectives.column_parallel(x.to(dtype), layer.weight.to(dtype), bias, tp)
+
+
+def row_parallel(layer: nn.Linear, x: torch.Tensor, dtype: torch.dtype, tp: Axis) -> torch.Tensor:
+    """`layer(x)` in `dtype` for a weight whose input dim is this rank's
+    block over 'model': the partial products summed over it, then the bias,
+    rounded once to `dtype`.  One process: `linear`."""
+    if not tp.on:
+        return linear(layer, x, dtype)
+    part = collectives.row_parallel(x.to(dtype), layer.weight.to(dtype), tp)
+    return (part + layer.bias.float()).to(dtype)
+
+
 def layer_norm(ln: nn.LayerNorm, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     """`ln(x)` normalized in the weight's dtype, returned in `dtype` (flax
     LayerNorm(dtype=...) reduces in fp32 over fp32 params)."""
@@ -151,18 +185,24 @@ def layer_norm(ln: nn.LayerNorm, x: torch.Tensor, dtype: torch.dtype) -> torch.T
 
 
 class Attention(nn.Module):
-    def __init__(self, cfg: ModelConfig):
+    def __init__(self, cfg: ModelConfig, tp: Axis = LOCAL, seed_offset: int = 0):
         super().__init__()
         self.cfg = cfg
+        # tensor parallelism: this rank's H / m heads (parallel/sharding.py)
+        self.tp = tp
+        self.heads = cfg.heads // tp.size
+        # the attention seed's offset for this rank's coordinates (neko_tpu's)
+        self.seed_offset = seed_offset
         D = cfg.embed_dim
+        Dl = D // tp.size
         # one [3D, D] weight; q, k, v are its three output slices, as the
-        # JAX package's SplitProj computes them
-        self.c_attn = nn.Linear(D, 3 * D)
+        # JAX package's SplitProj computes them (this rank's heads of each)
+        self.c_attn = nn.Linear(D, 3 * Dl)
         if cfg.lora_r > 0:
             self.lora_a = nn.Linear(D, cfg.lora_r, bias=False)
             self.lora_dropout = Dropout(cfg.lora_dropout)
-            self.lora_b = nn.Linear(cfg.lora_r, 3 * D, bias=False)
-        self.c_proj = nn.Linear(D, D)
+            self.lora_b = nn.Linear(cfg.lora_r, 3 * Dl, bias=False)
+        self.c_proj = nn.Linear(Dl, D)
         self.resid_dropout = Dropout(cfg.dropout)
 
     def _heads(self, t: torch.Tensor) -> torch.Tensor:
@@ -185,21 +225,28 @@ class Attention(nn.Module):
         cfg = self.cfg
         dtype = cfg.activation_dtype
         B, S, D = x.shape
-        qkv = linear(self.c_attn, x, dtype)
+        if self.tp.on and mode != "train":
+            raise NotImplementedError(
+                f"attention mode {mode!r} under tensor parallelism: tensor-parallel "
+                "serving is not yet ported (evaluation runs on the gathered replica)")
+        qkv = column_parallel(self.c_attn, x, dtype, self.tp)
         if cfg.lora_r > 0:
             a = self.lora_dropout(linear(self.lora_a, x, dtype),
                                   generator if mode == "train" else None)
-            qkv = qkv + linear(self.lora_b, a, dtype) * (cfg.lora_alpha / cfg.lora_r)
+            qkv = qkv + column_parallel(self.lora_b, a, dtype, self.tp) * (
+                cfg.lora_alpha / cfg.lora_r)
         if mode == "train":
             seed, rate = None, 0.0
             if generator is not None and cfg.dropout > 0.0:
                 rate = cfg.dropout
                 seed = torch.randint(0, 2 ** 31 - 1, (1,), dtype=torch.int32,
                                      device=x.device, generator=generator)
+                if self.seed_offset:
+                    seed = seed + self.seed_offset  # int32, wrapping as jnp's
             # sequence-parallel first, as the JAX package dispatches
             attend = (attn_ops.sequence_parallel_attention_qkv if attn_ops.seq_shards() > 1
                       else attn_ops.attention_qkv)
-            out2d = attend(qkv, input_mask, heads=cfg.heads, seed=seed, rate=rate)
+            out2d = attend(qkv, input_mask, heads=self.heads, seed=seed, rate=rate)
             return self._project_out(out2d, generator), None
         q, k, v = (self._heads(t) for t in qkv.split(D, dim=-1))
         if mode == "prefill":
@@ -230,42 +277,48 @@ class Attention(nn.Module):
 
     def _project_out(self, out2d, generator):
         """Shared tail: output projection + residual dropout on [B, S, D]."""
-        out = linear(self.c_proj, out2d, self.cfg.activation_dtype)
+        out = row_parallel(self.c_proj, out2d, self.cfg.activation_dtype, self.tp)
         return self.resid_dropout(out, generator)
 
 
 class MLP(nn.Module):
-    def __init__(self, cfg: ModelConfig):
+    def __init__(self, cfg: ModelConfig, tp: Axis = LOCAL):
         super().__init__()
         self.cfg = cfg
-        self.c_fc = nn.Linear(cfg.embed_dim, 4 * cfg.embed_dim)
+        self.tp = tp  # this rank's block of the 4D width (parallel/sharding.py)
+        width = 4 * cfg.embed_dim // tp.size
+        self.c_fc = nn.Linear(cfg.embed_dim, width)
         if cfg.activation_fn == "geglu":
-            self.gate = nn.Linear(cfg.embed_dim, 4 * cfg.embed_dim)
-        self.c_proj = nn.Linear(4 * cfg.embed_dim, cfg.embed_dim)
+            self.gate = nn.Linear(cfg.embed_dim, width)
+        self.c_proj = nn.Linear(width, cfg.embed_dim)
         self.dropout = Dropout(cfg.dropout)
 
     def forward(self, x: torch.Tensor, generator=None) -> torch.Tensor:
         dtype = self.cfg.activation_dtype
         act = self.cfg.activation_fn
-        h = linear(self.c_fc, x, dtype)
+        h = column_parallel(self.c_fc, x, dtype, self.tp)
         h = gelu_tanh(h) if act == "gelu_new" else gelu_erf(h)
         if act == "geglu":
-            h = h * linear(self.gate, x, dtype)
-        return self.dropout(linear(self.c_proj, h, dtype), generator)
+            h = h * column_parallel(self.gate, x, dtype, self.tp)
+        return self.dropout(row_parallel(self.c_proj, h, dtype, self.tp), generator)
 
 
 class Block(nn.Module):
     """One pre-LN transformer block."""
 
-    def __init__(self, cfg: ModelConfig, sd_rate: float = 0.0):
+    def __init__(self, cfg: ModelConfig, sd_rate: float = 0.0, tp: Axis = LOCAL,
+                 seed_offset: int = 0):
         super().__init__()
         self.cfg = cfg
         # this block's stochastic-depth drop rate (Transformer ramps it)
         self.sd_rate = sd_rate
         self.ln_1 = nn.LayerNorm(cfg.embed_dim, eps=1e-5)
-        self.attn = Attention(cfg)
+        self.attn = Attention(cfg, tp, seed_offset)
         self.ln_2 = nn.LayerNorm(cfg.embed_dim, eps=1e-5)
-        self.mlp = MLP(cfg)
+        self.mlp = MLP(cfg, tp)
+        # FSDP: the use-site gather of this block's 'data'-split leaves
+        # (parallel/sharding.py enable_fsdp), None when it has none
+        self.fsdp_gather = None
 
     def _residual(self, x, branch, generator):
         """x + branch, with per-example drop path in train mode under
@@ -288,6 +341,14 @@ class Block(nn.Module):
         x = self._residual(x, a, generator)
         x = self._residual(x, self.mlp(layer_norm(self.ln_2, x, dtype), generator), generator)
         return x, cache
+
+
+def call_block(block: Block, *args, **kw):
+    """`block(*args, **kw)`, with its 'data'-split leaves gathered first
+    under FSDP (their gradients reduce-scatter back to the shards)."""
+    if block.fsdp_gather is None:
+        return block(*args, **kw)
+    return torch.func.functional_call(block, block.fsdp_gather(), args, kw)
 
 
 def drop_path_keep(shape, keep_p: float, generator: torch.Generator, device) -> torch.Tensor:
@@ -316,10 +377,10 @@ def remat_block(block: Block, x: torch.Tensor, input_mask, generator):
     def run(h):
         calls[0] += 1
         if calls[0] == 1:
-            return block(h, input_mask, mode="train", generator=generator)[0]
+            return call_block(block, h, input_mask, mode="train", generator=generator)[0]
         g = None if state is None else replay_generator(generator, state)
         with mesh or contextlib.nullcontext():
-            return block(h, input_mask, mode="train", generator=g)[0]
+            return call_block(block, h, input_mask, mode="train", generator=g)[0]
 
     return torch.utils.checkpoint.checkpoint(run, x, use_reentrant=False,
                                              preserve_rng_state=False)
@@ -328,14 +389,14 @@ def remat_block(block: Block, x: torch.Tensor, input_mask, generator):
 class Transformer(nn.Module):
     """Stack of pre-LN blocks + final LayerNorm."""
 
-    def __init__(self, cfg: ModelConfig):
+    def __init__(self, cfg: ModelConfig, tp: Axis = LOCAL, seed_offset: int = 0):
         super().__init__()
         _not_ported(cfg)
         self.cfg = cfg
         # linear stochastic-depth ramp: layer 0 never drops, the last drops
         # at the configured rate
         self.h = nn.ModuleList(
-            Block(cfg, cfg.stochastic_depth * i / max(cfg.layers - 1, 1))
+            Block(cfg, cfg.stochastic_depth * i / max(cfg.layers - 1, 1), tp, seed_offset)
             for i in range(cfg.layers))
         self.ln_f = nn.LayerNorm(cfg.embed_dim, eps=1e-5)
 
@@ -387,8 +448,8 @@ class Transformer(nn.Module):
                 x = remat_block(block, x, input_mask, generator)
             return layer_norm(self.ln_f, x, self.cfg.activation_dtype), None
         for i, block in enumerate(self.h):
-            x, c = block(
-                x, input_mask, mode=mode,
+            x, c = call_block(
+                block, x, input_mask, mode=mode,
                 cache=None if caches is None else caches[i],
                 decode_index=decode_index, decode_bounds=bounds, extend=extend,
                 generator=generator,

@@ -154,14 +154,17 @@ fused_adamw_apply.launches = 0
 
 
 def fused_adamw_update(params, grads, state: FusedAdamWState, *, lr: float, b1: float,
-                       b2: float, eps: float, wd: float,
-                       max_norm: Optional[float] = None) -> FusedAdamWState:
+                       b2: float, eps: float, wd: float, max_norm: Optional[float] = None,
+                       gnorm: Optional[torch.Tensor] = None) -> FusedAdamWState:
     """One fused AdamW step over lists of parameters, in place.  -> the
-    state with count + 1 (its mu and nu are updated in place)."""
+    state with count + 1 (its mu and nu are updated in place).  `gnorm`:
+    the global gradient norm when the caller has it (over ranks, where the
+    parameters are this rank's shards, the norm of the whole tree);
+    otherwise the norm of `grads`."""
     bc1, bc2 = bias_corrections(state.count, b1, b2)
     dev = params[0].device
     if max_norm is not None:
-        scale = clip_scale_from_norm(global_norm(grads), max_norm)
+        scale = clip_scale_from_norm(global_norm(grads) if gnorm is None else gnorm, max_norm)
     else:
         scale = torch.ones((), dtype=torch.float32, device=dev)
     fused_adamw_apply(params, grads, state.mu, state.nu, scale.reshape(()), lr=lr, b1=b1,

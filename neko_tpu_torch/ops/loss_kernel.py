@@ -81,9 +81,14 @@ def _chunk_logits(x, W, valid_vocab):
 
 def logits_logz_tl(x, t, W, valid_vocab: Optional[int] = None):
     """(logz, target logit) through the [N, V] logits: `_chunk_logits`,
-    torch's logsumexp and gather.  -> fp32 [N] each."""
+    torch's logsumexp and gather.  -> fp32 [N] each.  A target outside
+    [0, V) (another rank's block of the vocabulary) scores 0, as the kernel
+    never meets its column."""
     logits = _chunk_logits(x, W, valid_vocab)
-    return torch.logsumexp(logits, dim=-1), logits.gather(1, t.long()[:, None])[:, 0]
+    t = t.long()
+    inside = (t >= 0) & (t < W.shape[0])
+    tl = logits.gather(1, t.clamp(0, W.shape[0] - 1)[:, None])[:, 0]
+    return torch.logsumexp(logits, dim=-1), torch.where(inside, tl, 0.0)
 
 
 def fused_logz_tl_reference(x, t, W, valid_vocab: Optional[int] = None):
@@ -123,8 +128,8 @@ def _check(x, t, W) -> None:
 
 def fused_logz_tl(x, t, W, valid_vocab: Optional[int] = None):
     """(logz, target logit) per row, fp32 [N] each, without the [N, V]
-    logits.  x [N, D], t [N] target ids (clipped to the valid vocabulary),
-    W [V, D] in x's dtype."""
+    logits.  x [N, D], t [N] target ids (a target outside [0, V), another
+    rank's block of the vocabulary, scores 0), W [V, D] in x's dtype."""
     if x.device.type == "cpu":
         return fused_logz_tl_reference(x, t, W, valid_vocab)
     if x.device.type != "cuda":

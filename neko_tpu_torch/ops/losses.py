@@ -30,6 +30,16 @@ bf16 values in fp32 (exact products, fp32 sums).  The backward recomputes
 them that way; its dx and dW products stay in the hidden dtype, as the JAX
 package's do.  Padded vocab columns (>= `valid_vocab`) are excluded from
 the partition function with a finite -1e30 fill.
+
+Over ranks: with `vocab_axis` (the 'model' axis) the head weight is this
+rank's contiguous block of the vocabulary; a target outside it scores 0 in
+this block (the kernel never meets its column; targets are not clipped into
+the block), the blocks' logz merge by log-sum-exp and their target logits by
+sum, and the backward sums its dx over the axis.  With `count_axis` (the 'data' axis)
+the NLL sum of this rank's rows is divided by the target count of every
+rank's rows, so the global masked mean is the sum over the axis of what
+each rank returns (a mean of per-rank means would weight the ranks wrongly
+whenever their counts differ).
 """
 
 from __future__ import annotations
@@ -41,82 +51,134 @@ import torch.nn.functional as F
 
 from neko_tpu_torch.ops import loss_kernel
 from neko_tpu_torch.ops.loss_kernel import _chunk_logits
+from neko_tpu_torch.parallel.collectives import LOCAL, Axis, all_reduce_, mm_fp32
+
+
+def merge_vocab_shards(logz: torch.Tensor, tl: torch.Tensor, axis: Axis):
+    """(logz, target logit) of the whole vocabulary from each 'model' rank's
+    block: the log-sum-exp of the blocks' logz, the sum of their target
+    logits (a block without the target gives 0)."""
+    if not axis.on:
+        return logz, tl
+    mx = all_reduce_(logz.clone(), axis, torch.distributed.ReduceOp.MAX)
+    s = all_reduce_(torch.stack([torch.exp(logz - mx), tl]), axis)
+    return mx + torch.log(s[0]), s[1]
+
+
+def local_vocab(t: torch.Tensor, rows: int, valid_vocab: Optional[int], axis: Axis):
+    """(targets relative to this rank's block of `rows` columns, out of
+    [0, rows) when another rank's; the block's valid column count
+    clamp(valid - r * rows, 0, rows))."""
+    off = axis.index * rows
+    valid = rows if valid_vocab is None else max(0, min(rows, valid_vocab - off))
+    return t - off, valid
 
 
 class _ChunkNLL(torch.autograd.Function):
     """sum over rows with m > 0 of logz - logit[target]; x [N, D], t [N]
-    (in range), m [N] fp32, W [V, D] in x's dtype."""
+    (global ids, in the valid vocabulary), m [N] fp32, W [V_local, D] in x's
+    dtype: this rank's block of the vocabulary over `vocab_axis` (all of it
+    on one device).  The forward merges the blocks' (logz, target logit);
+    the backward's dW is this block's and its dx the sum over the axis of
+    the blocks' fp32 partial products, rounded once."""
 
     @staticmethod
-    def forward(ctx, x, t, m, W, valid_vocab):
+    def forward(ctx, x, t, m, W, valid_vocab, vocab_axis=LOCAL):
+        t, valid = local_vocab(t, W.shape[0], valid_vocab, vocab_axis)
         if x.dtype == W.dtype and loss_kernel.fused_supported(*x.shape, W.shape[0], x.dtype):
-            logz, tl = loss_kernel.fused_logz_tl(x, t, W, valid_vocab)
+            logz, tl = loss_kernel.fused_logz_tl(x, t, W, valid)
         else:
-            logz, tl = loss_kernel.logits_logz_tl(x, t, W, valid_vocab)
+            logz, tl = loss_kernel.logits_logz_tl(x, t, W, valid)
+        logz, tl = merge_vocab_shards(logz, tl, vocab_axis)
         ctx.save_for_backward(x, t, m, W, logz)
-        ctx.valid_vocab = valid_vocab
+        ctx.valid_vocab, ctx.vocab_axis = valid, vocab_axis
         return torch.where(m > 0, logz - tl, 0.0).sum()
 
     @staticmethod
     def backward(ctx, g):
         x, t, m, W, logz = ctx.saved_tensors
         p = torch.exp(_chunk_logits(x, W, ctx.valid_vocab) - logz[:, None])
-        p[torch.arange(p.shape[0], device=p.device), t] -= 1.0  # - onehot
+        # - onehot, for the targets in this block (no host sync)
+        mine = ((t >= 0) & (t < W.shape[0])).to(p.dtype)
+        p.scatter_add_(1, t.clamp(0, W.shape[0] - 1)[:, None], -mine[:, None])
         dlogits = (p * (m * g)[:, None]).to(x.dtype)
-        dx = torch.matmul(dlogits, W)
+        if ctx.vocab_axis.on:
+            dx = all_reduce_(mm_fp32(dlogits, W), ctx.vocab_axis).to(x.dtype)
+        else:
+            dx = torch.matmul(dlogits, W)
         dW = torch.matmul(dlogits.t(), x).to(W.dtype)
-        return dx, None, None, dW, None
+        return dx, None, None, dW, None, None
 
 
-def _clip_targets(t: torch.Tensor, V: int, valid_vocab: Optional[int]) -> torch.Tensor:
+def _clip_targets(t: torch.Tensor, valid_vocab: int) -> torch.Tensor:
     """Masked positions may hold ids outside the scored vocabulary
     (separator, padding): clip for the gather; their mask zeroes them."""
-    hi = V if valid_vocab is None else min(V, valid_vocab)
-    return t.long().clamp(0, hi - 1)
+    return t.long().clamp(0, valid_vocab - 1)
+
+
+def _vocab(weight: torch.Tensor, valid_vocab: Optional[int], axis: Axis) -> int:
+    V = weight.shape[0] * axis.size
+    return V if valid_vocab is None else min(V, valid_vocab)
+
+
+def _count(mask: torch.Tensor, axis: Axis) -> torch.Tensor:
+    """The loss's target count over the 'data' axis (the global batch's)."""
+    n = mask.sum()
+    if axis.on:
+        n = all_reduce_(n.reshape(1).clone(), axis)[0]
+    return n.clamp(min=1.0)
 
 
 def gathered_masked_xent(
     hidden: torch.Tensor,    # [B, S, D]
-    weight: torch.Tensor,    # [V, D] head weight
+    weight: torch.Tensor,    # [V, D] head weight (this rank's block over vocab_axis)
     loss_pos: torch.Tensor,  # int [Nt, 2] (batch_row, predicting position)
     loss_tgt: torch.Tensor,  # int [Nt]
     valid_vocab: Optional[int] = None,
     chunk_size: int = 4096,
+    vocab_axis: Axis = LOCAL,
+    count_axis: Axis = LOCAL,
 ) -> torch.Tensor:
     """Mean NLL over the gathered targets; entries with batch_row == B are
-    padding and carry no weight."""
+    padding and carry no weight.  Over ranks: the head's vocabulary split
+    over `vocab_axis`, and the sum of this rank's rows divided by the target
+    count of every rank on `count_axis` (the global mean is the sum over
+    that axis of what each rank returns)."""
     B = hidden.shape[0]
     W = weight.to(hidden.dtype)
     rows = loss_pos[:, 0].long()
     valid = (rows < B).float()
-    h = hidden[rows.clamp(max=B - 1), loss_pos[:, 1].long()]  # [Nt, D]
-    tgt = _clip_targets(loss_tgt, W.shape[0], valid_vocab)
+    h = hidden[rows.clamp(max=B - 1), loss_pos[:, 1].long()]
+    tgt = _clip_targets(loss_tgt, _vocab(W, valid_vocab, vocab_axis))
     total = hidden.new_zeros((), dtype=torch.float32)
     for i in range(0, h.shape[0], chunk_size):
         sl = slice(i, i + chunk_size)
-        total = total + _ChunkNLL.apply(h[sl], tgt[sl], valid[sl], W, valid_vocab)
-    return total / valid.sum().clamp(min=1.0)
+        total = total + _ChunkNLL.apply(h[sl], tgt[sl], valid[sl], W, valid_vocab, vocab_axis)
+    return total / _count(valid, count_axis)
 
 
 def chunked_masked_xent(
     hidden: torch.Tensor,       # [B, S, D]
-    weight: torch.Tensor,       # [V, D] head weight
+    weight: torch.Tensor,       # [V, D] head weight (this rank's block over vocab_axis)
     tokens: torch.Tensor,       # int [B, S]
     input_mask: torch.Tensor,   # bool [B, S]
     target_mask: torch.Tensor,  # bool [B, S]
     valid_vocab: Optional[int] = None,
     chunk_size: int = 256,
+    vocab_axis: Axis = LOCAL,
+    count_axis: Axis = LOCAL,
 ) -> torch.Tensor:
     """Shifted next-token CE (position t predicts token t+1, masked by
-    input_mask[t] * target_mask[t+1]), averaged over unmasked targets."""
+    input_mask[t] * target_mask[t+1]), averaged over unmasked targets (of
+    every rank on `count_axis`, as `gathered_masked_xent`)."""
     B, S, D = hidden.shape
     W = weight.to(hidden.dtype)
-    tgt = _clip_targets(F.pad(tokens[:, 1:], (0, 1)), W.shape[0], valid_vocab)
+    tgt = _clip_targets(F.pad(tokens[:, 1:], (0, 1)), _vocab(W, valid_vocab, vocab_axis))
     mask = input_mask.float() * F.pad(target_mask[:, 1:], (0, 1)).float()
     total = hidden.new_zeros((), dtype=torch.float32)
     for i in range(0, S, chunk_size):
         sl = slice(i, i + chunk_size)
         total = total + _ChunkNLL.apply(
             hidden[:, sl].reshape(-1, D), tgt[:, sl].reshape(-1),
-            mask[:, sl].reshape(-1), W, valid_vocab)
-    return total / mask.sum().clamp(min=1.0)
+            mask[:, sl].reshape(-1), W, valid_vocab, vocab_axis)
+    return total / _count(mask, count_axis)

@@ -124,12 +124,12 @@ class TrainingArgs:
     save_dir: str = field(default="models")
 
     # ---- extensions of the JAX package (not in the reference) ----
-    mesh_model_axis: int = field(default=1)
+    mesh_model_axis: int = field(default=1, metadata={"help": "Tensor-parallel ranks (heads, MLP width and vocabulary split over them); > 1 needs --multihost."})
     mesh_seq_axis: int = field(default=1, metadata={"help": "Sequence shards of the mesh (on the one device): > 1 trains every layer's attention as ring attention over them."})
     mesh_pipe_axis: int = field(default=1)
     pipeline_microbatches: int = field(default=4)
     pipeline_schedule: Literal["gpipe", "1f1b"] = field(default="gpipe")
-    fsdp: bool = field(default=False)
+    fsdp: bool = field(default=False, metadata={"help": "Shard every large parameter, its AdamW moments and its EMA over the data ranks as well (ZeRO-3)."})
     max_patches: int = field(default=-1, metadata={"help": "Static per-example image-patch budget; -1 = derive from the tasks."})
     remat: bool = field(default=False)
     fused_adamw: bool = field(default=False, metadata={"help": "The optimizer as the fused AdamW kernel: clip, moments and update in one launch over the whole tree."})
@@ -139,7 +139,7 @@ class TrainingArgs:
     prefetch_workers: int = field(default=1, metadata={"help": "Prefetch threads; > 1 makes the batch order depend on scheduling, so --save_model refuses it."})
     profile_dir: Optional[str] = field(default=None, metadata={"help": "Trace train steps [2, 2 + profile_steps) with torch.profiler and write the Chrome trace into this directory."})
     profile_steps: int = field(default=3, metadata={"help": "Number of steps to trace when --profile_dir is set."})
-    multihost: bool = field(default=False)
+    multihost: bool = field(default=False, metadata={"help": "Train over the processes torchrun's environment describes (one per device; the data ranks are what --mesh_model_axis leaves)."})
     compilation_cache: Optional[str] = field(default=None)
     rng_impl: Literal["threefry", "rbg", "unsafe_rbg"] = field(default="unsafe_rbg")
     log_jsonl: bool = field(default=True, metadata={"help": "Append metrics to <save_dir>/<exp>/metrics.jsonl."})
@@ -160,10 +160,8 @@ def not_ported(args: TrainingArgs) -> List[str]:
         "--lora": args.lora,
         "--pretrained_lm": args.pretrained_lm is not None,
         "--init_checkpoint <file>.pt": str(args.init_checkpoint or "").endswith(".pt"),
-        "--fsdp": args.fsdp,
-        "--multihost": args.multihost,
-        "--mesh_model_axis > 1": args.mesh_model_axis > 1,
         "--mesh_pipe_axis > 1": args.mesh_pipe_axis > 1,
+        "--mesh_seq_axis > 1 with --multihost": args.multihost and args.mesh_seq_axis > 1,
         "--kv_cache_dtype int8": args.kv_cache_dtype != "native",
     }
     return [name for name, on in unported.items() if on]

@@ -55,12 +55,37 @@ so:
 The fused route (`use_fused_adamw`) keeps the JAX package's gate: not under
 `lora_only` or k > 1.
 
-Not ported yet (NotImplementedError): FSDP, and a mesh whose 'seq' axis
-lies over the ranks of a process group (the model, the batch and the
-optimizer are not yet sharded over processes; the ring itself is,
-`ring_kernel.ring_attention_bsd`).  The pipeline fields of
-`OptimizerConfig` are ignored, as the JAX package ignores them off a 'pipe'
-mesh.
+Over processes: `TrainContext(..., mesh=create_mesh(data, model), fsdp=)`
+on an initialised process group computes what the JAX `TrainContext`
+computes on a mesh of that shape (parallel/sharding.py has the layout):
+
+* each rank's model holds its blocks of the parameters: heads, MLP width
+  and vocabulary split over 'model' (the Megatron all-reduce pair a block,
+  parallel/collectives.py), and with `fsdp` every large leaf split over
+  'data' too, gathered at its use in the forward, its gradient
+  reduce-scattered.  `init_state` takes the canonical state dict and keeps
+  this rank's blocks; the optimizer's moments, the EMA and the accumulator
+  are blocks of the same shape;
+* the batch is this rank's rows (model peers take the same ones); the loss
+  divides the rank's NLL sum by the target count of the global batch, so
+  the gradients of the global masked mean are the SUM over 'data' of the
+  ranks' (flat-bucket all-reduces of the leaves not split over 'data'), and
+  the loss a step returns is that sum over 'data' of the ranks' parts; the
+  gradients of the leaves replicated over 'model' are averaged there, so
+  that the peers' copies stay equal whatever order a backward sums in;
+* the global-norm clip (both optimizer routes) sums every rank's squares,
+  each leaf's divided by the ranks holding a copy of it, so a replicated
+  leaf counts once;
+* the step's generator is keyed on the rank's 'data' coordinate, so data
+  ranks draw independent masks and model peers identical ones (their
+  replicated activations stay equal); the attention kernels add neko_tpu's
+  per-axis seed offsets (models/policy.py `seed_offset`).
+
+Not ported yet (NotImplementedError): a mesh whose 'seq' axis lies over the
+ranks of a process group (`create_mesh` refuses 'seq' > 1 over ranks; the
+ring itself runs there, `ring_kernel.ring_attention_bsd`), and 'pipe'.  The
+pipeline fields of `OptimizerConfig` are ignored, as the JAX package
+ignores them off a 'pipe' mesh.
 """
 
 from __future__ import annotations
@@ -75,7 +100,9 @@ from neko_tpu_torch.config import ModelConfig
 from neko_tpu_torch.data.batch import PackedBatch
 from neko_tpu_torch.models.policy import NekoModel
 from neko_tpu_torch.ops.fused_adamw import FusedAdamWState, fused_adamw_update
-from neko_tpu_torch.parallel.mesh import Mesh, seq_axis_size
+from neko_tpu_torch.parallel import sharding
+from neko_tpu_torch.parallel.collectives import all_reduce_, all_reduce_grads_
+from neko_tpu_torch.parallel.mesh import Mesh, axis, seq_axis_size
 from neko_tpu_torch.training.schedulers import linear_warmup_cosine_decay
 
 
@@ -103,11 +130,6 @@ class OptimizerConfig:
     fused_adamw: bool = False
 
 
-def _not_ported(fsdp: bool) -> None:
-    if fsdp:
-        raise NotImplementedError("not yet ported to neko_tpu_torch training: fsdp")
-
-
 def use_fused_adamw(cfg: OptimizerConfig) -> bool:
     """The fused path covers the plain AdamW train step; LoRA freezing and
     accumulation stay on the AdamW route, as the JAX package keeps them on
@@ -127,9 +149,13 @@ class FusedAdamW(torch.optim.Optimizer):
     round-trip through `state_dict`).  `step()` reads the group's "lr"."""
 
     def __init__(self, params, lr: float = 0.0, betas=(0.9, 0.999), eps: float = 1e-8,
-                 weight_decay: float = 0.0, max_norm: Optional[float] = None):
+                 weight_decay: float = 0.0, max_norm: Optional[float] = None,
+                 norm_fn: Optional[Callable] = None):
         super().__init__(params, dict(lr=lr, betas=betas, eps=eps,
                                       weight_decay=weight_decay, max_norm=max_norm))
+        # the global gradient norm (None: the norm of this optimizer's grads;
+        # over ranks, TrainContext's norm of the whole tree)
+        self.norm_fn = norm_fn
         if len(self.param_groups) != 1:
             raise ValueError("FusedAdamW clips over one global norm: one parameter group")
         self.state["count"] = 0
@@ -164,9 +190,13 @@ class FusedAdamW(torch.optim.Optimizer):
         group = self.param_groups[0]
         ps = group["params"]
         b1, b2 = group["betas"]
+        gnorm = None
+        if group["max_norm"] is not None and self.norm_fn is not None:
+            gnorm = self.norm_fn()
         st = fused_adamw_update(
             ps, [p.grad for p in ps], self.fused_state(), lr=group["lr"], b1=b1, b2=b2,
-            eps=group["eps"], wd=group["weight_decay"], max_norm=group["max_norm"])
+            eps=group["eps"], wd=group["weight_decay"], max_norm=group["max_norm"],
+            gnorm=gnorm)
         self.state["count"] = st.count
 
 
@@ -182,27 +212,31 @@ def make_schedule(cfg: OptimizerConfig) -> Callable[[int], float]:
 
 
 def make_optimizer(
-    cfg: OptimizerConfig, params: List[torch.nn.Parameter]
+    cfg: OptimizerConfig, params: List[torch.nn.Parameter], norm_fn: Optional[Callable] = None,
 ) -> Tuple[torch.optim.Optimizer, Callable[[int], float]]:
     """-> (AdamW over `params`, schedule(update count) -> lr).  Every
     parameter is decayed, as the reference's torch AdamW does.  With
-    `fused_adamw` the optimizer is `FusedAdamW`, which also clips."""
+    `fused_adamw` the optimizer is `FusedAdamW`, which also clips (to the
+    norm `norm_fn()` returns, when given)."""
     kw = dict(lr=0.0, betas=(cfg.beta_1, cfg.beta_2), eps=cfg.adam_eps,
               weight_decay=cfg.weight_decay)
     if use_fused_adamw(cfg):
         opt = FusedAdamW(params, max_norm=None if cfg.disable_grad_clip else cfg.grad_norm_clip,
-                         **kw)
+                         norm_fn=norm_fn, **kw)
     else:
         opt = torch.optim.AdamW(params, **kw)
     return opt, make_schedule(cfg)
 
 
 @torch.no_grad()
-def clip_by_global_norm_(grads: List[torch.Tensor], max_norm: float) -> torch.Tensor:
+def clip_by_global_norm_(grads: List[torch.Tensor], max_norm: float,
+                         norm: Optional[torch.Tensor] = None) -> torch.Tensor:
     """optax.clip_by_global_norm in place: g -> g / norm * max_norm when the
-    global norm is >= max_norm.  Returns the norm (a device scalar)."""
-    norm = torch.linalg.vector_norm(
-        torch.stack([torch.linalg.vector_norm(g, dtype=torch.float32) for g in grads]))
+    global norm is >= max_norm (the norm of `grads` unless given).  Returns
+    the norm (a device scalar)."""
+    if norm is None:
+        norm = torch.linalg.vector_norm(
+            torch.stack([torch.linalg.vector_norm(g, dtype=torch.float32) for g in grads]))
     trigger = norm < max_norm
     for g in grads:
         g.copy_(torch.where(trigger, g, g / norm.to(g.dtype) * max_norm))
@@ -240,7 +274,8 @@ class TrainState:
 
 
 class TrainContext:
-    """Owns the model config, optimizer config and device; runs the steps."""
+    """Owns the model config, optimizer config, device and mesh; runs the
+    steps."""
 
     def __init__(
         self,
@@ -251,11 +286,10 @@ class TrainContext:
         fsdp: bool = False,
         mesh: Optional[Mesh] = None,
     ):
-        _not_ported(fsdp)
         if mesh is not None and mesh.seq_group is not None:
             raise NotImplementedError(
                 "a 'seq' axis over the ranks of a process group: the model and the "
-                "batch are not yet sharded over processes")
+                "batch are not yet sharded over 'seq' ranks")
         n = seq_axis_size(mesh)
         if model_cfg.context_len % n:
             raise ValueError(f"context_len={model_cfg.context_len} does not split over "
@@ -265,8 +299,35 @@ class TrainContext:
         self.opt_cfg = opt_cfg
         self.device = torch.device(device)
         self.seed = seed
+        self.fsdp = fsdp
         self.schedule = make_schedule(opt_cfg)
+        # which block of each parameter this rank holds (all of it in one process)
+        self.layout = sharding.model_layout(model_cfg, mesh, fsdp)
+        self.data_axis = axis(mesh, "data")
+        self.model_axis = axis(mesh, "model")
+        self.on_ranks = mesh is not None and mesh.on_ranks
 
+    # ------------------------------------------------- canonical <-> blocks
+    def shard(self, name: str, t: torch.Tensor) -> torch.Tensor:
+        """This rank's block of the canonical tensor of parameter `name`."""
+        if not self.on_ranks:
+            return t
+        return sharding.shard_tensor(t, name, self.layout[name], self.mesh)
+
+    def gather(self, name: str, t: torch.Tensor) -> torch.Tensor:
+        """The canonical tensor of parameter `name` from every rank's block
+        (a collective: every rank calls it with the same name)."""
+        if not self.on_ranks:
+            return t
+        return sharding.gather_tensor(t, name, self.layout[name], self.mesh)
+
+    def _copies(self, name: str) -> int:
+        """Ranks holding the same block of parameter `name`."""
+        spec = self.layout[name]
+        n = 1 if spec.data_dim is not None else self.data_axis.size
+        return n * (1 if spec.model_dim is not None else self.model_axis.size)
+
+    # ------------------------------------------------------------- state
     def init_state(self, state_dict: Optional[Dict[str, torch.Tensor]] = None,
                    fused_adamw_state: Optional[Dict] = None) -> TrainState:
         """Fresh state: the given weights, or random ones as the JAX package
@@ -274,17 +335,20 @@ class TrainContext:
         `fused_adamw`, `fused_adamw_state` ({"count", "mu", "nu"}, the moments
         keyed as the state dict: `convert.jax_fused_adamw_state_to_torch`)
         starts the optimizer from those moments, and the step count from
-        that count."""
+        that count.  Over ranks both are canonical, and the state holds this
+        rank's blocks of them."""
         from neko_tpu_torch.convert import build_model, init_state_dict
 
         if state_dict is None:
             state_dict = init_state_dict(self.model_cfg, self.seed)
-        model = build_model(self.model_cfg, state_dict, self.device)
+        model = build_model(self.model_cfg, state_dict, self.device, mesh=self.mesh,
+                            specs=self.layout)
         trained = self.trained_parameters(model)
         if self.opt_cfg.lora_only:
             for n, p in model.named_parameters():
                 p.requires_grad_(n in trained)
-        opt, _ = make_optimizer(self.opt_cfg, list(trained.values()))
+        norm_fn = (lambda: self.grad_norm(model)) if self.on_ranks else None
+        opt, _ = make_optimizer(self.opt_cfg, list(trained.values()), norm_fn)
         ema = None
         if self.opt_cfg.ema_decay > 0.0:
             ema = {n: p.detach().to(torch.float32, copy=True)
@@ -298,8 +362,9 @@ class TrainContext:
                 raise ValueError("fused_adamw_state needs OptimizerConfig(fused_adamw=True)")
             names = [n for n, _ in model.named_parameters()]
             opt.load_fused_state(FusedAdamWState(
-                fused_adamw_state["count"], [fused_adamw_state["mu"][n] for n in names],
-                [fused_adamw_state["nu"][n] for n in names]))
+                fused_adamw_state["count"],
+                [self.shard(n, fused_adamw_state["mu"][n]) for n in names],
+                [self.shard(n, fused_adamw_state["nu"][n]) for n in names]))
             step = opt.count
         return TrainState(step=step, model=model, optimizer=opt, seed=self.seed, ema=ema,
                           accum=accum)
@@ -316,18 +381,31 @@ class TrainContext:
 
     def fused_adamw_state(self, state: TrainState) -> Dict:
         """{"count", "mu", "nu"} of a `FusedAdamW` state, the moments keyed
-        as the state dict (what `init_state` takes back)."""
+        as the state dict (what `init_state` takes back; over ranks this
+        rank's blocks)."""
         st = state.optimizer.fused_state()
         names = [n for n, _ in state.model.named_parameters()]
         return {"count": st.count, "mu": dict(zip(names, st.mu)), "nu": dict(zip(names, st.nu))}
 
     def step_generator(self, state: TrainState) -> torch.Generator:
-        return torch.Generator(device=self.device).manual_seed(
-            step_seed(state.seed, state.step))
+        """The step's generator, from (seed, step) and, over ranks, the
+        rank's 'data' coordinate: data ranks draw independent masks, model
+        peers the same ones."""
+        seed = state.seed + self.data_axis.index * 100_003
+        return torch.Generator(device=self.device).manual_seed(step_seed(seed, state.step))
 
+    # ------------------------------------------------------------- steps
     def loss_and_grads(self, state: TrainState, batch: PackedBatch) -> torch.Tensor:
         """Train-mode loss of `batch` with the step's generator; leaves the
-        gradients in the parameters' `.grad`.  -> loss (device scalar)."""
+        gradients in the parameters' `.grad` (over ranks, the gradients of
+        the global batch's loss).  -> this rank's part of the loss (device
+        scalar; the global loss is its sum over 'data')."""
+        loss = self.forward_backward(state, batch)
+        self.sync_grads(state)
+        return loss
+
+    def forward_backward(self, state: TrainState, batch: PackedBatch) -> torch.Tensor:
+        """`loss_and_grads` before `sync_grads`: each rank's own gradients."""
         state.optimizer.zero_grad(set_to_none=True)
         with self.mesh or contextlib.nullcontext():
             _, loss = state.model(batch, train=True, compute_loss=True,
@@ -336,14 +414,53 @@ class TrainContext:
         loss.backward()
         return loss.detach()
 
+    def replicated_over_model(self, name: str) -> bool:
+        return self.model_axis.on and self.layout[name].model_dim is None
+
+    @torch.no_grad()
+    def sync_grads(self, state: TrainState) -> None:
+        """Sum over 'data' the gradients of the leaves not split there (the
+        split ones were reduce-scattered in the backward), and average over
+        'model' the gradients of the leaves replicated there: each peer
+        computed the whole of it, and a backward that sums with atomics (the
+        embeddings', the attention kernels') leaves the copies a rounding
+        apart, which the mean removes, so the peers' copies stay equal."""
+        named = [(n, p) for n, p in state.model.named_parameters() if p.grad is not None]
+        if self.data_axis.on:
+            all_reduce_grads_([p.grad for n, p in named if self.layout[n].data_dim is None],
+                              self.data_axis)
+        if self.model_axis.on:
+            grads = [p.grad for n, p in named if self.replicated_over_model(n)]
+            if grads:
+                all_reduce_grads_(grads, self.model_axis)
+                torch._foreach_mul_(grads, 1.0 / self.model_axis.size)
+
+    @torch.no_grad()
+    def grad_norm(self, model: NekoModel) -> torch.Tensor:
+        """The global norm of the whole tree's gradients from this rank's
+        blocks: the sum over every rank of each leaf's squares divided by
+        the ranks holding a copy of it (a collective)."""
+        sq = [torch.linalg.vector_norm(p.grad, dtype=torch.float32) ** 2 / self._copies(n)
+              for n, p in self.trained_parameters(model).items() if p.grad is not None]
+        total = torch.stack(sq).sum().reshape(1)
+        all_reduce_(all_reduce_(total, self.data_axis), self.model_axis)
+        return total[0].sqrt()
+
+    def global_loss(self, loss: torch.Tensor) -> torch.Tensor:
+        """A rank's part of the loss summed over 'data' (the loss itself in
+        one process)."""
+        if not self.data_axis.on:
+            return loss
+        return all_reduce_(loss.reshape(1).clone(), self.data_axis)[0]
+
     def train_step(self, state: TrainState, batch: PackedBatch):
         """One call in place: an optimizer step, or under gradient
         accumulation one mini-step (an update every k-th).  -> (state,
         loss as a device scalar: reading it is the caller's choice, the
-        step never syncs)."""
+        step never syncs; over ranks the global batch's loss)."""
         loss = self.loss_and_grads(state, batch)
         self.apply_gradients(state)
-        return state, loss
+        return state, self.global_loss(loss)
 
     @torch.no_grad()
     def _accumulate(self, state: TrainState) -> bool:
@@ -385,7 +502,8 @@ class TrainContext:
             fused = isinstance(state.optimizer, FusedAdamW)
             if not fused and not self.opt_cfg.disable_grad_clip:
                 grads = [p.grad for p in state.model.parameters() if p.grad is not None]
-                clip_by_global_norm_(grads, self.opt_cfg.grad_norm_clip)
+                norm = self.grad_norm(state.model) if self.on_ranks else None
+                clip_by_global_norm_(grads, self.opt_cfg.grad_norm_clip, norm)
             # the update count before this update
             lr = self.schedule(state.optimizer.count if fused else self.update_count(state))
             for group in state.optimizer.param_groups:
@@ -399,10 +517,11 @@ class TrainContext:
 
     @torch.no_grad()
     def eval_step(self, state: TrainState, batch: PackedBatch) -> torch.Tensor:
-        """Deterministic loss on a batch (no grads, no dropout)."""
+        """Deterministic loss on a batch (no grads, no dropout; over ranks
+        the global batch's)."""
         with self.mesh or contextlib.nullcontext():
             _, loss = state.model(batch, compute_loss=True)
-        return loss
+        return self.global_loss(loss)
 
     def current_lr(self, step: int) -> float:
         """The learning rate at update count `step`."""

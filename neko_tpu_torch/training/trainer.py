@@ -31,7 +31,16 @@ checkpoints (counterpart of neko_tpu/training/trainer.py).
   "train_step" range) and writes the Chrome trace
   `DIR/trace_p<process>.json`; the other steps run without the profiler.
 
-The JAX package's multi-process batches are not ported.
+Over ranks (a context whose mesh spans a process group): each rank samples
+and packs batch_size / data rows, from a stream seeded by its 'data'
+coordinate (`host_seed(seed, d)`, the JAX package's per-host rule: model
+peers take the same rows), with local row indices.  Rank 0 logs and writes
+the experiment files; evaluation runs on rank 0 from the canonical weights
+that every rank helps gather (`multihost.eval_replica`), the others return
+no metrics.  A checkpoint is gathered by every rank and written by rank 0,
+and every rank writes its host-state sidecar.  The emergency checkpoint is
+taken only when every rank answers within `EMERGENCY_TIMEOUT` seconds and
+none is torn (`multihost.agree`); otherwise no rank writes anything.
 """
 
 from __future__ import annotations
@@ -56,6 +65,9 @@ from neko_tpu_torch.utils import host_state as hs
 from neko_tpu_torch.utils.checkpoint import save_checkpoint
 from neko_tpu_torch.utils.logging import MetricsLogger
 
+# seconds the ranks wait for each other before an emergency checkpoint
+EMERGENCY_TIMEOUT = 60.0
+
 
 class Trainer:
     def __init__(
@@ -77,13 +89,19 @@ class Trainer:
         self.exp_name = exp_name
         self.exp_dir = os.path.join(args.save_dir, exp_name)
         self.packer = SequencePacker(ctx.model_cfg)
+        # the rank (host-state sidecars, rank 0's duties) and the 'data'
+        # coordinate (the batch rows and the sampling stream)
         self.proc_index, self.proc_count = mh.process_info()
+        self.data_index, self.data_count = mh.data_info(ctx.mesh)
         self.is_main_process = self.proc_index == 0
-        self.local_batch_size = mh.local_batch_size(args.batch_size, self.proc_count)
+        self.local_batch_size = mh.local_batch_size(args.batch_size, self.data_count)
         self.logger = logger or MetricsLogger(
-            exp_dir=self.exp_dir if (args.save_model or args.log_jsonl) else None,
-            use_wandb=args.use_wandb, print_logs=self.is_main_process, jsonl=args.log_jsonl)
-        self.rng = np.random.default_rng(mh.host_seed(args.seed, self.proc_index))
+            exp_dir=(self.exp_dir if (args.save_model or args.log_jsonl) and self.is_main_process
+                     else None),
+            use_wandb=args.use_wandb and self.is_main_process,
+            print_logs=self.is_main_process, jsonl=args.log_jsonl)
+        self.rng = np.random.default_rng(mh.host_seed(args.seed, self.data_index))
+        self._agree_group = mh.agree_group(EMERGENCY_TIMEOUT)
         self.deterministic = args.eval_mode == "deterministic"
         self.steps = 0
         self.state: Optional[TrainState] = None
@@ -183,9 +201,13 @@ class Trainer:
             # continues exactly, then re-raise
             if self.args.save_model and self.state is not None:
                 torn = self._torn()
-                if torn:
-                    print(f"[neko-tpu-torch] no emergency checkpoint: {torn}; "
-                          "--resume_from the last checkpoint")
+                verdict = mh.agree(torn is not None, self._agree_group)
+                if verdict is None:
+                    print(f"[neko-tpu-torch] no emergency checkpoint: a rank did not answer "
+                          f"within {EMERGENCY_TIMEOUT} s; --resume_from the last checkpoint")
+                elif verdict:
+                    print(f"[neko-tpu-torch] no emergency checkpoint: "
+                          f"{torn or 'another rank is torn'}; --resume_from the last checkpoint")
                 else:
                     try:
                         print(f"[neko-tpu-torch] emergency checkpoint: {self._save()}")
@@ -278,7 +300,7 @@ class Trainer:
         # named by the steps the state has taken: an interrupt inside step N
         # leaves N - 1 (the JAX Trainer names that checkpoint N)
         step = self.state.step
-        path = save_checkpoint(self.exp_dir, self.state, step, self.args)
+        path = save_checkpoint(self.exp_dir, self.state, step, self.args, self.ctx)
         hs.save_host_state(self.exp_dir, step, self._checkpoint_host_state(), self.proc_index)
         return path
 
@@ -407,13 +429,12 @@ class Trainer:
         return out
 
     # ---------------------------------------------------------- evaluation
-    def _eval_generator(self):
+    def _eval_generator(self, weights):
         """The Generator over the activation-dtype copy, refreshed from the
         training weights (which it reads, never changes)."""
         from neko_tpu_torch.convert import build_model
         from neko_tpu_torch.inference.generator import Generator
 
-        weights = self.state.model.state_dict()
         if self._generator is None:
             dtype = self.ctx.model_cfg.activation_dtype
             copy = {k: v.detach().to(dtype, copy=True) for k, v in weights.items()}
@@ -426,7 +447,15 @@ class Trainer:
     def evaluate(self) -> Dict:
         if not any(eval_count(task, self.args)[1] > 0 for task in self.tasks):
             return {}  # no copy of the weights when nothing is evaluated
-        gen = self._eval_generator()
+        if self.ctx.on_ranks:
+            # the canonical weights, gathered by every rank (a collective);
+            # rank 0 evaluates them
+            weights = mh.eval_replica(self.ctx, self.state)
+            if not self.is_main_process:
+                return {}
+        else:
+            weights = self.state.model.state_dict()
+        gen = self._eval_generator(weights)
         with self._sample_lock:
             logs: Dict = {}
             for task in self.tasks:

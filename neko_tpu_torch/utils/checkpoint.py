@@ -21,6 +21,13 @@ directory serves as it is; `--use_ema` reads `ema.pt` in its place.  A
 checkpoint without `ema.pt` or "accum" (one written before the port had
 EMA and accumulation, or by a run without them) restores into a state
 without them, as the JAX package's pre-EMA layout does.
+
+Over ranks the files are canonical, whatever the mesh that wrote them:
+every rank joins the gather of the parameters, moments, EMA and
+accumulator (`TrainContext.gather`), rank 0 writes the directory, and
+every rank writes its own `host_state_<N>_p<rank>.pkl` (the Trainer).  A
+restore shards the canonical tensors onto the mesh of the context that
+loads them, one process included.
 """
 
 from __future__ import annotations
@@ -60,24 +67,58 @@ def load_args_dict(exp_dir_or_file: str) -> dict:
         return json.load(fh)
 
 
-def save_checkpoint(exp_dir: str, state, step: int, args: Any = None) -> str:
+def _optimizer_tensors(ctx, state, sd: dict, move) -> dict:
+    """The optimizer state dict `sd` with each moment (a tensor of its
+    parameter's shape) passed through move(parameter name, tensor), in one
+    order on every rank."""
+    names = list(ctx.trained_parameters(state.model))
+    out = {"param_groups": sd["param_groups"], "state": {}}
+    for k in sorted(sd["state"], key=lambda k: (isinstance(k, str), str(k).zfill(12))):
+        v = sd["state"][k]
+        if isinstance(k, int):
+            v = {kk: move(names[k], vv) if torch.is_tensor(vv) and vv.dim() > 0 else vv
+                 for kk, vv in sorted(v.items())}
+        out["state"][k] = v
+    return out
+
+
+def canonical_tensors(ctx, state):
+    """(weights, optimizer state dict, EMA or None, accumulator or None),
+    canonical: over ranks gathered from every rank's blocks (a collective),
+    in one process the live state."""
+    model = state.model
+    if ctx is None or not ctx.on_ranks:
+        return (model.state_dict(), state.optimizer.state_dict(), state.ema, state.accum)
+    weights = {n: ctx.gather(n, p.detach()) for n, p in model.named_parameters()}
+    opt = _optimizer_tensors(ctx, state, state.optimizer.state_dict(), ctx.gather)
+    ema = None if state.ema is None else {k: ctx.gather(k, v) for k, v in state.ema.items()}
+    accum = (None if state.accum is None
+             else {k: ctx.gather(k, v) for k, v in state.accum.items()})
+    return weights, opt, ema, accum
+
+
+def save_checkpoint(exp_dir: str, state, step: int, args: Any = None, ctx=None) -> str:
     """Write <exp_dir>/checkpoint_<step>/ from a TrainState and return its
     path.  The files go to a temporary directory that is renamed into
-    place, so a crash mid-write leaves no half checkpoint."""
+    place, so a crash mid-write leaves no half checkpoint.  With a `ctx`
+    over ranks every rank must call this (the gather); rank 0 writes."""
+    from neko_tpu_torch.parallel.multihost import process_index
+
+    weights, opt, ema, accum = canonical_tensors(ctx, state)
+    path = os.path.join(os.path.abspath(exp_dir), f"checkpoint_{step}")
+    if process_index() != 0:
+        return path
     if args is not None:
         save_args(exp_dir, args)
-    path = os.path.join(os.path.abspath(exp_dir), f"checkpoint_{step}")
     tmp = path + ".tmp"
-    model = state.model
-    save_model_dir(tmp, model.cfg, model.state_dict())
-    ts = {"step": int(state.step), "seed": int(state.seed),
-          "optimizer": state.optimizer.state_dict()}
-    if state.accum is not None:
+    save_model_dir(tmp, state.model.cfg, weights)
+    ts = {"step": int(state.step), "seed": int(state.seed), "optimizer": opt}
+    if accum is not None:
         ts["mini_step"] = int(state.mini_step)
-        ts["accum"] = {k: v.detach().cpu() for k, v in state.accum.items()}
+        ts["accum"] = {k: v.detach().cpu() for k, v in accum.items()}
     torch.save(ts, os.path.join(tmp, TRAIN_STATE))
-    if state.ema is not None:
-        torch.save({k: v.detach().cpu() for k, v in state.ema.items()}, os.path.join(tmp, EMA))
+    if ema is not None:
+        torch.save({k: v.detach().cpu() for k, v in ema.items()}, os.path.join(tmp, EMA))
     if os.path.isdir(path):  # a re-save of the same step replaces it
         for name in os.listdir(path):
             os.remove(os.path.join(path, name))
@@ -144,18 +185,19 @@ def load_checkpoint(path: str, ctx):
     """The full TrainState of a checkpoint: weights, optimizer state, step,
     and the EMA shadow and accumulator when `ctx` keeps them, on `ctx`'s
     device (`ctx` a TrainContext of the same model configuration and
-    optimizer route).  A run with EMA cannot restore a checkpoint without
-    one; a checkpoint without an accumulator starts a fresh window."""
+    optimizer route; over ranks, each rank's blocks).  A run with EMA
+    cannot restore a checkpoint without one; a checkpoint without an
+    accumulator starts a fresh window."""
     sd = load_params_only(path, ctx.model_cfg)
     ts = torch.load(os.path.join(path, TRAIN_STATE), map_location="cpu", weights_only=True)
     state = ctx.init_state(sd)
-    state.optimizer.load_state_dict(ts["optimizer"])
+    state.optimizer.load_state_dict(_optimizer_tensors(ctx, state, ts["optimizer"], ctx.shard))
     state.step = int(ts["step"])
     if state.ema is not None:
         for k, v in load_ema_params(path, ctx.model_cfg).items():
-            state.ema[k].copy_(v)
+            state.ema[k].copy_(ctx.shard(k, v))
     if state.accum is not None and "accum" in ts:
         for k, v in ts["accum"].items():
-            state.accum[k].copy_(v)
+            state.accum[k].copy_(ctx.shard(k, v))
         state.mini_step = int(ts["mini_step"])
     return state

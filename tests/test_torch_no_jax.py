@@ -59,7 +59,9 @@ def test_every_module_imports_with_jax_blocked():
 def test_sources_import_no_jax():
     pat = re.compile(r"^\s*(import|from)\s+(jax|flax|optax|orbax|neko_tpu|gymnasium|h5py|"
                      r"transformers|datasets|minari|wandb)\b", re.M)
-    files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"] + [
+        ROOT / "tools" / name for name in ("check_torch_ring_ranks.py",
+                                           "check_torch_parallel_ranks.py")]
     hits = [f"{f.relative_to(ROOT)}: {m.group(0).strip()}"
             for f in files for m in pat.finditer(f.read_text())]
     assert not hits, hits
@@ -83,6 +85,27 @@ def test_package_data_holds_every_source_the_kernels_build_from():
     for f in sources:
         rel = f.relative_to(PKG).as_posix()
         assert any(fnmatch.fnmatch(rel, g) for g in globs), f"{rel} matches none of {globs}"
+
+
+def test_parallel_ranks_tool_runs_with_them_blocked():
+    """tools/check_torch_parallel_ranks.py imports nothing of BLOCKED: one
+    step of 2 gloo CPU ranks with every module of it raising on import in
+    the process that drives them (the ranks import the tool alone)."""
+    code = (
+        "import sys\n"
+        f"for name in {BLOCKED!r}:\n"
+        "    sys.modules[name] = None\n"
+        f"sys.path.insert(0, {str(ROOT / 'tools')!r})\n"
+        "import check_torch_parallel_ranks as t\n"
+        "if __name__ == '__main__':\n"
+        "    sys.exit(t.main(['--device', 'cpu', '--width', 'small', '--data', '2',\n"
+        "                     '--steps', '1']))\n"
+    )
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=_env(),
+                       capture_output=True, text=True, timeout=180)
+    assert r.returncode == 0, r.stderr[-3000:]
+    line = json.loads(r.stdout.strip().splitlines()[-1])
+    assert line["ok"] and line["ranks"] == 2 and line["device"] == "cpu"
 
 
 def test_chip_smoke_refuses_without_cuda():

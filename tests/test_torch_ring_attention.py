@@ -402,9 +402,11 @@ def test_mesh_axes_context_and_what_is_not_ported():
             assert attn.seq_shards() == 1
         assert attn.seq_shards() == 4
     assert pmesh.active_mesh() is None
-    for bad in (dict(model=2), dict(data=2), dict(pipe=2)):
-        with pytest.raises(NotImplementedError):
+    for bad in (dict(model=2), dict(data=2)):  # no process group to lay them over
+        with pytest.raises(ValueError, match="multihost"):
             pmesh.create_mesh(**bad)
+    with pytest.raises(NotImplementedError):
+        pmesh.create_mesh(pipe=2)
     with pytest.raises(AssertionError):  # as in neko_tpu: pipe does not compose with seq
         pmesh.create_mesh(pipe=2, seq=2)
 

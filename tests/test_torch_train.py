@@ -203,8 +203,15 @@ def test_train_mode_refuses_what_is_not_ported():
     with pytest.raises(NotImplementedError):  # the int8 cache, in every mode
         convert.build_model(ModelConfig(**base, kv_cache_dtype="int8"),
                             convert.init_state_dict(ModelConfig(**base), 0), device="cpu")
+    # fsdp in one process splits nothing (neko_tpu's fsdp_param_pspec on a
+    # data axis of 1); a 'seq' axis over the ranks of a group is not ported
+    ctx = ts.TrainContext(ModelConfig(**base), ts.OptimizerConfig(), device="cpu", fsdp=True)
+    assert all(spec.data_dim is None for spec in ctx.layout.values())
+    from neko_tpu_torch.parallel.mesh import Mesh
+
     with pytest.raises(NotImplementedError):
-        ts.TrainContext(ModelConfig(**base), ts.OptimizerConfig(), device="cpu", fsdp=True)
+        ts.TrainContext(ModelConfig(**base), ts.OptimizerConfig(), device="cpu",
+                        mesh=Mesh(("data", "seq", "model"), (1, 2, 1), seq_group=object()))
     with pytest.raises(ValueError):  # train mode needs the step's generator
         model(to_device_batch(arrays, "cpu"), train=True, compute_loss=True)
 
