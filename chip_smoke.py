@@ -229,7 +229,35 @@
    0 (#1, #14) and a checkpoint, which one process restores to the
    parameters the ranks gathered, bit for bit (`parallel_launches`).
 
-Every train run (phases 6, 8, 10, 13, 14, 15, 17, 18) takes its loss forward through #15:
+19. The rest of training over processes: 'seq' over the ranks and the
+   pipeline, two ranks on the one card over gloo again (the ring's kv
+   blocks and the pipeline's hops go through pinned host buffers: gloo's
+   point-to-point takes host memory only).  First the kernels at the
+   shapes the ranks give them, against their plain versions: #11-#13 on
+   the pairs of 2 'seq' ranks at S_local 4096 (SEQ_RING; the pairs (0, 0),
+   (1, 0), (1, 1), timed on the diagonal and the full pair), #3 / #4 on a
+   microbatch of 4 rows, #15 on 1F1B's 1,024-row chunk of a microbatch, #16
+   over stage 0's leaves, bit for bit.  Then through the tool, 3 steps at
+   lr 1e-3 each, against one process (limits PARALLEL_*_TOL["seq"] and
+   ["pipe"]): (a) SEQ_RANK_RUNS, seq=2 at k = 8192 (the flagship width at 2
+   rows, S_local 4096) against the one-device seq=2 mesh, through the
+   gathered and the chunked loss and at dropout 0.1, the planted "gradients
+   not summed over 'seq'", "boundary target dropped" and "seq peers share a
+   mask" outside the limits; ring launches a step rank 0 layers x 1 pair,
+   rank 1 layers x 2.  (b) PIPE_RUNS, pipe=2 on the root bench's 16 rows:
+   GPipe and 1F1B at 4 and 8 microbatches (1F1B also with fused_adamw),
+   GPipe against 1F1B at dropout 0.1 (PIPE_SCHEDULE_TOL) and the
+   microbatches' own masks, the planted "clip norm from the stage's own
+   leaves", "embedding gradient only on stage 0", "mean of microbatch
+   means" and "every microbatch shares one mask" seen; the activations a
+   stage holds (1F1B's below GPipe's, not growing with the microbatches);
+   a stage's resting bytes against the count from the shapes.  Then the
+   train CLI over 2 ranks with `--mesh_seq_axis 2` and with
+   `--mesh_pipe_axis 2 --pipeline_schedule 1f1b`: 10 steps, rank 0's
+   evaluation, a checkpoint one process restores bit for bit
+   (`seq_ranks_launches`, `pipeline_launches`).
+
+Every train run (phases 6, 8, 10, 13, 14, 15, 17, 18, 19) takes its loss forward through #15:
 its launches must be loss chunks x steps (2 a flagship and `long` step, 3 a
 `long4k` step), and the plain side of each kernels-vs-plain step check runs
 the plain loss forward too.
@@ -240,7 +268,8 @@ runs ({"kernels": ...}; launches counted in the serving and train runs
 alone, phase 14's among them (`train_cli_launches`), phase 15's training
 (`mix_train_launches`) and evaluation (`eval_cli_launches`), phase 16's
 (`serving_engine_launches`), phase 17's (`train_features_launches`), phase
-18's over both ranks (`parallel_launches`), each with its bound
+18's over both ranks (`parallel_launches`), phase 19's (`seq_ranks_launches`,
+`pipeline_launches`), each with its bound
 from this run's shapes), then, as the last line,
 {"ok": true, "device": {...}}.  Any failed phase exits non-zero.  The
 attention entries and the loss head carry `tflops`: the bound's FLOPs over
@@ -655,7 +684,9 @@ PEAK_BF16_FLOPS, PEAK_HBM_BYTES = 989e12, 3.35e12
 # turns the near-zero ones into sign flips.  Faults: "mean of local means"
 # 9.977e-4, 6.329e-2, 3.801e-3; "FSDP clip norm from the local shard"
 # 8.217e-4, 1.362e-2, 2.508e-1; "row-parallel all-reduce dropped" 7.114e-2,
-# 1.171, 1.975; "out-of-shard targets clipped" 0.9508, 1.117, 32.38.
+# 1.171, 1.975; "out-of-shard targets clipped" 0.9508, 1.117, 32.38.  (With the
+# evaluation loss after the steps added to the loss error, (data=2) then
+# reads 8.262e-6, the rest as before; measured on one H100.)
 PARALLEL_STEPS = 3
 PARALLEL_RUNS = (
     dict(data=2), dict(data=2, fault="mean of local means"),
@@ -680,6 +711,69 @@ PARALLEL_ATTN = ((8, 24), (16, 12))
 # evaluation and a checkpoint at step 10, restored in one process
 PARALLEL_CLI = [a for a in TRAIN_CLI] + ["--training_steps", "10", "--log_eval_freq", "10",
                                          "--mesh_model_axis", "2"]
+# phase 19: the rest of training over processes, two ranks on the one card
+# over gloo again (kv blocks and pipeline hops through pinned host buffers,
+# gloo's point-to-point taking host memory only), bf16 over fp32, 3 steps
+# at lr 1e-3 from the first step, against the same steps in one process.
+# (a) 'seq' over the ranks at k = 8192 (S_local 4096), the flagship width at
+# 2 rows (LONG8K), against one process under the one-device seq=2 mesh: at
+# dropout 0 through the gathered and the chunked loss, at dropout 0.1 (the
+# one-device shards draw the ranks' masks at one seed); planted: "gradients
+# not summed over 'seq'", "boundary target dropped" (chunked), "seq peers
+# share a mask" (dropout).  (b) 'pipe' over the ranks, the root bench's 16
+# rows at k = 1024: GPipe and 1F1B at 4 microbatches (1F1B also under
+# fused_adamw) and at 8 (peak memory), each against one process; both at
+# dropout 0.1 against each other; planted: "clip norm from the stage's own
+# leaves", "embedding gradient only on stage 0", "mean of microbatch
+# means", "every microbatch shares one mask".
+SEQ_RANK = dict(seq=2, k=8192, rows=2)
+SEQ_RANK_RUNS = (SEQ_RANK, dict(SEQ_RANK, loss="chunked"), dict(SEQ_RANK, dropout=0.1),
+                 dict(SEQ_RANK, fault="gradients not summed over 'seq'"),
+                 dict(SEQ_RANK, loss="chunked", fault="boundary target dropped"),
+                 dict(SEQ_RANK, dropout=0.1, fault="seq peers share a mask"))
+PIPE = dict(pipe=2, micro=4)
+PIPE_RUNS = (PIPE, dict(PIPE, schedule="1f1b"), dict(PIPE, schedule="1f1b", fused_adamw=True),
+             dict(PIPE, micro=8), dict(PIPE, micro=8, schedule="1f1b"),
+             dict(PIPE, dropout=0.1), dict(PIPE, schedule="1f1b", dropout=0.1),
+             dict(PIPE, schedule="1f1b", fault="clip norm from the stage's own leaves"),
+             dict(PIPE, fault="embedding gradient only on stage 0"),
+             dict(PIPE, schedule="1f1b", fault="mean of microbatch means"),
+             dict(PIPE, schedule="1f1b", dropout=0.1, fault="every microbatch shares one mask"))
+# The limits (loss, update, norm as phase 18's; the loss error includes the
+# evaluation loss after the steps), each near the geometric mean of its
+# sound reading and the faintest fault it sees (measured on NVIDIA
+# H100 80GB HBM3, 700.00 W; the readings repeat to the last digit).  seq:
+# sound at most 1.350e-4 / 8.765e-3 / 2.562e-3 (the chunked loss; the
+# gathered 3.082e-5 / 8.093e-3 / 1.091e-3), "boundary target dropped"
+# 6.880e-4 / 3.904e-2 / 1.812e-2, "seq peers share a mask" 5.117e-2 /
+# 0.7594 / 0.5940, "gradients not summed over 'seq'" 3.091e-2 / 0.7047 /
+# 0.4674.  pipe: sound at most 4.278e-4 / 2.528e-2 / 2.137e-3 (1F1B: its
+# loss and head gradient come in 4-row microbatch chunks, each weight
+# gradient rounded to bf16 per chunk before the fp32 sum; GPipe x 4
+# 1.019e-5 / 1.034e-2 / 3.075e-4), "clip norm from the stage's own leaves"
+# 1.755e-3 / 4.142e-2 / 9.157e-2, "embedding gradient only on stage 0"
+# 3.687e-4 / 1.051e-2 / 9.792e-3 (and the replicas 3.0e-3 apart), "mean of
+# microbatch means" 2.563e-3 / 0.3370 / 7.502e-2.
+PARALLEL_LOSS_TOL.update(seq=3e-4, pipe=8.5e-4)
+PARALLEL_PARAM_TOL.update(seq=1.8e-2, pipe=3.2e-2)
+PARALLEL_NORM_TOL.update(seq=6.5e-3, pipe=4.5e-3)
+# GPipe against 1F1B at dropout 0.1 (the same masks): the losses' largest
+# relative difference (1F1B's loss is the chunked route's per microbatch,
+# GPipe's the gathered route's over the batch: other bf16 roundings); sound
+# 1.089e-4 (measured on one H100); "every microbatch shares one mask" is seen
+# by the microbatches' own check (share 1.0 against 0.0152-0.0158 sound)
+PIPE_SCHEDULE_TOL = 1e-3
+# the shapes phase 19 gives the kernels: the ring's pairs over 2 'seq' ranks
+# at S_local 4096 (rank 0 computes (0, 0), rank 1 (1, 0) and (1, 1)); #3 /
+# #4 on a microbatch of 4 rows; #15 on 1F1B's chunk of a microbatch (4 rows
+# x 256 columns)
+SEQ_RING = (2, 24, 4096, 32)
+PIPE_ATTN = ((4, 24),)
+PIPE_LOSS_ROWS = 4 * 256
+SEQ_RANK_CLI = [a for a in TRAIN_CLI] + ["--training_steps", "10", "--log_eval_freq", "10",
+                                         "--mesh_seq_axis", "2"]
+PIPE_CLI = [a for a in TRAIN_CLI] + ["--training_steps", "10", "--log_eval_freq", "10",
+                                     "--mesh_pipe_axis", "2", "--pipeline_schedule", "1f1b"]
 
 
 def _require(ok, what) -> None:
@@ -2031,10 +2125,15 @@ def long_train(card: str, dev="cuda") -> dict:
 
 
 # ------------------------------------------------- sequence parallelism
-def ring_kernels_vs_plain(card: str, dev="cuda") -> dict:
-    """Phase 9.  -> {"err": max abs error per kernel, "times": {kernel: JSON
-    timing fields at a full pair of the k = 8192 shards}, "check_launches":
-    launches per kernel here}."""
+def ring_kernels_vs_plain(card: str, dev="cuda", n=SEQ, bf16=RING_BF16, fp32=RING_FP32,
+                          pairs=RING_PAIRS, timed=(("diagonal", (2, 2)), ("full", (3, 2))),
+                          whole=True) -> dict:
+    """Phase 9 (and phase 19 at the shards of 'seq' ranks): the pairs
+    `pairs` of `n` shards at the `bf16` and `fp32` shapes, the whole ring
+    against the blocked kernels (`whole`), the `timed` pairs of the first
+    bf16 shape.  -> {"err": max abs error per kernel, "times": {kind:
+    {kernel: JSON timing fields}}, "check_launches": launches per kernel
+    here}."""
     import torch
 
     from neko_tpu_torch.ops import attention_kernel as whk
@@ -2049,9 +2148,9 @@ def ring_kernels_vs_plain(card: str, dev="cuda") -> dict:
     errs = dict.fromkeys(counters, 0.0)
 
     def inputs(B, H, S_l, hd, dtype, full_rows=False):
-        """One global problem of SEQ shards: a full row and rows left-padded
+        """One global problem of n shards: a full row and rows left-padded
         from inside shard 1 and shard 0 (one row: from inside shard 1)."""
-        S = SEQ * S_l
+        S = n * S_l
         qkv = torch.randn(B, S, 3 * H * hd, device=dev, generator=g).to(dtype)
         starts = [0] * B if full_rows else [0, S_l + 300, S_l // 3][:B] if B > 1 else [S_l + 300]
         start = torch.tensor(starts, dtype=torch.int32, device=dev)
@@ -2065,7 +2164,7 @@ def ring_kernels_vs_plain(card: str, dev="cuda") -> dict:
         q, k, v = whk._qkv_views("qkv", (qkv,), H)
         out = torch.empty(qkv.shape[0], qkv.shape[1], qkv.shape[2] // 3, dtype=qkv.dtype,
                           device=dev)
-        L = rk._ring_fwd_local(q, k, v, whk._heads4(out, H), SEQ,
+        L = rk._ring_fwd_local(q, k, v, whk._heads4(out, H), n,
                                (start, end, seed, q.shape[-1] ** -0.5, rate))
         return q, k, v, whk._heads4(out, H), L
 
@@ -2073,8 +2172,8 @@ def ring_kernels_vs_plain(card: str, dev="cuda") -> dict:
         qkv, start, end, dout = inputs(B, H, S_l, hd, getattr(torch, dtype_name))
         q, k, v, out, L = ring_forward(qkv, start, end, H, rate)
         do = whk._heads4(dout, H)
-        chunk = lambda t, i: t.chunk(SEQ, dim=2)[i]  # noqa: E731
-        for i, j in RING_PAIRS:
+        chunk = lambda t, i: t.chunk(n, dim=2)[i]  # noqa: E731
+        for i, j in pairs:
             q_off, k_off = i * S_l, j * S_l
             qi, kj, vj, doi = chunk(q, i), chunk(k, j), chunk(v, j), chunk(do, i)
             delta = ba.row_delta(doi, chunk(out, i))
@@ -2126,7 +2225,7 @@ def ring_kernels_vs_plain(card: str, dev="cuda") -> dict:
                     f"{n} {x:.1e}" for n, (_, x) in bad.items() if n not in ("m", "l"))
                 # (every case has a left-padded row, so a past pair sees the
                 # fault too: its key window moves with the offset)
-                blind = [n for n, (_, x) in bad.items() if n not in ("m", "l") and not x > 0]
+                blind = [nm for nm, (_, x) in bad.items() if nm not in ("m", "l") and not x > 0]
                 _require(not blind, f"the ring checks cannot tell '{RING_FAULT}' in {blind} "
                                     f"at pair {i},{j}")
             if rate and rows.any():
@@ -2144,44 +2243,46 @@ def ring_kernels_vs_plain(card: str, dev="cuda") -> dict:
             errs["dq"] = max(errs["dq"], res["dq"][0])
             errs["dkv"] = max(errs["dkv"], res["dk"][0], res["dv"][0])
 
-    for B, H, S_l, hd in RING_BF16:
+    for B, H, S_l, hd in bf16:
         for rate in (0.0, RATE):
             case(B, H, S_l, hd, "bfloat16", rate)
-    for B, H, S_l, hd in RING_FP32:
+    for B, H, S_l, hd in fp32:
         case(B, H, S_l, hd, "float32", RATE)
     torch.cuda.empty_cache()
 
-    # the ring as a whole against the blocked kernels: one seed, one mask
-    B, H, S_l, hd = RING_BF16[0]
-    qkv, start, end, dout = inputs(B, H, S_l, hd, torch.bfloat16)
-    valid = _valid_rows(start, end, SEQ * S_l)
-    res = []
-    for fn, kw in ((rk.ring_attention_qkv, {"n_shards": SEQ}), (ba.blocked_attention_qkv, {})):
-        x = qkv.clone().requires_grad_()
-        out = fn(x, start, end, seed, heads=H, dropout_rate=RATE, **kw)
-        res.append((out, *torch.autograd.grad(out, (x,), dout)))
-    (o1, g1), (o2, g2) = res
-    e_o, x_o, _ = _fwd_excess(o1[valid], o2[valid], "bfloat16")
-    grads = {n: _excess(a, b, GRAD_TOL["bfloat16"])
-             for n, a, b in zip(("dq", "dk", "dv"), g1.chunk(3, -1), g2.chunk(3, -1))}
-    print(f"ring over {SEQ} shards vs blocked kernels {B}x{H}x{SEQ * S_l}x{hd} bf16 rate {RATE}, "
-          f"same seed: out {e_o:.2e} (tolerance {KERNEL_TOL['bfloat16']}), "
-          + ", ".join(f"{n} {e:.2e}" for n, (e, _) in grads.items())
-          + f" (tolerance {GRAD_TOL['bfloat16']})")
-    _require(x_o <= 0 and all(x <= 0 for _, x in grads.values()),
-             "the ring and the blocked kernels differ at the same seed")
-    del res, o1, o2, g1, g2
+    B, H, S_l, hd = bf16[0]
+    if whole:  # the ring as a whole against the blocked kernels: one seed, one mask
+        qkv, start, end, dout = inputs(B, H, S_l, hd, torch.bfloat16)
+        valid = _valid_rows(start, end, n * S_l)
+        res = []
+        for fn, kw in ((rk.ring_attention_qkv, {"n_shards": n}),
+                       (ba.blocked_attention_qkv, {})):
+            x = qkv.clone().requires_grad_()
+            out = fn(x, start, end, seed, heads=H, dropout_rate=RATE, **kw)
+            res.append((out, *torch.autograd.grad(out, (x,), dout)))
+        (o1, g1), (o2, g2) = res
+        e_o, x_o, _ = _fwd_excess(o1[valid], o2[valid], "bfloat16")
+        grads = {name: _excess(a, b, GRAD_TOL["bfloat16"])
+                 for name, a, b in zip(("dq", "dk", "dv"), g1.chunk(3, -1), g2.chunk(3, -1))}
+        print(f"ring over {n} shards vs blocked kernels {B}x{H}x{n * S_l}x{hd} bf16 rate "
+              f"{RATE}, same seed: out {e_o:.2e} (tolerance {KERNEL_TOL['bfloat16']}), "
+              + ", ".join(f"{name} {e:.2e}" for name, (e, _) in grads.items())
+              + f" (tolerance {GRAD_TOL['bfloat16']})")
+        _require(x_o <= 0 and all(x <= 0 for _, x in grads.values()),
+                 "the ring and the blocked kernels differ at the same seed")
+        del res, o1, o2, g1, g2
 
     # times, in turns (plain, kernel, kernel, plain): full rows, bf16, rate
-    # 0.1, on the diagonal pair and on a full (past) pair of the k = 8192 shards
+    # 0.1, on the `timed` pairs (phase 9: the diagonal pair and a full (past)
+    # pair of the k = 8192 shards)
     times = {}
     qkv, start, end, dout = inputs(B, H, S_l, hd, torch.bfloat16, full_rows=True)
     q, k, v, out, L = ring_forward(qkv, start, end, H, RATE)
     do = whk._heads4(dout, H)
     act, row = B * S_l * H * hd, B * H * S_l * 4
-    for kind, (i, j) in (("diagonal", (2, 2)), ("full", (3, 2))):
+    for kind, (i, j) in timed:
         q_off, k_off = i * S_l, j * S_l
-        qi, kj, vj, doi, oi = (t.chunk(SEQ, dim=2)[n] for t, n in
+        qi, kj, vj, doi, oi = (t.chunk(n, dim=2)[c] for t, c in
                                ((q, i), (k, j), (v, j), (do, i), (out, i)))
         delta = ba.row_delta(doi, oi)
         ks = whk.dropout_keep_scale_reference(seed, B, H, None, RATE, rows=(q_off, q_off + S_l),
@@ -2235,7 +2336,7 @@ def ring_kernels_vs_plain(card: str, dev="cuda") -> dict:
           f"three gradient adds {adds:.4f} ms ({card})")
     torch.cuda.empty_cache()
     return {"err": errs, "times": times, "passes_ms": {"merge": merge, "adds": adds},
-            "check_launches": {n: f.launches for n, f in counters.items()}}
+            "check_launches": {name: f.launches for name, f in counters.items()}}
 
 
 @contextlib.contextmanager
@@ -4412,27 +4513,19 @@ def train_features(card: str, workdir, dev="cuda", width=None) -> dict:
 
 
 # ------------------------------------------------- training over processes
-def parallel_kernels_vs_plain(card: str, dev="cuda") -> dict:
-    """Phase 18's kernels on the shapes one rank gives them: #3 / #4 on
-    each rank's rows and heads (PARALLEL_ATTN), #15 on each rank's block
-    of the vocabulary with targets of both blocks (another block's scores
-    0), #16 over a rank's shards of the flagship tree under (data=2, fsdp).
-    -> {"attn": {(B, H): times}, "loss": ..., "adamw": ..., "err": {...}}."""
+def rank_attention_vs_plain(card: str, shapes, g, seed_value: int, errs: dict,
+                            dev="cuda") -> dict:
+    """#3 / #4 at the (B, H) `shapes` a rank gives them (S = 1024, hd 32,
+    bf16, rate RATE; inputs from `g`) against the plain version, their
+    largest errors into `errs`.  -> {(B, H): `_attention_train_times`}."""
     import torch
 
-    from neko_tpu_torch import bench, convert
     from neko_tpu_torch.ops import attention_kernel as whk
-    from neko_tpu_torch.ops import fused_adamw as fa
-    from neko_tpu_torch.ops import loss_kernel as lk
-    from neko_tpu_torch.parallel import sharding
-    from neko_tpu_torch.parallel.collectives import LOCAL, Axis
-    from neko_tpu_torch.parallel.mesh import AXES, Mesh
 
     S, hd = TRAIN["S"], TRAIN["hd"]
-    g = torch.Generator(device=dev).manual_seed(SEED + 18)
-    seed = torch.tensor([SEED + 18], dtype=torch.int32, device=dev)
-    res = {"attn": {}, "err": {"fwd": 0.0, "bwd": 0.0}}
-    for B, H in PARALLEL_ATTN:
+    seed = torch.tensor([seed_value], dtype=torch.int32, device=dev)
+    times = {}
+    for B, H in shapes:
         D = H * hd
         qkv = torch.randn(B, S, 3 * D, device=dev, generator=g).bfloat16()
         start, end = _train_bounds(B, S, dev)
@@ -4455,10 +4548,31 @@ def parallel_kernels_vs_plain(card: str, dev="cuda") -> dict:
         print(f"per-rank attention B={B} H={H} S={S} hd={hd} bf16 rate {RATE}: out max abs "
               f"err {err:.3e} (excess {excess:.3e}), dq/dk/dv {berr:.3e} (excess {bexcess:.3e})")
         _require(excess <= 0 and bexcess <= 0, f"#3 / #4 disagree at B={B}, H={H}")
-        res["err"]["fwd"] = max(res["err"]["fwd"], err)
-        res["err"]["bwd"] = max(res["err"]["bwd"], berr)
-        res["attn"][(B, H)] = _attention_train_times(qkv, dout, seed, ks, H, card)
+        errs["fwd"] = max(errs.get("fwd", 0.0), err)
+        errs["bwd"] = max(errs.get("bwd", 0.0), berr)
+        times[(B, H)] = _attention_train_times(qkv, dout, seed, ks, H, card)
         del qkv, dout, ks, x, out, dx, xp, ref, dxp
+
+    return times
+
+
+def parallel_kernels_vs_plain(card: str, dev="cuda") -> dict:
+    """Phase 18's kernels on the shapes one rank gives them: #3 / #4 on
+    each rank's rows and heads (PARALLEL_ATTN), #15 on each rank's block
+    of the vocabulary with targets of both blocks (another block's scores
+    0), #16 over a rank's shards of the flagship tree under (data=2, fsdp).
+    -> {"attn": {(B, H): times}, "loss": ..., "adamw": ..., "err": {...}}."""
+    import torch
+
+    from neko_tpu_torch import bench, convert
+    from neko_tpu_torch.ops import loss_kernel as lk
+    from neko_tpu_torch.parallel import sharding
+    from neko_tpu_torch.parallel.collectives import LOCAL, Axis
+    from neko_tpu_torch.parallel.mesh import AXES, Mesh
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 18)
+    res = {"err": {}}
+    res["attn"] = rank_attention_vs_plain(card, PARALLEL_ATTN, g, SEED + 18, res["err"], dev)
 
     cfg = bench.model_config("flagship")
     V, D, valid_vocab = cfg.padded_vocab_size, cfg.embed_dim, cfg.vocab_size
@@ -4504,11 +4618,24 @@ def parallel_kernels_vs_plain(card: str, dev="cuda") -> dict:
     shapes = convert.model_shapes(cfg)
     specs = sharding.layout(shapes, 1, 2, fsdp=True)
     mesh = Mesh(AXES, (2, 1, 1), None, (Axis(2, 0), LOCAL, LOCAL))
-    local = [sharding.local_shape(s, specs[k], mesh) for k, s in shapes.items()]
-    ps = [torch.randn(s, device=dev, generator=g) * 0.02 for s in local]
-    grads = [torch.randn(s, device=dev, generator=g) * 1e-3 for s in local]
-    mu = [torch.randn(s, device=dev, generator=g) * 1e-4 for s in local]
-    nu = [torch.rand(s, device=dev, generator=g) * 1e-7 for s in local]
+    res["adamw"] = adamw_vs_plain(
+        card, [sharding.local_shape(s, specs[k], mesh) for k, s in shapes.items()], g,
+        f"a rank's shards (data=2, fsdp), of {sum(s.numel() for s in shapes.values())}", dev)
+    return res
+
+
+def adamw_vs_plain(card: str, shapes, g, what: str, dev="cuda") -> dict:
+    """#16 over tensors of `shapes` (inputs from `g`) against its plain
+    version, bit for bit, then timed in turns beside torch's fused AdamW.
+    -> the JSON timing fields."""
+    import torch
+
+    from neko_tpu_torch.ops import fused_adamw as fa
+
+    ps = [torch.randn(s, device=dev, generator=g) * 0.02 for s in shapes]
+    grads = [torch.randn(s, device=dev, generator=g) * 1e-3 for s in shapes]
+    mu = [torch.randn(s, device=dev, generator=g) * 1e-4 for s in shapes]
+    nu = [torch.rand(s, device=dev, generator=g) * 1e-7 for s in shapes]
     scale = torch.tensor(0.5, device=dev)
     kw = dict(lr=1e-4, b1=0.9, b2=0.95, eps=1e-8, wd=0.1, bc1=1 - 0.9 ** 3, bc2=1 - 0.95 ** 3)
 
@@ -4521,10 +4648,9 @@ def parallel_kernels_vs_plain(card: str, dev="cuda") -> dict:
     torch.cuda.synchronize()
     unequal = sum(int((a != b).sum()) for a, b in zip(got, want))
     n_local = sum(p.numel() for p in ps)
-    print(f"fused AdamW over a rank's shards (data=2, fsdp): {len(ps)} tensors, {n_local} of "
-          f"{sum(s.numel() for s in shapes.values())} parameters; {unequal} values not "
-          f"bit-equal to the plain version")
-    _require(unequal == 0, "#16 over the shards differs from its plain version")
+    print(f"fused AdamW over {what}: {len(ps)} tensors, {n_local} parameters; {unequal} values "
+          f"not bit-equal to the plain version")
+    _require(unequal == 0, f"#16 over {what} differs from its plain version")
     del got, want
     run_k = lambda: fa.fused_adamw_apply(ps, grads, mu, nu, scale, **kw)  # noqa: E731
     run_p = lambda: fa.fused_adamw_apply_reference(ps, grads, mu, nu, scale, **kw)  # noqa: E731
@@ -4538,54 +4664,93 @@ def parallel_kernels_vs_plain(card: str, dev="cuda") -> dict:
     print(f"fused AdamW over {n_local} parameters: kernel {k1:.4f} / {k2:.4f} ms, plain "
           f"{p1:.4f} / {p2:.4f} ms, library (torch fused AdamW) {lib:.4f} ms, bound "
           f"{bound[0]:.4f} ms ({bound[1]}) ({card})")
-    res["adamw"] = {"ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2, "bound_ms": bound[0],
-                    "bound_by": bound[1], "library_ms": lib, "parameters": n_local}
     del ps, grads, mu, nu, lib_params
     torch.cuda.empty_cache()
-    return res
+    return {"ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2, "bound_ms": bound[0],
+            "bound_by": bound[1], "library_ms": lib, "parameters": n_local}
 
 
 def _split_axis(run) -> str:
-    """The axis whose limits hold a configuration: 'model' when it splits
-    the model, else 'data'."""
-    return "model" if run["model"] > 1 else "data"
+    """The axis whose limits hold a configuration: 'seq' or 'pipe' when it
+    has one, else 'model' when it splits the model, else 'data'."""
+    for ax in ("seq", "pipe", "model"):
+        if run[ax] > 1:
+            return ax
+    return "data"
 
 
-def _parallel_runs(card: str, width="flagship", dev="cuda") -> dict:
-    """PARALLEL_RUNS through the tool: the limits against the sound and
-    planted readings, the launches of each rank.  -> {"launches" (the sound
-    runs' sums over the ranks), "readings"}."""
+def _run_name(run) -> str:
+    return ", ".join([f"{k}={run[k]}" for k in ("data", "seq", "pipe", "model") if run[k] > 1]
+                     + ([f"{run['schedule']} x {run['micro']}"] if run["pipe"] > 1 else [])
+                     + ([f"k={run['k']}, {run['rows']} rows"] if run["k"] else [])
+                     + (["chunked loss"] if run["loss"] == "chunked" else [])
+                     + [k for k in ("fsdp", "fused_adamw") if run[k]]
+                     + ([f"dropout {run['dropout']}"] if run["dropout"] else []))
+
+
+def _expected_launches(run, r, layers: int, steps: int) -> dict:
+    """The launches a rank's steps must show: #3 / #4 a layer and a
+    microbatch (a stage's layers; 1F1B runs the forward of a stage that is
+    not the last twice), the ring kernels #11-#13 a layer and a visible pair
+    (rank i of 'seq' sees i + 1 pairs), #15 a loss chunk (the last stage's
+    under 'pipe'), #16 a step under fused_adamw."""
+    seq_i, stage = r["seq_pipe"]
+    adamw = steps if run["fused_adamw"] else 0
+    if run["seq"] > 1:
+        pairs = layers * steps * (seq_i + 1)
+        return {"fwd": 0, "bwd": 0, "ring_fwd": pairs, "ring_dq": pairs, "ring_dkv": pairs,
+                "loss": r["loss_chunks"] * steps, "adamw": adamw}
+    if run["pipe"] > 1:
+        lp, m = layers // run["pipe"], run["micro"]
+        last = stage == run["pipe"] - 1
+        once = 1 if last or run["schedule"] == "gpipe" else 2
+        loss = 0 if not last else r["loss_chunks"] * steps * (
+            m if run["schedule"] == "1f1b" else 1)
+        return {"fwd": lp * m * steps * once, "bwd": lp * m * steps, "ring_fwd": 0,
+                "loss": loss, "adamw": adamw}
+    return {"fwd": layers * steps, "bwd": layers * steps, "loss": r["loss_chunks"] * steps,
+            "adamw": adamw}
+
+
+def _parallel_runs(card: str, runs=PARALLEL_RUNS, phase=18, width="flagship", dev="cuda",
+                   steps=PARALLEL_STEPS) -> dict:
+    """`runs` through the tool in one spawn of the ranks: the limits against
+    the sound and planted readings, the launches of each rank.  -> {"launches"
+    (the sound runs' sums over the ranks), "readings", "results"}."""
     import check_torch_parallel_ranks as tool
 
     t0 = time.perf_counter()
-    results = tool.run_ranks(list(PARALLEL_RUNS), backend="gloo", device=dev, width=width,
-                             steps=PARALLEL_STEPS, seed=SEED, timeout=900)
-    print(f"phase 18 ranks: {len(results)} configurations in {time.perf_counter() - t0:.1f} s "
-          "(one spawn of 2 ranks, gloo, both on the card)")
+    results = tool.run_ranks(list(runs), backend="gloo", device=dev, width=width, steps=steps,
+                             seed=SEED, timeout=900)
+    world = len(results[0]["ranks"])
+    print(f"phase {phase} ranks: {len(results)} configurations in "
+          f"{time.perf_counter() - t0:.1f} s (one spawn of {world} ranks, gloo, all on the card)")
     layers = tool.WIDTHS[width]["shape"]["layers"]
     sound, faults = {}, {}
-    launches = {"fwd": 0, "bwd": 0, "loss": 0, "adamw": 0}
+    launches = {}
     readings = []
     for res in results:
         run, ranks = res["run"], res["ranks"]
-        name = ", ".join([f"{k}={run[k]}" for k in ("data", "model") if run[k] > 1]
-                         + [k for k in ("fsdp", "fused_adamw") if run[k]]
-                         + ([f"dropout {run['dropout']}"] if run["dropout"] else []))
+        name = _run_name(run)
         line = {"run": name, "fault": run["fault"], "losses": [r["losses"] for r in ranks],
                 "loss_err": res["loss_err"], "param_err": res["param_err"],
                 "norm_err": res["norm_err"], "replica_err": res["replica_err"],
                 "peer_grad_err": res["peer_grad_err"],
+                "micro_mask_share": res["micro_mask_share"],
+                "peak_saved_inputs": [r["peak_saved_inputs"] for r in ranks],
                 "launches": [r["launches"] for r in ranks],
                 "collective_ms_per_step": [r["collective"]["ms"] for r in ranks],
                 "collective_bytes_per_step": [r["collective"]["bytes"] for r in ranks],
                 "collective_calls_per_step": [r["collective"]["calls"] for r in ranks],
                 "step_ms": [r["step_ms"] for r in ranks],
                 "peak_gib": [(r["peak_bytes"] or 0) / 2 ** 30 for r in ranks],
-                "resting_gb": [r["resting_bytes"] / 1e9 for r in ranks],
-                "one_process_resting_gb": (res["one_process"]["resting_bytes"] / 1e9
-                                           if res["one_process"] else None)}
+                "activation_peak_gib": [(r["activation_peak_bytes"] or 0) / 2 ** 30
+                                        for r in ranks],
+                "resting_bytes": [r["resting_bytes"] for r in ranks],
+                "one_process_resting_bytes": (res["one_process"]["resting_bytes"]
+                                              if res["one_process"] else None)}
         readings.append(line)
-        print(f"phase 18 [{name}{'; planted: ' + run['fault'] if run['fault'] else ''}]: "
+        print(f"phase {phase} [{name}{'; planted: ' + run['fault'] if run['fault'] else ''}]: "
               + json.dumps({k: v for k, v in line.items() if k not in ("run", "fault")})
               + f" ({card})")
         _require(all(np.isfinite(r["losses"]).all() for r in ranks), f"non-finite loss: {name}")
@@ -4594,19 +4759,21 @@ def _parallel_runs(card: str, width="flagship", dev="cuda") -> dict:
             continue
         sound[name] = res
         for r in ranks:
-            want = {"fwd": layers * PARALLEL_STEPS, "bwd": layers * PARALLEL_STEPS,
-                    "loss": r["loss_chunks"] * PARALLEL_STEPS,
-                    "adamw": PARALLEL_STEPS if run["fused_adamw"] else 0}
+            want = _expected_launches(run, r, layers, steps)
             got = {k: r["launches"][k] for k in want}
             # (a CPU rehearsal runs the plain versions: nothing launches)
             _require(got == want or dev == "cpu",
                      f"[{name}] rank {r['rank']} launches {got}, want {want}")
-            for k in launches:
-                launches[k] += got[k]
+            for k, v in r["launches"].items():
+                launches[k] = launches.get(k, 0) + v
         _require(res["replica_err"] == 0.0, f"[{name}] replicas differ: {res['replica_err']}")
-        if run["dropout"]:
+        if run["dropout"] and run["model"] > 1:
             _require(res["peer_grad_err"] <= PARALLEL_PEER_TOL,
                      f"[{name}] model peers' gradients differ: {res['peer_grad_err']}")
+        if res["micro_mask_share"] is not None:
+            _require(res["micro_mask_share"] <= tool.MICRO_SHARE_TOL,
+                     f"[{name}] microbatches share masks: {res['micro_mask_share']}")
+        if res["loss_err"] is None:
             continue
         ax = _split_axis(run)
         _require(res["loss_err"] <= PARALLEL_LOSS_TOL[ax]
@@ -4617,32 +4784,34 @@ def _parallel_runs(card: str, width="flagship", dev="cuda") -> dict:
     # each limit between its sound reading and the faults it sees
     limits = {"loss_err": PARALLEL_LOSS_TOL, "param_err": PARALLEL_PARAM_TOL,
               "norm_err": PARALLEL_NORM_TOL}
-    for ax in ("data", "model"):
+    for ax in sorted({_split_axis(r["run"]) for r in sound.values()}):
         for key, tol in limits.items():
-            worst = max(r[key] for r in sound.values()
-                        if r[key] is not None and _split_axis(r["run"]) == ax)
+            held = [r[key] for r in sound.values()
+                    if r[key] is not None and _split_axis(r["run"]) == ax]
             caught = {f: r[key] for f, r in faults.items() if _split_axis(r["run"]) == ax
                       and r[key] is not None and r[key] > tol[ax]}
-            print(f"{key} limit ({ax}) {tol[ax]:g}: sound {worst:.3e}; faults over it: "
-                  + (", ".join(f"'{f}' {v:.3e}" for f, v in caught.items()) or "none"))
-    peer = [r["peer_grad_err"] for r in sound.values() if r["run"]["dropout"]]
-    print(f"peer_grad_err limit {PARALLEL_PEER_TOL:g}: sound {max(peer):.3e}; faults: "
-          + ", ".join(f"'{f}' {r['peer_grad_err']:.3e}" for f, r in faults.items()
-                      if r["run"]["dropout"]))
+            print(f"{key} limit ({ax}) {tol[ax]:g}: sound {max(held, default=0.0):.3e}; faults "
+                  "over it: " + (", ".join(f"'{f}' {v:.3e}" for f, v in caught.items())
+                                 or "none"))
     for f, r in faults.items():
-        if r["run"]["dropout"]:
+        run = r["run"]
+        if run["dropout"] and run["model"] > 1:
             seen = r["peer_grad_err"] > PARALLEL_PEER_TOL
+        elif r["micro_mask_share"] is not None:
+            seen = r["micro_mask_share"] > tool.MICRO_SHARE_TOL
         else:
-            seen = any(r[key] > tol[_split_axis(r["run"])] for key, tol in limits.items())
-        _require(seen, f"phase 18 cannot tell the planted '{f}'")
-    return {"launches": launches, "readings": readings}
+            seen = r["replica_err"] > 0 or any(
+                r[key] is not None and r[key] > tol[_split_axis(run)]
+                for key, tol in limits.items())
+        _require(seen, f"phase {phase} cannot tell the planted '{f}'")
+    return {"launches": launches, "readings": readings, "results": results}
 
 
-def _parallel_cli(card: str, workdir, argv=None, dev="cuda") -> dict:
-    """The train CLI over 2 ranks (`--multihost --mesh_model_axis 2`,
-    torchrun's environment given to each): 10 steps, an evaluation and a
-    checkpoint on rank 0; the checkpoint restored in one process holds the
-    parameters the ranks gathered, bit for bit.  -> the CLI's launches
+def _parallel_cli(card: str, workdir, argv=None, dev="cuda", mesh=None) -> dict:
+    """The train CLI over 2 ranks (torchrun's environment given to each;
+    by default `--multihost --mesh_model_axis 2`): 10 steps, an evaluation
+    and a checkpoint on rank 0; the checkpoint restored in one process holds
+    the parameters the ranks gathered, bit for bit.  -> the CLI's launches
     summed over the ranks."""
     import torch
 
@@ -4653,30 +4822,35 @@ def _parallel_cli(card: str, workdir, argv=None, dev="cuda") -> dict:
 
     t0 = time.perf_counter()
     argv = PARALLEL_CLI if argv is None else argv
+    mesh = mesh or {"data": 1, "seq": 1, "model": 2}
     ranks, final = tool.cli_ranks(argv + ["--save_dir", str(workdir)], 2, cpu=dev == "cpu",
                                   params=True, timeout=600)
     layers = int(argv[argv.index("--layers") + 1])
+    flags = " ".join(a for a in argv if a.startswith("--mesh") or a.startswith("--pipeline"))
     wall = time.perf_counter() - t0
     exp = ranks[0]["exp_dir"]
     logs = _iteration_logs(exp)
     evals = {k: v for k, v in logs[-1].items() if k.startswith("evaluation/")}
-    print(f"train CLI over 2 ranks (--multihost --mesh_model_axis 2, gloo on the card): "
+    print(f"train CLI over 2 ranks (--multihost {flags}, gloo on the card): "
           f"{ranks[0]['steps']} steps in {wall:.1f} s of wall time, train loss mean "
           f"{logs[-1]['training/train_loss_mean']:.4f}, step time "
           f"{logs[-1]['time/training'] / 10 * 1e3:.1f} ms; evaluation {evals}; launches "
           f"{[r['launches'] for r in ranks]} ({card})")
     _require(evals and all(np.isfinite(v) for v in evals.values()),
              f"the CLI's evaluation is missing or not finite: {evals}")
-    _require(all(r["steps"] == 10 and r["mesh"]["model"] == 2 for r in ranks),
-             f"the CLI ranks did not train 10 steps over model=2: {ranks}")
+    _require(all(r["steps"] == 10 and r["mesh"] == mesh for r in ranks),
+             f"the CLI ranks did not train 10 steps over {mesh}: {ranks}")
     for r in ranks:
-        _require(dev == "cpu" or (r["launches"]["bwd"] == layers * 10
-                                  and r["launches"]["loss"] >= 10),
+        _require(dev == "cpu" or r["launches"]["loss"] >= 10 * (mesh.get("pipe", 1) == 1)
+                 and (r["launches"]["bwd"] == layers * 10 if mesh.get("model", 1) > 1 else True)
+                 and (r["launches"]["ring_dkv"] > 0 if mesh.get("seq", 1) > 1 else True)
+                 and (r["launches"]["bwd"] > 0 if mesh.get("pipe", 1) > 1 else True),
                  f"CLI rank launches {r['launches']}")
     _require(dev == "cpu" or (ranks[0]["launches"]["decode"] > 0
                               and ranks[1]["launches"]["decode"] == 0
                               and ranks[0]["launches"]["fwd"] > ranks[1]["launches"]["fwd"]
-                              == layers * 10),
+                              and (ranks[1]["launches"]["fwd"] == layers * 10
+                                   if mesh.get("model", 1) > 1 else True)),
              "the evaluation did not run on rank 0 alone")
     ckpt, args = resolve_checkpoint_and_args(exp, {"cpu": dev == "cpu", "device": dev})
     ctx, _ = build_context(args)
@@ -4703,6 +4877,137 @@ def parallel_train(card: str, workdir) -> dict:
                 for k in ("fwd", "bwd", "loss", "adamw", "decode")}
     print(f"phase 18 launches over the ranks (sound runs + the CLI): {launches}")
     return {"kernels": kernels, "launches": launches, "readings": runs["readings"]}
+
+
+def pipeline_seq_kernels_vs_plain(card: str, dev="cuda") -> dict:
+    """Phase 19's kernels at the shapes its ranks give them, each against
+    its plain version: the ring's pairs over 2 'seq' ranks at S_local 4096
+    (#11-#13), #3 / #4 on a microbatch, #15 on 1F1B's chunk of a microbatch
+    over the whole vocabulary, #16 over a stage's leaves (bit for bit).
+    -> {"ring", "attn", "loss", "adamw", "err"}."""
+    import torch
+
+    from neko_tpu_torch import bench, convert
+    from neko_tpu_torch.ops import loss_kernel as lk
+    from neko_tpu_torch.parallel.collectives import LOCAL, Axis
+    from neko_tpu_torch.parallel.mesh import PIPE_AXES, Mesh
+
+    ring = ring_kernels_vs_plain(card, dev, n=2, bf16=(SEQ_RING,), fp32=(),
+                                 pairs=((0, 0), (1, 0), (1, 1)),
+                                 timed=(("diagonal", (1, 1)), ("full", (1, 0))), whole=False)
+    g = torch.Generator(device=dev).manual_seed(SEED + 19)
+    res = {"ring": ring, "err": dict(ring["err"])}
+    res["attn"] = rank_attention_vs_plain(card, PIPE_ATTN, g, SEED + 19, res["err"], dev)
+
+    cfg = bench.model_config("flagship")
+    V, D, valid = cfg.padded_vocab_size, cfg.embed_dim, cfg.vocab_size
+    n = PIPE_LOSS_ROWS
+    x = (torch.randn(n, D, device=dev, generator=g) * 0.5).bfloat16()
+    W = (torch.randn(V, D, device=dev, generator=g) * 0.05).bfloat16()
+    t = torch.randint(0, valid, (n,), device=dev, generator=g)
+    logz, tl = lk.fused_logz_tl(x, t, W, valid)
+    want = lk.fused_logz_tl_reference(x, t, W, valid)
+    torch.cuda.synchronize()
+    errs = [_excess(a, b, LOSS_TOL) for a, b in zip((logz, tl), want)]
+    print(f"loss head on 1F1B's microbatch chunk ([{n}, {D}] x {V}, {valid} valid): logz, tl "
+          f"max abs err {errs[0][0]:.3e}, {errs[1][0]:.3e} (tolerance {LOSS_TOL})")
+    _require(all(x_ <= 0 for _, x_ in errs), "#15 disagrees on 1F1B's microbatch chunk")
+    res["err"]["loss"] = max(errs[0][0], errs[1][0])
+    run_k = lambda: lk.fused_logz_tl(x, t, W, valid)  # noqa: E731
+    route = lambda: lk.logits_logz_tl(x, t, W, valid)  # noqa: E731
+    run_p = lambda: lk.fused_logz_tl_reference(x, t, W, valid)  # noqa: E731
+    r1, k1, k2, r2 = (_time_ms(f, 10) for f in (route, run_k, run_k, route))
+    p1, p2 = _time_ms(run_p, 5), _time_ms(run_p, 5)
+    flops = 2 * n * D * valid
+    bound = _bound(flops, (n * D + valid * D) * 2 + n * 4 + 2 * n * 4)
+    ms = (k1 + k2) / 2
+    print(f"loss head 1F1B chunk: kernel {k1:.4f} / {k2:.4f} ms ({_tflops(flops, ms):.1f} "
+          f"TFLOP/s), loss route (cuBLAS) {r1:.4f} / {r2:.4f} ms, plain {p1:.4f} / {p2:.4f} ms, "
+          f"bound {bound[0]:.4f} ms ({bound[1]}) ({card})")
+    res["loss"] = {"rows": n, "ms": ms, "plain_ms": (p1 + p2) / 2, "bound_ms": bound[0],
+                   "bound_by": bound[1], "library_ms": (r1 + r2) / 2,
+                   "tflops": _tflops(flops, ms)}
+    del x, W, t
+
+    # #16 over stage 0's leaves (its three layers and the root)
+    mesh = Mesh(PIPE_AXES, (1, 2, 1), None, (LOCAL, Axis(2, 0), LOCAL))
+    res["adamw"] = adamw_vs_plain(card, list(convert.stage_shapes(cfg, mesh).values()), g,
+                                  "stage 0's leaves", dev)
+    return res
+
+
+def _pipe_memory_and_schedules(results, card: str) -> dict:
+    """Phase 19 (b)'s readings across runs: GPipe against 1F1B at dropout
+    0.1, the stages' peak memory under both schedules at 4 and 8
+    microbatches, and a stage's resting bytes against the count from the
+    shapes.  -> the readings."""
+    from neko_tpu_torch import bench, convert
+    from neko_tpu_torch.parallel import pipeline
+
+    by = {(r["run"]["schedule"], r["run"]["micro"], r["run"]["dropout"], r["run"]["fused_adamw"],
+           r["run"]["fault"]): r for r in results}
+    gp, ob = by[("gpipe", 4, 0.1, False, None)], by[("1f1b", 4, 0.1, False, None)]
+    diff = max(abs(a - b) / abs(b) for ra, rb in zip(gp["ranks"], ob["ranks"])
+               for a, b in zip(ra["losses"], rb["losses"]))
+    print(f"GPipe vs 1F1B at dropout 0.1 (the same masks): losses' largest relative "
+          f"difference {diff:.3e} (limit {PIPE_SCHEDULE_TOL:g}) ({card})")
+    _require(diff <= PIPE_SCHEDULE_TOL, "1F1B does not train as GPipe does")
+    peaks = {f"{sch} x {m}": [(r["activation_peak_bytes"] / 2 ** 30, r["peak_bytes"] / 2 ** 30)
+                              for r in by[(sch, m, 0.0, False, None)]["ranks"]]
+             for sch in ("gpipe", "1f1b") for m in (4, 8)}
+    print(f"GiB a stage ((activations: the forward and backward over what rests, the step's "
+          f"peak) of stage 0, stage 1): {json.dumps(peaks)} ({card})")
+    # 1F1B holds at most 2 (S - 1 - i) + 1 stage inputs and one microbatch's
+    # graph, whatever M is; GPipe every microbatch's graph until its
+    # backward.  Stage 0's peak is its embedding's backward (the whole
+    # batch's patch pool, the same under both), the last stage's the
+    # schedule's.  (1% for the allocator's rounding of other block sizes.)
+    for stage in (0, 1):
+        for m in (4, 8):
+            _require(peaks[f"1f1b x {m}"][stage][0] <= 1.01 * peaks[f"gpipe x {m}"][stage][0],
+                     f"1F1B's stage {stage} holds more activations than GPipe's at {m}")
+        _require(peaks["1f1b x 8"][stage][0] <= 1.01 * peaks["1f1b x 4"][stage][0],
+                 "1F1B's activation memory grows with the microbatches")
+    _require(all(peaks[f"1f1b x {m}"][1][0] < peaks[f"gpipe x {m}"][1][0] for m in (4, 8)),
+             "1F1B's last stage holds no fewer activations than GPipe's")
+    cfg = convert.model_shapes(bench.model_config("flagship"))
+    n_root = sum(s.numel() for k, s in cfg.items() if not pipeline.is_stage_leaf(k))
+    n_body = sum(s.numel() for k, s in cfg.items() if pipeline.is_stage_leaf(k))
+    # fp32 parameters and AdamW's two fp32 moments: 12 bytes a parameter
+    want = 12 * (n_root + n_body // 2)
+    rest = by[("gpipe", 4, 0.0, False, None)]["ranks"]
+    one = by[("gpipe", 4, 0.0, False, None)]["one_process"]["resting_bytes"]
+    print(f"resting bytes a stage {[r['resting_bytes'] for r in rest]} (the count from the "
+          f"shapes: 12 x ({n_root} root + {n_body} / 2 body) = {want}); one process {one} "
+          f"(12 x {n_root + n_body} = {12 * (n_root + n_body)}); a stage / one process "
+          f"{rest[0]['resting_bytes'] / one:.4f}")
+    _require(all(r["resting_bytes"] == want for r in rest) and one == 12 * (n_root + n_body),
+             "a stage's resting bytes differ from the count from the shapes")
+    return {"schedule_loss_diff": diff, "peak_gib": peaks,
+            "resting_bytes": [r["resting_bytes"] for r in rest], "resting_count": want,
+            "one_process_resting_bytes": one}
+
+
+def pipeline_seq_train(card: str, workdir) -> dict:
+    """Phase 19.  -> {"kernels": pipeline_seq_kernels_vs_plain's, "launches":
+    {"seq", "pipe"}: the main path's launches (the sound runs and the CLI,
+    over the ranks), "readings"}."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "tools"))
+    kernels = pipeline_seq_kernels_vs_plain(card)
+    seq = _parallel_runs(card, SEQ_RANK_RUNS, phase=19)
+    pipe = _parallel_runs(card, PIPE_RUNS, phase=19)
+    pipe["schedules"] = _pipe_memory_and_schedules(pipe["results"], card)
+    keys = ("fwd", "bwd", "loss", "adamw", "decode", "ring_fwd", "ring_dq", "ring_dkv")
+    launches = {}
+    for name, runs, argv, mesh in (
+            ("seq", seq, SEQ_RANK_CLI, {"data": 1, "seq": 2, "model": 1}),
+            ("pipe", pipe, PIPE_CLI, {"data": 1, "pipe": 2, "model": 1})):
+        shutil.rmtree(workdir, ignore_errors=True)
+        cli = _parallel_cli(card, workdir, argv, mesh=mesh)
+        launches[name] = {k: runs["launches"].get(k, 0) + cli.get(k, 0) for k in keys}
+    print(f"phase 19 launches over the ranks (sound runs + the CLI): {launches}")
+    return {"kernels": kernels, "launches": launches,
+            "readings": seq["readings"] + pipe["readings"], "schedules": pipe["schedules"]}
 
 
 def main() -> int:
@@ -4786,8 +5091,20 @@ def main() -> int:
         par = parallel_train(card, workdir)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
+    try:
+        p19 = pipeline_seq_train(card, workdir)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
     pl = par["launches"]
     pk = par["kernels"]
+    sl, pp = p19["launches"]["seq"], p19["launches"]["pipe"]
+    qk = p19["kernels"]
+
+    def at_microbatch(key):  # #3 / #4 timed on a pipeline microbatch's rows
+        ms, plain_ms, library_ms, bound_ms, bound_by, flops = qk["attn"][PIPE_ATTN[0]][key]
+        return {"shape": list(PIPE_ATTN[0]) + [TRAIN["S"], TRAIN["hd"]], "ms": ms,
+                "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound_ms,
+                "bound_by": bound_by, "tflops": _tflops(flops, ms)}
 
     def at_rank_shape(key):  # #3 / #4 timed at a rank's (model=2) rows and heads
         ms, plain_ms, library_ms, bound_ms, bound_by, flops = pk["attn"][PARALLEL_ATTN[-1]][key]
@@ -4815,22 +5132,28 @@ def main() -> int:
         {"name": "whole_head_attention", "route": "cuda",
          "source": src + "whole_head_attention.cu", "replaces": f"{tpu}:206,236",
          "launches": (serve_launches + launches["fwd"] + cli["fwd"] + ev["fwd"] + ev["eval_fwd"]
-                      + se["fwd"] + tf["fwd"] + pl["fwd"]),
+                      + se["fwd"] + tf["fwd"] + pl["fwd"] + sl["fwd"] + pp["fwd"]),
          "train_cli_launches": cli["fwd"], "mix_train_launches": ev["fwd"],
          "eval_cli_launches": ev["eval_fwd"], "serving_engine_launches": se["fwd"],
          "train_features_launches": tf["fwd"], "parallel_launches": pl["fwd"],
-         "max_abs_err": max(err, trained["fwd_err"], pk["err"]["fwd"]), **timing("fwd"),
-         "prefill": prefill, "parallel_rank_shape": at_rank_shape("fwd")},
+         "seq_ranks_launches": sl["fwd"], "pipeline_launches": pp["fwd"],
+         "max_abs_err": max(err, trained["fwd_err"], pk["err"]["fwd"], qk["err"]["fwd"]),
+         **timing("fwd"), "prefill": prefill, "parallel_rank_shape": at_rank_shape("fwd"),
+         "microbatch_shape": at_microbatch("fwd")},
         {"name": "whole_head_attention_bwd", "route": "cuda",
          "source": src + "whole_head_attention_bwd.cu", "replaces": f"{tpu}:220,256",
-         "launches": launches["bwd"] + cli["bwd"] + ev["bwd"] + tf["bwd"] + pl["bwd"],
+         "launches": (launches["bwd"] + cli["bwd"] + ev["bwd"] + tf["bwd"] + pl["bwd"]
+                      + sl["bwd"] + pp["bwd"]),
          "train_cli_launches": cli["bwd"], "mix_train_launches": ev["bwd"],
          "train_features_launches": tf["bwd"], "parallel_launches": pl["bwd"],
-         "max_abs_err": max(trained["bwd_err"], pk["err"]["bwd"]), **timing("bwd"),
-         "parallel_rank_shape": at_rank_shape("bwd")},
+         "seq_ranks_launches": sl["bwd"], "pipeline_launches": pp["bwd"],
+         "max_abs_err": max(trained["bwd_err"], pk["err"]["bwd"], qk["err"]["bwd"]),
+         **timing("bwd"), "parallel_rank_shape": at_rank_shape("bwd"),
+         "microbatch_shape": at_microbatch("bwd")},
     ] + [
         {"name": name, "route": "cuda", "source": src + source,
          "replaces": f"{tpu_b}:{line}", "launches": long_path[key], "parallel_launches": 0,
+         "seq_ranks_launches": 0, "pipeline_launches": 0,
          "check_launches": blocked["check_launches"][key],
          "max_abs_err": blocked["err"][key], **long_times[key]}
         for name, source, line, key in (
@@ -4842,11 +5165,17 @@ def main() -> int:
         # the ring kernels, timed on a full (past) pair of the k = 8192 shards
         # (B=2, H=24, S_local=2048, hd=32), with the diagonal pair's times beside
         {"name": name, "route": "cuda", "source": src + "ring_attention.cu",
-         "replaces": f"{tpu_r}:{line}", "launches": seq_path[f"ring {key}"],
-         "parallel_launches": 0,
-         "check_launches": ring["check_launches"][key], "max_abs_err": ring["err"][key],
+         "replaces": f"{tpu_r}:{line}",
+         "launches": seq_path[f"ring {key}"] + sl[f"ring_{key}"] + pp[f"ring_{key}"],
+         "parallel_launches": 0, "seq_ranks_launches": sl[f"ring_{key}"],
+         "pipeline_launches": pp[f"ring_{key}"],
+         "check_launches": ring["check_launches"][key] + qk["ring"]["check_launches"][key],
+         "max_abs_err": max(ring["err"][key], qk["ring"]["err"][key]),
          **ring["times"]["full"][key],
-         "diagonal_pair": ring["times"]["diagonal"][key]}
+         "diagonal_pair": ring["times"]["diagonal"][key],
+         "seq_rank_pairs": {"shape": list(SEQ_RING),
+                            **{kind: qk["ring"]["times"][kind][key]
+                               for kind in ("diagonal", "full")}}}
         for name, line, key in (("ring_partial_fwd", 102, "fwd"), ("ring_partial_dq", 158, "dq"),
                                 ("ring_partial_dkv", 208, "dkv"))
     ] + [
@@ -4855,10 +5184,12 @@ def main() -> int:
         {"name": "decode_cache_attention", "route": "cuda", "source": src + "decode_attention.cu",
          "replaces": "neko_tpu/ops/decode_attention.py:80",
          "launches": (decode_launches + cli["decode"] + ev["decode"] + ev["eval_decode"]
-                      + se["decode"] + tf["decode"] + pl["decode"]),
+                      + se["decode"] + tf["decode"] + pl["decode"] + sl["decode"]
+                      + pp["decode"]),
          "train_cli_launches": cli["decode"], "mix_train_launches": ev["decode"],
          "eval_cli_launches": ev["eval_decode"], "serving_engine_launches": se["decode"],
          "train_features_launches": tf["decode"], "parallel_launches": pl["decode"],
+         "seq_ranks_launches": sl["decode"], "pipeline_launches": pp["decode"],
          "check_launches": decode["check_launches"] + decode["generate"]["launches"],
          "max_abs_err": decode["err"], **decode["times"], "b1": decode["times_b1"],
          "generate_per_token_ms": {k: decode["generate"][k] for k in ("kernel_ms", "plain_ms")}},
@@ -4869,19 +5200,23 @@ def main() -> int:
          "replaces": "neko_tpu/ops/loss_kernel.py:54",
          "launches": (launches["loss"] + long_path["loss head"] + seq_path["loss head"]
                       + adamw["loss_launches"] + cli["loss"] + ev["loss"] + tf["loss"]
-                      + pl["loss"]),
+                      + pl["loss"] + sl["loss"] + pp["loss"]),
          "train_cli_launches": cli["loss"], "mix_train_launches": ev["loss"],
          "train_features_launches": tf["loss"], "parallel_launches": pl["loss"],
+         "seq_ranks_launches": sl["loss"], "pipeline_launches": pp["loss"],
          "check_launches": loss_head["launches"],
-         "max_abs_err": max(loss_head["err"], pk["err"]["loss"]),
+         "max_abs_err": max(loss_head["err"], pk["err"]["loss"], qk["err"]["loss"]),
          **{k: v for k, v in loss_head.items() if k not in ("err", "launches")},
-         "parallel_vocab_blocks": pk["loss"]},
+         "parallel_vocab_blocks": pk["loss"], "microbatch_chunk": qk["loss"]},
         # AdamW over the flagship tree; launches are the fused train steps'
         {"name": "fused_adamw", "route": "cuda", "source": src + "fused_adamw.cu",
          "replaces": "neko_tpu/ops/fused_adamw.py:101",
-         "launches": adamw["launches"] + cli["adamw"] + tf["adamw"] + pl["adamw"],
+         "launches": (adamw["launches"] + cli["adamw"] + tf["adamw"] + pl["adamw"]
+                      + sl["adamw"] + pp["adamw"]),
          "train_cli_launches": cli["adamw"], "train_features_launches": tf["adamw"],
          "parallel_launches": pl["adamw"], "parallel_rank_shards": pk["adamw"],
+         "seq_ranks_launches": sl["adamw"], "pipeline_launches": pp["adamw"],
+         "stage_leaves": qk["adamw"],
          "check_launches": adamw["check_launches"], "max_abs_err": adamw["err"],
          **{k: adamw[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
                                   "optimizer_ms", "default_optimizer_ms")}},
@@ -4895,7 +5230,7 @@ def main() -> int:
     mask = {"name": "dropout_keep_scale", "route": "cuda",
             "source": src + "dropout_keep_scale.cu", "replaces": f"{tpu}:492,{tpu_b}:682",
             "launches": launches["mask"] + long_path["mask"] + seq_path["mask"],
-            "parallel_launches": 0,
+            "parallel_launches": 0, "seq_ranks_launches": 0, "pipeline_launches": 0,
             "check_launches": launches["mask_check"] + blocked["check_launches"]["mask"],
             "max_abs_err": 0.0, **timing("mask"), "long": long_times["mask"]}
     for shape, t in (("16x24x1024^2", mask), ("8x24x2048^2", long_times["mask"])):

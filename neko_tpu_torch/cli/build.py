@@ -181,18 +181,20 @@ def serving_max_patches(ckpt_path: str, args: TrainingArgs) -> int:
 
 def build_mesh(args: TrainingArgs):
     """The mesh of `args`: over the ranks of the process group when there
-    is more than one ('data' = what --mesh_model_axis leaves), else
-    --mesh_seq_axis sequence shards on the one device, else None.  A
-    'model' axis > 1 without the ranks to carry it is refused."""
+    is more than one ('data' = what --mesh_model_axis, --mesh_seq_axis and
+    --mesh_pipe_axis leave), else --mesh_seq_axis sequence shards on the
+    one device, else None.  A 'model' or 'pipe' axis > 1 without the ranks
+    to carry it is refused."""
     n = mh.process_count()
     if n > 1:
         return create_mesh(model=args.mesh_model_axis, seq=args.mesh_seq_axis,
                            pipe=args.mesh_pipe_axis)
-    if args.mesh_model_axis > 1:
-        raise ValueError(f"--mesh_model_axis {args.mesh_model_axis} needs that many ranks: "
-                         "launch the ranks with torchrun and pass --multihost")
+    for flag in ("mesh_model_axis", "mesh_pipe_axis"):
+        if getattr(args, flag) > 1:
+            raise ValueError(f"--{flag} {getattr(args, flag)} needs that many ranks: "
+                             "launch the ranks with torchrun and pass --multihost")
     if args.mesh_seq_axis > 1:
-        return create_mesh(data=1, seq=args.mesh_seq_axis, pipe=args.mesh_pipe_axis)
+        return create_mesh(data=1, seq=args.mesh_seq_axis)
     return None
 
 
@@ -203,7 +205,8 @@ def build_context(args: TrainingArgs, tasks: Optional[List[Task]] = None,
     checkpoint.  `--multihost` joins the process group of torchrun's
     environment first (parallel/multihost.py) and the context trains over
     its ranks (`build_mesh`); `--mesh_seq_axis N` in one process puts N
-    sequence shards on the one device (ring attention)."""
+    sequence shards on the one device (ring attention).  neko_tpu's checks
+    hold: the context splits over 'seq', the layers over 'pipe'."""
     check_ported(args)
     if args.multihost:
         device = mh.init_from_env(cpu=args.cpu or args.device == "cpu")
@@ -212,6 +215,9 @@ def build_context(args: TrainingArgs, tasks: Optional[List[Task]] = None,
     if args.sequence_length % args.mesh_seq_axis:
         raise ValueError(f"context len {args.sequence_length} must divide evenly over "
                          f"mesh_seq_axis={args.mesh_seq_axis} sequence shards")
+    if args.layers % args.mesh_pipe_axis:
+        raise ValueError(f"layers={args.layers} must split evenly into "
+                         f"mesh_pipe_axis={args.mesh_pipe_axis} pipeline stages")
     mesh = build_mesh(args)
     if tasks is None:
         tasks = build_tasks(args, mh.data_info(mesh)[0])
@@ -234,7 +240,8 @@ def resolve_checkpoint_and_args(model_path: str, overrides: Optional[dict] = Non
     saved = load_args_dict(os.path.dirname(os.path.abspath(ckpt_path)))
     # a checkpoint is canonical whatever mesh trained it: the restore runs in
     # this one process
-    saved.update(multihost=False, fsdp=False, mesh_model_axis=1)
+    saved.update(multihost=False, fsdp=False, mesh_model_axis=1, mesh_seq_axis=1,
+                 mesh_pipe_axis=1)
     saved.update({k: v for k, v in (overrides or {}).items() if v is not None})
     known = set(TrainingArgs.__dataclass_fields__)
     return ckpt_path, TrainingArgs(**{k: v for k, v in saved.items() if k in known})

@@ -22,10 +22,14 @@ RANK, WORLD_SIZE, MASTER_ADDR and MASTER_PORT set for each):
         --mesh_model_axis 2 [--fsdp] ...
 
 `--multihost` joins the group (NCCL with a card per rank, gloo when ranks
-share cards or with `--cpu`); the ranks form a (data, model) grid with
-'model' = `--mesh_model_axis` and 'data' the rest; `--batch_size` is the
-global batch, each data rank sampling its share; `--fsdp` also shards the
-large parameters, their moments and the EMA over 'data'.  Rank 0 logs,
+share cards or with `--cpu`); the ranks form a (data, seq, model) grid
+with 'model' = `--mesh_model_axis`, 'seq' = `--mesh_seq_axis` (each rank
+S / seq columns of the sequence, the attention a ring over them) and 'data'
+the rest, or a (data, pipe, model) grid with `--mesh_pipe_axis` pipeline
+stages (`--pipeline_schedule gpipe|1f1b`, `--pipeline_microbatches`);
+`--batch_size` is the global batch, each data rank sampling its share
+('seq' and 'pipe' peers the same rows); `--fsdp` also shards the large
+parameters, their moments and the EMA over 'data'.  Rank 0 logs,
 evaluates and writes the (canonical, mesh-independent) checkpoints, which
 restore onto any mesh or into one process.
 """

@@ -20,7 +20,11 @@ takes the same converted state dict.
 LoRA's `lora_a` / `lora_b` and GEGLU's `gate` map by the same rule (lora_b's
 [r, 3D] SplitProj kernel is the [3D, r] Linear weight), and
 `jax_train_extras_to_torch` carries neko_tpu's EMA shadow and
-`optax.MultiSteps` accumulator.
+`optax.MultiSteps` accumulator.  On a 'pipe' mesh neko_tpu stores the
+layers stacked, transformer/h_stack [n_stages, Lp, ...];
+`jax_stacked_params_to_stage_state_dicts` / `stage_state_dicts_to_jax_stacked`
+map that tree to the port's per-stage state dicts (parallel/pipeline.py)
+and back.
 
 A served model lives in a directory holding `model.pt` (the state_dict) and
 `config.json` (the ModelConfig fields); `save_model_dir` / `load_model_dir`
@@ -80,6 +84,58 @@ def jax_grads_to_state_dict(grads_np: Dict, cfg: ModelConfig) -> Dict[str, torch
     """Gradients of the flax params (same tree) -> state_dict-keyed
     gradients: the params mapping, leaf for leaf."""
     return jax_params_to_state_dict(grads_np, cfg)
+
+
+def _unstack_tree(params_np: Dict) -> Dict:
+    """neko_tpu's stacked transformer/h_stack [n_stages, Lp, ...] -> the
+    per-layer h_i subtrees (a copy of the dict levels; leaves shared)."""
+    tree = dict(params_np)
+    tr = dict(tree["transformer"])
+    stack = tr.pop("h_stack")
+    flat = {path: np.asarray(a) for path, a in _flatten(stack).items()}
+    n, lp = next(iter(flat.values())).shape[:2]
+    for i in range(n * lp):
+        layer: Dict = {}
+        for path, a in flat.items():
+            node = layer
+            *mods, leaf = path.split("/")
+            for m in mods:
+                node = node.setdefault(m, {})
+            node[leaf] = a[i // lp, i % lp]
+        tr[f"h_{i}"] = layer
+    tree["transformer"] = tr
+    return tree
+
+
+def jax_stacked_params_to_stage_state_dicts(params_np: Dict, cfg: ModelConfig):
+    """neko_tpu's stage-local params (h_stack [n_stages, Lp, ...]) -> the
+    port's state dict of each stage (parallel/pipeline.py)."""
+    from neko_tpu_torch.parallel import pipeline
+
+    n = np.asarray(next(iter(_flatten(params_np["transformer"]["h_stack"]).values()))).shape[0]
+    sd = jax_params_to_state_dict(_unstack_tree(params_np), cfg)
+    return [pipeline.stage_state_dict(sd, cfg.layers, n, p) for p in range(n)]
+
+
+def stage_state_dicts_to_jax_stacked(stage_sds, cfg: ModelConfig) -> Dict:
+    """The inverse: every stage's state dict -> neko_tpu's stage-local tree
+    (numpy), transformer/h_stack [n_stages, Lp, ...]."""
+    from neko_tpu_torch.parallel import pipeline
+
+    n, lp = len(stage_sds), cfg.layers // len(stage_sds)
+    tree = state_dict_to_jax_params(pipeline.canonical_state_dict(stage_sds, cfg), cfg)
+    tr = tree["transformer"]
+    layers = [_flatten(tr.pop(f"h_{i}")) for i in range(cfg.layers)]
+    stack: Dict = {}
+    for path in layers[0]:
+        node = stack
+        *mods, leaf = path.split("/")
+        for m in mods:
+            node = node.setdefault(m, {})
+        node[leaf] = np.stack([layer[path] for layer in layers]).reshape(
+            n, lp, *layers[0][path].shape)
+    tr["h_stack"] = stack
+    return tree
 
 
 def jax_fused_adamw_state_to_torch(opt_state, cfg: ModelConfig) -> Dict:
@@ -163,8 +219,21 @@ def model_shapes(cfg: ModelConfig) -> Dict[str, torch.Size]:
     return {k: v.shape for k, v in model.state_dict().items()}
 
 
-def _check_against_model(sd: Dict[str, torch.Tensor], cfg: ModelConfig) -> None:
-    want = model_shapes(cfg)
+def stage_shapes(cfg: ModelConfig, mesh) -> Dict[str, torch.Size]:
+    """`model_shapes` of a rank's model on `mesh`: on a 'pipe' mesh its
+    stage's leaves under their local names (parallel/pipeline.py), else
+    all of them."""
+    from neko_tpu_torch.parallel import pipeline
+
+    shapes = model_shapes(cfg)
+    n = pipeline.pipe_axis_size(mesh)
+    if n == 1:
+        return shapes
+    return pipeline.stage_state_dict(shapes, cfg.layers, n, mesh.axis("pipe").index)
+
+
+def _check_against_model(sd: Dict[str, torch.Tensor], cfg: ModelConfig, mesh=None) -> None:
+    want = stage_shapes(cfg, mesh)
     missing, extra = set(want) - set(sd), set(sd) - set(want)
     if missing or extra:
         raise ValueError(
@@ -215,11 +284,17 @@ def build_model(cfg: ModelConfig, state_dict: Dict[str, torch.Tensor], device="c
     `state_dict` is canonical and each parameter takes its block of it
     (`specs`: parallel/sharding.py's layout, by default the mesh's
     tensor-parallel one); leaves split over 'data' (fsdp) are gathered at
-    their use."""
+    their use.  On a 'pipe' mesh the model holds the rank's stage of the
+    canonical `state_dict`."""
     from neko_tpu_torch.models.policy import NekoModel
-    from neko_tpu_torch.parallel import sharding
+    from neko_tpu_torch.parallel import pipeline, sharding
 
-    _check_against_model(state_dict, cfg)
+    n_stages = pipeline.pipe_axis_size(mesh)
+    if n_stages > 1:
+        _check_against_model(state_dict, cfg)
+        state_dict = pipeline.stage_state_dict(state_dict, cfg.layers, n_stages,
+                                               mesh.axis("pipe").index)
+    _check_against_model(state_dict, cfg, mesh)
     if mesh is None or not mesh.on_ranks:
         with torch.device("meta"):
             model = NekoModel(cfg)

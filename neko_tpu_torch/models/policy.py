@@ -23,7 +23,18 @@ columns split over 'model' (the vocabulary-parallel lookup; the loss over
 this rank's block of the vocabulary, merged across 'model', its target
 count summed over 'data'), the blocks tensor-parallel (transformer.py),
 and under FSDP the root's 'data'-split leaves gathered at the forward's
-start (`fsdp_gather`).
+start (`fsdp_gather`).  Over 'seq' ranks every part of the forward but the
+attention's ring works on this rank's S / n columns of the whole rows the
+batch holds (each 'seq' peer is given the same packed rows and keeps its
+columns on the device): the token and patch embedding of those columns
+(image patches whose slot lies in them; inner positions at their global
+indices), the LayerNorms, MLP and dropout (ops/dropout.py keeps the
+columns of the whole sequence's mask), and the loss of the targets
+predicted there (ops/losses.py, the target count summed over 'data' and
+'seq').  The attention gets the whole rows' key mask: its key window is
+global.  Over 'pipe' a rank's model holds its stage's layers,
+`layers / pipe` of them (parallel/pipeline.py runs the schedule through
+`embed`, the blocks and `loss_from_hidden`).
 """
 
 from __future__ import annotations
@@ -40,15 +51,20 @@ from neko_tpu_torch.models.transformer import KVCache, Transformer
 from neko_tpu_torch.ops.dropout import Dropout
 from neko_tpu_torch.ops.losses import chunked_masked_xent, gathered_masked_xent
 from neko_tpu_torch.parallel.collectives import vocab_parallel_embedding
-from neko_tpu_torch.parallel.mesh import AXES, axis
+from neko_tpu_torch.parallel.mesh import AXES, axis, seq_axis_size
 
 
 def seed_offset(mesh) -> int:
-    """The attention seed's offset for this rank: neko_tpu's
-    + coordinate * (100,003 + i) for axis i of ('data', 'seq', 'model'),
-    applied on a mesh of more than one device."""
+    """The attention seed's offset for this rank, applied on a mesh of
+    more than one device: neko_tpu's + coordinate * (100,003 + i) for axis
+    i of ('data', 'seq', 'model'); under a 'seq' axis its ring path's
+    data * 100,003 + model * 100,004, the same on every 'seq' peer (the
+    ring's masks are unique through their global rows and columns, so the
+    ranks draw the one mask the one-device shards draw at that seed)."""
     if mesh is None or not mesh.on_ranks:
         return 0
+    if seq_axis_size(mesh) > 1:
+        return mesh.axis("data").index * 100_003 + mesh.axis("model").index * 100_004
     return sum(mesh.axis(name).index * (100_003 + i) for i, name in enumerate(AXES))
 
 
@@ -61,6 +77,8 @@ class NekoModel(nn.Module):
         # 'model', the loss's target count summed over 'data'
         self.tp = axis(mesh, "model")
         self.data_axis = axis(mesh, "data")
+        # over 'seq' ranks: this rank's columns of the sequence
+        self.seq_axis = axis(mesh, "seq")
         # FSDP: the use-site gather of the root's 'data'-split leaves (the
         # blocks gather their own; parallel/sharding.py enable_fsdp)
         self.fsdp_gather = None
@@ -73,30 +91,52 @@ class NekoModel(nn.Module):
             nn.Embedding(cfg.context_len, D) if cfg.use_pos_encoding else None
         )
         self.embed_dropout = Dropout(cfg.dropout)
-        self.transformer = Transformer(cfg, self.tp, seed_offset(mesh))
+        # over 'pipe': this stage's layers
+        self.transformer = Transformer(cfg, self.tp, seed_offset(mesh),
+                                       cfg.layers // axis(mesh, "pipe").size)
         self.predict_token = nn.Linear(D, cfg.padded_vocab_size // self.tp.size, bias=False)
 
     # ---------------------------------------------------------------- embed
+    def columns(self, S: int):
+        """(first column, columns) of this rank's block of a sequence of S
+        (all of it off 'seq' ranks)."""
+        seq = self.seq_axis
+        if not seq.on:
+            return 0, S
+        if S % seq.size:
+            raise ValueError(f"S={S} does not split over the mesh's {seq.size} 'seq' ranks")
+        n = S // seq.size
+        return seq.index * n, n
+
     def embed_batch(self, batch: PackedBatch,
                     generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """Token ids (+ patch scatter + inner positions) -> [B, S, D] in the
-        activation dtype; `generator` samples the patch positions (train)."""
+        activation dtype (over 'seq' ranks this rank's columns of it);
+        `generator` samples the patch positions (train)."""
         B, S = batch.tokens.shape
-        emb = self.embed_tokens(batch.tokens)
+        c0, n = self.columns(S)
+        emb = self.embed_tokens(batch.tokens[:, c0:c0 + n])
         if batch.has_patches:
             if self.image_embedding is None:
                 raise ValueError("batch carries image patches but max_patches == 0")
             p_emb = self.image_embedding(batch.patches, batch.patch_pos, generator)
-            # unused pool entries carry (batch, slot) == (B, S): route them to
-            # one spare row that is dropped afterwards (no host sync)
-            pb, sl = batch.patch_batch.long(), batch.patch_slot.long()
-            flat = torch.where((pb < B) & (sl < S), pb * S + sl, B * S)
+            # unused pool entries carry (batch, slot) == (B, S), and entries
+            # of other ranks' columns lie outside [0, n): route them to one
+            # spare row that is dropped afterwards (no host sync)
+            pb, sl = batch.patch_batch.long(), batch.patch_slot.long() - c0
+            flat = torch.where((pb < B) & (sl >= 0) & (sl < n), pb * n + sl, B * n)
             D = emb.shape[-1]
-            emb = torch.cat([emb.reshape(B * S, D), emb.new_zeros(1, D)])
-            emb = emb.index_copy(0, flat, p_emb.to(emb.dtype))[:-1].reshape(B, S, D)
+            emb = torch.cat([emb.reshape(B * n, D), emb.new_zeros(1, D)])
+            emb = emb.index_copy(0, flat, p_emb.to(emb.dtype))[:-1].reshape(B, n, D)
         if self.pos_embed_observation is not None:
-            emb = emb + self._inner_pos(batch.inner_pos, emb.dtype)
+            emb = emb + self._inner_pos(batch.inner_pos[:, c0:c0 + n], emb.dtype)
         return emb
+
+    def embed(self, batch: PackedBatch,
+              generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """`embed_batch` then the embedding dropout (train mode with a
+        `generator`): what the first layer takes."""
+        return self.embed_dropout(self.embed_batch(batch, generator), generator)
 
     def _inner_pos(self, inner_pos: torch.Tensor, dtype) -> torch.Tensor:
         idx = inner_pos.long().clamp(0, self.cfg.context_len - 1)
@@ -104,6 +144,19 @@ class NekoModel(nn.Module):
         return torch.where((inner_pos >= 0)[..., None], pe, torch.zeros_like(pe))
 
     # -------------------------------------------------------------- forward
+    def gathered_call(self, method, *args, **kw):
+        """`method(*args, **kw)` (a method of this model) with the root's
+        'data'-split leaves gathered under FSDP (their gradients
+        reduce-scatter back to the shards); a plain call without FSDP."""
+        if self.fsdp_gather is None or self._gathered:
+            return method(*args, **kw)
+        self._gathered = True
+        try:
+            params = {"model." + k: v for k, v in self.fsdp_gather().items()}
+            return torch.func.functional_call(_Bound(self), params, (method, args, kw))
+        finally:
+            self._gathered = False
+
     def forward(
         self,
         batch: PackedBatch,
@@ -121,38 +174,41 @@ class NekoModel(nn.Module):
         if train and generator is None:
             raise ValueError("train=True draws its randomness from `generator`")
         if self.fsdp_gather is not None and not self._gathered:
-            self._gathered = True
-            try:
-                return torch.func.functional_call(
-                    self, self.fsdp_gather(), (batch,),
-                    dict(train=train, compute_loss=compute_loss, return_logits=return_logits,
-                         generator=generator))
-            finally:
-                self._gathered = False
+            return self.gathered_call(self.forward, batch, train=train, compute_loss=compute_loss,
+                                      return_logits=return_logits, generator=generator)
         g = generator if train else None
         if return_logits is None:
             return_logits = not compute_loss
-        if return_logits and self.tp.on:
-            raise NotImplementedError("logits under tensor parallelism: the head's "
-                                      "columns are split over 'model'")
-        emb = self.embed_dropout(self.embed_batch(batch, g), g)
+        if return_logits and (self.tp.on or self.seq_axis.on):
+            raise NotImplementedError("logits under tensor or sequence parallelism: the "
+                                      "head's columns or the sequence are split over ranks")
+        emb = self.embed(batch, g)
+        # the attention's key window is global: the whole rows' mask
         hidden, _ = self.transformer(emb, batch.input_mask, mode="train", generator=g)
         logits = self._head(hidden) if return_logits else None
         if not compute_loss:
             return logits, None
-        V = self.cfg.vocab_size
         if return_logits:
             loss = masked_next_token_loss(
-                logits, batch.tokens, batch.input_mask, batch.target_mask, V)
-        elif batch.loss_pos is not None:
-            loss = gathered_masked_xent(
-                hidden, self.predict_token.weight, batch.loss_pos, batch.loss_tgt, V,
-                vocab_axis=self.tp, count_axis=self.data_axis)
+                logits, batch.tokens, batch.input_mask, batch.target_mask, self.cfg.vocab_size)
         else:
-            loss = chunked_masked_xent(
-                hidden, self.predict_token.weight, batch.tokens, batch.input_mask,
-                batch.target_mask, V, vocab_axis=self.tp, count_axis=self.data_axis)
+            loss = self.loss_from_hidden(hidden, batch)
         return logits, loss
+
+    def loss_from_hidden(self, hidden: torch.Tensor, batch: PackedBatch) -> torch.Tensor:
+        """The loss of the final hidden state (after ln_f) without logits:
+        the gathered CE when the batch carries `loss_pos` / `loss_tgt`, else
+        the chunked CE.  Over ranks this rank's part of the global mean."""
+        V = self.cfg.vocab_size
+        c0, _ = self.columns(batch.tokens.shape[1])
+        count = (self.data_axis, self.seq_axis)
+        if batch.loss_pos is not None:
+            return gathered_masked_xent(
+                hidden, self.predict_token.weight, batch.loss_pos, batch.loss_tgt, V,
+                vocab_axis=self.tp, count_axis=count, col_offset=c0)
+        return chunked_masked_xent(
+            hidden, self.predict_token.weight, batch.tokens, batch.input_mask,
+            batch.target_mask, V, vocab_axis=self.tp, count_axis=count, col_offset=c0)
 
     # -------------------------------------------------------------- decode
     def _head(self, hidden: torch.Tensor) -> torch.Tensor:
@@ -236,6 +292,18 @@ class NekoModel(nn.Module):
         if self.pos_embed_observation is not None:
             e = e + self._inner_pos(pos, e.dtype)
         return e
+
+
+class _Bound(nn.Module):
+    """Holds a model so that `functional_call` swaps its leaves around a
+    call of one of its methods."""
+
+    def __init__(self, model: nn.Module):
+        super().__init__()
+        self.model = model
+
+    def forward(self, method, args, kw):
+        return method(*args, **kw)
 
 
 def masked_next_token_loss(

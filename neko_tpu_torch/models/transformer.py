@@ -84,7 +84,11 @@ dropout masks of the replicated activations come from the step's
 generator, which model peers share; the attention kernels' seed adds the
 rank's per-axis offset (`seed_offset`).  Only train mode runs there.
 FSDP: a block whose leaves are split over 'data' gathers them at its call
-(`call_block`, remat's recompute included).
+(`call_block`, remat's recompute included).  Over 'seq' ranks a train-mode
+call takes this rank's columns [B, S / n, D] and the whole rows' key mask
+[B, S]; the blocks work on the columns and the attention runs the ring over
+the 'seq' group.  A stage of the pipeline ('pipe') holds `layers` of the
+model's blocks (`Transformer(..., layers=)`).
 
 Not ported yet (configs asking for it raise NotImplementedError): the
 int8 cache.
@@ -107,7 +111,7 @@ from neko_tpu_torch.ops.dropout import Dropout
 from neko_tpu_torch.ops.gelu import gelu_erf, gelu_tanh
 from neko_tpu_torch.parallel import collectives
 from neko_tpu_torch.parallel.collectives import LOCAL, Axis
-from neko_tpu_torch.parallel.mesh import active_mesh
+from neko_tpu_torch.parallel.mesh import active_mesh, seq_ranks
 
 KVCache = Dict[str, torch.Tensor]  # {"key", "value": [B,H,S,hd], "mask": [B,S]}
 # the JAX package's finite fill of disallowed scores in its XLA attention
@@ -389,15 +393,17 @@ def remat_block(block: Block, x: torch.Tensor, input_mask, generator):
 class Transformer(nn.Module):
     """Stack of pre-LN blocks + final LayerNorm."""
 
-    def __init__(self, cfg: ModelConfig, tp: Axis = LOCAL, seed_offset: int = 0):
+    def __init__(self, cfg: ModelConfig, tp: Axis = LOCAL, seed_offset: int = 0,
+                 layers: Optional[int] = None):
         super().__init__()
         _not_ported(cfg)
         self.cfg = cfg
         # linear stochastic-depth ramp: layer 0 never drops, the last drops
-        # at the configured rate
+        # at the configured rate (a pipeline stage, `layers` < cfg.layers,
+        # has none: parallel/pipeline.py refuses it)
         self.h = nn.ModuleList(
             Block(cfg, cfg.stochastic_depth * i / max(cfg.layers - 1, 1), tp, seed_offset)
-            for i in range(cfg.layers))
+            for i in range(cfg.layers if layers is None else layers))
         self.ln_f = nn.LayerNorm(cfg.embed_dim, eps=1e-5)
 
     def forward(
@@ -417,8 +423,8 @@ class Transformer(nn.Module):
         the ring extend mode; None is the append mode."""
         if mode in ("decode", "extend") and caches is None:
             raise ValueError(f"{mode} mode needs the caches prefill returned")
-        if mode == "train":
-            _train_not_ported(self.cfg, x.shape[1])
+        if mode == "train":  # the whole sequence's S, its columns over 'seq' ranks
+            _train_not_ported(self.cfg, x.shape[1] * seq_ranks(active_mesh()))
         bounds = None
         if mode == "decode":
             # the layers' masks are equal; the window includes the row this

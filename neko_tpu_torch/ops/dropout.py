@@ -5,6 +5,13 @@ kept when its draw is >= q = round(rate * 256), and survivors are scaled by
 1 / (1 - q / 256), the REALIZED keep probability, so E[dropout(x)] == x
 exactly.  Autograd saves the compact bool keep mask for the backward.  Plain
 torch: the JAX package has no Pallas kernel here.
+
+Under an active mesh whose 'seq' axis spans ranks, `x` is this rank's
+columns [B, S / n, ...] of a sequence (dim 1) and its mask is the same
+columns of the mask one process draws for the whole [B, S, ...]: every
+'seq' peer draws the whole mask from the shared generator and keeps its
+block, so the peers' masks are the blocks of one draw (neko_tpu's sharded
+mask), not n copies of one block.
 """
 
 from __future__ import annotations
@@ -13,6 +20,8 @@ from typing import Optional
 
 import torch
 from torch import nn
+
+from neko_tpu_torch.parallel.mesh import active_mesh, axis
 
 
 def keep_threshold(rate: float) -> int:
@@ -31,8 +40,15 @@ def materialized_dropout(
     q = keep_threshold(rate)
     if generator is None or q == 0:
         return x
-    bits = torch.randint(0, 256, x.shape, dtype=torch.uint8, device=x.device,
+    seq = axis(active_mesh(), "seq")
+    shape = list(x.shape)
+    if seq.on:
+        shape[1] *= seq.size
+    bits = torch.randint(0, 256, shape, dtype=torch.uint8, device=x.device,
                          generator=generator)
+    if seq.on:  # this rank's columns of the whole sequence's mask
+        s = x.shape[1]
+        bits = bits[:, seq.index * s:(seq.index + 1) * s]
     return torch.where(bits >= q, x * (1.0 / (1.0 - q / 256.0)), 0)
 
 

@@ -35,16 +35,27 @@ Over ranks: with `vocab_axis` (the 'model' axis) the head weight is this
 rank's contiguous block of the vocabulary; a target outside it scores 0 in
 this block (the kernel never meets its column; targets are not clipped into
 the block), the blocks' logz merge by log-sum-exp and their target logits by
-sum, and the backward sums its dx over the axis.  With `count_axis` (the 'data' axis)
-the NLL sum of this rank's rows is divided by the target count of every
-rank's rows, so the global masked mean is the sum over the axis of what
-each rank returns (a mean of per-rank means would weight the ranks wrongly
-whenever their counts differ).
+sum, and the backward sums its dx over the axis.  With `count_axis` (the 'data'
+axis, or several: 'data' and 'seq') the NLL sum of this rank's rows is
+divided by the target count of every rank's rows, so the global masked mean
+is the sum over the axes of what each rank returns (a mean of per-rank
+means would weight the ranks wrongly whenever their counts differ).
+
+Over 'seq' ranks `hidden` is this rank's columns [c, c + S / n) of the
+sequence (`col_offset` = c): the gathered loss takes the entries whose
+predicting position lies in them, at local positions; the chunked loss
+forms its next-token targets from the whole row's tokens and masks and
+keeps its columns (`next_token_targets`), so the target of a block's last
+column is the first token of the next block, not a pad.
+
+`chunked_masked_xent(return_sum_count=True)` returns (NLL sum, target
+count) undivided, neko_tpu's form for the 1F1B pipeline, which divides the
+microbatches' sums by the whole batch's count.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Sequence, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -121,12 +132,31 @@ def _vocab(weight: torch.Tensor, valid_vocab: Optional[int], axis: Axis) -> int:
     return V if valid_vocab is None else min(V, valid_vocab)
 
 
-def _count(mask: torch.Tensor, axis: Axis) -> torch.Tensor:
-    """The loss's target count over the 'data' axis (the global batch's)."""
+Axes = Union[Axis, Sequence[Axis]]
+
+
+def _count(mask: torch.Tensor, axes: Axes) -> torch.Tensor:
+    """The loss's target count summed over `axes` (the global batch's)."""
     n = mask.sum()
-    if axis.on:
-        n = all_reduce_(n.reshape(1).clone(), axis)[0]
+    for ax in (axes,) if isinstance(axes, Axis) else axes:
+        if ax.on:
+            n = all_reduce_(n.reshape(1).clone(), ax)[0]
     return n.clamp(min=1.0)
+
+
+def next_token_targets(tokens: torch.Tensor, input_mask: torch.Tensor,
+                       target_mask: torch.Tensor, col_offset: int = 0,
+                       cols: Optional[int] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(target token, fp32 mask) of columns [col_offset, col_offset + cols)
+    from the whole rows: position t predicts token t + 1, masked by
+    input_mask[t] * target_mask[t + 1] (the last column of the row has no
+    target)."""
+    S = tokens.shape[1]
+    cols = S - col_offset if cols is None else cols
+    tgt = F.pad(tokens[:, 1:], (0, 1))
+    mask = input_mask.float() * F.pad(target_mask[:, 1:], (0, 1)).float()
+    sl = slice(col_offset, col_offset + cols)
+    return tgt[:, sl], mask[:, sl]
 
 
 def gathered_masked_xent(
@@ -137,18 +167,22 @@ def gathered_masked_xent(
     valid_vocab: Optional[int] = None,
     chunk_size: int = 4096,
     vocab_axis: Axis = LOCAL,
-    count_axis: Axis = LOCAL,
+    count_axis: Axes = LOCAL,
+    col_offset: int = 0,
 ) -> torch.Tensor:
     """Mean NLL over the gathered targets; entries with batch_row == B are
     padding and carry no weight.  Over ranks: the head's vocabulary split
     over `vocab_axis`, and the sum of this rank's rows divided by the target
     count of every rank on `count_axis` (the global mean is the sum over
-    that axis of what each rank returns)."""
-    B = hidden.shape[0]
+    those axes of what each rank returns).  `hidden` holds the sequence's
+    columns [col_offset, col_offset + S): only the entries predicted there
+    count here."""
+    B, S = hidden.shape[:2]
     W = weight.to(hidden.dtype)
     rows = loss_pos[:, 0].long()
-    valid = (rows < B).float()
-    h = hidden[rows.clamp(max=B - 1), loss_pos[:, 1].long()]
+    pos = loss_pos[:, 1].long() - col_offset
+    valid = ((rows < B) & (pos >= 0) & (pos < S)).float()
+    h = hidden[rows.clamp(max=B - 1), pos.clamp(0, S - 1)]
     tgt = _clip_targets(loss_tgt, _vocab(W, valid_vocab, vocab_axis))
     total = hidden.new_zeros((), dtype=torch.float32)
     for i in range(0, h.shape[0], chunk_size):
@@ -166,19 +200,26 @@ def chunked_masked_xent(
     valid_vocab: Optional[int] = None,
     chunk_size: int = 256,
     vocab_axis: Axis = LOCAL,
-    count_axis: Axis = LOCAL,
-) -> torch.Tensor:
+    count_axis: Axes = LOCAL,
+    col_offset: int = 0,
+    return_sum_count: bool = False,
+):
     """Shifted next-token CE (position t predicts token t+1, masked by
     input_mask[t] * target_mask[t+1]), averaged over unmasked targets (of
-    every rank on `count_axis`, as `gathered_masked_xent`)."""
+    every rank on `count_axis`, as `gathered_masked_xent`).  `hidden` holds
+    the columns [col_offset, col_offset + S) of the whole rows that
+    `tokens` and the masks give.  With `return_sum_count`: (NLL sum, this
+    call's target count), undivided."""
     B, S, D = hidden.shape
     W = weight.to(hidden.dtype)
-    tgt = _clip_targets(F.pad(tokens[:, 1:], (0, 1)), _vocab(W, valid_vocab, vocab_axis))
-    mask = input_mask.float() * F.pad(target_mask[:, 1:], (0, 1)).float()
+    tgt, mask = next_token_targets(tokens, input_mask, target_mask, col_offset, S)
+    tgt = _clip_targets(tgt, _vocab(W, valid_vocab, vocab_axis))
     total = hidden.new_zeros((), dtype=torch.float32)
     for i in range(0, S, chunk_size):
         sl = slice(i, i + chunk_size)
         total = total + _ChunkNLL.apply(
             hidden[:, sl].reshape(-1, D), tgt[:, sl].reshape(-1),
             mask[:, sl].reshape(-1), W, valid_vocab, vocab_axis)
+    if return_sum_count:
+        return total, mask.sum()
     return total / _count(mask, count_axis)

@@ -44,9 +44,11 @@ Two thin schedules run the same per-pair step (`_fwd_step`, `_bwd_step`):
   kernels take strides: no copies);
 * shards on the ranks of a process group: q, k, v are this rank's blocks
   [B, S_local, H*hd], and k, v (and in the backward their dk, dv sums) go to
-  rank + 1 with `torch.distributed.batch_isend_irecv`, the counterpart of the
-  JAX package's `ppermute`s.  The kv transfer of the next step is in flight
-  while this step's pair is computed.
+  rank + 1 with `torch.distributed.batch_isend_irecv` (`collectives.exchange`),
+  the counterpart of the JAX package's `ppermute`s.  The kv transfer of the
+  next step is in flight while this step's pair is computed.  Under a gloo
+  group (ranks sharing one card) the blocks travel through pinned host
+  buffers, gloo's point-to-point taking host memory only.
 
 Kernels: `csrc/ring_attention.cu` (CUDA C++ for sm_90a, bound with ctypes),
 the tiles of `csrc/attention_fwd.cuh` / `csrc/attention_bwd.cuh` in their
@@ -63,6 +65,7 @@ import torch.distributed as dist
 
 from neko_tpu_torch.ops import attention_kernel as whk
 from neko_tpu_torch.ops import blocked_attention as ba
+from neko_tpu_torch.parallel.collectives import exchange
 
 BLOCK = ba.BLOCK  # the plain versions' tile; the bf16 kernels tile 64 x 64
 # profiler range around the torch passes between the kernels (the merges of
@@ -419,13 +422,12 @@ def _ring_bwd_local(q, k, v, out, do, L, grads, n, common) -> None:
 
 # ------------------------------- schedule: shards on the ranks of a group
 def _rotate(send, recv, group):
-    """Starts sending `send` to rank + 1 and receiving `recv` from rank - 1.
+    """Starts sending `send` to rank + 1 and receiving `recv` from rank - 1
+    (`collectives.exchange`: through pinned host buffers under gloo).
     -> the requests to wait on."""
     n, r = dist.get_world_size(group), dist.get_rank(group)
-    dst = dist.get_global_rank(group, (r + 1) % n)
-    src = dist.get_global_rank(group, (r - 1) % n)
-    return dist.batch_isend_irecv([dist.P2POp(dist.isend, send, dst, group),
-                                   dist.P2POp(dist.irecv, recv, src, group)])
+    return [exchange([(dist.isend, send, (r + 1) % n, 0),
+                      (dist.irecv, recv, (r - 1) % n, 0)], group)]
 
 
 def _packed_pair(a, b, dtype=None):

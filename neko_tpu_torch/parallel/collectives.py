@@ -29,14 +29,23 @@ ranks that differ from this one only there.  Size 1 is the trivial axis
 * `all_reduce_grads_`: a gradient sum over an axis in flat buckets (over
   'data' of the leaves not split there; over 'model' of the leaves
   replicated there, whose copies `TrainContext.sync_grads` averages).
+* `exchange`: point-to-point sends and receives between the ranks of a
+  group (the ring's kv hops over 'seq', the pipeline's activation and
+  gradient hops over 'pipe'), posted together in one `batch_isend_irecv`.
 
 The backend's own route carries them: NCCL (a card for each rank) on the
 card, gloo (the CPU, or several ranks sharing one card, where NCCL refuses
 two ranks on one card) through host memory, which gloo does itself for a
 CUDA tensor (every collective used here runs on CUDA tensors under gloo:
-the chip probe of PERF.md §6, PR 13).  The compute stays on the card.
+probed on one H100, see PERF.md §6).  Point-to-point is another matter:
+gloo's send and recv take host memory only, so under a gloo group
+`exchange` stages the CUDA tensors it moves through pinned host buffers
+(a copy to the host before a send, from the host after a receive); under
+NCCL they move directly.  That is the transport alone: the compute stays
+on the card.
 
-`stats` counts the calls and the bytes each rank sends into collectives;
+`stats` counts the calls and the bytes each rank sends into collectives
+and point-to-point sends;
 with `stats.timed` it also sums their wall time, synchronising the card
 around each one (a measurement mode: off on the train path).
 """
@@ -259,3 +268,54 @@ def all_reduce_grads_(grads: Sequence[torch.Tensor], axis: Axis,
             if g is not None:
                 bucket.append(g)
                 n += g.numel()
+
+
+class _Exchange:
+    """The requests of one `exchange`: `wait()` waits for them all, then
+    copies what arrived in host buffers to the receiving device tensors."""
+
+    def __init__(self, works, staged):
+        self.works, self.staged = works, staged
+
+    def wait(self) -> None:
+        for w in self.works:
+            w.wait()
+        for dst, host in self.staged:
+            dst.copy_(host)
+        self.works, self.staged = [], []
+
+
+def exchange(ops, group) -> _Exchange:
+    """Post the point-to-point `ops` of this rank, (dist.isend or
+    dist.irecv, tensor, peer's rank in `group`, tag), in one
+    `batch_isend_irecv`, and return what to `wait()` on.  Every rank lists
+    its ops in one order (the sends and receives a pair of ranks exchange
+    must match in order and tag).  Under a gloo group the CUDA tensors go
+    through pinned host buffers (gloo's point-to-point moves host memory
+    only); under NCCL they move as they are.  With `stats.timed` the
+    transfer completes here, timed between synchronisations of the card."""
+    staged_group = dist.get_backend(group) == "gloo"
+    p2p, staged = [], []
+    cuda = [t for _, t, _, _ in ops if t.is_cuda]
+    if stats.timed and cuda:
+        torch.cuda.synchronize(cuda[0].device)
+    t0 = time.perf_counter()
+    for op, t, peer, tag in ops:
+        buf = t
+        if op is dist.isend:
+            stats.calls += 1
+            stats.bytes += t.numel() * t.element_size()
+        if staged_group and t.is_cuda:
+            buf = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            if op is dist.isend:
+                buf.copy_(t)
+            else:
+                staged.append((t, buf))
+        p2p.append(dist.P2POp(op, buf, dist.get_global_rank(group, peer), group, tag))
+    req = _Exchange(dist.batch_isend_irecv(p2p) if p2p else [], staged)
+    if stats.timed:
+        req.wait()
+        if cuda:
+            torch.cuda.synchronize(cuda[0].device)
+        stats.seconds += time.perf_counter() - t0
+    return req

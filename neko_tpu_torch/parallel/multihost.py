@@ -120,11 +120,8 @@ def init_from_env(cpu: bool = False) -> torch.device:
 
 def eval_replica(ctx, state) -> Dict[str, torch.Tensor]:
     """The canonical state dict of `state`'s model on every rank (every rank
-    must call this: it gathers)."""
-    from neko_tpu_torch.parallel import sharding
-
-    return sharding.gather_state_dict(
-        {n: p.detach() for n, p in state.model.named_parameters()}, ctx.layout, ctx.mesh)
+    must call this: it gathers the blocks and the pipeline's stages)."""
+    return ctx.gather_named({n: p.detach() for n, p in state.model.named_parameters()})
 
 
 def broadcast_object(obj):

@@ -25,6 +25,10 @@ takes the same split, so that its output adds to this rank's columns.  The
 canonical state dict (checkpoints, the evaluation replica) keeps the
 one-process layout.
 
+Every leaf is replicated over 'seq' (its gradient summed there as over
+'data'); over 'pipe' a rank holds its stage's layers and a copy of the
+root leaves (parallel/pipeline.py), each split as above.
+
 FSDP ('data', `fsdp=True`): a leaf of at least `FSDP_MIN_SIZE` elements
 also splits over 'data', along its largest dim that 'model' leaves alone and
 that the 'data' size divides (neko_tpu's `fsdp_param_pspec`, ties resolved
@@ -32,9 +36,9 @@ in the flax dim order as there).  The optimizer's moments, the EMA and the
 accumulator follow their parameter.
 
 * `layout(cfg, mesh, fsdp)`: {key: LeafSpec(model_dim, data_dim)}.
-* `shard_tensor` / `gather_tensor`, `shard_state_dict` / `gather_state_dict`:
-  canonical -> this rank's block, and back (the gather is a collective of
-  every rank).
+* `shard_tensor` / `gather_tensor`, `shard_state_dict`: canonical -> this
+  rank's block, and back (the gather is a collective of every rank;
+  `TrainContext.gather_named` gathers a state dict, its stages too).
 * `fsdp_gathers(module, prefix, layout, axis)`: the use-site all-gathers of
   one FSDP unit (a Block, or the root's leaves outside the blocks), for
   `torch.func.functional_call`.
@@ -119,15 +123,17 @@ def layout(shapes: Dict[str, torch.Size], model: int = 1, data: int = 1,
 
 
 def model_layout(cfg, mesh, fsdp: bool = False) -> Dict[str, LeafSpec]:
-    """`layout` of NekoModel(cfg)'s parameters on `mesh` (None: one process)."""
-    from neko_tpu_torch.convert import model_shapes
+    """`layout` of NekoModel(cfg)'s parameters on `mesh` (None: one
+    process); on a 'pipe' mesh of a stage's parameters, under their local
+    names (parallel/pipeline.py)."""
+    from neko_tpu_torch.convert import stage_shapes
 
     if mesh is None:
-        return layout(model_shapes(cfg))
+        return layout(stage_shapes(cfg, None))
     shape = mesh.shape
     if shape["model"] > 1 and cfg.heads % shape["model"]:
         raise ValueError(f"heads={cfg.heads} do not split over model={shape['model']}")
-    return layout(model_shapes(cfg), shape["model"], shape["data"], fsdp)
+    return layout(stage_shapes(cfg, mesh), shape["model"], shape["data"], fsdp)
 
 
 def _axes(mesh):
@@ -183,13 +189,6 @@ def local_shape(shape, spec: LeafSpec, mesh) -> tuple:
 def shard_state_dict(sd: Dict[str, torch.Tensor], specs: Dict[str, LeafSpec],
                      mesh) -> Dict[str, torch.Tensor]:
     return {k: shard_tensor(v, k, specs[k], mesh) for k, v in sd.items()}
-
-
-def gather_state_dict(sd: Dict[str, torch.Tensor], specs: Dict[str, LeafSpec],
-                      mesh) -> Dict[str, torch.Tensor]:
-    """Canonical tensors from every rank's blocks, key by key in `sd`'s order
-    (the same on every rank)."""
-    return {k: gather_tensor(v, k, specs[k], mesh) for k, v in sd.items()}
 
 
 def fsdp_gathers(module: torch.nn.Module, prefix: str, specs: Dict[str, LeafSpec],

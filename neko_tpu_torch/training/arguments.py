@@ -125,10 +125,10 @@ class TrainingArgs:
 
     # ---- extensions of the JAX package (not in the reference) ----
     mesh_model_axis: int = field(default=1, metadata={"help": "Tensor-parallel ranks (heads, MLP width and vocabulary split over them); > 1 needs --multihost."})
-    mesh_seq_axis: int = field(default=1, metadata={"help": "Sequence shards of the mesh (on the one device): > 1 trains every layer's attention as ring attention over them."})
-    mesh_pipe_axis: int = field(default=1)
-    pipeline_microbatches: int = field(default=4)
-    pipeline_schedule: Literal["gpipe", "1f1b"] = field(default="gpipe")
+    mesh_seq_axis: int = field(default=1, metadata={"help": "Sequence shards of the mesh: > 1 trains every layer's attention as ring attention over them (on the one device, or with --multihost over that many ranks, each holding S / this columns)."})
+    mesh_pipe_axis: int = field(default=1, metadata={"help": "Pipeline stages (needs --multihost): the layers split into this many contiguous stages, one a rank, the microbatches streamed through them; not with --mesh_seq_axis."})
+    pipeline_microbatches: int = field(default=4, metadata={"help": "Microbatches a step when mesh_pipe_axis > 1; the per-rank batch must divide by it."})
+    pipeline_schedule: Literal["gpipe", "1f1b"] = field(default="gpipe", metadata={"help": "gpipe: all forwards, the loss, all backwards; 1f1b: one forward one backward, the stage's inputs alone held (at most 2 x stages - 1), the backward re-running the stage."})
     fsdp: bool = field(default=False, metadata={"help": "Shard every large parameter, its AdamW moments and its EMA over the data ranks as well (ZeRO-3)."})
     max_patches: int = field(default=-1, metadata={"help": "Static per-example image-patch budget; -1 = derive from the tasks."})
     remat: bool = field(default=False)
@@ -160,8 +160,6 @@ def not_ported(args: TrainingArgs) -> List[str]:
         "--lora": args.lora,
         "--pretrained_lm": args.pretrained_lm is not None,
         "--init_checkpoint <file>.pt": str(args.init_checkpoint or "").endswith(".pt"),
-        "--mesh_pipe_axis > 1": args.mesh_pipe_axis > 1,
-        "--mesh_seq_axis > 1 with --multihost": args.multihost and args.mesh_seq_axis > 1,
         "--kv_cache_dtype int8": args.kv_cache_dtype != "native",
     }
     return [name for name, on in unported.items() if on]

@@ -81,11 +81,23 @@ computes on a mesh of that shape (parallel/sharding.py has the layout):
   replicated activations stay equal); the attention kernels add neko_tpu's
   per-axis seed offsets (models/policy.py `seed_offset`).
 
-Not ported yet (NotImplementedError): a mesh whose 'seq' axis lies over the
-ranks of a process group (`create_mesh` refuses 'seq' > 1 over ranks; the
-ring itself runs there, `ring_kernel.ring_attention_bsd`), and 'pipe'.  The
-pipeline fields of `OptimizerConfig` are ignored, as the JAX package
-ignores them off a 'pipe' mesh.
+A 'seq' axis over ranks (`create_mesh(seq=n)` on a group): each rank runs
+the model on its S / n columns of the whole rows its data coordinate packs
+(models/policy.py), the attention as the ring over the 'seq' group; every
+leaf is replicated over 'seq' and its gradient summed there, the loss's
+target count is summed over 'data' and 'seq', and the step's generator is
+shared by the 'seq' peers, whose dropout masks are the columns of one draw
+(ops/dropout.py).
+
+A 'pipe' axis (`create_mesh(pipe=n)`): each rank holds its stage's layers
+and a copy of the root leaves (parallel/pipeline.py), and `loss_and_grads`
+runs `OptimizerConfig.pipeline_schedule` ('gpipe' or '1f1b') over
+`pipeline_microbatches` microbatches, as neko_tpu's TrainContext does on a
+'pipe' mesh; the root leaves' gradients are summed over 'pipe' (stage 0
+holds the embeddings', the last stage the head's), the clip's global norm
+sums every stage's layers and counts the replicated leaves once.
+`init_state` takes the canonical state dict and `gather_named` gives it
+back (checkpoints, the evaluation replica), whatever the mesh.
 """
 
 from __future__ import annotations
@@ -100,7 +112,7 @@ from neko_tpu_torch.config import ModelConfig
 from neko_tpu_torch.data.batch import PackedBatch
 from neko_tpu_torch.models.policy import NekoModel
 from neko_tpu_torch.ops.fused_adamw import FusedAdamWState, fused_adamw_update
-from neko_tpu_torch.parallel import sharding
+from neko_tpu_torch.parallel import pipeline, sharding
 from neko_tpu_torch.parallel.collectives import all_reduce_, all_reduce_grads_
 from neko_tpu_torch.parallel.mesh import Mesh, axis, seq_axis_size
 from neko_tpu_torch.training.schedulers import linear_warmup_cosine_decay
@@ -286,10 +298,6 @@ class TrainContext:
         fsdp: bool = False,
         mesh: Optional[Mesh] = None,
     ):
-        if mesh is not None and mesh.seq_group is not None:
-            raise NotImplementedError(
-                "a 'seq' axis over the ranks of a process group: the model and the "
-                "batch are not yet sharded over 'seq' ranks")
         n = seq_axis_size(mesh)
         if model_cfg.context_len % n:
             raise ValueError(f"context_len={model_cfg.context_len} does not split over "
@@ -305,7 +313,16 @@ class TrainContext:
         self.layout = sharding.model_layout(model_cfg, mesh, fsdp)
         self.data_axis = axis(mesh, "data")
         self.model_axis = axis(mesh, "model")
+        self.seq_axis = axis(mesh, "seq")
+        self.pipe_axis = axis(mesh, "pipe")
+        if self.pipe_axis.on:
+            pipeline.check(model_cfg, mesh, opt_cfg.pipeline_microbatches)
+            if opt_cfg.pipeline_schedule not in ("gpipe", "1f1b"):
+                raise ValueError(f"pipeline_schedule={opt_cfg.pipeline_schedule!r}: "
+                                 "'gpipe' or '1f1b'")
         self.on_ranks = mesh is not None and mesh.on_ranks
+        # the 1F1B schedule's readings of its last step (parallel/pipeline.py)
+        self.last_schedule = None
 
     # ------------------------------------------------- canonical <-> blocks
     def shard(self, name: str, t: torch.Tensor) -> torch.Tensor:
@@ -321,10 +338,45 @@ class TrainContext:
             return t
         return sharding.gather_tensor(t, name, self.layout[name], self.mesh)
 
+    def canonical_name(self, name: str) -> str:
+        """The canonical name of this rank's parameter `name` (its stage's
+        layer under its global index on a 'pipe' mesh)."""
+        if not self.pipe_axis.on:
+            return name
+        return pipeline.canonical_key(name, self.model_cfg.layers, self.pipe_axis.size,
+                                      self.pipe_axis.index)
+
+    def gather_named(self, tensors: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """The canonical tensors of this rank's `tensors` (keyed by its
+        parameter names, in one order on every rank) from every rank's
+        blocks and every stage's layers, keyed by canonical name (a
+        collective)."""
+        out = {n: self.gather(n, t) for n, t in tensors.items()}
+        if not self.pipe_axis.on:
+            return out
+        n = self.pipe_axis.size
+        stages: List[Dict[str, torch.Tensor]] = [{} for _ in range(n)]
+        for name, t in out.items():
+            parts = (pipeline.gather_stages(t, self.mesh) if pipeline.is_stage_leaf(name)
+                     else [t] * n)
+            for p, part in enumerate(parts):
+                stages[p][name] = part
+        return pipeline.canonical_state_dict(stages, self.model_cfg)
+
+    def shard_named(self, tensors: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """This rank's blocks of the canonical `tensors` it holds, keyed by
+        its parameter names (the inverse of `gather_named`)."""
+        if self.pipe_axis.on:
+            tensors = pipeline.stage_state_dict(tensors, self.model_cfg.layers,
+                                                self.pipe_axis.size, self.pipe_axis.index)
+        return {n: self.shard(n, t) for n, t in tensors.items()}
+
     def _copies(self, name: str) -> int:
-        """Ranks holding the same block of parameter `name`."""
+        """Ranks holding the same block of parameter `name` (its gradient
+        norm is summed over 'data', 'model' and 'pipe')."""
         spec = self.layout[name]
         n = 1 if spec.data_dim is not None else self.data_axis.size
+        n *= 1 if pipeline.is_stage_leaf(name) else self.pipe_axis.size
         return n * (1 if spec.model_dim is not None else self.model_axis.size)
 
     # ------------------------------------------------------------- state
@@ -361,10 +413,9 @@ class TrainContext:
             if not isinstance(opt, FusedAdamW):
                 raise ValueError("fused_adamw_state needs OptimizerConfig(fused_adamw=True)")
             names = [n for n, _ in model.named_parameters()]
+            mu, nu = (self.shard_named(fused_adamw_state[k]) for k in ("mu", "nu"))
             opt.load_fused_state(FusedAdamWState(
-                fused_adamw_state["count"],
-                [self.shard(n, fused_adamw_state["mu"][n]) for n in names],
-                [self.shard(n, fused_adamw_state["nu"][n]) for n in names]))
+                fused_adamw_state["count"], [mu[n] for n in names], [nu[n] for n in names]))
             step = opt.count
         return TrainState(step=step, model=model, optimizer=opt, seed=self.seed, ema=ema,
                           accum=accum)
@@ -387,12 +438,15 @@ class TrainContext:
         names = [n for n, _ in state.model.named_parameters()]
         return {"count": st.count, "mu": dict(zip(names, st.mu)), "nu": dict(zip(names, st.nu))}
 
+    def step_seed(self, state: TrainState) -> int:
+        """The step's seed, from (seed, step) and, over ranks, the rank's
+        'data' coordinate: data ranks draw independent masks; model, 'seq'
+        and 'pipe' peers the same ones."""
+        return step_seed(state.seed + self.data_axis.index * 100_003, state.step)
+
     def step_generator(self, state: TrainState) -> torch.Generator:
-        """The step's generator, from (seed, step) and, over ranks, the
-        rank's 'data' coordinate: data ranks draw independent masks, model
-        peers the same ones."""
-        seed = state.seed + self.data_axis.index * 100_003
-        return torch.Generator(device=self.device).manual_seed(step_seed(seed, state.step))
+        """The step's generator, seeded with `step_seed`."""
+        return torch.Generator(device=self.device).manual_seed(self.step_seed(state))
 
     # ------------------------------------------------------------- steps
     def loss_and_grads(self, state: TrainState, batch: PackedBatch) -> torch.Tensor:
@@ -407,6 +461,12 @@ class TrainContext:
     def forward_backward(self, state: TrainState, batch: PackedBatch) -> torch.Tensor:
         """`loss_and_grads` before `sync_grads`: each rank's own gradients."""
         state.optimizer.zero_grad(set_to_none=True)
+        if self.pipe_axis.on:
+            fn = (pipeline.pipelined_loss_1f1b if self.opt_cfg.pipeline_schedule == "1f1b"
+                  else pipeline.pipelined_loss)
+            with self.mesh:
+                return fn(self, state.model, batch, self.step_generator(state),
+                          self.step_seed(state))
         with self.mesh or contextlib.nullcontext():
             _, loss = state.model(batch, train=True, compute_loss=True,
                                   generator=self.step_generator(state))
@@ -420,15 +480,25 @@ class TrainContext:
     @torch.no_grad()
     def sync_grads(self, state: TrainState) -> None:
         """Sum over 'data' the gradients of the leaves not split there (the
-        split ones were reduce-scattered in the backward), and average over
-        'model' the gradients of the leaves replicated there: each peer
-        computed the whole of it, and a backward that sums with atomics (the
-        embeddings', the attention kernels') leaves the copies a rounding
-        apart, which the mean removes, so the peers' copies stay equal."""
+        split ones were reduce-scattered in the backward), over 'seq' every
+        gradient (each 'seq' rank's covers its columns), over 'pipe' the
+        root leaves' (each stage computed its own part of them, the others
+        none), and average over 'model' the gradients of the leaves
+        replicated there: each peer computed the whole of it, and a backward
+        that sums with atomics (the embeddings', the attention kernels')
+        leaves the copies a rounding apart, which the mean removes, so the
+        peers' copies stay equal."""
+        if self.pipe_axis.on:  # a root leaf this stage did not use: a zero gradient
+            for n, p in self.trained_parameters(state.model).items():
+                if p.grad is None and not pipeline.is_stage_leaf(n):
+                    p.grad = torch.zeros_like(p)
         named = [(n, p) for n, p in state.model.named_parameters() if p.grad is not None]
         if self.data_axis.on:
             all_reduce_grads_([p.grad for n, p in named if self.layout[n].data_dim is None],
                               self.data_axis)
+        all_reduce_grads_([p.grad for _, p in named], self.seq_axis)
+        all_reduce_grads_([p.grad for n, p in named if not pipeline.is_stage_leaf(n)],
+                          self.pipe_axis)
         if self.model_axis.on:
             grads = [p.grad for n, p in named if self.replicated_over_model(n)]
             if grads:
@@ -443,15 +513,20 @@ class TrainContext:
         sq = [torch.linalg.vector_norm(p.grad, dtype=torch.float32) ** 2 / self._copies(n)
               for n, p in self.trained_parameters(model).items() if p.grad is not None]
         total = torch.stack(sq).sum().reshape(1)
-        all_reduce_(all_reduce_(total, self.data_axis), self.model_axis)
+        for ax in (self.data_axis, self.model_axis, self.pipe_axis):
+            all_reduce_(total, ax)
         return total[0].sqrt()
 
     def global_loss(self, loss: torch.Tensor) -> torch.Tensor:
-        """A rank's part of the loss summed over 'data' (the loss itself in
-        one process)."""
-        if not self.data_axis.on:
+        """A rank's part of the loss summed over 'data', 'seq' and 'pipe'
+        (the loss itself in one process)."""
+        axes = [ax for ax in (self.data_axis, self.seq_axis, self.pipe_axis) if ax.on]
+        if not axes:
             return loss
-        return all_reduce_(loss.reshape(1).clone(), self.data_axis)[0]
+        total = loss.reshape(1).clone()
+        for ax in axes:
+            all_reduce_(total, ax)
+        return total[0]
 
     def train_step(self, state: TrainState, batch: PackedBatch):
         """One call in place: an optimizer step, or under gradient
@@ -519,8 +594,12 @@ class TrainContext:
     def eval_step(self, state: TrainState, batch: PackedBatch) -> torch.Tensor:
         """Deterministic loss on a batch (no grads, no dropout; over ranks
         the global batch's)."""
-        with self.mesh or contextlib.nullcontext():
-            _, loss = state.model(batch, compute_loss=True)
+        if self.pipe_axis.on:  # the GPipe forward, no backward
+            with self.mesh:
+                loss = pipeline.pipelined_loss(self, state.model, batch, backward=False)
+        else:
+            with self.mesh or contextlib.nullcontext():
+                _, loss = state.model(batch, compute_loss=True)
         return self.global_loss(loss)
 
     def current_lr(self, step: int) -> float:

@@ -33,8 +33,9 @@ checkpoints (counterpart of neko_tpu/training/trainer.py).
 
 Over ranks (a context whose mesh spans a process group): each rank samples
 and packs batch_size / data rows, from a stream seeded by its 'data'
-coordinate (`host_seed(seed, d)`, the JAX package's per-host rule: model
-peers take the same rows), with local row indices.  Rank 0 logs and writes
+coordinate (`host_seed(seed, d)`, the JAX package's per-host rule: model,
+'seq' and 'pipe' peers take the same rows; a 'seq' rank keeps its columns
+on the device), with local row indices.  Rank 0 logs and writes
 the experiment files; evaluation runs on rank 0 from the canonical weights
 that every rank helps gather (`multihost.eval_replica`), the others return
 no metrics.  A checkpoint is gathered by every rank and written by rank 0,

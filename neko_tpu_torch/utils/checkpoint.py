@@ -24,7 +24,9 @@ without them, as the JAX package's pre-EMA layout does.
 
 Over ranks the files are canonical, whatever the mesh that wrote them:
 every rank joins the gather of the parameters, moments, EMA and
-accumulator (`TrainContext.gather`), rank 0 writes the directory, and
+accumulator from every rank's blocks, the 'seq' peers' copies and the
+pipeline stages' layers (`TrainContext.gather_named`), rank 0 writes the
+directory, and
 every rank writes its own `host_state_<N>_p<rank>.pkl` (the Trainer).  A
 restore shards the canonical tensors onto the mesh of the context that
 loads them, one process included.
@@ -67,33 +69,77 @@ def load_args_dict(exp_dir_or_file: str) -> dict:
         return json.load(fh)
 
 
-def _optimizer_tensors(ctx, state, sd: dict, move) -> dict:
-    """The optimizer state dict `sd` with each moment (a tensor of its
-    parameter's shape) passed through move(parameter name, tensor), in one
-    order on every rank."""
-    names = list(ctx.trained_parameters(state.model))
-    out = {"param_groups": sd["param_groups"], "state": {}}
-    for k in sorted(sd["state"], key=lambda k: (isinstance(k, str), str(k).zfill(12))):
-        v = sd["state"][k]
-        if isinstance(k, int):
-            v = {kk: move(names[k], vv) if torch.is_tensor(vv) and vv.dim() > 0 else vv
-                 for kk, vv in sorted(v.items())}
-        out["state"][k] = v
-    return out
+def _canonical_trained(ctx) -> list:
+    """The canonical names of the trained parameters, in one process's
+    optimizer order."""
+    from neko_tpu_torch.convert import model_shapes
+    from neko_tpu_torch.training.train_state import lora_frozen
+
+    return [k for k in model_shapes(ctx.model_cfg)
+            if not (ctx.opt_cfg.lora_only and lora_frozen(k))]
+
+
+def _per_parameter(sd: dict, names: list) -> dict:
+    """{parameter name: its entry} of an optimizer state dict whose int keys
+    index `names`."""
+    return {names[k]: v for k, v in sd["state"].items() if isinstance(k, int)}
+
+
+def _with_entries(sd: dict, entries: list) -> dict:
+    """An optimizer state dict holding `entries` (one per parameter, in
+    order; None: no state yet) and `sd`'s other keys and groups."""
+    state = {k: v for k, v in sd["state"].items() if not isinstance(k, int)}
+    state.update({i: e for i, e in enumerate(entries) if e is not None})
+    groups = [dict(g, params=list(range(len(entries)))) for g in sd["param_groups"]]
+    return {"param_groups": groups, "state": state}
+
+
+def canonical_optimizer(ctx, state) -> dict:
+    """The optimizer state dict of one process from this rank's (a
+    collective over ranks): each moment gathered from every rank's blocks
+    and every stage's layers, the per-parameter scalars (a count, the same
+    for every parameter) kept."""
+    sd = state.optimizer.state_dict()
+    local = _per_parameter(sd, list(ctx.trained_parameters(state.model)))
+    if not local:
+        return _with_entries(sd, [None] * len(_canonical_trained(ctx)))
+    template = next(iter(local.values()))
+    moments = {}
+    for f in sorted(template):
+        if torch.is_tensor(template[f]) and template[f].dim() > 0:
+            moments[f] = ctx.gather_named({n: e[f] for n, e in local.items()})
+    entries = []
+    for name in _canonical_trained(ctx):
+        e = {f: (moments[f][name] if f in moments else v) for f, v in template.items()}
+        entries.append(e)
+    return _with_entries(sd, entries)
+
+
+def local_optimizer(ctx, state, sd: dict) -> dict:
+    """The inverse: this rank's optimizer state dict from a canonical one
+    (each moment its block of this rank's parameters)."""
+    canon = _per_parameter(sd, _canonical_trained(ctx))
+    entries = []
+    for name in ctx.trained_parameters(state.model):
+        e = canon.get(ctx.canonical_name(name))
+        if e is not None:
+            e = {f: (ctx.shard(name, v) if torch.is_tensor(v) and v.dim() > 0 else v)
+                 for f, v in e.items()}
+        entries.append(e)
+    return _with_entries(sd, entries)
 
 
 def canonical_tensors(ctx, state):
     """(weights, optimizer state dict, EMA or None, accumulator or None),
-    canonical: over ranks gathered from every rank's blocks (a collective),
-    in one process the live state."""
+    canonical: over ranks gathered from every rank's blocks and stages (a
+    collective), in one process the live state."""
     model = state.model
     if ctx is None or not ctx.on_ranks:
         return (model.state_dict(), state.optimizer.state_dict(), state.ema, state.accum)
-    weights = {n: ctx.gather(n, p.detach()) for n, p in model.named_parameters()}
-    opt = _optimizer_tensors(ctx, state, state.optimizer.state_dict(), ctx.gather)
-    ema = None if state.ema is None else {k: ctx.gather(k, v) for k, v in state.ema.items()}
-    accum = (None if state.accum is None
-             else {k: ctx.gather(k, v) for k, v in state.accum.items()})
+    weights = ctx.gather_named({n: p.detach() for n, p in model.named_parameters()})
+    opt = canonical_optimizer(ctx, state)
+    ema = None if state.ema is None else ctx.gather_named(state.ema)
+    accum = None if state.accum is None else ctx.gather_named(state.accum)
     return weights, opt, ema, accum
 
 
@@ -191,13 +237,13 @@ def load_checkpoint(path: str, ctx):
     sd = load_params_only(path, ctx.model_cfg)
     ts = torch.load(os.path.join(path, TRAIN_STATE), map_location="cpu", weights_only=True)
     state = ctx.init_state(sd)
-    state.optimizer.load_state_dict(_optimizer_tensors(ctx, state, ts["optimizer"], ctx.shard))
+    state.optimizer.load_state_dict(local_optimizer(ctx, state, ts["optimizer"]))
     state.step = int(ts["step"])
     if state.ema is not None:
-        for k, v in load_ema_params(path, ctx.model_cfg).items():
-            state.ema[k].copy_(ctx.shard(k, v))
+        for k, v in ctx.shard_named(load_ema_params(path, ctx.model_cfg)).items():
+            state.ema[k].copy_(v)
     if state.accum is not None and "accum" in ts:
-        for k, v in ts["accum"].items():
-            state.accum[k].copy_(ctx.shard(k, v))
+        for k, v in ctx.shard_named(ts["accum"]).items():
+            state.accum[k].copy_(v)
         state.mini_step = int(ts["mini_step"])
     return state

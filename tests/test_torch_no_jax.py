@@ -42,7 +42,7 @@ def _env():
 
 def test_every_module_imports_with_jax_blocked():
     mods = _modules()
-    assert len(mods) >= 15
+    assert len(mods) >= 15 and "neko_tpu_torch.parallel.pipeline" in mods
     code = (
         "import importlib, sys\n"
         f"for name in {BLOCKED!r}:\n"
@@ -87,10 +87,14 @@ def test_package_data_holds_every_source_the_kernels_build_from():
         assert any(fnmatch.fnmatch(rel, g) for g in globs), f"{rel} matches none of {globs}"
 
 
-def test_parallel_ranks_tool_runs_with_them_blocked():
+@pytest.mark.parametrize("mode", [["--data", "2"], ["--data", "1", "--seq", "2"],
+                                  ["--data", "1", "--pipe", "2", "--schedule", "1f1b"]],
+                         ids=["data", "seq", "pipe"])
+def test_parallel_ranks_tool_runs_with_them_blocked(mode):
     """tools/check_torch_parallel_ranks.py imports nothing of BLOCKED: one
-    step of 2 gloo CPU ranks with every module of it raising on import in
-    the process that drives them (the ranks import the tool alone)."""
+    step of 2 gloo CPU ranks (over 'data', 'seq' and 'pipe') with every
+    module of it raising on import in the process that drives them (the
+    ranks import the tool alone)."""
     code = (
         "import sys\n"
         f"for name in {BLOCKED!r}:\n"
@@ -98,8 +102,8 @@ def test_parallel_ranks_tool_runs_with_them_blocked():
         f"sys.path.insert(0, {str(ROOT / 'tools')!r})\n"
         "import check_torch_parallel_ranks as t\n"
         "if __name__ == '__main__':\n"
-        "    sys.exit(t.main(['--device', 'cpu', '--width', 'small', '--data', '2',\n"
-        "                     '--steps', '1']))\n"
+        "    sys.exit(t.main(['--device', 'cpu', '--width', 'small', '--steps', '1']\n"
+        f"                    + {mode!r}))\n"
     )
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=_env(),
                        capture_output=True, text=True, timeout=180)

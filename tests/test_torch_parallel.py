@@ -37,12 +37,7 @@ from neko_tpu's initial parameters, converted, and takes three steps:
   mesh that wrote it to that rank's blocks.
 """
 
-import dataclasses
 import json
-import os
-import subprocess
-import sys
-import textwrap
 from pathlib import Path
 
 import numpy as np
@@ -51,24 +46,14 @@ import pytest
 torch = pytest.importorskip("torch")
 
 import jax  # noqa: E402
-import jax.numpy as jnp  # noqa: E402
-
-from neko_tpu.config import ModelConfig as JaxConfig  # noqa: E402
-from neko_tpu.data.batch import to_device_batch as jax_batch  # noqa: E402
+import torch_ranks as tr  # noqa: E402
 
 from neko_tpu_torch import convert  # noqa: E402
 from neko_tpu_torch.parallel import sharding  # noqa: E402
 from neko_tpu_torch.parallel.collectives import LOCAL, Axis  # noqa: E402
 from neko_tpu_torch.parallel.mesh import AXES, Mesh  # noqa: E402
 
-ROOT = Path(__file__).resolve().parents[1]
-TOOL = ROOT / "tools" / "check_torch_parallel_ranks.py"
-sys.path.insert(0, str(ROOT / "tools"))
-import check_torch_parallel_ranks as tool  # noqa: E402
-
-STEPS = 3
-LOSS_RTOL = 2e-4
-PARAM_ATOL = 2e-5
+tool = tr.tool
 CONFIGS = {
     "data2": dict(data=2),
     "data2_fsdp_ema": dict(data=2, fsdp=True, ema=0.9),
@@ -78,94 +63,21 @@ CONFIGS = {
 }
 
 
-def _env():
-    env = dict(os.environ)
-    env["PYTHONPATH"] = str(ROOT) + os.pathsep + env.get("PYTHONPATH", "")
-    env["OMP_NUM_THREADS"] = "1"
-    return env
-
-
-def _midpoint_jax(monkeypatch):
-    """neko_tpu's train-mode patch positions at the interval midpoint (the
-    tool sets the port's so)."""
-    import types
-
-    from neko_tpu.models import embeddings as jax_embeddings
-
-    def mid(key, shape, lo, hi, *a, **kw):
-        return jnp.round((lo + hi - 1) / 2.0).astype(jnp.int32)
-
-    shim = types.SimpleNamespace(random=types.SimpleNamespace(split=jax.random.split,
-                                                              randint=mid))
-    monkeypatch.setattr(jax_embeddings, "jax", shim)
-
-
-_JAX = {}
-
-
 def _jax_run(run, monkeypatch):
     """neko_tpu's three steps on the (data, model) mesh from its own initial
     parameters: (canonical initial state dict, losses, final parameters)."""
-    key = (run.get("data", 1), run.get("model", 1), run.get("fsdp", False),
-           run.get("fused_adamw", False), run.get("ema", 0.0))
-    if key in _JAX:
-        return _JAX[key]
-    from neko_tpu.parallel import sharding as jshd
-    from neko_tpu.parallel.mesh import create_mesh
-    from neko_tpu.training.train_state import OptimizerConfig as JaxOpt
-    from neko_tpu.training.train_state import TrainContext as JaxContext
-
-    _midpoint_jax(monkeypatch)
-    data, model, fsdp, fused, ema = key
-    cfg = tool.model_config("small")
-    mesh = create_mesh(data=data, model=model, devices=jax.devices()[:data * model])
-    jctx = JaxContext(JaxConfig(**dataclasses.asdict(cfg)),
-                      JaxOpt(**tool.WIDTHS["small"]["opt"], fused_adamw=fused, ema_decay=ema),
-                      mesh, seed=0, fsdp=fsdp)
-    jbatch = jshd.shard_batch(mesh, jax_batch(tool.batch_arrays(cfg, "small")))
-    jstate = jctx.init_state(jbatch)
-    np_tree = lambda t: jax.tree_util.tree_map(np.asarray, t)  # noqa: E731
-    sd0 = convert.jax_params_to_state_dict(np_tree(jstate.params), cfg)
-    losses = []
-    for _ in range(STEPS):
-        jstate, loss = jctx.train_step(jstate, jbatch)
-        losses.append(float(loss))
-    _JAX[key] = (sd0, losses, convert.jax_params_to_state_dict(np_tree(jstate.params), cfg))
-    return _JAX[key]
+    return tr.jax_run(run, "small", monkeypatch)
 
 
-def _tool(run, tmp_path, sd0, *extra):
+def _tool(run, tmp_path, sd0):
     """The tool on gloo CPU ranks from `sd0`: (its JSON line, rank 0's
     gathered parameters)."""
-    state, out = tmp_path / "state.pt", tmp_path / "out.pt"
-    torch.save(sd0, state)
-    argv = [sys.executable, str(TOOL), "--device", "cpu", "--width", "small",
-            "--steps", str(STEPS), "--state", str(state), "--out", str(out),
-            "--data", str(run.get("data", 1)), "--model", str(run.get("model", 1)),
-            "--ema", str(run.get("ema", 0.0)), "--dropout", str(run.get("dropout", 0.0))]
-    argv += ["--fsdp"] * run.get("fsdp", False) + ["--fused_adamw"] * run.get("fused_adamw", False)
-    if run.get("fault"):
-        argv += ["--fault", run["fault"]]
-    r = subprocess.run(argv + list(extra), cwd=ROOT, env=_env(), capture_output=True,
-                       text=True, timeout=300)
-    lines = [ln for ln in r.stdout.splitlines() if ln.startswith("{")]
-    assert lines, r.stderr[-3000:]
-    return json.loads(lines[-1]), torch.load(out, weights_only=True)["params"]
+    return tr.run_tool([run], tmp_path, sd0, "small")[0]
 
 
 def _fake_mesh(data, model, d=0, m=0):
     axes = (Axis(data, d) if data > 1 else LOCAL, LOCAL, Axis(model, m) if model > 1 else LOCAL)
     return Mesh(AXES, (data, 1, model), None, axes)
-
-
-def _held_to_jax(res, gathered, jlosses, jparams):
-    """Every rank's losses and the gathered parameters against neko_tpu's."""
-    for losses in res["losses"]:
-        np.testing.assert_allclose(losses, jlosses, rtol=LOSS_RTOL)
-    assert set(gathered) == set(jparams)
-    for k, want in jparams.items():
-        np.testing.assert_allclose(gathered[k].numpy(), want.numpy(), atol=PARAM_ATOL,
-                                   rtol=0, err_msg=k)
 
 
 @pytest.mark.parametrize("name", sorted(CONFIGS))
@@ -176,7 +88,7 @@ def test_configuration_matches_jax_train_context(name, tmp_path, monkeypatch):
     n = run.get("data", 1) * run.get("model", 1)
     assert res["ok"], res  # against the tool's own one-process run
     assert len(res["losses"]) == n
-    _held_to_jax(res, gathered, jlosses, jparams)
+    tr.held_to_jax(res, gathered, jlosses, jparams)
     cfg = tool.model_config("small")
     shapes = convert.model_shapes(cfg)
     specs = sharding.layout(shapes, run.get("model", 1), run.get("data", 1),
@@ -200,7 +112,7 @@ def test_mean_of_local_means_fails_the_check(tmp_path, monkeypatch):
     res, gathered = _tool(run, tmp_path, sd0)
     assert not res["ok"] and res["param_err"] > 1e-2, res
     with pytest.raises(AssertionError):
-        _held_to_jax(res, gathered, jlosses, jparams)
+        tr.held_to_jax(res, gathered, jlosses, jparams)
 
 
 @pytest.mark.parametrize("d", [0, 1])
@@ -279,20 +191,7 @@ def test_train_cli_over_two_ranks_restores_in_one_process(flags, tmp_path):
     from neko_tpu_torch.utils.checkpoint import load_checkpoint
 
     runs = tmp_path / "runs"
-    code = textwrap.dedent(f"""
-        import json, sys, torch
-        sys.path.insert(0, {str(ROOT / 'tools')!r})
-        import check_torch_parallel_ranks as t
-        if __name__ == "__main__":
-            out, sd = t.cli_ranks({CLI + flags + ['--save_dir', str(runs)]!r}, 2, cpu=True,
-                                  params=True, timeout=240)
-            torch.save(sd, {str(tmp_path / 'final.pt')!r})
-            print(json.dumps(out))
-    """)
-    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=_env(),
-                       capture_output=True, text=True, timeout=300)
-    assert r.returncode == 0, r.stderr[-3000:]
-    ranks = json.loads(r.stdout.strip().splitlines()[-1])
+    ranks, final = tr.cli_ranks(CLI + flags + ["--save_dir", str(runs)], tmp_path)
     assert [x["steps"] for x in ranks] == [4, 4]
     exp = Path(ranks[0]["exp_dir"])
     assert ranks[1]["exp_dir"] == str(exp)
@@ -308,7 +207,6 @@ def test_train_cli_over_two_ranks_restores_in_one_process(flags, tmp_path):
                                                                    in flags else 1)
 
     # one process: the canonical checkpoint, the parameters the ranks gathered
-    final = torch.load(tmp_path / "final.pt", weights_only=True)
     ckpt, args = resolve_checkpoint_and_args(str(exp), {"cpu": True, "device": "cpu"})
     ctx, _ = build_context(args)
     assert ctx.mesh is None

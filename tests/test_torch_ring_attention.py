@@ -402,13 +402,15 @@ def test_mesh_axes_context_and_what_is_not_ported():
             assert attn.seq_shards() == 1
         assert attn.seq_shards() == 4
     assert pmesh.active_mesh() is None
-    for bad in (dict(model=2), dict(data=2)):  # no process group to lay them over
+    # no process group to lay them over ('pipe' is ported: over ranks alone)
+    for bad in (dict(model=2), dict(data=2), dict(pipe=2)):
         with pytest.raises(ValueError, match="multihost"):
             pmesh.create_mesh(**bad)
-    with pytest.raises(NotImplementedError):
-        pmesh.create_mesh(pipe=2)
     with pytest.raises(AssertionError):  # as in neko_tpu: pipe does not compose with seq
         pmesh.create_mesh(pipe=2, seq=2)
+    # the one-device shards whatever group there is; an axis the grid lacks is LOCAL
+    assert pmesh.device_mesh(4) == mesh and mesh.axis("pipe").size == 1
+    assert pmesh.seq_ranks(mesh) == 1
 
 
 def test_dispatch_and_the_raises(monkeypatch):
@@ -468,7 +470,14 @@ def test_dispatch_and_the_raises(monkeypatch):
             x, x, x, torch.ones(1, 512, dtype=torch.bool), heads=H)
     assert out.shape == (1, 512, D)
     # a 'seq' axis over the ranks of a process group: the ring runs there
-    # (the gloo test), the train step is not sharded over processes yet
-    ranks = pmesh.Mesh(("data", "seq", "model"), (1, 4, 1), seq_group=object())
-    with pytest.raises(NotImplementedError):
-        ts.TrainContext(cfg, ts.OptimizerConfig(), device="cpu", mesh=ranks)
+    # (the gloo test) and so does the train step (tests/test_torch_seq_ranks.py);
+    # every leaf is replicated over 'seq', and the context must split over it
+    seq_axis = pmesh.Axis(4, 1, object())
+    ranks = pmesh.Mesh(("data", "seq", "model"), (1, 4, 1), seq_axis.group,
+                       (pmesh.LOCAL, seq_axis, pmesh.LOCAL))
+    ctx = ts.TrainContext(cfg, ts.OptimizerConfig(), device="cpu", mesh=ranks)
+    assert ctx.seq_axis is seq_axis and ctx.layout == ts.TrainContext(
+        cfg, ts.OptimizerConfig(), device="cpu").layout
+    with pytest.raises(ValueError):
+        ts.TrainContext(cfg.replace(context_len=cfg.context_len + 2), ts.OptimizerConfig(),
+                        device="cpu", mesh=ranks)

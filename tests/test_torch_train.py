@@ -204,14 +204,19 @@ def test_train_mode_refuses_what_is_not_ported():
         convert.build_model(ModelConfig(**base, kv_cache_dtype="int8"),
                             convert.init_state_dict(ModelConfig(**base), 0), device="cpu")
     # fsdp in one process splits nothing (neko_tpu's fsdp_param_pspec on a
-    # data axis of 1); a 'seq' axis over the ranks of a group is not ported
+    # data axis of 1); a 'seq' axis over ranks and a 'pipe' axis train
+    # (test_torch_seq_ranks.py, test_torch_pipeline.py), and neko_tpu's
+    # pipeline refusals stay: stochastic depth, layers that do not split
     ctx = ts.TrainContext(ModelConfig(**base), ts.OptimizerConfig(), device="cpu", fsdp=True)
     assert all(spec.data_dim is None for spec in ctx.layout.values())
-    from neko_tpu_torch.parallel.mesh import Mesh
+    from neko_tpu_torch.parallel.collectives import LOCAL, Axis
+    from neko_tpu_torch.parallel.mesh import PIPE_AXES, Mesh
 
-    with pytest.raises(NotImplementedError):
-        ts.TrainContext(ModelConfig(**base), ts.OptimizerConfig(), device="cpu",
-                        mesh=Mesh(("data", "seq", "model"), (1, 2, 1), seq_group=object()))
+    pipe = Mesh(PIPE_AXES, (1, 2, 1), None, (LOCAL, Axis(2, 0, object()), LOCAL))
+    for bad in (dict(stochastic_depth=0.1), dict(layers=3)):
+        with pytest.raises(AssertionError):
+            ts.TrainContext(ModelConfig(**{**base, **bad}), ts.OptimizerConfig(),
+                            device="cpu", mesh=pipe)
     with pytest.raises(ValueError):  # train mode needs the step's generator
         model(to_device_batch(arrays, "cpu"), train=True, compute_loss=True)
 

@@ -368,19 +368,24 @@ def test_evaluation_keeps_training_parameters_fp32_and_unchanged(tmp_path):
 
 def test_cli_refuses_what_is_not_ported(tmp_path):
     for flag in (["--lora", "--pretrained_lm", "gpt2"], ["--pretrained_lm", "gpt2"],
-                 ["--mesh_pipe_axis", "2"], ["--multihost", "--mesh_seq_axis", "2"],
                  ["--init_checkpoint", "ref.pt"], ["--kv_cache_dtype", "int8"]):
         argv = ["--cpu", "--control_datasets", CONTROL[0], "--training_steps", "1",
                 "--log_eval_freq", "1", "--save_dir", str(tmp_path)] + flag
         with pytest.raises(NotImplementedError, match=flag[0]):
             cli_train.main(argv)
-    # training over processes is ported: --fsdp, --multihost and a 'model'
-    # axis are no refusals; a 'model' axis without the ranks to carry it,
-    # and --multihost outside torchrun's environment, are errors of use
+    # training over processes is ported: --fsdp, --multihost and the 'model',
+    # 'seq' and 'pipe' axes are no refusals; a 'model' or 'pipe' axis without
+    # the ranks to carry it, layers that do not split into the stages, and
+    # --multihost outside torchrun's environment are errors of use
     from neko_tpu_torch.training.arguments import TrainingArgs, not_ported
 
     assert not not_ported(TrainingArgs(fsdp=True, multihost=True, mesh_model_axis=2))
+    assert not not_ported(TrainingArgs(multihost=True, mesh_seq_axis=2))
+    assert not not_ported(TrainingArgs(multihost=True, mesh_pipe_axis=2,
+                                       pipeline_schedule="1f1b"))
     for flag, match in ((["--mesh_model_axis", "2"], "--multihost"),
+                        (["--mesh_pipe_axis", "2"], "--multihost"),
+                        (["--layers", "3", "--mesh_pipe_axis", "2"], "pipeline stages"),
                         (["--multihost"], "torchrun")):
         argv = ["--cpu", "--control_datasets", CONTROL[0], "--training_steps", "1",
                 "--log_eval_freq", "1", "--save_dir", str(tmp_path)] + flag
