@@ -256,6 +256,33 @@
    `--mesh_pipe_axis 2 --pipeline_schedule 1f1b`: 10 steps, rank 0's
    evaluation, a checkpoint one process restores bit for bit
    (`seq_ranks_launches`, `pipeline_launches`).
+20. Quantized and tensor-parallel serving.  (a) #14's int8 instance (int8
+   cache rows, fp32 row scales) against its plain version at B=8 and B=1
+   (H=24, S=1024, hd=32, bf16 queries; `_decode_rows`' windows, an empty
+   one among them, a third of each window's mask cleared), with
+   INT8_DECODE_FAULTS planted in the plain version; device times in turns
+   beside its bound (no library call computes it).  (b) generate_batch at
+   bench_decode.py's shape with an int8 cache against the native cache:
+   the first-step logits equal (the prefill attends full precision), the
+   token agreement, the last-step logits teacher-forced on the native
+   tokens (INT8_LOGIT_TOL, planted INT8_LOGIT_FAULTS outside it; the int8
+   kernel against its plain version within INT8_DECODE_LOGIT_TOL, planted
+   INT8_DECODE_LOGIT_FAULTS outside), the cache
+   bytes ((hd + 4) / 2hd of bf16), #14-int8 launched on every decode step
+   and #14's bf16 instance never.  (c) fp8 weights there against bf16:
+   logits, tokens, resting weight bytes (`quantized_bytes`), and against
+   the model whose weights are the fp8 ones dequantized once, exactly
+   (FP8_PLAIN_TOL; planted "scales over the input dim").  Decode ms a token
+   of the three, in turns.  (d) two ranks on the one card over gloo at
+   model = 2 (tools/check_torch_serving_ranks.py, one spawn) against one
+   process: generate_batch native / int8 / fp8 (every rank's logits the
+   same bits, rank 0's first-step logits within TP_LOGIT_TOL, tokens equal
+   up to the first near tie, #1 and #14 at 12 heads a rank; the planted
+   "scales per shard" outside the limit), the serve CLI with
+   `--mesh_model_axis 2` (fp32, fp8 weights, int8 cache: replies through
+   the engine and the coalescing path equal one process's server), and the
+   evaluation CLI (one text task; rank 0 prints one process's metrics,
+   TP_EVAL_TOL).  (`quant_tp_serving_launches`.)
 
 Every train run (phases 6, 8, 10, 13, 14, 15, 17, 18, 19) takes its loss forward through #15:
 its launches must be loss chunks x steps (2 a flagship and `long` step, 3 a
@@ -269,7 +296,9 @@ alone, phase 14's among them (`train_cli_launches`), phase 15's training
 (`mix_train_launches`) and evaluation (`eval_cli_launches`), phase 16's
 (`serving_engine_launches`), phase 17's (`train_features_launches`), phase
 18's over both ranks (`parallel_launches`), phase 19's (`seq_ranks_launches`,
-`pipeline_launches`), each with its bound
+`pipeline_launches`), phase 20's over its one-process and two-rank runs
+(`quant_tp_serving_launches`; #14's int8 instance as its own entry,
+`decode_cache_attention_int8`), each with its bound
 from this run's shapes), then, as the last line,
 {"ok": true, "device": {...}}.  Any failed phase exits non-zero.  The
 attention entries and the loss head carry `tflops`: the bound's FLOPs over
@@ -774,6 +803,51 @@ SEQ_RANK_CLI = [a for a in TRAIN_CLI] + ["--training_steps", "10", "--log_eval_f
                                          "--mesh_seq_axis", "2"]
 PIPE_CLI = [a for a in TRAIN_CLI] + ["--training_steps", "10", "--log_eval_freq", "10",
                                      "--mesh_pipe_axis", "2", "--pipeline_schedule", "1f1b"]
+# phase 20: quantized and tensor-parallel serving.  (a) #14's int8 path
+# against its plain version at the flagship decode shapes (bf16 queries,
+# int8 rows with fp32 row scales; `_decode_rows`' windows, a third of each
+# window's mask cleared), planted faults in the plain version that the
+# check must see.  (b) an int8 cache at bench_decode.py's shape against the
+# native cache; (c) fp8 weights there against bf16.  (d) two ranks on the
+# one card over gloo at model = 2 (12 heads a rank) against one process:
+# generate_batch native / int8 / fp8 (and the planted "scales per shard"),
+# the serve CLI (coalescing and the engine) and the evaluation CLI.
+INT8_DECODE_SHAPES = ((8, 24, 1024, 32), (1, 24, 1024, 32))
+INT8_DECODE_FAULTS = ("key scales ignored", "value scales ignored", "mask holes ignored")
+# (b) the teacher-forced last-step logits of the int8 cache against the
+# native one (the int8 rows' rounding, on random weights), and the tokens
+# the two greedy runs share; the planted INT8_LOGIT_FAULTS in the model's
+# int8 decode must leave INT8_LOGIT_TOL.  Near the geometric mean of the
+# sound 3.125e-2 and the faintest fault's 2.539 (NVIDIA H100 80GB HBM3,
+# 700.00 W; logit std 0.556)
+INT8_LOGIT_TOL = 0.25
+INT8_LOGIT_FAULTS = ("key scales ignored", "value scales ignored")
+# the model's int8 decode through the kernel against its plain version (the
+# int8 instance keeps p * v_scale in fp32, the plain one rounds it to bf16),
+# last-step logits after 63 teacher-forced steps: sound 2.344e-2 / 2.585e-2
+# on two runs, the planted "newest key excluded" 5.859e-2 (NVIDIA H100 80GB
+# HBM3, 700.00 W); the limit near the geometric mean of the larger two
+INT8_DECODE_LOGIT_TOL = 3.9e-2
+INT8_DECODE_LOGIT_FAULTS = ("newest key excluded",)
+# (c) fp8 weights: the model's logits against the same model whose weights
+# are the dequantized fp8 ones (bf16, materialized: the plain version of
+# the point-of-use dequantize), exact; planted "scales over the input dim".
+# Beside it the fp8 bytes and scales (and the int8 cache rows and scales)
+# quantized on the card equal the CPU's (neko_tpu's) bit for bit
+FP8_PLAIN_TOL = 0.0
+TP_SERVE = dict(B=4, prompt=128, new=16)
+# (d) rank 0's first-step window logits against one process's (bf16: the
+# row-parallel sums in fp32 on each rank, then one all-reduce, against one
+# process's one product), near the geometric mean of the sound 2.344e-2
+# (fp8; native 1.953e-2) and the planted "scales per shard"'s 0.1445 (NVIDIA
+# H100 80GB HBM3, 700.00 W); tokens equal up to the first near tie
+# (DECODE_LOGIT_TOL)
+TP_LOGIT_TOL = 0.06
+TP_CLI = ["--random_init", "--seed", str(0), "--embed_dim", "768", "--layers", "6",
+          "--heads", "24", "--context_len", "1024", "--max_patches", "0", "--dtype", "float32",
+          "--continuous_slots", "4", "--continuous_chunk", "8", "--kv_cache_dtype", "int8",
+          "--serve_weight_dtype", "fp8"]
+TP_EVAL_TOL = 1e-4
 
 
 def _require(ok, what) -> None:
@@ -5010,6 +5084,483 @@ def pipeline_seq_train(card: str, workdir) -> dict:
             "readings": seq["readings"] + pipe["readings"], "schedules": pipe["schedules"]}
 
 
+# ------------------------------------------- phase 20: quantized, tensor-parallel serving
+def plain_int8_decode(q, k_q, k_scale, v_q, v_scale, start, end, key_mask=None, fault=None):
+    """#14-int8's plain version, or that version with one of
+    INT8_DECODE_FAULTS planted in it."""
+    import torch
+
+    from neko_tpu_torch.ops import decode_attention as da
+
+    if fault == "newest key excluded":
+        end = torch.maximum(end - 1, start)
+    elif fault == "key scales ignored":
+        k_scale = torch.ones_like(k_scale)
+    elif fault == "value scales ignored":
+        v_scale = torch.ones_like(v_scale)
+    elif fault == "mask holes ignored":
+        key_mask = None
+    return da.decode_cache_attention_int8_reference(q, k_q, k_scale, v_q, v_scale, start, end,
+                                                    key_mask=key_mask)
+
+
+@contextlib.contextmanager
+def int8_decode_through(fn):
+    """Within the block the model's int8 decode attention runs `fn(q, k_q,
+    k_scale, v_q, v_scale, start, end, key_mask)` in place of the kernel."""
+    from neko_tpu_torch.ops import attention as attn_ops
+
+    wrapper = attn_ops.decode_attention_int8
+
+    def call(q, cache, start, end):
+        return fn(q, cache["key"], cache["key_scale"], cache["value"], cache["value_scale"],
+                  start, end, cache["mask"])
+
+    attn_ops.decode_attention_int8 = call
+    try:
+        yield
+    finally:
+        attn_ops.decode_attention_int8 = wrapper
+
+
+def _int8_cache(B, H, S, hd, g, dev):
+    """(k_q, k_scale, v_q, v_scale) of random bf16 rows quantized."""
+    import torch
+
+    from neko_tpu_torch.ops import decode_attention as da
+
+    kq, ks = da.quant_rows(torch.randn(B, H, S, hd, device=dev, generator=g).bfloat16() * 2)
+    vq, vs = da.quant_rows(torch.randn(B, H, S, hd, device=dev, generator=g).bfloat16())
+    return kq, ks, vq, vs
+
+
+def int8_decode_vs_plain(card: str, dev="cuda") -> dict:
+    """Phase 20 (a).  -> {"err", "check_launches", "times" (B=8), "times_b1"}."""
+    import torch
+
+    from neko_tpu_torch.ops import decode_attention as da
+
+    da.decode_cache_attention_int8.launches = 0
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    tol = KERNEL_TOL["bfloat16"]
+    worst, fault_excess = 0.0, {f: -1.0 for f in INT8_DECODE_FAULTS}
+    for B, H, S, hd in INT8_DECODE_SHAPES:
+        q = torch.randn(B, H, hd, device=dev, generator=g).bfloat16()
+        cache = _int8_cache(B, H, S, hd, g, dev)
+        st, en = _decode_rows(B, S)
+        start = torch.tensor(st, dtype=torch.int32, device=dev)
+        end = torch.tensor(en, dtype=torch.int32, device=dev)
+        # a third of each window's rows cleared, its ends kept
+        mask = torch.rand(B, S, device=dev, generator=g) >= 1 / 3
+        rows = torch.arange(B, device=dev)
+        mask[rows, start.long().clamp(max=S - 1)] = True
+        mask[rows, (end.long() - 1).clamp(min=0)] = True
+        out = da.decode_cache_attention_int8(q, *cache, start, end, mask)
+        ref = plain_int8_decode(q, *cache, start, end, mask)
+        torch.cuda.synchronize()
+        _require(torch.isfinite(out).all(), f"int8 decode output not finite at B={B}")
+        seen = (start < end)[:, None, None]
+        _require(torch.all(out.masked_fill(seen, 0) == 0), "int8 decode rows without a key not 0")
+        err, excess = _excess(out.float() * seen, ref.float() * seen, tol)
+        worst = max(worst, err)
+        print(f"int8 decode kernel vs plain B={B} H={H} S={S} hd={hd} bf16 q, holed cache "
+              f"mask: max abs err {err:.3e} (excess over tolerance {excess:.3e})")
+        _require(excess <= 0, f"the int8 decode kernel disagrees at B={B}")
+        for f in INT8_DECODE_FAULTS:
+            bad = plain_int8_decode(q, *cache, start, end, mask, fault=f)
+            fault_excess[f] = max(fault_excess[f], _excess(bad.float() * seen,
+                                                           ref.float() * seen, tol)[1])
+    for f in INT8_DECODE_FAULTS:
+        print(f"control '{f}': largest excess over tolerance {fault_excess[f]:.3e}")
+    blind = [f for f in INT8_DECODE_FAULTS if not fault_excess[f] > 0]
+    _require(not blind, f"the int8 decode check cannot tell these planted faults: {blind}")
+    res = {"err": worst, "check_launches": da.decode_cache_attention_int8.launches}
+
+    # device times on a full cache, in turns, each call on the next of enough
+    # copies of the cache to fill the 50 MB L2 twice (as phase 11)
+    for B, key in ((8, "times"), (1, "times_b1")):
+        H, S, hd = 24, 1024, 32
+        q = torch.randn(B, H, hd, device=dev, generator=g).bfloat16()
+        copies = -(-100_000_000 // (2 * B * H * S * (hd + 4)))
+        caches = [_int8_cache(B, H, S, hd, g, dev) for _ in range(copies)]
+        turn = itertools.cycle(caches)
+        start = torch.zeros(B, dtype=torch.int32, device=dev)
+        end = torch.full((B,), S, dtype=torch.int32, device=dev)
+        valid = torch.ones(B, S, dtype=torch.bool, device=dev)
+        run_k = lambda: da.decode_cache_attention_int8(  # noqa: E731
+            q, *next(turn), start, end, valid)
+        run_p = lambda: da.decode_cache_attention_int8_reference(  # noqa: E731
+            q, *next(turn), start, end, key_mask=valid)
+        p1, k1, k2, p2 = (_launched_device_ms(f) for f in (run_p, run_k, run_k, run_p))
+        ev_k = _time_ms(run_k, 50)
+        keys = B * H * S
+        # int8 K and V rows, their fp32 scales, q and o in bf16, the mask
+        bound = _bound(4 * hd * keys, 2 * keys * hd + 2 * keys * 4 + 2 * B * H * hd * 2 + B * S)
+        del caches
+        print(f"int8 decode B={B} H={H} S={S} hd={hd}, full cache ({copies} copies in turn), "
+              f"device time: kernel {k1:.4f} / {k2:.4f} ms, plain {p1:.4f} / {p2:.4f} ms, "
+              f"bound {bound[0]:.4f} ms ({bound[1]}), no library call; CUDA events over 50 "
+              f"calls: kernel {ev_k:.4f} ms ({card})")
+        res[key] = {"ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2, "bound_ms": bound[0],
+                    "bound_by": bound[1], "library_ms": None, "event_ms": ev_k}
+    return res
+
+
+def _launched_device_ms(fn) -> float:
+    """`_device_ms` of a call that launches kernels: a reading of 0 (a
+    profiler session that recorded none of its launches) is taken again, at
+    most twice."""
+    for _ in range(3):
+        ms = _device_ms(fn)
+        if ms > 0:
+            return ms
+    raise AssertionError("the profiler recorded no device time for a call that launches")
+
+
+def _per_token_ms(gen, examples, T, kw, runs=3) -> float:
+    """Decode ms a token of generate_batch (host clock): the median of
+    `runs` T-token runs less the 1-token run, over T - 1 steps."""
+    gen.generate_batch(examples, max_new_tokens=T, **kw)  # warm-up
+    full, one = [], []
+    for _ in range(runs):
+        t0 = time.perf_counter()
+        gen.generate_batch(examples, max_new_tokens=T, **kw)
+        full.append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        gen.generate_batch(examples, max_new_tokens=1, **kw)
+        one.append(time.perf_counter() - t0)
+    return (float(np.median(full)) - float(np.median(one))) / (T - 1) * 1e3
+
+
+def _cache_bytes(gen, examples) -> int:
+    """Bytes of the KV caches (rows and scales; not the masks) a prefill of
+    `examples` leaves."""
+    import torch
+
+    from neko_tpu_torch.data.batch import to_device_batch
+
+    arrays = gen.packer.pack_batch(examples, pad_side="right")
+    lengths = arrays.pop("lengths")
+    with torch.inference_mode():
+        emb = gen.model.embed_batch(to_device_batch(arrays, gen.device))
+        mask = torch.from_numpy(np.arange(gen.cfg.context_len)[None, :]
+                                < lengths[:, None]).to(gen.device)
+        _, caches = gen.model.prefill(emb, mask)
+    return sum(t.numel() * t.element_size() for c in caches for k, t in c.items()
+               if k != "mask")
+
+
+def _plain_fp8_model(cfg, sd, dev, fault=None):
+    """The plain version of fp8 serving: a bf16 model whose weights are the
+    fp8 weights dequantized once (materialized); `fault` "scales over the
+    input dim" takes each scale over a column instead of an output row."""
+    import torch
+
+    from neko_tpu_torch.convert import build_model
+    from neko_tpu_torch.inference import quant
+
+    dtype = cfg.activation_dtype
+    out = quant.serve_cast_state_dict(sd, dtype)
+    for k, t in out.items():
+        if not quant.eligible(k, t):
+            continue
+        if fault == "scales over the input dim":
+            wf = t.float()
+            scale = torch.clamp(wf.abs().amax(dim=0) / quant.FP8_MAX, min=1e-30)
+            q = torch.clamp(wf / scale[None, :], -quant.FP8_MAX, quant.FP8_MAX).to(quant.FP8)
+            out[k] = q.to(dtype) * scale.to(dtype)[None, :]
+        else:
+            out[k] = quant.dequantize(*quant.quantize(t), dtype)
+    return build_model(cfg, out, dev)
+
+
+def quantized_serving(card: str, dev="cuda") -> dict:
+    """Phase 20 (b) and (c) at bench_decode.py's shape (B=8, 512-token
+    prompts, 64 new tokens, flagship width, bf16, random weights from the
+    seed).  -> {"int8_launches", "fwd", "decode", "int8": readings,
+    "fp8": readings}."""
+    import torch
+
+    from neko_tpu_torch.config import ModelConfig
+    from neko_tpu_torch.convert import build_model, init_state_dict
+    from neko_tpu_torch.inference import quant
+    from neko_tpu_torch.inference.generator import Generator
+    from neko_tpu_torch.ops import attention_kernel as whk
+    from neko_tpu_torch.ops import decode_attention as da
+
+    cfg = ModelConfig(**dict(FLAGSHIP, max_patches=0, dropout=0.0))
+    sd = init_state_dict(cfg, SEED)
+    native = Generator(build_model(cfg, sd, dev), seed=SEED)
+    int8 = Generator(build_model(cfg.replace(kv_cache_dtype="int8"), sd, dev), seed=SEED)
+    fp8 = Generator(build_model(cfg, sd, dev), seed=SEED, weight_dtype="fp8")
+    rng = np.random.RandomState(SEED)
+    B, P, T = DECODE_BENCH["B"], DECODE_BENCH["prompt"], DECODE_BENCH["new"]
+    examples = [{"text": list(rng.randint(1, cfg.text_tokens, size=P))} for _ in range(B)]
+    ts = cfg.token_space
+    kw = dict(start=ts.start("text"), end=ts.end("text"))
+    V = cfg.vocab_size
+    res = {"fwd": 0, "decode": 0, "int8_launches": 0}
+
+    def run(gen):  # generate_batch counted: -> (tokens, window logits, launches)
+        whk.whole_head_attention.launches = 0
+        da.decode_cache_attention.launches = 0
+        da.decode_cache_attention_int8.launches = 0
+        toks, windows = gen.generate_batch(examples, max_new_tokens=T, **kw)
+        torch.cuda.synchronize()
+        n = (whk.whole_head_attention.launches, da.decode_cache_attention.launches,
+             da.decode_cache_attention_int8.launches)
+        res["fwd"] += n[0]
+        res["decode"] += n[1]
+        res["int8_launches"] += n[2]
+        return toks, windows, n
+
+    tn, wn, ln = run(native)
+    ti, wi, li = run(int8)
+    tf, wf, lf = run(fp8)
+    steps = (T - 1) * cfg.layers
+    print(f"launches (#1, #14, #14-int8): native {ln}, int8 cache {li}, fp8 weights {lf} "
+          f"({T - 1} decode steps x {cfg.layers} layers = {steps})")
+    _require(ln == (cfg.layers, steps, 0) and li == (cfg.layers, 0, steps)
+             and lf == (cfg.layers, steps, 0), "a generation left its kernels")
+
+    # (b) the int8 cache against the native one
+    first = float(np.abs(wi[:, 0] - wn[:, 0]).max())
+    agree = float((ti == tn).mean())
+    forced_n = _teacher_forced_logits(native, examples, tn)[:, :V]
+    forced_i = _teacher_forced_logits(int8, examples, tn)[:, :V]
+    err = (forced_i - forced_n).abs().max().item()
+    with int8_decode_through(plain_int8_decode):
+        plain_i = _teacher_forced_logits(int8, examples, tn)[:, :V]
+    kerr = (forced_i - plain_i).abs().max().item()
+    kfault = {}
+    for f in INT8_DECODE_LOGIT_FAULTS:
+        with int8_decode_through(lambda *a, f=f: plain_int8_decode(*a, fault=f)):
+            kfault[f] = (_teacher_forced_logits(int8, examples, tn)[:, :V]
+                         - forced_i).abs().max().item()
+    fault_err = {}
+    for f in INT8_LOGIT_FAULTS:
+        with int8_decode_through(lambda *a, f=f: plain_int8_decode(*a, fault=f)):
+            bad = _teacher_forced_logits(int8, examples, tn)[:, :V]
+        fault_err[f] = (bad - forced_n).abs().max().item()
+    nb, ib = _cache_bytes(native, examples), _cache_bytes(int8, examples)
+    print(f"int8 cache vs native, B={B}, {P}-token prompts, {T} new tokens: first-step logits "
+          f"max abs diff {first:.3e} (the prefill attends full precision), token agreement "
+          f"{agree:.4f}, last-step logits teacher-forced on the native tokens {err:.3e} "
+          f"(limit {INT8_LOGIT_TOL:g}; logit std {forced_n.std().item():.3f}); the model's "
+          f"int8 decode kernel vs its plain version {kerr:.3e} (limit "
+          f"{INT8_DECODE_LOGIT_TOL:g}; control {kfault}); "
+          f"cache bytes {ib:,} / {nb:,} = {ib / nb:.4f}")
+    for f, e in fault_err.items():
+        print(f"control '{f}': last-step logits against the native cache {e:.3e}")
+    _require(first == 0.0, "the int8 cache changed the prefill's logits")
+    _require(err <= INT8_LOGIT_TOL and kerr <= INT8_DECODE_LOGIT_TOL,
+             "the int8 cache's logits")
+    _require(all(e > INT8_DECODE_LOGIT_TOL for e in kfault.values()),
+             f"the int8 kernel's logits check cannot tell {kfault}")
+    blind = [f for f, e in fault_err.items() if not e > INT8_LOGIT_TOL]
+    _require(not blind, f"the int8 logits check cannot tell these planted faults: {blind}")
+    hd = cfg.head_dim  # a row: hd int8 values and an fp32 scale against 2 * hd bytes
+    _require(ib * 2 * hd == nb * (hd + 4), f"int8 cache bytes {ib} against native {nb}: "
+             f"not {hd + 4} / {2 * hd}")
+
+    # the quantization on the card rounds as the CPU's (neko_tpu's) does
+    bf = quant.serve_cast_state_dict(sd, cfg.activation_dtype)
+    differ = []
+    for k, t in bf.items():
+        if quant.eligible(k, t):
+            (qc, sc), (qg, sg) = quant.quantize(t), quant.quantize(t.to(dev))
+            if not (torch.equal(qc.view(torch.uint8), qg.cpu().view(torch.uint8))
+                    and torch.equal(sc, sg.cpu())):
+                differ.append(k)
+    x = torch.randn(B, cfg.heads, P, cfg.head_dim).bfloat16() * 3
+    (ic, isc), (ig, isg) = da.quant_rows(x), da.quant_rows(x.to(dev))
+    rows_equal = torch.equal(ic, ig.cpu()) and torch.equal(isc, isg.cpu())
+    print(f"quantized on the card against the CPU: fp8 bytes and scales of "
+          f"{sum(quant.eligible(k, t) for k, t in bf.items())} weights "
+          f"{'equal' if not differ else 'differ in ' + str(differ)}; int8 rows and scales of "
+          f"[{B}, {cfg.heads}, {P}, {cfg.head_dim}] {'equal' if rows_equal else 'differ'}")
+    _require(not differ and rows_equal, "the card quantizes otherwise than the CPU")
+    del bf
+
+    # (c) fp8 weights against bf16, and against their plain version
+    ffirst = float(np.abs(wf[:, 0] - wn[:, 0]).max())
+    fagree = float((tf == tn).mean())
+    plain = Generator(_plain_fp8_model(cfg, sd, dev), seed=SEED)
+    pt, pw = plain.generate_batch(examples, max_new_tokens=T, **kw)
+    perr = float(np.abs(pw - wf).max())
+    bad = Generator(_plain_fp8_model(cfg, sd, dev, fault="scales over the input dim"), seed=SEED)
+    fault_perr = float(np.abs(bad.generate_batch(examples, max_new_tokens=2, **kw)[1][:, 0]
+                              - wf[:, 0]).max())
+    del plain, bad
+    qb, tb = quant.quantized_bytes(fp8.model)
+    bf16_bytes = sum(t.numel() * t.element_size() for t in native.model.state_dict().values())
+    print(f"fp8 weights vs bf16: first-step logits max abs diff {ffirst:.3e}, token agreement "
+          f"{fagree:.4f}; against the dequantized-once bf16 model (the plain version) "
+          f"{perr:.3e} over every step, tokens {'equal' if (pt == tf).all() else 'differ'} "
+          f"(limit {FP8_PLAIN_TOL:g}); control 'scales over the input dim' {fault_perr:.3e}; "
+          f"resting weight bytes {tb:,} (fp8 weights and scales {qb:,}) against bf16 "
+          f"{bf16_bytes:,} = {tb / bf16_bytes:.4f}")
+    _require(perr <= FP8_PLAIN_TOL and (pt == tf).all(), "fp8 serving left its plain version")
+    _require(fault_perr > FP8_PLAIN_TOL, "the fp8 check cannot tell 'scales over the input dim'")
+    nk = {}
+    for name, gen in (("native", native), ("int8", int8), ("fp8", fp8), ("int8", int8),
+                      ("fp8", fp8), ("native", native)):
+        nk.setdefault(name, []).append(_per_token_ms(gen, examples, T,
+                                                     dict(kw, return_logits=False)))
+    print(f"decode ms a token at B={B} (generate_batch, host clock, in turns): native "
+          f"{nk['native']}, int8 cache {nk['int8']}, fp8 weights {nk['fp8']} ({card})")
+    res["int8"] = {"first_logit_diff": first, "token_agreement": agree, "forced_logit_err": err,
+                   "kernel_vs_plain_logit_err": kerr, "faults": fault_err,
+                   "kernel_faults": kfault,
+                   "cache_bytes": ib, "native_cache_bytes": nb, "cache_ratio": ib / nb,
+                   "token_ms": nk["int8"], "native_token_ms": nk["native"]}
+    res["fp8"] = {"first_logit_diff": ffirst, "token_agreement": fagree, "plain_err": perr,
+                  "fault_plain_err": fault_perr, "weight_bytes": tb, "quantized_bytes": qb,
+                  "bf16_weight_bytes": bf16_bytes, "token_ms": nk["fp8"]}
+    return res
+
+
+def tp_serving(card: str, workdir: Path, dev="cuda") -> dict:
+    """Phase 20 (d): two ranks on the one card over gloo at model = 2
+    against one process.  -> {"fwd", "decode", "int8_launches" over both
+    ranks, readings}."""
+    import dataclasses
+
+    import torch
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "tools"))
+    import check_torch_serving_ranks as tool
+
+    from neko_tpu_torch.cli import evaluate as cli_evaluate
+    from neko_tpu_torch.cli import serve as cli_serve
+    from neko_tpu_torch.cli.build import model_config_from_args
+    from neko_tpu_torch.config import ModelConfig
+    from neko_tpu_torch.convert import init_state_dict, save_model_dir
+    from neko_tpu_torch.training.arguments import TrainingArgs
+    from neko_tpu_torch.utils.checkpoint import save_args
+
+    workdir.mkdir(parents=True, exist_ok=True)
+    cfg = ModelConfig(**dict(FLAGSHIP, max_patches=0, dropout=0.0))
+    sd = init_state_dict(cfg, SEED)
+    state = str(workdir / "state.pt")
+    torch.save(sd, state)
+    rng = np.random.RandomState(SEED + 20)
+    B, P, T = TP_SERVE["B"], TP_SERVE["prompt"], TP_SERVE["new"]
+    prompts = [[int(t) for t in rng.randint(1, cfg.text_tokens, size=P)] for _ in range(B)]
+    cases = {"native": {}, "int8": {"kv": "int8"}, "fp8": {"weights": "fp8"},
+             "fault": {"weights": "fp8", "fault": "scales per shard"}}
+    job = {"kind": "generate", "prompts": prompts, "new": T, "cases": list(cases.values())}
+    # the evaluation CLI's checkpoint: the flagship width on the byte
+    # tokenizer's text task, fp32, random weights from the seed
+    eargs = TrainingArgs(cpu=False, text_datasets=["synthetic"], text_datasets_paths=["synthetic"],
+                         text_prop=1.0, embed_dim=FLAGSHIP["embed_dim"],
+                         layers=FLAGSHIP["layers"], heads=FLAGSHIP["heads"],
+                         sequence_length=FLAGSHIP["context_len"],
+                         mixed_precision="no", dropout=0.0, eval_text_num_examples=4,
+                         log_jsonl=False, seed=SEED)
+    exp = workdir / "exp"
+    ecfg = model_config_from_args(eargs, 0)
+    save_model_dir(str(exp / "checkpoint_1"), ecfg, init_state_dict(ecfg, SEED))
+    save_args(str(exp), eargs)
+    eval_argv = ["--model_path", str(exp)] + (["--cpu"] if dev == "cpu" else [])
+    requests = [("/v1/generate", {"text": prompts[0][:64], "max_new_tokens": 16}),
+                ("/v1/generate", {"text": prompts[1][:48], "max_new_tokens": 12,
+                                  "deterministic": False, "temperature": 0.8}),
+                ("/v1/generate", {"text": prompts[2][:40], "max_new_tokens": 12, "top_k": 3}),
+                ("/v1/generate", {"text": prompts[3][:32], "max_new_tokens": 8, "num_beams": 2})]
+    t0 = time.perf_counter()
+    gen_res, served, evaluated = tool.run_ranks(
+        [job, {"kind": "serve", "argv": TP_CLI, "requests": requests},
+         {"kind": "evaluate", "argv": eval_argv}],
+        world=2, state=state, cfg=dataclasses.asdict(cfg), device=dev, timeout=900)
+    ranks_s = time.perf_counter() - t0
+
+    # one process on the same card
+    out = {"fwd": 0, "decode": 0, "int8_launches": 0, "ranks_s": ranks_s}
+    want = {}
+    for name, case in cases.items():
+        if name == "fault":
+            continue
+        gen = tool.build(cfg, sd, torch.device(dev), None, case)
+        want[name] = tool.generate_case(gen, job)
+        del gen
+    readings = {}
+    for (name, case), got in zip(cases.items(), gen_res):
+        ref = want["fp8" if name == "fault" else name]
+        first = float(np.abs(got["logits"][:, 0] - ref["logits"][:, 0]).max())
+        readings[name] = {"first_logit_diff": first, "rank_logit_diff": got["rank_logit_diff"],
+                          "heads": got["heads"], "launches": got["rank_launches"]}
+        if name == "fault":
+            print(f"control 'scales per shard': first-step logits against one process's fp8 "
+                  f"{first:.3e} (limit {TP_LOGIT_TOL:g})")
+            _require(first > TP_LOGIT_TOL, "the TP check cannot tell 'scales per shard'")
+            continue
+        _require(all(t == got["tokens"] for t in got["rank_tokens"])
+                 and got["rank_logit_diff"] == 0.0, f"{name}: the ranks disagree")
+        _require(got["heads"] == {"prefill": [cfg.heads // 2], "decode": [cfg.heads // 2]},
+                 f"{name}: heads a rank {got['heads']}")
+        windows = ref["logits"]
+        top2 = np.partition(windows, -2, axis=-1)[..., -2:]
+        gaps = top2[..., 1] - top2[..., 0]
+        held = [_near_tie_check(f"model=2 {name} row {i}", got["tokens"][i], ref["tokens"][i],
+                                gaps[i]) for i in range(B)]
+        for r in got["rank_launches"]:
+            out["fwd"] += r["whole_head_attention"]
+            out["decode"] += r["decode_cache_attention"]
+            out["int8_launches"] += r["decode_cache_attention_int8"]
+        print(f"model=2 {name}: first-step logits vs one process {first:.3e} (limit "
+              f"{TP_LOGIT_TOL:g}), every rank's logits equal rank 0's, tokens held "
+              f"{held} of {T} a row, heads a rank {got['heads']}, launches a rank "
+              f"{got['rank_launches']}")
+        _require(first <= TP_LOGIT_TOL, f"{name}: TP logits against one process")
+        readings[name]["held"] = held
+
+    # the serve CLI: the same requests to one process's server
+    with cli_serve.build_server(cli_serve.parser().parse_args(TP_CLI + ["--port", "0"])) as s:
+        base = f"http://{s.address[0]}:{s.address[1]}"
+        replies = [tool._post(base, path, payload) for path, payload in requests]
+    for (code, got), (wcode, w), (_, p) in zip(served["replies"], replies, requests):
+        _require(code == wcode == 200, f"serve over ranks: {code} {got}")
+        _require(got["tokens"] == w["tokens"], f"serve over ranks differs from one process: {p}")
+    follower = served["followers"][0]
+    _require(follower["follower_errors"] == 0, "a follower's replay raised")
+    print(f"serve CLI over 2 ranks (flagship fp32, fp8 weights, int8 cache, engine of 4 slots): "
+          f"{len(requests)} replies equal one process's (engine, engine sampled, coalesced, "
+          f"beams); rank 1 replayed {follower['follower_calls']} calls; launches a rank "
+          f"{[served['launches']] + [f['launches'] for f in served['followers']]}")
+    for r in [served] + served["followers"]:
+        out["fwd"] += r["launches"]["whole_head_attention"]
+        out["decode"] += r["launches"]["decode_cache_attention"]
+        out["int8_launches"] += r["launches"]["decode_cache_attention_int8"]
+    # the evaluation CLI
+    ewant = cli_evaluate.main(eval_argv)
+    for r in evaluated:
+        _require(set(r["logs"]) == set(ewant), "evaluation keys over ranks")
+        for k, w in ewant.items():
+            _require(abs(r["logs"][k] - w) <= TP_EVAL_TOL * max(1.0, abs(w)),
+                     f"evaluation over ranks {k}: {r['logs'][k]} against {w}")
+        out["fwd"] += r["launches"]["whole_head_attention"]
+        out["decode"] += r["launches"]["decode_cache_attention"]
+    _require(evaluated[0]["printed"].count("evaluation/") == len(ewant)
+             and "evaluation/" not in evaluated[1]["printed"], "rank 0 alone prints")
+    print(f"evaluation CLI over 2 ranks: {ewant} on every rank (limit {TP_EVAL_TOL:g} relative), "
+          f"printed by rank 0; the ranks' spawn took {ranks_s:.1f} s ({card})")
+    out["readings"] = readings
+    return out
+
+
+def quantized_tp_serving(card: str, workdir: Path, dev="cuda") -> dict:
+    """Phase 20: (a) #14-int8 against its plain version, timed; (b), (c) the
+    int8 cache and fp8 weights at bench_decode's shape; (d) over two ranks.
+    -> {"kernel": (a), "serving": (b, c), "ranks": (d)}."""
+    t0 = time.perf_counter()
+    kernel = int8_decode_vs_plain(card, dev)
+    serving = quantized_serving(card, dev)
+    ranks = tp_serving(card, workdir, dev)
+    print(f"phase 20 took {time.perf_counter() - t0:.1f} s")
+    return {"kernel": kernel, "serving": serving, "ranks": ranks}
+
+
 def main() -> int:
     import torch
 
@@ -5095,6 +5646,12 @@ def main() -> int:
         p19 = pipeline_seq_train(card, workdir)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
+    try:
+        p20 = quantized_tp_serving(card, workdir)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    q20, r20 = p20["serving"], p20["ranks"]
+    q_fwd, q_decode = q20["fwd"] + r20["fwd"], q20["decode"] + r20["decode"]
     pl = par["launches"]
     pk = par["kernels"]
     sl, pp = p19["launches"]["seq"], p19["launches"]["pipe"]
@@ -5132,11 +5689,12 @@ def main() -> int:
         {"name": "whole_head_attention", "route": "cuda",
          "source": src + "whole_head_attention.cu", "replaces": f"{tpu}:206,236",
          "launches": (serve_launches + launches["fwd"] + cli["fwd"] + ev["fwd"] + ev["eval_fwd"]
-                      + se["fwd"] + tf["fwd"] + pl["fwd"] + sl["fwd"] + pp["fwd"]),
+                      + se["fwd"] + tf["fwd"] + pl["fwd"] + sl["fwd"] + pp["fwd"] + q_fwd),
          "train_cli_launches": cli["fwd"], "mix_train_launches": ev["fwd"],
          "eval_cli_launches": ev["eval_fwd"], "serving_engine_launches": se["fwd"],
          "train_features_launches": tf["fwd"], "parallel_launches": pl["fwd"],
          "seq_ranks_launches": sl["fwd"], "pipeline_launches": pp["fwd"],
+         "quant_tp_serving_launches": q_fwd,
          "max_abs_err": max(err, trained["fwd_err"], pk["err"]["fwd"], qk["err"]["fwd"]),
          **timing("fwd"), "prefill": prefill, "parallel_rank_shape": at_rank_shape("fwd"),
          "microbatch_shape": at_microbatch("fwd")},
@@ -5185,14 +5743,30 @@ def main() -> int:
          "replaces": "neko_tpu/ops/decode_attention.py:80",
          "launches": (decode_launches + cli["decode"] + ev["decode"] + ev["eval_decode"]
                       + se["decode"] + tf["decode"] + pl["decode"] + sl["decode"]
-                      + pp["decode"]),
+                      + pp["decode"] + q_decode),
          "train_cli_launches": cli["decode"], "mix_train_launches": ev["decode"],
          "eval_cli_launches": ev["eval_decode"], "serving_engine_launches": se["decode"],
          "train_features_launches": tf["decode"], "parallel_launches": pl["decode"],
          "seq_ranks_launches": sl["decode"], "pipeline_launches": pp["decode"],
+         "quant_tp_serving_launches": q_decode,
          "check_launches": decode["check_launches"] + decode["generate"]["launches"],
          "max_abs_err": decode["err"], **decode["times"], "b1": decode["times_b1"],
          "generate_per_token_ms": {k: decode["generate"][k] for k in ("kernel_ms", "plain_ms")}},
+        # #14 over an int8 cache (neko_tpu computes it in XLA,
+        # models/transformer.py:71 `_quant_cache_attention`), timed at B=8,
+        # H=24, S=1024, hd=32 on a full cache; launches are phase 20's int8
+        # runs (layers x decode steps, both ranks of (d) counted)
+        {"name": "decode_cache_attention_int8", "route": "cuda",
+         "source": src + "decode_attention.cu",
+         "replaces": "neko_tpu/ops/decode_attention.py:80",
+         "computes": "neko_tpu/models/transformer.py:71",
+         "launches": q20["int8_launches"] + r20["int8_launches"],
+         "quant_tp_serving_launches": q20["int8_launches"] + r20["int8_launches"],
+         "check_launches": p20["kernel"]["check_launches"],
+         "max_abs_err": p20["kernel"]["err"], **p20["kernel"]["times"],
+         "b1": p20["kernel"]["times_b1"],
+         "generate_per_token_ms": {"int8": q20["int8"]["token_ms"],
+                                   "native": q20["int8"]["native_token_ms"]}},
         # the loss head timed at the first [4096, 768] chunk of the flagship
         # loss, the 3,328- and 256-row chunks beside; launches are the train
         # runs' (one a loss chunk a step), library_ms the loss route it replaced

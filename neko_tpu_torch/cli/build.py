@@ -198,17 +198,48 @@ def build_mesh(args: TrainingArgs):
     return None
 
 
+def serving_ranks(model_axis: Optional[int], cpu: bool):
+    """The serve and evaluation CLIs' `--mesh_model_axis N`: for N > 1 join
+    torchrun's group (one rank a 'model' coordinate, the world exactly N)
+    -> (this rank's device, the ('data', 'seq', 'model') mesh of 1 x 1 x N);
+    None for N <= 1."""
+    n = model_axis or 1
+    if n <= 1:
+        return None
+    device = mh.init_from_env(cpu=cpu, flag=f"--mesh_model_axis {n}")
+    if mh.process_count() != n:
+        raise ValueError(f"--mesh_model_axis {n} serves over exactly {n} ranks, the group "
+                         f"has {mh.process_count()}")
+    return device, create_mesh(model=n)
+
+
+def serving_model(cfg: ModelConfig, sd, device, mesh=None, weight_dtype: Optional[str] = None):
+    """A served model from a canonical state dict: with fp8 weights the
+    state dict is serve-cast and quantized first (neko_tpu's order), then
+    this rank's block of it taken over `mesh` ('model' > 1) or all of it."""
+    from neko_tpu_torch.convert import build_model
+    from neko_tpu_torch.inference import quant
+
+    if quant.wants_fp8(weight_dtype):
+        sd = quant.quantize_state_dict(quant.serve_cast_state_dict(sd, cfg.activation_dtype))
+    return build_model(cfg, sd, device, mesh)
+
+
 def build_context(args: TrainingArgs, tasks: Optional[List[Task]] = None,
-                  ckpt_path: Optional[str] = None) -> Tuple[TrainContext, List[Task]]:
+                  ckpt_path: Optional[str] = None, ranks=None) -> Tuple[TrainContext, List[Task]]:
     """(TrainContext on the selected device, tasks).  With no tasks and a
     `ckpt_path` (a serving restore) the patch pool is sized from the
     checkpoint.  `--multihost` joins the process group of torchrun's
     environment first (parallel/multihost.py) and the context trains over
     its ranks (`build_mesh`); `--mesh_seq_axis N` in one process puts N
     sequence shards on the one device (ring attention).  neko_tpu's checks
-    hold: the context splits over 'seq', the layers over 'pipe'."""
+    hold: the context splits over 'seq', the layers over 'pipe'.  `ranks`
+    (`serving_ranks`'s device and mesh) places a restore for serving over
+    'model' ranks instead."""
     check_ported(args)
-    if args.multihost:
+    if ranks is not None:
+        device, _ = ranks
+    elif args.multihost:
         device = mh.init_from_env(cpu=args.cpu or args.device == "cpu")
     else:
         device = select_device(args)
@@ -218,7 +249,7 @@ def build_context(args: TrainingArgs, tasks: Optional[List[Task]] = None,
     if args.layers % args.mesh_pipe_axis:
         raise ValueError(f"layers={args.layers} must split evenly into "
                          f"mesh_pipe_axis={args.mesh_pipe_axis} pipeline stages")
-    mesh = build_mesh(args)
+    mesh = build_mesh(args) if ranks is None else ranks[1]
     if tasks is None:
         tasks = build_tasks(args, mh.data_info(mesh)[0])
     elif not tasks and ckpt_path is not None:
@@ -247,13 +278,15 @@ def resolve_checkpoint_and_args(model_path: str, overrides: Optional[dict] = Non
     return ckpt_path, TrainingArgs(**{k: v for k, v in saved.items() if k in known})
 
 
-def load_state_for(ctx: TrainContext, ckpt_path: str, use_ema: bool = False):
+def load_state_for(ctx: TrainContext, ckpt_path: str, use_ema: bool = False,
+                   weight_dtype: Optional[str] = None):
     """The inference restore recipe, step 2: the checkpoint's weights (its
     EMA shadow with `use_ema`) in a model of `ctx`'s configuration on
-    `ctx`'s device.  The patch pool (`max_patches`) sizes the packer, not
+    `ctx`'s device: the canonical weights, quantized for fp8 serving when
+    `weight_dtype` asks, then this rank's block of them over a 'model' mesh
+    (`serving_model`).  The patch pool (`max_patches`) sizes the packer, not
     the weights, so it may differ from the checkpoint's; every other field
     must match.  -> (model, packer)."""
-    from neko_tpu_torch.convert import build_model
     from neko_tpu_torch.data.packing import SequencePacker
     from neko_tpu_torch.utils.checkpoint import (load_ema_params, load_params_only,
                                                  saved_model_config)
@@ -263,5 +296,7 @@ def load_state_for(ctx: TrainContext, ckpt_path: str, use_ema: bool = False):
             f"{ckpt_path} was trained {'with' if ctx.model_cfg.max_patches == 0 else 'without'} "
             "an image embedder, the restore's tasks derive the opposite; set --max_patches")
     load = load_ema_params if use_ema else load_params_only
-    sd = load(ckpt_path, ctx.model_cfg, ignore=("max_patches",))
-    return build_model(ctx.model_cfg, sd, ctx.device), SequencePacker(ctx.model_cfg)
+    # the cache dtype is a serving choice: no weight depends on it
+    sd = load(ckpt_path, ctx.model_cfg, ignore=("max_patches", "kv_cache_dtype"))
+    model = serving_model(ctx.model_cfg, sd, ctx.device, ctx.mesh, weight_dtype)
+    return model, SequencePacker(ctx.model_cfg)

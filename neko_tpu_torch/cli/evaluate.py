@@ -13,7 +13,18 @@ Generator, printing `evaluation/<task>/<metric>: value` lines.  `--use_ema`
 evaluates the checkpoint's EMA shadow (`ema.pt`) in place of its weights.
 Control episodes run in lockstep (`--eval_parallel_episodes`, 0 = auto),
 serially with `--render`; the sampling knobs apply with `--eval_mode
-stochastic`.
+stochastic`.  `--kv_cache_dtype int8` and `--serve_weight_dtype fp8`
+evaluate through the int8 cache and fp8 weights of serving.
+
+Tensor-parallel, N ranks under torchrun (the JAX package's
+`--mesh_model_axis`):
+
+    torchrun --nproc_per_node N -m neko_tpu_torch.cli.evaluate --model_path DIR \
+        --mesh_model_axis N
+
+Every rank restores its block of the weights, builds the same tasks from
+the same seeds and evaluates them in lockstep (each Generator call runs its
+collectives on every rank); rank 0 prints.
 """
 
 from __future__ import annotations
@@ -21,8 +32,10 @@ from __future__ import annotations
 import argparse
 from typing import Optional
 
-from neko_tpu_torch.cli.build import build_context, load_state_for, resolve_checkpoint_and_args
+from neko_tpu_torch.cli.build import (build_context, load_state_for,
+                                      resolve_checkpoint_and_args, serving_ranks)
 from neko_tpu_torch.inference.generator import Generator
+from neko_tpu_torch.parallel.multihost import process_index
 from neko_tpu_torch.training.trainer import evaluate_task
 
 # flags merged into the saved args when given
@@ -34,20 +47,7 @@ def _or(value, default):
     return default if value is None else value
 
 
-def refuse_unported(cli) -> None:
-    """The JAX package's evaluation options the port does not run yet."""
-    unported = {
-        "--mesh_model_axis > 1": (getattr(cli, "mesh_model_axis", None) or 1) > 1,
-        "--serve_weight_dtype fp8": getattr(cli, "serve_weight_dtype", None) == "fp8",
-        "--kv_cache_dtype int8": getattr(cli, "kv_cache_dtype", None) == "int8",
-    }
-    bad = [name for name, on in unported.items() if on]
-    if bad:
-        raise NotImplementedError(f"not yet ported to neko_tpu_torch: {bad}")
-
-
 def run(cli) -> dict:
-    refuse_unported(cli)
     overrides = {key: getattr(cli, key, None) for key in OVERRIDES}
     ckpt_path, args = resolve_checkpoint_and_args(cli.model_path, overrides)
     # the device is this command's, never the training run's
@@ -66,21 +66,26 @@ def run(cli) -> dict:
 
         tasks = [t for t in build_tasks(args) if isinstance(t, (ControlTask, TextTask))]
 
-    ctx, tasks = build_context(args, tasks=tasks, ckpt_path=ckpt_path)
-    model, packer = load_state_for(ctx, ckpt_path, use_ema=bool(getattr(cli, "use_ema", False)))
+    ranks = serving_ranks(getattr(cli, "mesh_model_axis", None), bool(cli.cpu))
+    ctx, tasks = build_context(args, tasks=tasks, ckpt_path=ckpt_path, ranks=ranks)
+    weight_dtype = getattr(cli, "serve_weight_dtype", None)
+    model, packer = load_state_for(ctx, ckpt_path, use_ema=bool(getattr(cli, "use_ema", False)),
+                                   weight_dtype=weight_dtype)
     gen = Generator(
         model, packer, seed=args.seed,
         temperature=_or(getattr(cli, "temperature", None), 1.0),
         top_k=_or(getattr(cli, "sample_top_k", None), 0),
         top_p=_or(getattr(cli, "sample_top_p", None), 1.0),
+        weight_dtype=weight_dtype,
     )
     deterministic = args.eval_mode == "deterministic"
     logs = {}
     for task in tasks:
         logs.update(evaluate_task(task, gen, args, deterministic,
                                   parallel_episodes=1 if render else None))
-    for k, v in logs.items():
-        print(f"{k}: {v}")
+    if process_index() == 0:
+        for k, v in logs.items():
+            print(f"{k}: {v}")
     return logs
 
 
@@ -110,11 +115,11 @@ def parser() -> argparse.ArgumentParser:
     p.add_argument("--cpu", action="store_true", default=False,
                    help="run on the CPU (default: the CUDA device, which must be visible)")
     p.add_argument("--mesh_model_axis", type=int, default=None,
-                   help="tensor-parallel serving degree (not yet ported)")
+                   help="tensor-parallel degree: that many ranks under torchrun")
     p.add_argument("--serve_weight_dtype", type=str, default=None, choices=["bf16", "fp8"],
-                   help="fp8 weights are not yet ported")
+                   help="fp8: e4m3 matmul weights with per-channel scales")
     p.add_argument("--kv_cache_dtype", type=str, default=None, choices=["native", "int8"],
-                   help="an int8 KV cache is not yet ported")
+                   help="int8: KV caches of int8 rows with fp32 row scales")
     p.add_argument("--control_datasets", type=str, nargs="+", default=None)
     p.add_argument("--render", action="store_true", default=False,
                    help="render control envs during evaluation (serial episodes)")

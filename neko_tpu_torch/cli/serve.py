@@ -23,6 +23,21 @@ continuous-batching engine (with token streaming); `--draft_model_path`
 (restored like `--model_path`) or `--self_draft_layers N` (the target's
 first N layers) loads a draft model for speculative requests.  `--use_ema`
 serves the checkpoints' EMA shadows (`ema.pt`) in place of their weights.
+`--kv_cache_dtype int8` keeps the KV caches as int8 rows with row scales;
+`--serve_weight_dtype fp8` serves the matmul weights as e4m3 with
+per-output-channel scales (inference/quant.py); the draft takes both.
+
+Tensor-parallel serving, N ranks under torchrun:
+
+    torchrun --nproc_per_node N -m neko_tpu_torch.cli.serve --mesh_model_axis N ...
+
+Each rank holds its heads and its block of the MLP and the vocabulary (the
+canonical weights quantized first with fp8); rank 0 answers HTTP and the
+other ranks replay its Generator calls in lockstep (serving/server.py); if
+the ranks' outcomes of a call differ, the server stops and the CLI exits
+naming why.
+NCCL carries the collectives when every rank has a card of its own, gloo
+when ranks share one or with `--cpu`.
 """
 
 from __future__ import annotations
@@ -34,6 +49,7 @@ from typing import Optional
 import torch
 
 from neko_tpu_torch.config import ModelConfig
+from neko_tpu_torch.serving.server import Follower
 
 # architecture flags of --random_init: ModelConfig field -> type
 _ARCH_FLAGS = {
@@ -44,16 +60,11 @@ _ARCH_FLAGS = {
 
 
 def refuse_unported(cli) -> None:
-    """The JAX package's serving options the port does not run yet."""
-    unported = {
-        "--mesh_model_axis > 1": (cli.mesh_model_axis or 1) > 1,
-        "--kv_cache_dtype int8": cli.kv_cache_dtype == "int8",
-        "--serve_weight_dtype fp8": cli.serve_weight_dtype == "fp8",
-        "--compilation_cache": cli.compilation_cache is not None,
-    }
-    bad = [name for name, on in unported.items() if on]
-    if bad:
-        raise NotImplementedError(f"not yet ported to neko_tpu_torch: {bad}")
+    """The JAX package's serving option with no counterpart here: its XLA
+    compile cache (a TPU artefact; the port compiles nothing at serve time
+    but its kernels, once)."""
+    if cli.compilation_cache is not None:
+        raise NotImplementedError("not yet ported to neko_tpu_torch: ['--compilation_cache']")
 
 
 def _device(cli) -> torch.device:
@@ -71,45 +82,58 @@ def _exported_model_dir(path: str) -> bool:
             and not os.path.isfile(os.path.join(parent, "args.json")))
 
 
-def load_model(cli, model_path: str):
-    """-> (model on the command's device, packer or None)."""
-    from neko_tpu_torch.cli.build import build_context, load_state_for
+def load_model(cli, model_path: str, ranks=None):
+    """-> (model on the command's device, this rank's shard over `ranks`'
+    mesh, packer or None)."""
+    from neko_tpu_torch.cli.build import build_context, load_state_for, serving_model
     from neko_tpu_torch.cli.build import resolve_checkpoint_and_args
-    from neko_tpu_torch.convert import load_model_dir
+    from neko_tpu_torch.convert import read_model_dir
     from neko_tpu_torch.utils.checkpoint import NO_EMA
 
-    device = _device(cli)
+    device, mesh = ranks or (_device(cli), None)
     if _exported_model_dir(model_path):
         if cli.use_ema:
             raise ValueError(f"{NO_EMA}: {model_path} is an exported model.pt")
-        return load_model_dir(model_path, device)[1], None
+        cfg, sd = read_model_dir(model_path)
+        if cli.kv_cache_dtype is not None:
+            cfg = cfg.replace(kv_cache_dtype=cli.kv_cache_dtype)
+        return serving_model(cfg, sd, device, mesh, cli.serve_weight_dtype), None
     ckpt_path, args = resolve_checkpoint_and_args(
         model_path, {"kv_cache_dtype": cli.kv_cache_dtype})
     # the device is this command's, never the training run's
     args.cpu, args.device = device.type == "cpu", device.type
-    ctx, _ = build_context(args, tasks=[], ckpt_path=ckpt_path)
-    return load_state_for(ctx, ckpt_path, use_ema=cli.use_ema)
+    ctx, _ = build_context(args, tasks=[], ckpt_path=ckpt_path, ranks=ranks)
+    return load_state_for(ctx, ckpt_path, use_ema=cli.use_ema,
+                          weight_dtype=cli.serve_weight_dtype)
 
 
-def build_generator(cli, model_path: Optional[str] = None):
+def build_generator(cli, model_path: Optional[str] = None, ranks=None):
     """CLI args -> Generator (the restore of `model_path`, default
-    --model_path, or --random_init)."""
-    from neko_tpu_torch.convert import build_model, init_state_dict
+    --model_path, or --random_init); over `ranks` (`serving_ranks`) this
+    rank's."""
+    from neko_tpu_torch.cli.build import serving_model
+    from neko_tpu_torch.convert import init_state_dict
     from neko_tpu_torch.inference.generator import Generator
 
     if model_path is None and cli.random_init:
         if cli.use_ema:
             raise ValueError("--use_ema serves a checkpoint's EMA shadow; --random_init has none")
         arch = {k: getattr(cli, k) for k in _ARCH_FLAGS if getattr(cli, k) is not None}
+        if cli.kv_cache_dtype is not None:
+            arch["kv_cache_dtype"] = cli.kv_cache_dtype
         cfg = ModelConfig(**arch)
-        model, packer = build_model(cfg, init_state_dict(cfg, cli.seed), _device(cli)), None
+        device, mesh = ranks or (_device(cli), None)
+        model = serving_model(cfg, init_state_dict(cfg, cli.seed), device, mesh,
+                              cli.serve_weight_dtype)
+        packer = None
     else:
-        model, packer = load_model(cli, model_path or cli.model_path)
+        model, packer = load_model(cli, model_path or cli.model_path, ranks)
     return Generator(
         model, packer, seed=cli.seed,
         temperature=1.0 if cli.temperature is None else cli.temperature,
         top_k=0 if cli.sample_top_k is None else cli.sample_top_k,
         top_p=1.0 if cli.sample_top_p is None else cli.sample_top_p,
+        weight_dtype=cli.serve_weight_dtype,
     )
 
 
@@ -136,9 +160,12 @@ def parser() -> argparse.ArgumentParser:
                         "coalesce into one decode call")
     p.add_argument("--batch_window_ms", type=float, default=5.0)
     p.add_argument("--mesh_model_axis", type=int, default=None,
-                   help="tensor-parallel serving degree (not yet ported)")
-    p.add_argument("--kv_cache_dtype", type=str, default=None, choices=["native", "int8"])
-    p.add_argument("--serve_weight_dtype", type=str, default=None, choices=["bf16", "fp8"])
+                   help="tensor-parallel serving degree: that many ranks under torchrun")
+    p.add_argument("--kv_cache_dtype", type=str, default=None, choices=["native", "int8"],
+                   help="int8: KV caches of int8 rows with fp32 row scales")
+    p.add_argument("--serve_weight_dtype", type=str, default=None, choices=["bf16", "fp8"],
+                   help="fp8: serve the matmul weights as e4m3 + per-channel scales "
+                        "(inference/quant.py)")
     p.add_argument("--temperature", type=float, default=None)
     p.add_argument("--sample_top_k", type=int, default=None)
     p.add_argument("--sample_top_p", type=float, default=None)
@@ -169,17 +196,26 @@ def parser() -> argparse.ArgumentParser:
 
 
 def build_server(cli):
-    """CLI args -> NekoServer (not started)."""
-    from neko_tpu_torch.serving.server import NekoServer
+    """CLI args -> NekoServer (not started); under `--mesh_model_axis N` a
+    rank other than 0 gets the `Follower` (`run()` replays rank 0's calls
+    until its server closes)."""
+    from neko_tpu_torch.cli.build import serving_ranks
+    from neko_tpu_torch.parallel.multihost import process_index
+    from neko_tpu_torch.serving.server import Follower, LockstepGenerator, NekoServer
 
     refuse_unported(cli)
     if cli.draft_model_path and cli.self_draft_layers:
         raise ValueError("--draft_model_path and --self_draft_layers are exclusive")
-    gen = build_generator(cli)
-    draft = (build_generator(cli, model_path=cli.draft_model_path)
+    ranks = serving_ranks(cli.mesh_model_axis, cli.cpu or cli.device == "cpu")
+    gen = build_generator(cli, ranks=ranks)
+    draft = (build_generator(cli, model_path=cli.draft_model_path, ranks=ranks)
              if cli.draft_model_path else None)
     if cli.self_draft_layers:
         draft = gen.truncated_draft(cli.self_draft_layers)
+    if ranks is not None:
+        if process_index() > 0:
+            return Follower(gen, draft)
+        gen = LockstepGenerator(gen, draft)
     return NekoServer(
         gen, host=cli.host, port=cli.port,
         max_batch=cli.max_batch, batch_window_ms=cli.batch_window_ms,
@@ -191,7 +227,11 @@ def build_server(cli):
 
 
 def main(argv: Optional[list] = None) -> None:
-    server = build_server(parser().parse_args(argv)).start()
+    server = build_server(parser().parse_args(argv))
+    if isinstance(server, Follower):
+        server.run()
+        return
+    server.start()
     host, port = server.address[0], server.address[1]
     print(f"serving on http://{host}:{port} "
           f"(POST /v1/generate, /v1/action; GET /healthz, /metrics)", flush=True)
@@ -201,6 +241,8 @@ def main(argv: Optional[list] = None) -> None:
         pass
     finally:
         server.close()
+    if server.fault is not None:
+        raise SystemExit(f"[neko-tpu-torch] serving stopped: {server.fault}")
 
 
 if __name__ == "__main__":

@@ -85,8 +85,9 @@ class TokenSpace:
 class ModelConfig:
     """Architecture hyperparameters; field for field neko_tpu's ModelConfig.
 
-    `kv_cache_dtype='int8'` is kept so configs round-trip; the port does not
-    run it yet (the transformer raises NotImplementedError)."""
+    `kv_cache_dtype='int8'` stores the KV caches of generation as int8 rows
+    with one fp32 scale a row (ops/decode_attention.py `quant_rows`); the
+    decode step reads them through kernel #14's int8 path."""
 
     embed_dim: int = 768
     layers: int = 8
@@ -135,7 +136,8 @@ class ModelConfig:
     # whole-head kernel wrapper (the kernel on the card).
     attention_impl: str = "auto"
 
-    kv_cache_dtype: str = "native"  # 'int8' is not ported
+    # 'native' (the activation dtype) or 'int8' (per-row scales)
+    kv_cache_dtype: str = "native"
     # recompute each block in the backward (train mode)
     remat: bool = False
     # LoRA on c_attn: rank (0 = off), scale lora_alpha / lora_r, dropout on

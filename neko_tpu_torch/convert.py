@@ -43,6 +43,7 @@ import numpy as np
 import torch
 
 from neko_tpu_torch.config import ModelConfig
+from neko_tpu_torch.ops.quant import SCALE
 
 _INIT_STD = 0.02  # the JAX package's _INIT: normal(stddev=0.02)
 
@@ -285,10 +286,14 @@ def build_model(cfg: ModelConfig, state_dict: Dict[str, torch.Tensor], device="c
     (`specs`: parallel/sharding.py's layout, by default the mesh's
     tensor-parallel one); leaves split over 'data' (fsdp) are gathered at
     their use.  On a 'pipe' mesh the model holds the rank's stage of the
-    canonical `state_dict`."""
+    canonical `state_dict`.  A state dict quantized for fp8 serving
+    (inference/quant.py `quantize_state_dict`) gives a model whose quantized
+    Linears hold its fp8 weights and `qscale` buffers, split as
+    parallel/sharding.py lays them out."""
     from neko_tpu_torch.models.policy import NekoModel
     from neko_tpu_torch.parallel import pipeline, sharding
 
+    state_dict, scales = _split_scales(state_dict)
     n_stages = pipeline.pipe_axis_size(mesh)
     if n_stages > 1:
         _check_against_model(state_dict, cfg)
@@ -299,6 +304,7 @@ def build_model(cfg: ModelConfig, state_dict: Dict[str, torch.Tensor], device="c
         with torch.device("meta"):
             model = NekoModel(cfg)
         model.load_state_dict(state_dict, assign=True)
+        _add_scales(model, scales, None)
         return model.to(device).eval()
     specs = specs or sharding.model_layout(cfg, mesh)
     with torch.device("meta"):
@@ -306,16 +312,54 @@ def build_model(cfg: ModelConfig, state_dict: Dict[str, torch.Tensor], device="c
     for key, t in sharding.shard_state_dict(state_dict, specs, mesh).items():
         mod, _, leaf = key.rpartition(".")
         setattr(model.get_submodule(mod), leaf, torch.nn.Parameter(t))
+    _add_scales(model, scales, mesh)
     model = model.to(device).eval()
     sharding.enable_fsdp(model, specs, mesh.axis("data"))
     return model
 
 
-def load_model_dir(path: str, device="cuda"):
-    """-> (ModelConfig, NekoModel on `device` (the card unless the caller
-    asks for the CPU) with the saved weights)."""
+def assign_state(model, state_dict: Dict[str, torch.Tensor]) -> None:
+    """Take `state_dict` (the model's own keys and shapes; quantized for
+    fp8 serving or not) into `model` in place, each tensor as it is: its
+    dtype, its device.  A quantized entry's Linear takes the fp8 weight and
+    its `qscale` buffer."""
+    state_dict, scales = _split_scales(state_dict)
+    model.load_state_dict(state_dict, assign=True)
+    _add_scales(model, scales, None)
+
+
+def _split_scales(state_dict):
+    """-> (the state dict without its quantized weights' scales, the scales)."""
+    scales = {k: v for k, v in state_dict.items() if k.endswith("." + SCALE)}
+    return {k: v for k, v in state_dict.items() if k not in scales}, scales
+
+
+def _add_scales(model, scales: Dict[str, torch.Tensor], mesh) -> None:
+    """The `qscale` buffers of a quantized state dict (this rank's block of
+    each over 'model' for a canonical one on a `mesh`); their fp8 weights
+    take no gradient."""
+    from neko_tpu_torch.parallel import sharding
+
+    for key, s in scales.items():
+        mod = model.get_submodule(key.rpartition(".")[0])
+        if mesh is not None:
+            s = sharding.shard_tensor(s, key, sharding.LeafSpec(sharding.model_dim(key), None),
+                                      mesh)
+        mod.register_buffer(SCALE, s)
+        mod.weight.requires_grad_(False)
+
+
+def read_model_dir(path: str):
+    """-> (ModelConfig, the saved state dict on the CPU)."""
     with open(os.path.join(path, "config.json")) as f:
         cfg = ModelConfig.from_dict(json.load(f))
     sd = torch.load(os.path.join(path, "model.pt"), map_location="cpu",
                     weights_only=True)
+    return cfg, sd
+
+
+def load_model_dir(path: str, device="cuda"):
+    """-> (ModelConfig, NekoModel on `device` (the card unless the caller
+    asks for the CPU) with the saved weights)."""
+    cfg, sd = read_model_dir(path)
     return cfg, build_model(cfg, sd, device)

@@ -61,7 +61,18 @@ cache, where the JAX package's scatters drop out-of-range writes.
 
 The Generator serves from the model it is given, cast in place to the
 activation dtype: a caller that trains the weights hands it a copy
-(`set_params` refreshes the copy from a state dict).
+(`set_params` refreshes the copy from a state dict).  `weight_dtype='fp8'`
+serves the large matmul weights as e4m3 with per-output-channel scales
+(inference/quant.py), dequantized at each use; the model's
+`kv_cache_dtype='int8'` keeps int8 caches, which every path that copies or
+re-indexes cache rows (beams, the draft, the engine's slots) carries with
+their scales.
+
+Over a 'model' axis of ranks (a model built for one rank by
+`convert.build_model(..., mesh=)`) every rank runs the same calls in
+lockstep: each holds its heads' caches and gathers the whole logits, so
+with the sampling streams seeded alike (`seed`) every rank picks the same
+tokens.  serving/server.py keeps the ranks' calls in one order.
 """
 
 from __future__ import annotations
@@ -76,7 +87,9 @@ from torch import nn
 
 from neko_tpu_torch.data.batch import to_device_batch
 from neko_tpu_torch.data.packing import SequencePacker
+from neko_tpu_torch.inference import quant
 from neko_tpu_torch.models.policy import NekoModel
+from neko_tpu_torch.models.transformer import empty_cache
 from neko_tpu_torch.tokenizers.continuous import decode_mu_law_np, decode_np
 
 
@@ -221,19 +234,38 @@ class Generator:
         temperature: float = 1.0,
         top_k: int = 0,
         top_p: float = 1.0,
+        weight_dtype: Optional[str] = None,
     ):
         """`model` holds the weights and sits on the device generation runs
         on.  The serve cast is applied to it in place: every floating weight
         is cast to the config's activation dtype, as the JAX Generator's
         `_maybe_cast` serves from an activation-dtype copy (a no-op for fp32
         configs).  `temperature`/`top_k`/`top_p` are the default sampling
-        knobs; per-call arguments override them."""
+        knobs; per-call arguments override them.
+
+        `weight_dtype`: None / 'bf16' serve the cast weights; 'fp8' (alias
+        'fp8_e4m3') quantizes the eligible matmul weights after the cast, in
+        place (`quant.quantize_state_dict`, then `convert.assign_state`),
+        unless the model already holds them quantized: a model over a
+        'model' axis must, since its canonical weights are quantized before
+        they are split (`quant.quantize_state_dict`, then
+        `convert.build_model`)."""
         self.model = model.eval()
         self.cfg = model.cfg
         _check_sampling_args(temperature, top_k, top_p)
         self._default_sampling = (temperature, top_k, top_p)
         self.packer = packer or SequencePacker(model.cfg)
-        model.to(self.cfg.activation_dtype)
+        self._wq = quant.wants_fp8(weight_dtype)
+        quant.serve_cast(model, self.cfg.activation_dtype)
+        if self._wq and not quant.is_quantized(model):
+            if model.tp.on:
+                raise ValueError("fp8 weights over a 'model' axis: quantize the canonical "
+                                 "weights, then split them (quant.quantize_state_dict, then "
+                                 "convert.build_model); a row-parallel shard quantized alone "
+                                 "gets other scales")
+            from neko_tpu_torch.convert import assign_state
+
+            assign_state(model, quant.quantize_state_dict(model.state_dict()))
         self.device = next(model.parameters()).device
         # persistent sampling stream: calls without a generator still get
         # fresh draws each time
@@ -243,7 +275,14 @@ class Generator:
     @torch.no_grad()
     def set_params(self, state_dict: Dict[str, torch.Tensor]) -> None:
         """Copy weights (any dtype, any device) into the served model with
-        the serve cast: the caller's tensors are read, never changed."""
+        the serve cast (and the fp8 quantization after it, one process):
+        the caller's tensors are read, never changed."""
+        if self._wq:
+            if self.model.tp.on:
+                raise ValueError("set_params of fp8 weights over a 'model' axis: build the "
+                                 "rank's model from the quantized canonical weights")
+            state_dict = quant.quantize_state_dict(
+                quant.serve_cast_state_dict(state_dict, self.cfg.activation_dtype))
         self.model.load_state_dict(state_dict)
 
     @torch.inference_mode()
@@ -666,7 +705,8 @@ class Generator:
         predictive the early layers are, losslessness does not."""
         if not 1 <= n_layers < self.cfg.layers:
             raise ValueError(f"need 1 <= n_layers < {self.cfg.layers}, got {n_layers}")
-        return Generator(_truncated_model(self.model, n_layers), self.packer)
+        return Generator(_truncated_model(self.model, n_layers), self.packer,
+                         weight_dtype="fp8" if self._wq else None)
 
     @torch.inference_mode()
     def generate_spec_draft(
@@ -873,12 +913,9 @@ class Generator:
         the pending sampled-rejection residual (-1 = none).  The scheduler
         is serving/continuous.py."""
         cfg, dev = self.cfg, self.device
-        S, H, hd = cfg.context_len, cfg.heads, cfg.head_dim
-        dtype = cfg.activation_dtype
-        caches = [{"key": torch.zeros(slots, H, S, hd, dtype=dtype, device=dev),
-                   "value": torch.zeros(slots, H, S, hd, dtype=dtype, device=dev),
-                   "mask": torch.zeros(slots, S, dtype=torch.bool, device=dev)}
-                  for _ in range(cfg.layers)]
+        S = cfg.context_len
+        heads = self.model.transformer.h[0].attn.heads  # this rank's, over 'model'
+        caches = [empty_cache(cfg, slots, heads, dev) for _ in range(cfg.layers)]
         state = {"caches": caches,
                  "last": torch.zeros(slots, cfg.padded_vocab_size, device=dev),
                  "pos": torch.zeros(slots, dtype=torch.long, device=dev)}

@@ -20,6 +20,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from neko_tpu_torch.config import ModelConfig
+from neko_tpu_torch.ops import quant
 from neko_tpu_torch.ops.gelu import gelu_erf
 
 
@@ -101,8 +102,8 @@ class ImagePatchEmbedding(nn.Module):
         x = (x / 255.0 * 2.0 - 1.0) / math.sqrt(ps)
         x = self.residual_block(x.permute(0, 3, 1, 2))  # NCHW inside
         x = x.permute(0, 2, 3, 1).reshape(N, ps * ps * 3)  # (p1, p2, c) order
-        proj = self.projection
-        x = F.linear(x, proj.weight.to(dtype), proj.bias.to(dtype))
+        proj = self.projection  # an fp8 weight (fp8 serving) dequantized here
+        x = F.linear(x, quant.weight(proj, dtype), proj.bias.to(dtype))
         if self.pos_encoding is not None:
             x = x + self.pos_encoding(patch_pos, generator).to(dtype)
         return x

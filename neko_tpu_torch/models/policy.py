@@ -32,7 +32,9 @@ indices), the LayerNorms, MLP and dropout (ops/dropout.py keeps the
 columns of the whole sequence's mask), and the loss of the targets
 predicted there (ops/losses.py, the target count summed over 'data' and
 'seq').  The attention gets the whole rows' key mask: its key window is
-global.  Over 'pipe' a rank's model holds its stage's layers,
+global.  Generation runs over 'model' too: `prefill`, `decode_step` and
+`extend_step` on this rank's heads, their logits gathered over 'model'
+(`_head`).  Over 'pipe' a rank's model holds its stage's layers,
 `layers / pipe` of them (parallel/pipeline.py runs the schedule through
 `embed`, the blocks and `loss_from_hidden`).
 """
@@ -50,7 +52,8 @@ from neko_tpu_torch.models.embeddings import ImagePatchEmbedding
 from neko_tpu_torch.models.transformer import KVCache, Transformer
 from neko_tpu_torch.ops.dropout import Dropout
 from neko_tpu_torch.ops.losses import chunked_masked_xent, gathered_masked_xent
-from neko_tpu_torch.parallel.collectives import vocab_parallel_embedding
+from neko_tpu_torch.ops import quant
+from neko_tpu_torch.parallel.collectives import gather_logits, vocab_parallel_embedding
 from neko_tpu_torch.parallel.mesh import AXES, axis, seq_axis_size
 
 
@@ -212,8 +215,12 @@ class NekoModel(nn.Module):
 
     # -------------------------------------------------------------- decode
     def _head(self, hidden: torch.Tensor) -> torch.Tensor:
-        w = self.predict_token.weight
-        return torch.nn.functional.linear(hidden, w.to(hidden.dtype)).float()
+        """fp32 logits over the padded vocabulary; over 'model' the ranks'
+        blocks gathered (padded columns included) before anything reads
+        them, so every rank filters and samples the same bits."""
+        w = quant.weight(self.predict_token, hidden.dtype)
+        logits = torch.nn.functional.linear(hidden, w)
+        return gather_logits(logits, self.tp).float()
 
     def prefill(
         self,

@@ -20,6 +20,10 @@ neko_tpu/models/transformer.py).
   wrapper on [B, H, S, hd] (always: `cfg.attention_impl` is carried for
   config round trips and ignored), returning each layer's KV cache: keys and
   values [B, H, S, hd] in the activation dtype plus the bool [B, S] key mask.
+  Under `kv_cache_dtype='int8'` the cache stores int8 rows with fp32 row
+  scales ("key_scale", "value_scale" [B, H, S]; `quant_rows`), while the
+  prefill's own attention runs on the full-precision k and v, as the JAX
+  package's does.
 * `mode='decode'`: one token per row written at `decode_index` (the caller
   passes `pos % context_len` for the ring), then attention of that token over
   the cached keys through the decode kernel (#14, `ops/decode_attention.py`).
@@ -30,6 +34,8 @@ neko_tpu/models/transformer.py).
   row, computed once a step; rows inside the window that the mask clears
   are skipped, so a mask with holes is attended as the JAX package attends
   it (attention over the cache does not depend on the order of its rows).
+  An int8 cache takes the new row quantized and goes through #14's int8
+  path (`decode_attention_int8`).
 * `mode='extend'`: the rollout cache's ring append (the JAX package's
   'extend' mode with `extend_clear`).  The timestep slot
   [clear_start, clear_start + clear_len) modulo buffer_len is cleared from
@@ -44,7 +50,10 @@ neko_tpu/models/transformer.py).
   cover the previous round's rejected tail).  Either way the attention is
   plain torch, as the JAX package computes it in XLA outside any kernel:
   fp32 scores with a finite -1e9 fill, fp32 softmax, probabilities cast to
-  the value dtype.  The caches are updated in place.
+  the value dtype.  The caches are updated in place.  An int8 cache takes
+  the chunk quantized, with its scales at the same positions, and attends
+  through the plain `quant_cache_attention` (the JAX package's
+  `_quant_cache_attention`, XLA there too).
 
 Mixed precision by explicit casts, as flax does it (not torch.autocast,
 whose LayerNorm returns fp32): each Linear casts its input and its fp32
@@ -82,16 +91,17 @@ products summed over 'model', then the bias), and LoRA's `lora_b` follows
 c_attn's heads (parallel/collectives.py has the pair).  The
 dropout masks of the replicated activations come from the step's
 generator, which model peers share; the attention kernels' seed adds the
-rank's per-axis offset (`seed_offset`).  Only train mode runs there.
+rank's per-axis offset (`seed_offset`).  The inference modes run there too:
+each rank's caches hold its H / m heads, which the prefill kernel (#1) and
+the decode kernel (#14) attend; the logits are gathered over 'model' in
+models/policy.py.  Every matmul reads its weight through
+`ops.quant.weight`, which dequantizes an fp8 weight at its use.
 FSDP: a block whose leaves are split over 'data' gathers them at its call
 (`call_block`, remat's recompute included).  Over 'seq' ranks a train-mode
 call takes this rank's columns [B, S / n, D] and the whole rows' key mask
 [B, S]; the blocks work on the columns and the attention runs the ring over
 the 'seq' group.  A stage of the pipeline ('pipe') holds `layers` of the
 model's blocks (`Transformer(..., layers=)`).
-
-Not ported yet (configs asking for it raise NotImplementedError): the
-int8 cache.
 """
 
 from __future__ import annotations
@@ -105,15 +115,19 @@ import torch.utils.checkpoint
 from torch import nn
 
 from neko_tpu_torch.config import ModelConfig
+from neko_tpu_torch.ops.quant import weight as dense_weight
 from neko_tpu_torch.ops import attention as attn_ops
 from neko_tpu_torch.ops.attention_kernel import mask_bounds_from_key_mask, masked_attention
+from neko_tpu_torch.ops.decode_attention import quant_cache_attention, quant_rows
 from neko_tpu_torch.ops.dropout import Dropout
 from neko_tpu_torch.ops.gelu import gelu_erf, gelu_tanh
 from neko_tpu_torch.parallel import collectives
 from neko_tpu_torch.parallel.collectives import LOCAL, Axis
 from neko_tpu_torch.parallel.mesh import active_mesh, seq_ranks
 
-KVCache = Dict[str, torch.Tensor]  # {"key", "value": [B,H,S,hd], "mask": [B,S]}
+# {"key", "value": [B, H, S, hd], "mask": [B, S]}; an int8 cache adds
+# "key_scale", "value_scale": fp32 [B, H, S]
+KVCache = Dict[str, torch.Tensor]
 # the JAX package's finite fill of disallowed scores in its XLA attention
 _BIG_NEG = -1e9
 
@@ -140,9 +154,41 @@ def extend_mask(mask, wpos, cidx):
     return mask[:, None, :] & (later == 0)
 
 
-def _not_ported(cfg: ModelConfig) -> None:
-    if cfg.kv_cache_dtype != "native":
-        raise NotImplementedError("not yet ported to neko_tpu_torch: kv_cache_dtype='int8'")
+def empty_cache(cfg: ModelConfig, rows: int, heads: int, device) -> KVCache:
+    """An all-free cache of `rows` rows and `heads` heads (the
+    continuous engine's slot pool): zeros, an all-False mask."""
+    S, hd = cfg.context_len, cfg.head_dim
+    int8 = cfg.kv_cache_dtype == "int8"
+    dtype = torch.int8 if int8 else cfg.activation_dtype
+    cache = {name: torch.zeros(rows, heads, S, hd, dtype=dtype, device=device)
+             for name in ("key", "value")}
+    cache["mask"] = torch.zeros(rows, S, dtype=torch.bool, device=device)
+    if int8:
+        for name in ("key_scale", "value_scale"):
+            cache[name] = torch.zeros(rows, heads, S, dtype=torch.float32, device=device)
+    return cache
+
+
+def new_cache(k: torch.Tensor, v: torch.Tensor, mask: torch.Tensor, int8: bool) -> KVCache:
+    """A prefill's cache of its keys and values [B, H, S, hd] (their int8
+    rows and scales on an int8 cache) and a copy of its key mask (decode
+    steps flip its entries in place)."""
+    if not int8:
+        return {"key": k, "value": v, "mask": mask.clone()}
+    (kq, ks), (vq, vs) = quant_rows(k), quant_rows(v)
+    return {"key": kq, "value": vq, "key_scale": ks, "value_scale": vs, "mask": mask.clone()}
+
+
+def write_rows(cache: KVCache, index, k: torch.Tensor, v: torch.Tensor) -> None:
+    """Write key and value rows ([..., hd], the activation dtype) into the
+    cache at `index` (rows, all heads, positions), quantized on an int8
+    cache with their scales beside them."""
+    if "key_scale" in cache:
+        (k, ks), (v, vs) = quant_rows(k), quant_rows(v)
+        cache["key_scale"][index] = ks
+        cache["value_scale"][index] = vs
+    cache["key"][index] = k
+    cache["value"][index] = v
 
 
 def _train_not_ported(cfg: ModelConfig, S: int) -> None:
@@ -156,9 +202,10 @@ def _train_not_ported(cfg: ModelConfig, S: int) -> None:
 
 
 def linear(layer: nn.Linear, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    """`layer(x)` computed in `dtype` (flax Dense(dtype=...))."""
+    """`layer(x)` computed in `dtype` (flax Dense(dtype=...)); an fp8 weight
+    is dequantized here, at its use."""
     bias = None if layer.bias is None else layer.bias.to(dtype)
-    return F.linear(x.to(dtype), layer.weight.to(dtype), bias)
+    return F.linear(x.to(dtype), dense_weight(layer, dtype), bias)
 
 
 def column_parallel(layer: nn.Linear, x: torch.Tensor, dtype: torch.dtype, tp: Axis):
@@ -168,7 +215,7 @@ def column_parallel(layer: nn.Linear, x: torch.Tensor, dtype: torch.dtype, tp: A
     if not tp.on:
         return linear(layer, x, dtype)
     bias = None if layer.bias is None else layer.bias.to(dtype)
-    return collectives.column_parallel(x.to(dtype), layer.weight.to(dtype), bias, tp)
+    return collectives.column_parallel(x.to(dtype), dense_weight(layer, dtype), bias, tp)
 
 
 def row_parallel(layer: nn.Linear, x: torch.Tensor, dtype: torch.dtype, tp: Axis) -> torch.Tensor:
@@ -177,7 +224,7 @@ def row_parallel(layer: nn.Linear, x: torch.Tensor, dtype: torch.dtype, tp: Axis
     rounded once to `dtype`.  One process: `linear`."""
     if not tp.on:
         return linear(layer, x, dtype)
-    part = collectives.row_parallel(x.to(dtype), layer.weight.to(dtype), tp)
+    part = collectives.row_parallel(x.to(dtype), dense_weight(layer, dtype), tp)
     return (part + layer.bias.float()).to(dtype)
 
 
@@ -211,7 +258,7 @@ class Attention(nn.Module):
 
     def _heads(self, t: torch.Tensor) -> torch.Tensor:
         B, S, _ = t.shape
-        H, hd = self.cfg.heads, self.cfg.head_dim
+        H, hd = self.heads, self.cfg.head_dim
         return t.reshape(B, S, H, hd).transpose(1, 2).contiguous()
 
     def forward(
@@ -229,10 +276,6 @@ class Attention(nn.Module):
         cfg = self.cfg
         dtype = cfg.activation_dtype
         B, S, D = x.shape
-        if self.tp.on and mode != "train":
-            raise NotImplementedError(
-                f"attention mode {mode!r} under tensor parallelism: tensor-parallel "
-                "serving is not yet ported (evaluation runs on the gathered replica)")
         qkv = column_parallel(self.c_attn, x, dtype, self.tp)
         if cfg.lora_r > 0:
             a = self.lora_dropout(linear(self.lora_a, x, dtype),
@@ -252,31 +295,40 @@ class Attention(nn.Module):
                       else attn_ops.attention_qkv)
             out2d = attend(qkv, input_mask, heads=self.heads, seed=seed, rate=rate)
             return self._project_out(out2d, generator), None
-        q, k, v = (self._heads(t) for t in qkv.split(D, dim=-1))
+        # this rank's heads (all of them in one process)
+        q, k, v = (self._heads(t) for t in qkv.split(qkv.shape[-1] // 3, dim=-1))
+        int8 = cfg.kv_cache_dtype == "int8"
         if mode == "prefill":
-            # the mask is copied: decode steps flip its entries in place
-            cache = {"key": k, "value": v, "mask": input_mask.clone()}
+            # the full-precision k and v attend; the cache stores what its
+            # dtype holds
+            cache = new_cache(k, v, input_mask, int8)
             out = attn_ops.prefill_attention(q, k, v, input_mask)
         elif mode == "extend":
             wpos, allowed = extend
             rows = torch.arange(B, device=x.device)[:, None]
-            cache["key"][rows, :, wpos] = k.transpose(1, 2)
-            cache["value"][rows, :, wpos] = v.transpose(1, 2)
-            out = masked_attention(q, cache["key"], cache["value"], allowed[:, None],
-                                   fill=_BIG_NEG)
+            write_rows(cache, (rows, slice(None), wpos), k.transpose(1, 2), v.transpose(1, 2))
+            if int8:
+                out = quant_cache_attention(q, cache["key"], cache["key_scale"], cache["value"],
+                                            cache["value_scale"], allowed[:, None],
+                                            fill=_BIG_NEG)
+            else:
+                out = masked_attention(q, cache["key"], cache["value"], allowed[:, None],
+                                       fill=_BIG_NEG)
         elif mode == "decode":
             if S != 1:
                 raise ValueError("decode mode consumes one token at a time")
             rows = torch.arange(B, device=x.device)
-            cache["key"][rows, :, decode_index] = k[:, :, 0]
-            cache["value"][rows, :, decode_index] = v[:, :, 0]
+            write_rows(cache, (rows, slice(None), decode_index), k[:, :, 0], v[:, :, 0])
             cache["mask"][rows, decode_index] = True
-            out = attn_ops.decode_attention(
-                q[:, :, 0], cache["key"], cache["value"], *decode_bounds,
-                cache["mask"])[:, :, None]
+            if int8:
+                out = attn_ops.decode_attention_int8(q[:, :, 0], cache, *decode_bounds)
+            else:
+                out = attn_ops.decode_attention(q[:, :, 0], cache["key"], cache["value"],
+                                                *decode_bounds, cache["mask"])
+            out = out[:, :, None]
         else:
             raise NotImplementedError(f"attention mode {mode!r} is not yet ported")
-        out2d = out.transpose(1, 2).reshape(B, S, D)
+        out2d = out.transpose(1, 2).reshape(B, S, -1)
         return self._project_out(out2d, None), cache
 
     def _project_out(self, out2d, generator):
@@ -396,7 +448,6 @@ class Transformer(nn.Module):
     def __init__(self, cfg: ModelConfig, tp: Axis = LOCAL, seed_offset: int = 0,
                  layers: Optional[int] = None):
         super().__init__()
-        _not_ported(cfg)
         self.cfg = cfg
         # linear stochastic-depth ramp: layer 0 never drops, the last drops
         # at the configured rate (a pipeline stage, `layers` < cfg.layers,

@@ -11,7 +11,8 @@
   [start, end), through `decode_cache_attention` (kernel #14 on a CUDA
   tensor, its plain version on a CPU one), the only decode path of the
   port's model.  The JAX package's decode step runs XLA einsums over a mask
-  bias and never its kernel.
+  bias and never its kernel.  `decode_attention_int8` is the same over an
+  int8 cache (#14's int8 path; neko_tpu's `_quant_cache_attention`).
 * `prefill_attention`: the prefill dispatch (the JAX package's
   `tpu_flash_attention` -> `_kernel_local`), the only prefill path of the
   port's model.  The key mask becomes per-row [start, end) bounds and goes to
@@ -42,7 +43,8 @@ import torch
 
 from neko_tpu_torch.ops import attention_kernel as whk
 from neko_tpu_torch.ops import blocked_attention, ring_kernel
-from neko_tpu_torch.ops.decode_attention import decode_cache_attention
+from neko_tpu_torch.ops.decode_attention import (decode_cache_attention,
+                                                 decode_cache_attention_int8)
 from neko_tpu_torch.parallel.mesh import active_mesh, seq_axis_size
 
 _BIG_NEG = -1e9
@@ -66,6 +68,13 @@ def decode_attention(q, key, value, start, end, key_mask):
     rows of the bool [B, S] cache mask inside [start, end) (int32 [B] each)
     -> [B, H, hd]."""
     return decode_cache_attention(q, key, value, start, end, key_mask)
+
+
+def decode_attention_int8(q, cache, start, end):
+    """`decode_attention` over an int8 cache (its "key" / "value" int8 rows,
+    "key_scale" / "value_scale" fp32 row scales, "mask")."""
+    return decode_cache_attention_int8(q, cache["key"], cache["key_scale"], cache["value"],
+                                       cache["value_scale"], start, end, cache["mask"])
 
 
 def prefill_attention(q, k, v, key_mask):

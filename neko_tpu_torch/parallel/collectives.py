@@ -20,6 +20,8 @@ ranks that differ from this one only there.  Size 1 is the trivial axis
   other products are those of one process.
 * `reduce_from_model`: an all-reduce forward in fp32, the identity
   backward.
+* `gather_logits`: the inference-time gather of the head's vocabulary
+  blocks over 'model' (no autograd): every rank gets the same bits.
 * `vocab_parallel_embedding`: the lookup in this rank's rows of a table
   split over 'model' (rows outside the shard give zero), then
   `reduce_from_model`.
@@ -233,6 +235,13 @@ def reduce_from_model(x: torch.Tensor, axis: Axis) -> torch.Tensor:
 
 def gather_shard(shard: torch.Tensor, dim: int, axis: Axis) -> torch.Tensor:
     return _GatherShard.apply(shard, dim, axis) if axis.on else shard
+
+
+def gather_logits(logits: torch.Tensor, axis: Axis) -> torch.Tensor:
+    """The blocks of the vocabulary (last dim) of every rank over the axis,
+    concatenated in coordinate order: the whole logits on every rank
+    (inference: no gradient flows through it)."""
+    return all_gather_cat(logits, logits.dim() - 1, axis)
 
 
 def vocab_parallel_embedding(ids: torch.Tensor, weight: torch.Tensor, axis: Axis) -> torch.Tensor:

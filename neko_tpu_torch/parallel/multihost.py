@@ -3,7 +3,8 @@
 * `process_info()`: (rank, world) of the initialised default process group,
   (0, 1) without one.
 * `init_from_env(cpu)`: what the train CLI's `--multihost` does (the JAX
-  package calls `jax.distributed.initialize()` there): joins the group that
+  package calls `jax.distributed.initialize()` there), and the serve and
+  evaluation CLIs' `--mesh_model_axis N` (N > 1): joins the group that
   torchrun's environment describes (RANK, WORLD_SIZE, MASTER_ADDR,
   MASTER_PORT, LOCAL_RANK, LOCAL_WORLD_SIZE) and picks the rank's device and
   the backend.  NCCL when every rank of the host has a card of its own
@@ -23,10 +24,12 @@
 * `eval_replica`: the canonical (one-process) state dict gathered from every
   rank's shards: a collective, every rank calls it (the counterpart of
   `eval_replica`, which forms the replica on the device the same way).
-* `broadcast_object`: rank 0's value on every rank (the experiment name).
+* `broadcast_object`: rank 0's value on every rank (the experiment name,
+  a lockstep server's calls).
 * `agree(flag, group)`: whether any rank raises `flag`, over a gloo group
   of its own with a timeout (`agree_group`), for the decisions of the
-  emergency checkpoint, where a rank may be down.
+  emergency checkpoint, where a rank may be down; `tally` also says
+  whether every rank does (a lockstep server's outcome of each call).
 """
 
 from __future__ import annotations
@@ -84,14 +87,15 @@ def choose_backend(cpu: bool, local_world: int, cards: int) -> str:
     return "nccl" if local_world <= cards else "gloo"
 
 
-def init_from_env(cpu: bool = False) -> torch.device:
+def init_from_env(cpu: bool = False, flag: str = "--multihost") -> torch.device:
     """Join the process group torchrun's environment describes (see the
     module doc) and return this rank's device.  Prints the rank, the world,
-    the device and the backend."""
+    the device and the backend.  `flag`: the option that asked for the
+    group, named when the environment is missing."""
     env = os.environ
     missing = [k for k in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT") if k not in env]
     if missing:
-        raise ValueError(f"--multihost reads torchrun's environment; {missing} not set "
+        raise ValueError(f"{flag} reads torchrun's environment; {missing} not set "
                          "(launch with torchrun, or set RANK, WORLD_SIZE, MASTER_ADDR and "
                          "MASTER_PORT for each process)")
     rank, world = int(env["RANK"]), int(env["WORLD_SIZE"])
@@ -99,7 +103,7 @@ def init_from_env(cpu: bool = False) -> torch.device:
     local_world = int(env.get("LOCAL_WORLD_SIZE", world))
     cards = 0 if cpu else torch.cuda.device_count()
     if not cpu and cards == 0:
-        raise SystemExit("--multihost on the card but no CUDA device is visible (pass --cpu "
+        raise SystemExit(f"{flag} on the card but no CUDA device is visible (pass --cpu "
                          "to run the ranks on the CPU)")
     backend = choose_backend(cpu, local_world, cards)
     device = torch.device("cpu") if cpu else torch.device("cuda", local_rank % cards)
@@ -124,12 +128,13 @@ def eval_replica(ctx, state) -> Dict[str, torch.Tensor]:
     return ctx.gather_named({n: p.detach() for n, p in state.model.named_parameters()})
 
 
-def broadcast_object(obj):
-    """Rank 0's `obj` on every rank (a collective); `obj` in one process."""
+def broadcast_object(obj, group=None):
+    """Rank 0's `obj` on every rank of `group` (default: all; a
+    collective); `obj` in one process."""
     if process_info()[1] == 1:
         return obj
     box = [obj]
-    dist.broadcast_object_list(box, src=0)
+    dist.broadcast_object_list(box, src=0, group=group)
     return box[0]
 
 
@@ -146,11 +151,19 @@ def agree(flag: bool, group) -> Optional[bool]:
     """True when `flag` is True on any rank, False when on none, None when a
     rank did not join before the group's timeout.  One process (`group`
     None): `flag`."""
+    both = tally(flag, group)
+    return None if both is None else both[0]
+
+
+def tally(flag: bool, group) -> Optional[Tuple[bool, bool]]:
+    """(whether `flag` is True on any rank, on every rank) over an
+    `agree_group`; None when a rank did not join before the group's
+    timeout.  One process (`group` None): (`flag`, `flag`)."""
     if group is None:
-        return flag
-    t = torch.tensor([1.0 if flag else 0.0])
+        return flag, flag
+    t = torch.tensor([1.0 if flag else 0.0, 0.0 if flag else 1.0])
     try:
         dist.all_reduce(t, op=dist.ReduceOp.MAX, group=group)
     except RuntimeError:  # a rank is down or elsewhere: the timeout
         return None
-    return bool(t.item() > 0)
+    return bool(t[0] > 0), not bool(t[1] > 0)

@@ -15,6 +15,12 @@ flax kernel):
   both) split in contiguous blocks;
 * everything else replicated.
 
+fp8 serving (inference/quant.py): a quantized weight shards as its weight;
+its scales (`<m>.qscale`, one a output row) split with the output dim of a
+column-parallel layer (c_attn by heads as its rows, c_fc, gate,
+predict_token) and stay whole for a row-parallel one (c_proj), neko_tpu's
+`quant_pspec`.  The canonical weights are quantized before they are split.
+
 One departure of layout, not of arithmetic: the fused c_attn computes
 q | k | v from one [3D, D] weight.  neko_tpu splits its output dim in
 contiguous blocks and GSPMD relays the columns afterwards; here rank r
@@ -82,6 +88,9 @@ class LeafSpec(NamedTuple):
 
 
 def model_dim(key: str) -> Optional[int]:
+    if key.endswith(".qscale"):  # fp8 serving: a weight's per-output-channel scales
+        dim = model_dim(key[:-len("qscale")] + "weight")
+        return 0 if dim == 0 else None  # along a column-parallel output, else whole
     for suffix, dim in _RULES:
         if key == suffix or key.endswith("." + suffix):
             return dim
@@ -143,6 +152,8 @@ def _axes(mesh):
 
 
 def _qkv(key: str) -> bool:
+    if key.endswith(".qscale"):
+        key = key[:-len("qscale")] + "weight"
     return any(key == s or key.endswith("." + s) for s in _QKV)
 
 

@@ -23,20 +23,213 @@ Endpoints:
                          "action_tokens": N[, "num_actions": M | "action_nvec": [...]]}
 
 Run it with `python -m neko_tpu_torch.cli.serve`.
+
+Over a 'model' axis of ranks (tensor-parallel serving, one process a rank)
+the ranks run every Generator call in lockstep.  Rank 0 owns HTTP: its
+server holds a `LockstepGenerator`, which broadcasts each call's host-side
+arguments (a method name, examples, numbers, numpy arrays) to the other
+ranks before it runs the call, one call at a time across the server's
+threads.  Each other rank runs a `Follower`, which receives the calls and
+replays them on its own Generator.  Device state (the caches, the engine's
+slots) stays on its rank and is never sent: the engine's state and the
+draft Generator travel as references, a `torch.Generator` as its seed (the
+follower seeds one of its own alike on first sight).  Every rank gathers
+the same logits, so every rank draws the same tokens.  `close()` sends the
+shutdown sentinel that ends the followers' loops.
+
+The calls travel on a gloo group of their own whose broadcasts wait
+`CALL_WAIT`: a follower spends every idle spell of the server inside one
+broadcast, and the default group's timeout (minutes) would end it there.
+After each call the ranks tally its outcome over a second gloo group
+(`multihost.tally`, 60 s).  When every rank succeeded the call's result
+stands; when every rank raised, rank 0 reports the error to its client and
+serving goes on (the followers log it).  Anything else (some ranks raised,
+or a rank did not report) is a `LockstepError`: the ranks' states may
+differ, so rank 0's server stops (its `fault` names why, and the serve CLI
+exits with it) and the followers raise it.  A rank that fails inside one of
+the model's own collectives leaves its peers waiting there until the
+default group's timeout ends them.
 """
 
 from __future__ import annotations
 
+import datetime
 import json
 import queue
+import sys
 import threading
 import time
+import traceback
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Dict, List, Optional
 
 import numpy as np
 
 from neko_tpu_torch.inference.generator import _check_sampling_args
+from neko_tpu_torch.parallel.multihost import agree_group, broadcast_object, tally
+
+
+# the Generator methods a server calls: what the ranks run in lockstep
+LOCKSTEP_CALLS = ("generate_batch", "generate_beam", "generate_spec", "generate_spec_draft",
+                  "predict_control_batch", "engine_init", "engine_admit", "engine_chunk",
+                  "engine_spec_chunk")
+
+
+# how long a follower waits for rank 0's next call: a server may stand idle
+# for days between requests
+CALL_WAIT = datetime.timedelta(days=365)
+
+
+class LockstepError(RuntimeError):
+    """The ranks of a lockstep server did not all succeed or all fail at
+    one call, or one did not report: their states may differ."""
+
+
+def _channels():
+    """(the call channel, the outcome group) of a lockstep server: gloo
+    groups of every rank, each rank making them at once (a collective).
+    Every call is made of CPU bytes, whichever backend the model's
+    collectives use."""
+    import torch.distributed as dist
+
+    return dist.new_group(backend="gloo", timeout=CALL_WAIT), agree_group()
+
+
+def _settle(name: str, failed: bool, outcomes) -> Optional[str]:
+    """The ranks' tally of a call's outcome: None when every rank succeeded
+    or every one raised, else what went wrong."""
+    both = tally(failed, outcomes)
+    if both is None:
+        return f"a rank did not report the outcome of {name} (down, or stuck in it)"
+    any_failed, all_failed = both
+    if any_failed and not all_failed:
+        return f"{name} raised on some ranks and succeeded on others"
+    return None
+
+
+class _Ref(tuple):
+    """A stand-in in a broadcast call: ("state",), ("draft",) or ("rng",
+    index, seed)."""
+
+
+class LockstepGenerator:
+    """Rank 0's Generator under a 'model' group of ranks: each call of a
+    LOCKSTEP_CALLS method is broadcast to the `Follower`s, then run; other
+    attributes are the Generator's.  `draft`: the draft Generator a server
+    passes to `generate_spec_draft`."""
+
+    def __init__(self, generator, draft=None):
+        self._gen, self._draft = generator, draft
+        self._lock = threading.Lock()
+        self._state = None  # the engine's state (engine_init's result)
+        self._rngs: Dict[int, int] = {}  # id of a torch.Generator -> its index
+        self._calls, self._outcomes = _channels()  # the Followers make theirs at once
+        self.fault: Optional[str] = None  # once set, every call raises LockstepError
+        self.on_fault = None  # called with the fault when it is found (the server stops)
+
+    def __getattr__(self, name):
+        attr = getattr(self._gen, name)
+        if name not in LOCKSTEP_CALLS:
+            return attr
+
+        def call(*args, **kw):
+            with self._lock:
+                if self.fault is not None:
+                    raise LockstepError(self.fault)
+                broadcast_object((name, self._encode(args), self._encode(kw)), self._calls)
+                out = err = None
+                try:
+                    out = attr(*args, **kw)
+                except Exception as e:  # noqa: BLE001 -- tallied, then raised
+                    err = e
+                self.fault = _settle(name, err is not None, self._outcomes)
+                if self.fault is not None:
+                    if self.on_fault is not None:
+                        self.on_fault(self.fault)
+                    raise LockstepError(self.fault) from err
+                if err is not None:  # every rank raised it: the caller reports it
+                    raise err
+                if name == "engine_init":
+                    self._state = out
+                return out
+
+        return call
+
+    def _encode(self, obj):
+        import torch
+
+        if self._state is not None and obj is self._state:
+            return _Ref(("state",))
+        if self._draft is not None and obj is self._draft:
+            return _Ref(("draft",))
+        if isinstance(obj, torch.Generator):
+            i = self._rngs.setdefault(id(obj), len(self._rngs))
+            return _Ref(("rng", i, obj.initial_seed()))
+        if isinstance(obj, (list, tuple)):
+            return type(obj)(self._encode(x) for x in obj)
+        if isinstance(obj, dict):
+            return {k: self._encode(v) for k, v in obj.items()}
+        return obj
+
+    def close(self) -> None:
+        """End the followers' loops (once every caller is done; after a
+        fault they have ended already)."""
+        with self._lock:
+            if self.fault is None:
+                broadcast_object(None, self._calls)
+
+
+class Follower:
+    """A rank other than 0 under a 'model' group: `run()` replays rank 0's
+    Generator calls on this rank's Generator (and draft) until rank 0's
+    server closes, and raises `LockstepError` if the ranks' outcomes of a
+    call differ.  A call that raised here is logged with its traceback."""
+
+    def __init__(self, generator, draft=None):
+        self.gen, self.draft = generator, draft
+        self.calls = self.errors = 0
+        self._calls, self._outcomes = _channels()  # rank 0 makes its own at once
+
+    def run(self) -> None:
+        import torch
+        import torch.distributed as dist
+
+        refs = {"draft": self.draft, "state": None}
+        rngs: Dict[int, "torch.Generator"] = {}
+
+        def decode(obj):
+            if isinstance(obj, _Ref):
+                if obj[0] != "rng":
+                    return refs[obj[0]]
+                if obj[1] not in rngs:  # seeded as rank 0's was before its first draw
+                    rngs[obj[1]] = torch.Generator(device=self.gen.device).manual_seed(obj[2])
+                return rngs[obj[1]]
+            if isinstance(obj, (list, tuple)):
+                return type(obj)(decode(x) for x in obj)
+            if isinstance(obj, dict):
+                return {k: decode(v) for k, v in obj.items()}
+            return obj
+
+        while True:
+            msg = broadcast_object(None, self._calls)
+            if msg is None:
+                return
+            name, args, kw = msg
+            self.calls += 1
+            out, failed = None, False
+            try:
+                out = getattr(self.gen, name)(*decode(args), **decode(kw))
+            except Exception:  # noqa: BLE001 -- tallied with rank 0's outcome below
+                failed = True
+                self.errors += 1
+                print(f"[neko-tpu-torch] rank {dist.get_rank()}: {name} raised",
+                      file=sys.stderr, flush=True)
+                traceback.print_exc()
+            fault = _settle(name, failed, self._outcomes)
+            if fault is not None:
+                raise LockstepError(f"rank {dist.get_rank()} stops: {fault}")
+            if name == "engine_init" and not failed:
+                refs["state"] = out
 
 
 class _Pending:
@@ -145,6 +338,9 @@ class NekoServer:
         # coalescing worker's generation calls (one prefill each)
         self.stats = {"requests": 0, "responses": 0, "errors": 0, "tokens_out": 0,
                       "coalesced_calls": 0}
+        self.fault: Optional[str] = None  # why a lockstep server stopped serving
+        if isinstance(generator, LockstepGenerator):
+            generator.on_fault = self._fail
         self._cont = None
         if continuous_slots > 0:
             from neko_tpu_torch.serving.continuous import ContinuousEngine
@@ -280,6 +476,12 @@ class NekoServer:
         self._serve_thread.start()
         return self
 
+    def _fail(self, fault: str) -> None:
+        """The ranks' states may differ: stop taking requests (the serve CLI
+        then exits naming `fault`)."""
+        self.fault = fault
+        threading.Thread(target=self.httpd.shutdown, daemon=True).start()
+
     def close(self) -> None:
         self._stop.set()
         self.httpd.shutdown()
@@ -287,6 +489,8 @@ class NekoServer:
         self._worker.join(timeout=30)
         if self._cont is not None:
             self._cont.close()
+        if isinstance(self.gen, LockstepGenerator):  # the other ranks stop too
+            self.gen.close()
         # release any handler threads still waiting on queued requests
         while True:
             try:

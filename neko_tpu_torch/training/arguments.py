@@ -160,6 +160,5 @@ def not_ported(args: TrainingArgs) -> List[str]:
         "--lora": args.lora,
         "--pretrained_lm": args.pretrained_lm is not None,
         "--init_checkpoint <file>.pt": str(args.init_checkpoint or "").endswith(".pt"),
-        "--kv_cache_dtype int8": args.kv_cache_dtype != "native",
     }
     return [name for name, on in unported.items() if on]

@@ -17,9 +17,10 @@ heads, k = 64, fp32, 32x32 images; byte tokenizer):
   `--ema_decay` (another text loss than its weights', the loss of the
   shadow loaded as weights), and raises neko_tpu's message on a checkpoint
   without one;
-* the refusals (`--mesh_model_axis 2`, `--serve_weight_dtype fp8`,
-  `--kv_cache_dtype int8`) name themselves, and without `--cpu` the CLI
-  needs a CUDA device (SystemExit here).
+* `--serve_weight_dtype fp8` and `--kv_cache_dtype int8` evaluate as
+  neko_tpu's with them; `--mesh_model_axis 2` outside torchrun's
+  environment names itself; without `--cpu` the CLI needs a CUDA device
+  (SystemExit here).
 """
 
 import argparse
@@ -197,9 +198,21 @@ def test_serving_restore_sizes_the_pool_from_the_checkpoint(same_weights):
 @pytest.mark.parametrize("flag", [["--mesh_model_axis", "2"], ["--serve_weight_dtype", "fp8"],
                                   ["--kv_cache_dtype", "int8"]])
 def test_refusals_name_themselves(same_weights, flag):
-    _, exp = same_weights
-    with pytest.raises(NotImplementedError, match=flag[0]):
-        cli_evaluate.main(["--model_path", exp, "--cpu"] + flag)
+    """None of the three is refused any more: `--mesh_model_axis 2` outside
+    torchrun's environment names itself (tests/test_torch_tp_serving.py runs
+    it over ranks); fp8 weights and the int8 cache evaluate as neko_tpu's
+    evaluation does with them (the serial run's tasks)."""
+    jexp, exp = same_weights
+    if flag[0] == "--mesh_model_axis":
+        with pytest.raises(ValueError, match=flag[0]):
+            cli_evaluate.main(["--model_path", exp, "--cpu"] + flag)
+        return
+    want = jax_evaluate.run(argparse.Namespace(model_path=jexp, cpu=True,
+                                               **{flag[0][2:]: flag[1]}, **RENDER))
+    got = cli_evaluate.main(["--model_path", exp, "--cpu", "--render", "--control_datasets",
+                             "neko-synth-dict-v0", "--eval_episodes", "1",
+                             "--eval_text_num_examples", "2"] + flag)
+    _compare(got, want)
 
 
 def test_use_ema_evaluates_the_shadow(tmp_path, same_weights):

@@ -1,6 +1,6 @@
-"""The decode-attention (#14), fused loss-head (#15), fused AdamW (#16) and
-dropout-mask (#5/#10) CUDA kernels against their plain torch versions on the
-card.
+"""The decode-attention (#14, over a native and an int8 cache), fused
+loss-head (#15), fused AdamW (#16) and dropout-mask (#5/#10) CUDA kernels
+against their plain torch versions on the card.
 
 Needs an NVIDIA Hopper card and nvcc; skipped elsewhere.  It imports no JAX,
 so on the card it runs with the repository conftest (which imports jax) left
@@ -84,6 +84,41 @@ def test_decode_kernel_skips_holes_in_the_cache_mask(cuda, hd, dtype):
     atol, rtol = DECODE_TOL[dtype]
     torch.testing.assert_close(out.float(), ref.float(), atol=atol, rtol=rtol)
     assert ((out.float() - window_only.float()).abs().amax(dim=(1, 2)) > 2 * atol).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,S,hd,dtype", [
+    (8, 24, 1024, 32, torch.bfloat16),   # the flagship decode step, int8 cache
+    (1, 24, 1024, 32, torch.bfloat16),
+    (3, 8, 1000, 64, torch.float32),     # ragged S
+    (3, 8, 512, 128, torch.bfloat16),
+    (4, 4, 300, 16, torch.bfloat16),     # one 16-byte load a row
+    (2, 4, 300, 48, torch.bfloat16),     # an odd hd: zero columns to 64
+])
+def test_decode_int8_kernel_matches_plain(cuda, B, H, S, hd, dtype):
+    """#14 over an int8 cache (int8 rows, fp32 row scales) against its plain
+    version, with holes in the mask and the rows of
+    test_decode_kernel_matches_plain; the bf16 kernel is not launched."""
+    g = torch.Generator(device=cuda).manual_seed(4)
+    q = torch.randn(B, H, hd, device=cuda, generator=g).to(dtype)
+    kq, ks = da.quant_rows(torch.randn(B, H, S, hd, device=cuda, generator=g) * 2)
+    vq, vs = da.quant_rows(torch.randn(B, H, S, hd, device=cuda, generator=g))
+    start = torch.tensor(([0, S // 3, 17, S] * B)[:B], dtype=torch.int32, device=cuda)
+    end = torch.tensor(([S, S, 18, 0] * B)[:B], dtype=torch.int32, device=cuda)
+    mask = torch.rand(B, S, device=cuda, generator=g) < 0.7
+    mask[:, 17] = True
+    before = (da.decode_cache_attention_int8.launches, da.decode_cache_attention.launches)
+    out = da.decode_cache_attention_int8(q, kq, ks, vq, vs, start, end, mask)
+    torch.cuda.synchronize()
+    assert (da.decode_cache_attention_int8.launches, da.decode_cache_attention.launches) == (
+        before[0] + 1, before[1])
+    ref = da.decode_cache_attention_int8_reference(q, kq, ks, vq, vs, start, end, key_mask=mask)
+    assert torch.isfinite(out).all()
+    atol, rtol = DECODE_TOL[dtype]
+    torch.testing.assert_close(out.float(), ref.float(), atol=atol, rtol=rtol)
+    unscaled = da.decode_cache_attention_int8_reference(q, kq, torch.ones_like(ks), vq, vs,
+                                                        start, end, key_mask=mask)
+    assert (out.float() - unscaled.float()).abs().max() > 2 * atol  # the key scales count
 
 
 @pytest.mark.cuda

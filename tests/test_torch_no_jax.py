@@ -4,8 +4,10 @@ transformers, datasets, minari, wandb, Pillow) blocked too; its sources
 import none of them (Pillow only inside the image decoder), its serve CLI
 answers over HTTP on the CPU, its train CLI trains, checkpoints and resumes
 on the CPU, its evaluation CLI evaluates such a checkpoint and its serve
-CLI serves it (the continuous engine, a stream, /metrics, a draft) with all
-of them blocked, and chip_smoke.py refuses to run without a CUDA device."""
+CLI serves it (the continuous engine, a stream, /metrics, a draft; both
+with the int8 cache and fp8 weights) with all of them blocked, generation
+over 'model' ranks runs with them blocked, and chip_smoke.py refuses to run
+without a CUDA device."""
 
 import json
 import os
@@ -112,6 +114,26 @@ def test_parallel_ranks_tool_runs_with_them_blocked(mode):
     assert line["ok"] and line["ranks"] == 2 and line["device"] == "cpu"
 
 
+def test_serving_ranks_tool_runs_with_them_blocked():
+    """tools/check_torch_serving_ranks.py imports nothing of BLOCKED: 2 gloo
+    CPU ranks generate over 'model' (native, the int8 cache, fp8 weights)
+    with every module of it raising on import in the driving process."""
+    code = (
+        "import sys\n"
+        f"for name in {BLOCKED!r}:\n"
+        "    sys.modules[name] = None\n"
+        f"sys.path.insert(0, {str(ROOT / 'tools')!r})\n"
+        "import check_torch_serving_ranks as t\n"
+        "if __name__ == '__main__':\n"
+        "    sys.exit(t.main(['--model', '2']))\n"
+    )
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=_env(),
+                       capture_output=True, text=True, timeout=180)
+    assert r.returncode == 0, r.stderr[-3000:]
+    line = json.loads(r.stdout.strip().splitlines()[-1])
+    assert line["ok"] and all(h == {"prefill": [2], "decode": [2]} for h in line["heads"])
+
+
 def test_chip_smoke_refuses_without_cuda():
     import torch
 
@@ -207,7 +229,8 @@ def test_evaluate_cli_evaluates_a_checkpoint_with_them_blocked(tmp_path):
     (exp,) = [d for d in tmp_path.iterdir() if d.is_dir()]
     out = _run_blocked("neko_tpu_torch.cli.evaluate", [
         "--model_path", str(exp), "--cpu", "--eval_episodes", "1",
-        "--eval_text_num_examples", "2"])
+        "--eval_text_num_examples", "2", "--kv_cache_dtype", "int8",
+        "--serve_weight_dtype", "fp8"])
     lines = dict(line.split(": ", 1) for line in out.splitlines()
                  if line.startswith("evaluation/"))
     want = {f"evaluation/{e}/{m}" for e in envs for m in ("mean_return", "mean_episode_len")}
@@ -230,7 +253,8 @@ def test_serve_cli_serves_a_train_checkpoint_with_them_blocked(tmp_path):
         "--save_mode", "checkpoint", "--save_dir", str(tmp_path)])
     (exp,) = [d for d in tmp_path.iterdir() if d.is_dir()]
     argv = ["--model_path", str(exp), "--cpu", "--port", "0", "--continuous_slots", "2",
-            "--continuous_chunk", "4", "--self_draft_layers", "1"]
+            "--continuous_chunk", "4", "--self_draft_layers", "1", "--kv_cache_dtype", "int8",
+            "--serve_weight_dtype", "fp8"]
     code = (
         "import runpy, sys\n"
         f"for name in {BLOCKED!r}:\n"

@@ -13,7 +13,11 @@ env, so the task-less restore sizes the patch pool from the checkpoint):
 * `--use_ema` serves the EMA shadow of a run trained with `--ema_decay`
   (the target's and the draft's), and raises neko_tpu's message on a
   checkpoint without one;
-* each refused flag names itself; without `--cpu` the CLI needs a card.
+* `--kv_cache_dtype int8` and `--serve_weight_dtype fp8` serve neko_tpu's
+  Generator's tokens with the same options; `--compilation_cache` is
+  refused by name, `--mesh_model_axis 2` outside torchrun's environment
+  names itself (tests/test_torch_tp_serving.py runs it over ranks);
+  without `--cpu` the CLI needs a card.
 """
 
 import dataclasses
@@ -152,8 +156,37 @@ def test_the_draft_flags_exclude_each_other(exp):
                                   ["--serve_weight_dtype", "fp8"],
                                   ["--compilation_cache", "/nonexistent"]])
 def test_refusals_name_themselves(exp, flag):
-    with pytest.raises(NotImplementedError, match=flag[0]):
-        _serve(["--model_path", exp, "--cpu"] + flag)
+    """--compilation_cache (the JAX package's compile cache) is the one
+    refusal left; --mesh_model_axis outside torchrun's environment names
+    itself; the int8 cache and fp8 weights serve what neko_tpu's Generator
+    serves with them on the same weights."""
+    argv = ["--model_path", exp, "--cpu"] + flag
+    if flag[0] == "--compilation_cache":
+        with pytest.raises(NotImplementedError, match=flag[0]):
+            _serve(argv)
+        return
+    if flag[0] == "--mesh_model_axis":
+        with pytest.raises(ValueError, match=flag[0]):
+            _serve(argv)
+        return
+    with _serve(argv) as server:
+        host, port = server.address[0], server.address[1]
+        with urllib.request.urlopen(f"http://{host}:{port}/healthz", timeout=60) as r:
+            health = json.loads(r.read())
+        code, body = _post(server, {"text": [5, 6, 7, 8], "max_new_tokens": 6})
+        assert code == 200
+    int8 = flag[0] == "--kv_cache_dtype"
+    assert health["model"]["kv_cache_dtype"] == ("int8" if int8 else "native")
+    cfg, model = convert.load_model_dir(os.path.join(exp, "checkpoint_2"), "cpu")
+    jcfg = JaxConfig(**dataclasses.asdict(cfg.replace(kv_cache_dtype=flag[1] if int8
+                                                      else "native")))
+    params = convert.state_dict_to_jax_params(model.state_dict(), cfg)
+    jgen = JaxGenerator(JaxModel(jcfg), jax.tree_util.tree_map(jax.numpy.asarray, params),
+                        JaxPacker(jcfg), weight_dtype=None if int8 else flag[1])
+    ts = cfg.token_space
+    want, _ = jgen.generate_batch([{"text": [5, 6, 7, 8]}], max_new_tokens=6,
+                                  start=ts.start("text"), end=ts.end("text"))
+    assert body["tokens"] == (np.asarray(want)[0] - ts.start("text")).tolist()
 
 
 def test_use_ema_serves_the_shadow(exp, tmp_path):

@@ -200,9 +200,19 @@ def test_train_mode_refuses_what_is_not_ported():
         model = convert.build_model(cfg, convert.init_state_dict(cfg, 0), device="cpu")
         with pytest.raises(NotImplementedError):
             model(to_device_batch(arrays, "cpu"), train=True, compute_loss=True, generator=g)
-    with pytest.raises(NotImplementedError):  # the int8 cache, in every mode
-        convert.build_model(ModelConfig(**base, kv_cache_dtype="int8"),
-                            convert.init_state_dict(ModelConfig(**base), 0), device="cpu")
+    # the int8 cache is ported: such a model trains as the native one (the
+    # cache is generation's) and its prefill stores int8 rows and scales
+    int8 = convert.build_model(ModelConfig(**base, kv_cache_dtype="int8"),
+                               convert.init_state_dict(ModelConfig(**base), 0), device="cpu")
+    native = convert.build_model(ModelConfig(**base), convert.init_state_dict(
+        ModelConfig(**base), 0), device="cpu")
+    batch = to_device_batch(arrays, "cpu")
+    losses = [m(batch, train=True, compute_loss=True,
+                generator=torch.Generator().manual_seed(1))[1] for m in (int8, native)]
+    torch.testing.assert_close(losses[0], losses[1], rtol=0, atol=0)
+    emb = int8.embed_batch(batch)
+    _, caches = int8.prefill(emb, batch.input_mask)
+    assert caches[0]["key"].dtype == torch.int8 and caches[0]["key_scale"].dtype == torch.float32
     # fsdp in one process splits nothing (neko_tpu's fsdp_param_pspec on a
     # data axis of 1); a 'seq' axis over ranks and a 'pipe' axis train
     # (test_torch_seq_ranks.py, test_torch_pipeline.py), and neko_tpu's

@@ -368,7 +368,7 @@ def test_evaluation_keeps_training_parameters_fp32_and_unchanged(tmp_path):
 
 def test_cli_refuses_what_is_not_ported(tmp_path):
     for flag in (["--lora", "--pretrained_lm", "gpt2"], ["--pretrained_lm", "gpt2"],
-                 ["--init_checkpoint", "ref.pt"], ["--kv_cache_dtype", "int8"]):
+                 ["--init_checkpoint", "ref.pt"]):
         argv = ["--cpu", "--control_datasets", CONTROL[0], "--training_steps", "1",
                 "--log_eval_freq", "1", "--save_dir", str(tmp_path)] + flag
         with pytest.raises(NotImplementedError, match=flag[0]):
@@ -379,6 +379,8 @@ def test_cli_refuses_what_is_not_ported(tmp_path):
     # --multihost outside torchrun's environment are errors of use
     from neko_tpu_torch.training.arguments import TrainingArgs, not_ported
 
+    # the int8 cache of the in-loop evaluation is ported
+    assert not not_ported(TrainingArgs(kv_cache_dtype="int8"))
     assert not not_ported(TrainingArgs(fsdp=True, multihost=True, mesh_model_axis=2))
     assert not not_ported(TrainingArgs(multihost=True, mesh_seq_axis=2))
     assert not not_ported(TrainingArgs(multihost=True, mesh_pipe_axis=2,
