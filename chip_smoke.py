@@ -283,8 +283,44 @@
    the engine and the coalescing path equal one process's server), and the
    evaluation CLI (one text task; rank 0 prints one process's metrics,
    TP_EVAL_TOL).  (`quant_tp_serving_launches`.)
+21. Weights in and out.  (a) #3 / #4 at GPT-2 small's heads (B=16, H=12,
+   S=1024, hd=64, bf16; `_train_bounds`' left-padded rows, a short row, an
+   empty row) against their plain versions at dropout 0 and 0.1 (KERNEL_TOL,
+   GRAD_TOL), timed in turns with SDPA beside them; the instances the
+   evaluation of (b)'s checkpoint launches, #1 and #14 at hd 64 in bf16,
+   against their plain versions (GPT2_PREFILL, GPT2_DECODE_SHAPES:
+   KERNEL_TOL, DECODE_FAULTS planted in #14's).  (b) A GPT-2-small
+   directory the phase writes (768 / 12 layers / 12 heads, vocab 50257,
+   n_positions 1024, fp32 random weights from the seed: config.json and a
+   model.safetensors from its own writer, ~0.5 GB, removed at the end):
+   `python -m neko_tpu_torch.cli.train --pretrained_lm DIR` on the
+   synthetic mix at k = 1024 in bf16 for GPT2_STEPS steps, checkpoints at
+   half and at the end: every mapped tensor of the run's initial weights
+   equals the file's bits (a mapping written here), the first loss equals
+   the loss of a model built here from the file on the same batch
+   (PRETRAINED_LOSS_TOL; planted PRETRAINED_FAULT outside it), the loss
+   falls, #3 = #4 = 12 x steps and #15 = chunks x steps; the same with
+   `--lora`: every base tensor keeps its bits, every adapter moves; the
+   checkpoint restored through `cli.evaluate` for the text task (#1 and #14
+   at hd 64).  (c) The reference `.pt` round trip at the train CLI's default
+   width (768 / 8 layers / 24 heads, with images): a one-step run's
+   checkpoint exported by `neko_tpu_torch.tools.export_checkpoint`, one
+   step from it with `--init_checkpoint x.pt`: import of the export gives
+   the checkpoint's bits back (the padded head rows zeroed), the first loss
+   equals the source model's on the same batch (PT_LOSS_TOL; planted
+   PT_FAULT outside it).  (d) hd 256 (768 / 3 heads / 6 layers, k = 1024,
+   bf16): a train step at dropout 0.1, a prefill and 16 decode steps, all
+   finite; the logits teacher-forced against the same model in fp32 on the
+   card (WIDE_LOGIT_TOL on the prefill, planted "causal mask dropped" in
+   its plain route outside it; WIDE_DECODE_LOGIT_TOL on the decode step,
+   WIDE_DECODE_FAULTS planted in the cache mask of the wide decode branch
+   outside it); no attention kernel launched for that model.  (e) (b)'s two
+   checkpoints averaged by `tools.average_checkpoints` and served by the
+   serve CLI's build for one request; `tools.inspect_checkpoint` reports
+   the model's parameter count; `python -m neko_tpu_torch.examples.training`
+   and `examples.inference` run on the card.  (`weights_io_launches`.)
 
-Every train run (phases 6, 8, 10, 13, 14, 15, 17, 18, 19) takes its loss forward through #15:
+Every train run (phases 6, 8, 10, 13, 14, 15, 17, 18, 19, 21) takes its loss forward through #15:
 its launches must be loss chunks x steps (2 a flagship and `long` step, 3 a
 `long4k` step), and the plain side of each kernels-vs-plain step check runs
 the plain loss forward too.
@@ -298,7 +334,8 @@ alone, phase 14's among them (`train_cli_launches`), phase 15's training
 18's over both ranks (`parallel_launches`), phase 19's (`seq_ranks_launches`,
 `pipeline_launches`), phase 20's over its one-process and two-rank runs
 (`quant_tp_serving_launches`; #14's int8 instance as its own entry,
-`decode_cache_attention_int8`), each with its bound
+`decode_cache_attention_int8`), phase 21's (`weights_io_launches`), each
+with its bound
 from this run's shapes), then, as the last line,
 {"ok": true, "device": {...}}.  Any failed phase exits non-zero.  The
 attention entries and the loss head carry `tflops`: the bound's FLOPs over
@@ -310,6 +347,7 @@ from __future__ import annotations
 import contextlib
 import itertools
 import json
+import os
 import shutil
 import sys
 import threading
@@ -848,6 +886,68 @@ TP_CLI = ["--random_init", "--seed", str(0), "--embed_dim", "768", "--layers", "
           "--continuous_slots", "4", "--continuous_chunk", "8", "--kv_cache_dtype", "int8",
           "--serve_weight_dtype", "fp8"]
 TP_EVAL_TOL = 1e-4
+# phase 21: weights in and out.  (a) #3 / #4 at GPT-2 small's heads, 12 of
+# hd 64, B=16, S=1024, bf16, held as phase 5 holds them (KERNEL_TOL,
+# GRAD_TOL with GRAD_FLIP_TOL) at dropout 0 and RATE
+GPT2_ATTN = ((16, 12),)
+GPT2_HD = 64
+# and the instances the evaluation of a pretrained checkpoint launches, at
+# hd 64 in bf16, held as phases 1 and 11 hold theirs: #1 (the prefill
+# wrapper) at B=8 over phase 1's windows (KERNEL_TOL), #14 over
+# `_decode_rows`' windows, with and without holes in the cache mask
+# (KERNEL_TOL; DECODE_FAULTS planted)
+GPT2_PREFILL = dict(B=8, H=12, S=1024, starts=[0] * 7 + [100],
+                    ends=[1024, 700, 1, 1024, 513, 1, 1024, 1024])
+GPT2_DECODE_SHAPES = ((8, 12, 1024, 64, "bfloat16"),)
+# (b) the GPT-2-small directory the phase writes: GPT-2 small's widths and
+# fp32 weights from the seed, the embeddings N(0, 0.02), every other matrix
+# N(0, GPT2_STD) (so that each layer moves the loss), the norms'
+# weights 1 + N(0, 0.1), the biases N(0, 0.02)
+GPT2_SMALL = dict(n_embd=768, n_layer=12, n_head=12, vocab_size=50257, n_positions=1024)
+GPT2_STD = 0.05
+GPT2_STEPS = 6
+MIX_CLI = ["--text_datasets", "synthetic", "--text_datasets_paths", "synthetic",
+           "--text_prop", "0.375", "--control_datasets", "neko-synth-continuous-v0",
+           "neko-synth-image-v0", "-k", "1024", "--batch_size", "16", "--mixed_precision",
+           "bf16", "--dropout", "0.1", "--seed", str(SEED), "--eval_episodes", "0",
+           "--eval_text_num_examples", "0"]
+GPT2_CLI = MIX_CLI + ["--learning_rate", "1e-3", "--warmup_steps", "1", "--training_steps",
+                      str(GPT2_STEPS), "--log_eval_freq", str(GPT2_STEPS // 2)]
+# the first loss of the --pretrained_lm run against that of a model built
+# here from the file (a mapping of this script's own) on the same batch,
+# with the same kernels and dropout draws: |a - b| <= PRETRAINED_LOSS_TOL
+# (predicted 0); the planted fault, the square attn.c_proj of every layer
+# left in HF's [in, out] layout, must exceed it
+PRETRAINED_LOSS_TOL = 1e-4
+PRETRAINED_FAULT = "attn.c_proj taken untransposed"
+# (c) the first loss of a run from the exported .pt against the source
+# model's on the same batch (the padded head rows, which the import zeroes,
+# are masked out of the loss: predicted 0); the planted fault, the image
+# projection's input dim left in the reference's (c, p1, p2) order, must
+# exceed it
+PT_LOSS_TOL = 1e-4
+PT_FAULT = "projection's input dim left in (c, p1, p2) order"
+# (d) hd 256: 768d / 3 heads / 6 layers at k = 1024, random weights from the
+# seed; the bf16 model's logits (every valid prefill position, and the last
+# of 16 teacher-forced decode steps) against the same weights in fp32 on
+# the card: |bf16 - fp32| <= WIDE_LOGIT_TOL in the prefill, where the
+# planted "causal mask dropped" in the bf16 model's plain route must exceed
+# it, and <= WIDE_DECODE_LOGIT_TOL in the decode step, where each of
+# WIDE_DECODE_FAULTS, planted in the cache mask the wide decode branch
+# attends over, must exceed it.  On an H100 (NVIDIA H100 80GB HBM3,
+# 700.00 W) the sound run read 3.162e-2 in the prefill, "causal mask
+# dropped" 3.141; 2.505e-2 in the decode step, "newest key excluded"
+# 5.248e-2 and "cache mask ignored" 2.361.  The decode limit lies near the
+# geometric mean of its sound reading and its faintest fault.
+WIDE = dict(FLAGSHIP, heads=3, max_patches=0)
+WIDE_PROMPTS = dict(B=4, prompt=512, new=16)
+WIDE_LOGIT_TOL = 0.125
+WIDE_FAULT = "causal mask dropped"
+WIDE_DECODE_LOGIT_TOL = 3.6e-2
+WIDE_DECODE_FAULTS = ("newest key excluded", "cache mask ignored")
+# (e) the two example walkthroughs run on the card at their default width
+# (64d / 2 layers / 4 heads, k = 128) for this many steps
+EXAMPLE_STEPS = 4
 
 
 def _require(ok, what) -> None:
@@ -2610,19 +2710,17 @@ def _decode_rows(B, S):
     return (starts * B)[:B], (ends * B)[:B]
 
 
-def decode_kernels_vs_plain(card: str, dev="cuda") -> dict:
-    """Phase 11, kernel part.  -> {"err": max abs error, "times": the JSON
-    timing fields at B=8, "times_b1": at B=1, "check_launches": n}."""
+def decode_cases_vs_plain(cases, g, dev="cuda") -> float:
+    """#14 against its plain version at each ((B, H, S, hd, dtype), holed)
+    case (`_decode_rows`' windows; holed: a third of each window's cache
+    mask cleared), with DECODE_FAULTS planted in the plain version: fails
+    where the kernel disagrees or the cases cannot tell a fault.  -> the
+    largest abs error."""
     import torch
-    import torch.nn.functional as F
 
     from neko_tpu_torch.ops import decode_attention as da
 
-    da.decode_cache_attention.launches = 0
     worst, fault_excess = 0.0, {f: -1.0 for f in DECODE_FAULTS}
-    g = torch.Generator(device=dev).manual_seed(SEED)
-    cases = [(shape, False) for shape in DECODE_SHAPES]
-    cases += [(shape, True) for shape in DECODE_HOLED_SHAPES]
     for (B, H, S, hd, dtype_name), holed in cases:
         dtype = getattr(torch, dtype_name)
         q = torch.randn(B, H, hd, device=dev, generator=g).to(dtype)
@@ -2657,6 +2755,22 @@ def decode_kernels_vs_plain(card: str, dev="cuda") -> dict:
         print(f"control '{f}': largest excess over tolerance {fault_excess[f]:.3e}")
     blind = [f for f in DECODE_FAULTS if not fault_excess[f] > 0]
     _require(not blind, f"the decode check cannot tell these planted faults: {blind}")
+    return worst
+
+
+def decode_kernels_vs_plain(card: str, dev="cuda") -> dict:
+    """Phase 11, kernel part.  -> {"err": max abs error, "times": the JSON
+    timing fields at B=8, "times_b1": at B=1, "check_launches": n}."""
+    import torch
+    import torch.nn.functional as F
+
+    from neko_tpu_torch.ops import decode_attention as da
+
+    da.decode_cache_attention.launches = 0
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    cases = [(shape, False) for shape in DECODE_SHAPES]
+    cases += [(shape, True) for shape in DECODE_HOLED_SHAPES]
+    worst = decode_cases_vs_plain(cases, g, dev)
     res = {"err": worst, "check_launches": da.decode_cache_attention.launches}
 
     # device times on a full cache (torch.profiler: a call's host work takes
@@ -4588,15 +4702,16 @@ def train_features(card: str, workdir, dev="cuda", width=None) -> dict:
 
 # ------------------------------------------------- training over processes
 def rank_attention_vs_plain(card: str, shapes, g, seed_value: int, errs: dict,
-                            dev="cuda") -> dict:
-    """#3 / #4 at the (B, H) `shapes` a rank gives them (S = 1024, hd 32,
-    bf16, rate RATE; inputs from `g`) against the plain version, their
-    largest errors into `errs`.  -> {(B, H): `_attention_train_times`}."""
+                            dev="cuda", hd=None, rates=(RATE,)) -> dict:
+    """#3 / #4 at the (B, H) `shapes` a rank gives them (S = 1024, hd 32 or
+    `hd`, bf16, at each of `rates`; inputs from `g`) against the plain
+    version, their largest errors into `errs`.  -> {(B, H):
+    `_attention_train_times`} (at RATE)."""
     import torch
 
     from neko_tpu_torch.ops import attention_kernel as whk
 
-    S, hd = TRAIN["S"], TRAIN["hd"]
+    S, hd = TRAIN["S"], hd or TRAIN["hd"]
     seed = torch.tensor([seed_value], dtype=torch.int32, device=dev)
     times = {}
     for B, H in shapes:
@@ -4606,26 +4721,31 @@ def rank_attention_vs_plain(card: str, shapes, g, seed_value: int, errs: dict,
         valid = _valid_rows(start, end, S)
         dout = torch.randn(B, S, D, device=dev, generator=g).bfloat16() * valid[..., None]
         ks = whk.dropout_keep_scale(seed, B, H, S, RATE)
-        x = qkv.clone().requires_grad_()
-        out = whk.whole_head_attention_qkv(x, start, end, seed, heads=H, dropout_rate=RATE)
-        (dx,) = torch.autograd.grad(out, (x,), dout)
-        xp = qkv.clone().requires_grad_()
-        ref = whk.whole_head_attention_reference(*whk._qkv_views("qkv", (xp,), H), start, end,
-                                                 None, ks).transpose(1, 2).reshape(B, S, D)
-        (dxp,) = torch.autograd.grad(ref, (xp,), dout)
-        torch.cuda.synchronize()
-        err, excess, _ = _fwd_excess(out[valid], ref[valid], "bfloat16")
-        berr, bexcess = 0.0, -1.0
-        for got, want in zip(dx.chunk(3, -1), dxp.chunk(3, -1)):
-            e, x_, _ = _flip_excess(got, want, GRAD_TOL["bfloat16"], GRAD_FLIP_TOL)
-            berr, bexcess = max(berr, e), max(bexcess, x_)
-        print(f"per-rank attention B={B} H={H} S={S} hd={hd} bf16 rate {RATE}: out max abs "
-              f"err {err:.3e} (excess {excess:.3e}), dq/dk/dv {berr:.3e} (excess {bexcess:.3e})")
-        _require(excess <= 0 and bexcess <= 0, f"#3 / #4 disagree at B={B}, H={H}")
-        errs["fwd"] = max(errs.get("fwd", 0.0), err)
-        errs["bwd"] = max(errs.get("bwd", 0.0), berr)
+        for rate in rates:
+            x = qkv.clone().requires_grad_()
+            out = whk.whole_head_attention_qkv(x, start, end, seed, heads=H, dropout_rate=rate)
+            (dx,) = torch.autograd.grad(out, (x,), dout)
+            xp = qkv.clone().requires_grad_()
+            ref = whk.whole_head_attention_reference(
+                *whk._qkv_views("qkv", (xp,), H), start, end, None,
+                ks if rate > 0 else None).transpose(1, 2).reshape(B, S, D)
+            (dxp,) = torch.autograd.grad(ref, (xp,), dout)
+            torch.cuda.synchronize()
+            err, excess, _ = _fwd_excess(out[valid], ref[valid], "bfloat16")
+            berr, bexcess = 0.0, -1.0
+            for got, want in zip(dx.chunk(3, -1), dxp.chunk(3, -1)):
+                e, x_, _ = _flip_excess(got, want, GRAD_TOL["bfloat16"], GRAD_FLIP_TOL)
+                berr, bexcess = max(berr, e), max(bexcess, x_)
+            print(f"per-rank attention B={B} H={H} S={S} hd={hd} bf16 rate {rate}: out max abs "
+                  f"err {err:.3e} (excess {excess:.3e}), dq/dk/dv {berr:.3e} (excess "
+                  f"{bexcess:.3e})")
+            _require(excess <= 0 and bexcess <= 0,
+                     f"#3 / #4 disagree at B={B}, H={H}, hd={hd}, rate {rate}")
+            errs["fwd"] = max(errs.get("fwd", 0.0), err)
+            errs["bwd"] = max(errs.get("bwd", 0.0), berr)
+            del x, out, dx, xp, ref, dxp
         times[(B, H)] = _attention_train_times(qkv, dout, seed, ks, H, card)
-        del qkv, dout, ks, x, out, dx, xp, ref, dxp
+        del qkv, dout, ks
 
     return times
 
@@ -5561,6 +5681,470 @@ def quantized_tp_serving(card: str, workdir: Path, dev="cuda") -> dict:
     return {"kernel": kernel, "serving": serving, "ranks": ranks}
 
 
+# ------------------------------------------------------- phase 21: weights in and out
+def write_safetensors(path, tensors) -> None:
+    """A safetensors file of fp32 numpy arrays: the 8-byte little-endian
+    header length, the JSON header, then the raw little-endian data."""
+    import struct
+
+    header, offset = {}, 0
+    for name, a in tensors.items():
+        header[name] = {"dtype": "F32", "shape": list(a.shape),
+                        "data_offsets": [offset, offset + a.nbytes]}
+        offset += a.nbytes
+    blob = json.dumps(header).encode()
+    blob += b" " * (-len(blob) % 8)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(blob)))
+        f.write(blob)
+        for a in tensors.values():
+            f.write(np.ascontiguousarray(a, dtype="<f4").tobytes())
+
+
+def write_gpt2_dir(path: Path) -> dict:
+    """GPT2_SMALL's config.json and model.safetensors (GPT2LMHeadModel's key
+    layout, `transformer.` first, with the position table the import drops)
+    from the seed.  -> the tensors written, by name."""
+    D, L, V = GPT2_SMALL["n_embd"], GPT2_SMALL["n_layer"], GPT2_SMALL["vocab_size"]
+    rng = np.random.default_rng(SEED)
+
+    def normal(*shape, std=GPT2_STD):
+        return rng.standard_normal(shape, dtype=np.float32) * np.float32(std)
+
+    t = {"transformer.wte.weight": normal(V, D, std=0.02),
+         "transformer.wpe.weight": normal(GPT2_SMALL["n_positions"], D, std=0.02)}
+    for i in range(L):
+        p = f"transformer.h.{i}."
+        for ln in ("ln_1", "ln_2"):
+            t[p + ln + ".weight"] = 1 + normal(D, std=0.1)
+            t[p + ln + ".bias"] = normal(D, std=0.02)
+        for name, shape in (("attn.c_attn", (D, 3 * D)), ("attn.c_proj", (D, D)),
+                            ("mlp.c_fc", (D, 4 * D)), ("mlp.c_proj", (4 * D, D))):
+            t[p + name + ".weight"] = normal(*shape)        # Conv1D: [in, out]
+            t[p + name + ".bias"] = normal(shape[1], std=0.02)
+    t["transformer.ln_f.weight"] = 1 + normal(D, std=0.1)
+    t["transformer.ln_f.bias"] = normal(D, std=0.02)
+    path.mkdir(parents=True, exist_ok=True)
+    with open(path / "config.json", "w") as f:
+        json.dump(dict(GPT2_SMALL, model_type="gpt2", architectures=["GPT2LMHeadModel"]), f)
+    write_safetensors(path / "model.safetensors", t)
+    return t
+
+
+def gpt2_by_hand(sd, files, fault=None):
+    """`sd` with the file's GPT-2 weights laid over it by this script's own
+    mapping (Conv1D [in, out] -> Linear [out, in]); `fault` PRETRAINED_FAULT
+    leaves the square attn.c_proj untransposed."""
+    import torch
+
+    out = dict(sd)
+    emb = out["embed_token.weight"].clone()
+    wte = files["transformer.wte.weight"]
+    emb[: wte.shape[0]] = torch.from_numpy(wte)
+    out["embed_token.weight"] = emb
+    for key, a in files.items():
+        if key.startswith(("transformer.wte.", "transformer.wpe.")):
+            continue
+        if key.endswith(".weight") and a.ndim == 2 and not (
+                fault == PRETRAINED_FAULT and key.endswith("attn.c_proj.weight")):
+            a = a.T
+        out[key] = torch.from_numpy(np.ascontiguousarray(a))
+    return out
+
+
+@contextlib.contextmanager
+def trainer_batches_and_weights():
+    """Within the block: each Trainer's packed arrays (copies, in order:
+    init_state's draw first) and the initial weights `cli.train` hands it
+    (`initial_weights`)."""
+    from neko_tpu_torch.cli import train as cli_train
+    from neko_tpu_torch.training.trainer import Trainer
+
+    got = {"arrays": [], "weights": []}
+    sample, initial = Trainer._sample_arrays_locked, cli_train.initial_weights
+
+    def sampled(self):
+        arrays = sample(self)
+        if len(got["arrays"]) < 2:
+            got["arrays"].append({k: np.array(v, copy=True) for k, v in arrays.items()})
+        return arrays
+
+    def weights(args, ctx):
+        sd = initial(args, ctx)
+        got["weights"].append(None if sd is None else {k: v.clone() for k, v in sd.items()})
+        return sd
+
+    Trainer._sample_arrays_locked, cli_train.initial_weights = sampled, weights
+    try:
+        yield got
+    finally:
+        Trainer._sample_arrays_locked, cli_train.initial_weights = sample, initial
+
+
+def _first_step_loss(ctx, sd, arrays) -> float:
+    """The loss of step 0 from the weights `sd` on the packed `arrays` (the
+    step's dropout draws: `ctx.step_generator` at step 0)."""
+    import torch
+
+    from neko_tpu_torch.data.batch import to_device_batch
+
+    st = ctx.init_state({k: v.clone() for k, v in sd.items()})
+    loss = ctx.loss_and_grads(st, to_device_batch(arrays, ctx.device)).item()
+    del st
+    torch.cuda.empty_cache()
+    return loss
+
+
+def _counted(main: dict, fn):
+    """Runs `fn` with the kernels' launch counts set to 0 just before and
+    adds them to `main` just after: a main-path segment.  -> fn()'s value."""
+    counters = _launch_counters()
+    for c in counters.values():
+        c.launches = 0
+    out = fn()
+    for k, c in counters.items():
+        main[k] = main.get(k, 0) + c.launches
+    return out
+
+
+def pretrained_gpt2(card: str, workdir: Path, main: dict, dev="cuda") -> dict:
+    """Phase 21 (b) and (e).  -> readings."""
+    import torch
+
+    from neko_tpu_torch.cli import evaluate as cli_eval
+    from neko_tpu_torch.cli import serve as cli_serve
+    from neko_tpu_torch.convert import model_shapes
+    from neko_tpu_torch.tools import average_checkpoints, inspect_checkpoint
+    from neko_tpu_torch.training.train_state import lora_frozen
+
+    t0 = time.perf_counter()
+    gdir = workdir / "gpt2-small"
+    files = write_gpt2_dir(gdir)
+    size = (gdir / "model.safetensors").stat().st_size
+    print(f"phase 21 GPT-2-small directory: {len(files)} tensors, {size:,} bytes of "
+          f"model.safetensors written in {time.perf_counter() - t0:.1f} s")
+    out = {}
+    cpu = [] if dev == "cuda" else ["--cpu"]
+    for lora in (False, True):
+        argv = GPT2_CLI + cpu + ["--pretrained_lm", str(gdir)] + (
+            ["--lora", "--lora_r", "8"] if lora else ["--save_model", "--save_mode",
+                                                     "checkpoint"])
+        t1 = time.perf_counter()
+        with trainer_batches_and_weights() as got:
+            tr, rec, launches, calls = _counted(
+                main, lambda: train_cli(argv, workdir / ("lora" if lora else "full")))
+        run_s = time.perf_counter() - t1
+        ctx, cfg = tr.ctx, tr.ctx.model_cfg
+        losses = rec["losses"]
+        init = got["weights"][0]
+        _require((cfg.embed_dim, cfg.layers, cfg.heads, cfg.activation_fn) == (
+            GPT2_SMALL["n_embd"], GPT2_SMALL["n_layer"], GPT2_SMALL["n_head"], "gelu_new"),
+            f"--pretrained_lm resolved {cfg}")
+        hand = gpt2_by_hand(init, files)
+        mapped = [k for k in hand if k.startswith("transformer.") and not (
+            "lora_a" in k or "lora_b" in k)] + ["embed_token.weight"]
+        _require(all(torch.equal(init[k], hand[k]) for k in mapped),
+                 "a mapped tensor differs from the file's bits")
+        chunks = _chunks_of(tr.target_budget)
+        name = "--lora" if lora else "full"
+        print(f"phase 21 --pretrained_lm ({name}) {cfg.embed_dim}d/{cfg.layers}L/{cfg.heads}h "
+              f"hd {cfg.head_dim} k={cfg.context_len} B={tr.args.batch_size} bf16: {len(losses)} "
+              f"steps in "
+              f"{run_s:.1f} s, losses " + ", ".join(f"{x:.4f}" for x in losses)
+              + f"; launches {launches} ({chunks} loss chunks a step)")
+        _require(len(losses) == GPT2_STEPS and all(np.isfinite(losses))
+                 and losses[-1] < losses[0], f"the loss did not fall: {losses}")
+        _require(dev != "cuda" or (launches["fwd"] == launches["bwd"] == cfg.layers * GPT2_STEPS
+                                   and launches["loss"] == chunks * GPT2_STEPS
+                                   and launches["decode"] == 0),
+                 f"phase 21 launches {launches}")
+        if lora:
+            final = dict(tr.state.model.named_parameters())
+            base = [k for k in init if lora_frozen(k)]
+            adapters = [k for k in init if "lora_a" in k or "lora_b" in k]
+            kept = all(torch.equal(final[k].detach().cpu(), init[k]) for k in base)
+            moved = all(not torch.equal(final[k].detach().cpu(), init[k]) for k in adapters)
+            print(f"phase 21 --lora: {len(base)} base tensors keep their bits: {kept}; "
+                  f"{len(adapters)} adapters moved: {moved}")
+            _require(kept and moved and len(adapters) == 2 * cfg.layers,
+                     "--lora changed a base tensor or left an adapter")
+            out["lora_losses"] = losses
+        else:
+            first = _first_step_loss(ctx, hand, got["arrays"][1])
+            fault = _first_step_loss(ctx, gpt2_by_hand(init, files, PRETRAINED_FAULT),
+                                     got["arrays"][1])
+            gap, fgap = abs(first - losses[0]), abs(fault - losses[0])
+            print(f"phase 21 first loss {losses[0]:.6f} against the model built from the file "
+                  f"{first:.6f}: {gap:.3e} (limit {PRETRAINED_LOSS_TOL:g}); planted "
+                  f"'{PRETRAINED_FAULT}' {fgap:.3e}")
+            _require(gap <= PRETRAINED_LOSS_TOL, "the first loss differs from the file's model")
+            _require(fgap > PRETRAINED_LOSS_TOL, f"cannot tell '{PRETRAINED_FAULT}'")
+            out.update(losses=losses, first_gap=gap, fault_gap=fgap, run_s=run_s,
+                       layers=cfg.layers,
+                       exp=tr.exp_dir, n_params=sum(s.numel() for s in
+                                                   model_shapes(cfg).values()))
+        del tr
+        torch.cuda.empty_cache()
+
+    # the checkpoint restored through the evaluation CLI: the text task
+    t1 = time.perf_counter()
+    with model_call_counter() as calls:
+        ev = {}
+        logs = _counted(ev, lambda: cli_eval.main(
+            ["--model_path", out["exp"], "--eval_episodes", "0",
+             "--eval_text_num_examples", "8"] + cpu))
+    for k, v in ev.items():
+        main[k] = main.get(k, 0) + v
+    print(f"phase 21 evaluation CLI on the --pretrained_lm checkpoint: {logs} in "
+          f"{time.perf_counter() - t1:.1f} s; #1 {ev['fwd']} ({calls['prefill']} prefills x "
+          f"{out['layers']}), #14 {ev['decode']} ({calls['decode_step']} decode steps x "
+          f"{out['layers']})")
+    _require(np.isfinite(logs.get("evaluation/text/loss", np.nan))
+             and calls["prefill"] > 0 and calls["decode_step"] > 0
+             and (dev != "cuda" or (ev["fwd"] == out["layers"] * calls["prefill"]
+                                    and ev["decode"] == out["layers"] * calls["decode_step"])),
+             f"evaluation {logs}, {ev}")
+
+    # (e) the tools on the run's two checkpoints
+    ckpts = [str(Path(out["exp"]) / f"checkpoint_{n}") for n in (GPT2_STEPS // 2, GPT2_STEPS)]
+    soup = average_checkpoints.main(["--checkpoints", *ckpts, "--out",
+                                     str(workdir / "soup")])
+    def one_request():
+        server = cli_serve.build_server(cli_serve.parser().parse_args(
+            ["--model_path", str(workdir / "soup"), "--port", "0"] + cpu))
+        with server:
+            url = f"http://{server.address[0]}:{server.address[1]}"
+            return _post(url + "/v1/generate", {"text": list(b"weights in"),
+                                                "max_new_tokens": 8})
+
+    status, body, dt = _counted(main, one_request)
+    info = inspect_checkpoint.main(["--model_path", soup])
+    print(f"phase 21 tools: averaged {ckpts} into {soup}; served one request: {status}, "
+          f"{len(body.get('tokens', []))} tokens in {dt:.2f} s; inspect: step {info['step']}, "
+          f"{info['parameters']:,} parameters (the model's {out['n_params']:,}), ema "
+          f"{info['ema']}")
+    _require(status == 200 and len(body["tokens"]) == 8, f"serve reply {status} {body}")
+    _require(info["parameters"] == out["n_params"] and info["step"] == GPT2_STEPS,
+             f"inspect {info}")
+    out.update(eval=logs, serve_s=dt)
+    return out
+
+
+def reference_round_trip(card: str, workdir: Path, main: dict, dev="cuda") -> dict:
+    """Phase 21 (c).  -> readings."""
+    import torch
+
+    from neko_tpu_torch.models.export_reference import export_gato_state_dict
+    from neko_tpu_torch.tools import export_checkpoint
+    from neko_tpu_torch.utils import checkpoint as ckpt
+
+    one = ["--training_steps", "1", "--log_eval_freq", "1"] + (
+        [] if dev == "cuda" else ["--cpu"])
+    tr, _, _, _ = _counted(main, lambda: train_cli(
+        MIX_CLI + one + ["--save_model", "--save_mode", "checkpoint"], workdir / "src"))
+    src = ckpt.resolve_checkpoint_dir(tr.exp_dir)
+    del tr
+    pt = str(workdir / "reference.pt")
+    export_checkpoint.main(["--model_path", src, "--out", pt])
+    cfg = ckpt.saved_model_config(src)
+    sd = ckpt.load_params_only(src, cfg)
+    with trainer_batches_and_weights() as got:
+        tr, rec, launches, _ = _counted(main, lambda: train_cli(
+            MIX_CLI + one + ["--init_checkpoint", pt, "--seed", str(SEED + 1)],
+            workdir / "from_pt"))
+    init, arrays = got["weights"][0], got["arrays"][1]
+    V = cfg.token_space.vocab_size
+    same = []
+    for k, v in sd.items():
+        if k == "predict_token.weight":
+            same.append(torch.equal(init[k][:V], v[:V]) and not init[k][V:].any())
+        elif k == "embed_token.weight":
+            same.append(torch.equal(init[k][:V + 1], v[:V + 1]))
+        else:
+            same.append(torch.equal(init[k], v))
+    source = _first_step_loss(tr.ctx, sd, arrays)
+    ref = export_gato_state_dict(sd, cfg)
+    faulty = dict(init, **{"image_embedding.projection.weight": torch.from_numpy(
+        ref["image_embedding.post_embedding_projection.weight"].copy())})
+    fault = _first_step_loss(tr.ctx, faulty, arrays)
+    first = rec["losses"][0]
+    gap, fgap = abs(first - source), abs(first - fault)
+    print(f"phase 21 reference .pt at {cfg.embed_dim}d/{cfg.layers}L/{cfg.heads}h with images "
+          f"({cfg.max_patches} patches): {os.path.getsize(pt):,} bytes; import of the export "
+          f"gives the checkpoint's bits: {all(same)} ({len(same)} tensors); first loss "
+          f"{first:.6f} against the source model's {source:.6f}: {gap:.3e} (limit "
+          f"{PT_LOSS_TOL:g}); planted '{PT_FAULT}' {fgap:.3e}; launches {launches}")
+    _require(all(same), "import of the export is not the checkpoint")
+    _require(gap <= PT_LOSS_TOL, "the first loss from the .pt differs from the source's")
+    _require(fgap > PT_LOSS_TOL, f"cannot tell '{PT_FAULT}'")
+    del tr
+    torch.cuda.empty_cache()
+    return {"first_gap": gap, "fault_gap": fgap, "loss": first}
+
+
+def wide_heads(card: str, main: dict, dev="cuda") -> dict:
+    """Phase 21 (d): hd 256 through the plain route.  -> readings."""
+    import torch
+
+    from neko_tpu_torch.config import ModelConfig
+    from neko_tpu_torch.convert import build_model, init_state_dict
+    from neko_tpu_torch.data.batch import to_device_batch
+    from neko_tpu_torch.data.packing import SequencePacker
+    from neko_tpu_torch.inference.generator import Generator
+    from neko_tpu_torch.ops import attention as attn_ops
+    from neko_tpu_torch.ops import attention_kernel as whk
+    from neko_tpu_torch.training.train_state import OptimizerConfig, TrainContext
+
+    cfg = ModelConfig(**WIDE, dropout=RATE)
+    _require(cfg.head_dim == 256, f"hd {cfg.head_dim}")
+    rng = np.random.default_rng(SEED)
+    sd = init_state_dict(cfg, SEED)
+    counters = _launch_counters()
+    for c in counters.values():
+        c.launches = 0
+    t0 = time.perf_counter()
+    ctx = TrainContext(cfg, OptimizerConfig(), device=dev, seed=SEED)
+    packer = SequencePacker(cfg)
+    arrays = packer.pack_batch([{"text": rng.integers(0, 256, 1000)} for _ in range(8)])
+    arrays.pop("lengths")
+    state, loss = ctx.train_step(ctx.init_state({k: v.clone() for k, v in sd.items()}),
+                                 to_device_batch(arrays, dev))
+    loss = float(loss)
+    grads_ok = all(torch.isfinite(p).all().item() for p in state.model.parameters())
+    del state, ctx
+    B, P, T = WIDE_PROMPTS["B"], WIDE_PROMPTS["prompt"], WIDE_PROMPTS["new"]
+    examples = [{"text": rng.integers(0, 256, P)} for _ in range(B)]
+    ts = cfg.token_space
+    gen = Generator(build_model(cfg, sd, dev), packer, seed=SEED)
+    toks, _ = gen.generate_batch(examples, max_new_tokens=T, start=ts.start("text"),
+                                 end=ts.end("text"))
+    toks = np.asarray(toks)
+    gen32 = Generator(build_model(cfg.replace(dtype="float32"), sd, dev), packer, seed=SEED)
+    res = {}
+
+    def prefill_logits(g):
+        arr = g.packer.pack_batch(examples, pad_side="right")
+        lengths = arr.pop("lengths")
+        with torch.inference_mode():
+            emb = g.model.embed_batch(to_device_batch(arr, dev))
+            mask = torch.from_numpy(np.arange(cfg.context_len)[None, :] < lengths[:, None])
+            logits, _ = g.model.prefill(emb, mask.to(dev))
+        return logits.float()[mask.to(dev)]
+
+    want_p = prefill_logits(gen32)
+    want_d = _teacher_forced_logits(gen32, examples, toks).float()
+    got_p = prefill_logits(gen)
+    got_d = _teacher_forced_logits(gen, examples, toks).float()
+    res["prefill"] = (got_p - want_p).abs().max().item()
+    res["decode"] = (got_d - want_d).abs().max().item()
+    finite = all(torch.isfinite(t).all().item() for t in (got_p, got_d)) and np.isfinite(loss)
+    launched = {k: c.launches for k, c in counters.items()}
+    for k, n in launched.items():  # the model's main path: #15 in the train step alone
+        main[k] = main.get(k, 0) + n
+    wide_s = time.perf_counter() - t0
+
+    def no_causal(q, k, v, key_mask, keep_scale=None):
+        allowed = key_mask[:, None, None, :].expand(-1, 1, q.shape[2], -1)
+        return whk.masked_attention(q, k, v, allowed, fill=-1e9, keep_scale=keep_scale)
+
+    plain = attn_ops.xla_attention
+    attn_ops.xla_attention = no_causal
+    try:
+        fault = (prefill_logits(gen) - want_p).abs().max().item()
+    finally:
+        attn_ops.xla_attention = plain
+    wide_decode = attn_ops.decode_attention
+
+    def decode_fault(f):  # the wide decode branch over a faulted copy of the cache mask
+        def attend(q, k, v, start, end, key_mask):
+            key_mask = key_mask.clone()
+            if f == "newest key excluded":
+                key_mask[torch.arange(len(end), device=end.device), end.long() - 1] = False
+            elif f == "cache mask ignored":
+                key_mask.fill_(True)
+            return wide_decode(q, k, v, start, end, key_mask)
+        return attend
+
+    d_faults = {}
+    for f in WIDE_DECODE_FAULTS:
+        with decode_attention_through(decode_fault(f)):
+            d_faults[f] = (_teacher_forced_logits(gen, examples, toks).float()
+                           - want_d).abs().max().item()
+    print(f"phase 21 hd 256 ({cfg.embed_dim}d/{cfg.heads}h/{cfg.layers}L k={cfg.context_len} "
+          f"bf16): a train step at dropout {RATE}, loss {loss:.4f}, gradients finite "
+          f"{grads_ok}; {B} prompts of {P} tokens, {T} new; bf16 against fp32 logits: prefill "
+          f"{res['prefill']:.3e}, the last of {T} teacher-forced decode steps "
+          f"{res['decode']:.3e} (limits {WIDE_LOGIT_TOL:g}, {WIDE_DECODE_LOGIT_TOL:g}); "
+          f"planted '{WIDE_FAULT}' in the prefill {fault:.3e}, in the decode step "
+          + ", ".join(f"'{f}' {x:.3e}" for f, x in d_faults.items())
+          + f"; kernel launches {launched}; {wide_s:.1f} s")
+    _require(finite and grads_ok, "hd 256: a value is not finite")
+    _require(res["prefill"] <= WIDE_LOGIT_TOL and res["decode"] <= WIDE_DECODE_LOGIT_TOL,
+             f"hd 256 logits {res}")
+    _require(fault > WIDE_LOGIT_TOL, f"cannot tell '{WIDE_FAULT}'")
+    blind = [f for f, x in d_faults.items() if not x > WIDE_DECODE_LOGIT_TOL]
+    _require(not blind, f"the hd 256 decode check cannot tell {blind}")
+    _require(launched["fwd"] == launched["bwd"] == launched["decode"] == launched["mask"] == 0,
+             f"an attention kernel launched at hd 256: {launched}")
+    del gen, gen32
+    torch.cuda.empty_cache()
+    return dict(res, fault=fault, decode_faults=d_faults, loss=loss)
+
+
+def examples_run(workdir: Path, dev="cuda") -> dict:
+    """Phase 21 (e): `python -m neko_tpu_torch.examples.training` and
+    `examples.inference` at their default width, EXAMPLE_STEPS steps, each
+    a process of its own.  -> seconds each."""
+    import subprocess
+
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(Path(__file__).resolve().parent) + os.pathsep + env.get(
+        "PYTHONPATH", "")
+    cpu = [] if dev == "cuda" else ["--cpu"]
+    secs = {}
+    for name, marker in (("training", "=== 4: export"), ("inference", "engine_slot_0 ->")):
+        t0 = time.perf_counter()
+        r = subprocess.run([sys.executable, "-m", f"neko_tpu_torch.examples.{name}",
+                            "--steps", str(EXAMPLE_STEPS), "--save_dir",
+                            str(workdir / f"example_{name}")] + cpu,
+                           env=env, capture_output=True, text=True, timeout=600)
+        secs[name] = time.perf_counter() - t0
+        _require(r.returncode == 0 and marker in r.stdout,
+                 f"examples.{name} failed: {r.stderr[-2000:]}")
+    print(f"phase 21 examples on {dev} (python -m, {EXAMPLE_STEPS} steps): training "
+          f"{secs['training']:.1f} s, inference {secs['inference']:.1f} s")
+    return secs
+
+
+def weights_in_and_out(card: str, workdir: Path, dev="cuda") -> dict:
+    """Phase 21.  -> {"launches": the main path's, "kernels": (a)'s times
+    and errors, "decode_check_launches": (a)'s #14 checks, "readings"}."""
+    import torch
+
+    from neko_tpu_torch.ops import decode_attention as da
+
+    t0 = time.perf_counter()
+    g = torch.Generator(device=dev).manual_seed(SEED + 21)
+    errs = {}
+    times = rank_attention_vs_plain(card, GPT2_ATTN, g, 2121, errs, dev=dev, hd=GPT2_HD,
+                                    rates=(0.0, RATE))
+    errs["prefill"] = kernel_vs_plain(dtype_name="bfloat16", hd=GPT2_HD, timed=False,
+                                      **GPT2_PREFILL)[0]
+    before = da.decode_cache_attention.launches
+    errs["decode"] = decode_cases_vs_plain(
+        [(shape, holed) for shape in GPT2_DECODE_SHAPES for holed in (False, True)], g, dev)
+    decode_checks = da.decode_cache_attention.launches - before
+    main = {}
+    readings = {"gpt2": pretrained_gpt2(card, workdir, main, dev)}
+    readings["pt"] = reference_round_trip(card, workdir, main, dev)
+    readings["wide"] = wide_heads(card, main, dev)
+    readings["examples"] = examples_run(workdir, dev)
+    print(f"phase 21 main-path launches: {main}; phase 21 took "
+          f"{time.perf_counter() - t0:.1f} s")
+    return {"launches": main, "kernels": {"attn": times, "err": errs},
+            "decode_check_launches": decode_checks, "readings": readings}
+
+
 def main() -> int:
     import torch
 
@@ -5650,6 +6234,11 @@ def main() -> int:
         p20 = quantized_tp_serving(card, workdir)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
+    try:
+        p21 = weights_in_and_out(card, workdir)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    wl, wk = p21["launches"], p21["kernels"]
     q20, r20 = p20["serving"], p20["ranks"]
     q_fwd, q_decode = q20["fwd"] + r20["fwd"], q20["decode"] + r20["decode"]
     pl = par["launches"]
@@ -5670,6 +6259,12 @@ def main() -> int:
                 "bound_by": bound_by, "tflops": _tflops(flops, ms),
                 "data2_shape": {"ms": pk["attn"][PARALLEL_ATTN[0]][key][0]}}
 
+    def at_gpt2(key):  # #3 / #4 timed at GPT-2 small's heads (phase 21 (a))
+        ms, plain_ms, library_ms, bound_ms, bound_by, flops = wk["attn"][GPT2_ATTN[0]][key]
+        return {"shape": list(GPT2_ATTN[0]) + [TRAIN["S"], GPT2_HD], "ms": ms,
+                "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound_ms,
+                "bound_by": bound_by, "tflops": _tflops(flops, ms)}
+
     src = "neko_tpu_torch/csrc/"
     tpu = "neko_tpu/ops/attention_kernel.py"
     tpu_b = "neko_tpu/ops/blocked_attention.py"
@@ -5689,25 +6284,29 @@ def main() -> int:
         {"name": "whole_head_attention", "route": "cuda",
          "source": src + "whole_head_attention.cu", "replaces": f"{tpu}:206,236",
          "launches": (serve_launches + launches["fwd"] + cli["fwd"] + ev["fwd"] + ev["eval_fwd"]
-                      + se["fwd"] + tf["fwd"] + pl["fwd"] + sl["fwd"] + pp["fwd"] + q_fwd),
+                      + se["fwd"] + tf["fwd"] + pl["fwd"] + sl["fwd"] + pp["fwd"] + q_fwd
+                      + wl["fwd"]),
          "train_cli_launches": cli["fwd"], "mix_train_launches": ev["fwd"],
          "eval_cli_launches": ev["eval_fwd"], "serving_engine_launches": se["fwd"],
          "train_features_launches": tf["fwd"], "parallel_launches": pl["fwd"],
          "seq_ranks_launches": sl["fwd"], "pipeline_launches": pp["fwd"],
-         "quant_tp_serving_launches": q_fwd,
-         "max_abs_err": max(err, trained["fwd_err"], pk["err"]["fwd"], qk["err"]["fwd"]),
+         "quant_tp_serving_launches": q_fwd, "weights_io_launches": wl["fwd"],
+         "max_abs_err": max(err, trained["fwd_err"], pk["err"]["fwd"], qk["err"]["fwd"],
+                            wk["err"]["fwd"], wk["err"]["prefill"]),
          **timing("fwd"), "prefill": prefill, "parallel_rank_shape": at_rank_shape("fwd"),
-         "microbatch_shape": at_microbatch("fwd")},
+         "microbatch_shape": at_microbatch("fwd"), "gpt2_small_shape": at_gpt2("fwd")},
         {"name": "whole_head_attention_bwd", "route": "cuda",
          "source": src + "whole_head_attention_bwd.cu", "replaces": f"{tpu}:220,256",
          "launches": (launches["bwd"] + cli["bwd"] + ev["bwd"] + tf["bwd"] + pl["bwd"]
-                      + sl["bwd"] + pp["bwd"]),
+                      + sl["bwd"] + pp["bwd"] + wl["bwd"]),
          "train_cli_launches": cli["bwd"], "mix_train_launches": ev["bwd"],
          "train_features_launches": tf["bwd"], "parallel_launches": pl["bwd"],
          "seq_ranks_launches": sl["bwd"], "pipeline_launches": pp["bwd"],
-         "max_abs_err": max(trained["bwd_err"], pk["err"]["bwd"], qk["err"]["bwd"]),
+         "weights_io_launches": wl["bwd"],
+         "max_abs_err": max(trained["bwd_err"], pk["err"]["bwd"], qk["err"]["bwd"],
+                            wk["err"]["bwd"]),
          **timing("bwd"), "parallel_rank_shape": at_rank_shape("bwd"),
-         "microbatch_shape": at_microbatch("bwd")},
+         "microbatch_shape": at_microbatch("bwd"), "gpt2_small_shape": at_gpt2("bwd")},
     ] + [
         {"name": name, "route": "cuda", "source": src + source,
          "replaces": f"{tpu_b}:{line}", "launches": long_path[key], "parallel_launches": 0,
@@ -5743,14 +6342,16 @@ def main() -> int:
          "replaces": "neko_tpu/ops/decode_attention.py:80",
          "launches": (decode_launches + cli["decode"] + ev["decode"] + ev["eval_decode"]
                       + se["decode"] + tf["decode"] + pl["decode"] + sl["decode"]
-                      + pp["decode"] + q_decode),
+                      + pp["decode"] + q_decode + wl["decode"]),
          "train_cli_launches": cli["decode"], "mix_train_launches": ev["decode"],
          "eval_cli_launches": ev["eval_decode"], "serving_engine_launches": se["decode"],
          "train_features_launches": tf["decode"], "parallel_launches": pl["decode"],
          "seq_ranks_launches": sl["decode"], "pipeline_launches": pp["decode"],
-         "quant_tp_serving_launches": q_decode,
-         "check_launches": decode["check_launches"] + decode["generate"]["launches"],
-         "max_abs_err": decode["err"], **decode["times"], "b1": decode["times_b1"],
+         "quant_tp_serving_launches": q_decode, "weights_io_launches": wl["decode"],
+         "check_launches": (decode["check_launches"] + decode["generate"]["launches"]
+                            + p21["decode_check_launches"]),
+         "max_abs_err": max(decode["err"], wk["err"]["decode"]), **decode["times"],
+         "b1": decode["times_b1"],
          "generate_per_token_ms": {k: decode["generate"][k] for k in ("kernel_ms", "plain_ms")}},
         # #14 over an int8 cache (neko_tpu computes it in XLA,
         # models/transformer.py:71 `_quant_cache_attention`), timed at B=8,
@@ -5774,10 +6375,11 @@ def main() -> int:
          "replaces": "neko_tpu/ops/loss_kernel.py:54",
          "launches": (launches["loss"] + long_path["loss head"] + seq_path["loss head"]
                       + adamw["loss_launches"] + cli["loss"] + ev["loss"] + tf["loss"]
-                      + pl["loss"] + sl["loss"] + pp["loss"]),
+                      + pl["loss"] + sl["loss"] + pp["loss"] + wl["loss"]),
          "train_cli_launches": cli["loss"], "mix_train_launches": ev["loss"],
          "train_features_launches": tf["loss"], "parallel_launches": pl["loss"],
          "seq_ranks_launches": sl["loss"], "pipeline_launches": pp["loss"],
+         "weights_io_launches": wl["loss"],
          "check_launches": loss_head["launches"],
          "max_abs_err": max(loss_head["err"], pk["err"]["loss"], qk["err"]["loss"]),
          **{k: v for k, v in loss_head.items() if k not in ("err", "launches")},
@@ -5786,7 +6388,8 @@ def main() -> int:
         {"name": "fused_adamw", "route": "cuda", "source": src + "fused_adamw.cu",
          "replaces": "neko_tpu/ops/fused_adamw.py:101",
          "launches": (adamw["launches"] + cli["adamw"] + tf["adamw"] + pl["adamw"]
-                      + sl["adamw"] + pp["adamw"]),
+                      + sl["adamw"] + pp["adamw"] + wl["adamw"]),
+         "weights_io_launches": wl["adamw"],
          "train_cli_launches": cli["adamw"], "train_features_launches": tf["adamw"],
          "parallel_launches": pl["adamw"], "parallel_rank_shards": pk["adamw"],
          "seq_ranks_launches": sl["adamw"], "pipeline_launches": pp["adamw"],

@@ -16,7 +16,7 @@ from neko_tpu_torch.tasks.base import Task
 from neko_tpu_torch.tasks.control import ControlTask
 from neko_tpu_torch.tasks.text import TextTask
 from neko_tpu_torch.tokenizers.text import get_text_tokenizer
-from neko_tpu_torch.training.arguments import TrainingArgs, not_ported
+from neko_tpu_torch.training.arguments import TrainingArgs
 from neko_tpu_torch.training.train_state import OptimizerConfig, TrainContext
 
 
@@ -29,12 +29,6 @@ def select_device(args: TrainingArgs) -> torch.device:
         raise SystemExit("--device cuda but no CUDA device is visible (pass --cpu to run "
                          "the kernels' plain versions on the CPU)")
     return torch.device("cuda")
-
-
-def check_ported(args: TrainingArgs) -> None:
-    bad = not_ported(args)
-    if bad:
-        raise NotImplementedError(f"not yet ported to neko_tpu_torch: {bad}")
 
 
 def build_control_tasks(args: TrainingArgs, context_len: int,
@@ -107,7 +101,7 @@ def model_config_from_args(args: TrainingArgs, max_patches: int) -> ModelConfig:
     dtype = {"no": "float32", "bf16": "bfloat16", "fp16": "bfloat16",
              "fp8": "bfloat16"}[args.mixed_precision]
     tok = get_text_tokenizer(args.tokenizer_model_name)
-    return ModelConfig(
+    cfg = ModelConfig(
         embed_dim=args.embed_dim,
         layers=args.layers,
         heads=args.heads,
@@ -136,6 +130,15 @@ def model_config_from_args(args: TrainingArgs, max_patches: int) -> ModelConfig:
         lora_alpha=args.lora_alpha,
         lora_dropout=args.lora_dropout,
     )
+    if args.pretrained_lm:
+        # a pretrained GPT-2 sets the widths (the reference's pretrained
+        # path); read again on every restore, as the JAX package reads them
+        from neko_tpu_torch.models import hf_files
+        from neko_tpu_torch.models.import_gpt2 import gpt2_model_config
+
+        hf = hf_files.read_config(args.pretrained_lm)
+        cfg = gpt2_model_config(cfg, int(hf["n_embd"]), int(hf["n_layer"]), int(hf["n_head"]))
+    return cfg
 
 
 def optimizer_config_from_args(args: TrainingArgs) -> OptimizerConfig:
@@ -235,8 +238,9 @@ def build_context(args: TrainingArgs, tasks: Optional[List[Task]] = None,
     sequence shards on the one device (ring attention).  neko_tpu's checks
     hold: the context splits over 'seq', the layers over 'pipe'.  `ranks`
     (`serving_ranks`'s device and mesh) places a restore for serving over
-    'model' ranks instead."""
-    check_ported(args)
+    'model' ranks instead.  Under --pretrained_lm the widths are the
+    directory's (`model_config_from_args`), and the layers the stages
+    split are those."""
     if ranks is not None:
         device, _ = ranks
     elif args.multihost:
@@ -246,15 +250,18 @@ def build_context(args: TrainingArgs, tasks: Optional[List[Task]] = None,
     if args.sequence_length % args.mesh_seq_axis:
         raise ValueError(f"context len {args.sequence_length} must divide evenly over "
                          f"mesh_seq_axis={args.mesh_seq_axis} sequence shards")
-    if args.layers % args.mesh_pipe_axis:
-        raise ValueError(f"layers={args.layers} must split evenly into "
+    # the resolved widths (the pretrained directory's under --pretrained_lm);
+    # the patch pool is set once the tasks are known
+    model_cfg = model_config_from_args(args, 0)
+    if model_cfg.layers % args.mesh_pipe_axis:
+        raise ValueError(f"layers={model_cfg.layers} must split evenly into "
                          f"mesh_pipe_axis={args.mesh_pipe_axis} pipeline stages")
     mesh = build_mesh(args) if ranks is None else ranks[1]
     if tasks is None:
         tasks = build_tasks(args, mh.data_info(mesh)[0])
     elif not tasks and ckpt_path is not None:
         args.max_patches = serving_max_patches(ckpt_path, args)
-    model_cfg = model_config_from_args(args, derive_max_patches(args, tasks))
+    model_cfg = model_cfg.replace(max_patches=derive_max_patches(args, tasks))
     ctx = TrainContext(model_cfg, optimizer_config_from_args(args), device=device,
                        seed=args.seed, fsdp=args.fsdp, mesh=mesh)
     return ctx, tasks

@@ -13,7 +13,13 @@ steps, and with `--save_model` writes <save_dir>/<exp>/checkpoint_<N>/
 (utils/checkpoint.py).  `--resume_from DIR` continues a run exactly: the
 weights, optimizer state and step from the checkpoint, and the host sampler
 state from its sidecar, so the data stream replays the uninterrupted run's.
-`--init_checkpoint DIR` loads the weights of a checkpoint of this package.
+`--init_checkpoint DIR` loads the weights of a checkpoint of this package,
+`--init_checkpoint FILE.pt` migrates a reference (GatoPolicy) checkpoint
+(models/import_reference.py).  `--pretrained_lm DIR` starts from the GPT-2
+of a local HF directory (its widths, `gelu_new`, its weights over the
+random ones: models/import_gpt2.py); a hub name is refused, since nothing is
+downloaded.  `--lora` (with `--pretrained_lm`) adds fresh adapters of rank
+`--lora_r` and trains only them.
 
 Over several processes, one per device, launched by torchrun (or with
 RANK, WORLD_SIZE, MASTER_ADDR and MASTER_PORT set for each):
@@ -57,7 +63,7 @@ def run(args: TrainingArgs, exp_name: Optional[str] = None) -> Trainer:
     exp_name = exp_name or datetime.datetime.now().strftime("%Y-%m-%d_%H-%M-%S") + "_neko"
     exp_name = mh.broadcast_object(exp_name)  # every rank writes into rank 0's directory
     trainer = Trainer(ctx, tasks, exp_name, args)
-    trainer.init_state(ckpt_weights(args, ctx))
+    trainer.init_state(initial_weights(args, ctx))
 
     if args.resume_from is not None:
         path = ckpt.resolve_checkpoint_dir(args.resume_from)
@@ -88,13 +94,33 @@ def run(args: TrainingArgs, exp_name: Optional[str] = None) -> Trainer:
     return trainer
 
 
-def ckpt_weights(args: TrainingArgs, ctx):
-    """The weights of `--init_checkpoint` (a checkpoint dir of this package,
-    or an experiment dir: its latest), or None."""
+def initial_weights(args: TrainingArgs, ctx):
+    """The canonical weights the run starts from, or None for the random
+    ones of the seed, in the JAX package's order: the random weights, the
+    GPT-2 of `--pretrained_lm` over them, then `--init_checkpoint`: a
+    reference `.pt` over those, or the weights of a checkpoint dir of this
+    package (an experiment dir: its latest) in their place.  The context
+    lays them out for its mesh (`TrainContext.init_state`)."""
+    from neko_tpu_torch.convert import init_state_dict
     from neko_tpu_torch.utils import checkpoint as ckpt
 
+    sd = None
+    if args.pretrained_lm is not None:
+        from neko_tpu_torch.models.import_gpt2 import load_pretrained_gpt2
+
+        sd = load_pretrained_gpt2(init_state_dict(ctx.model_cfg, ctx.seed),
+                                  args.pretrained_lm, ctx.model_cfg.layers)
+        print(f"imported GPT-2 weights from {args.pretrained_lm}")
     if args.init_checkpoint is None:
-        return None
+        return sd
+    if args.init_checkpoint.endswith(".pt"):
+        from neko_tpu_torch.models.import_reference import load_reference_checkpoint
+
+        sd = load_reference_checkpoint(
+            args.init_checkpoint, sd if sd is not None else init_state_dict(
+                ctx.model_cfg, ctx.seed), ctx.model_cfg)
+        print(f"migrated reference checkpoint {args.init_checkpoint}")
+        return sd
     return ckpt.load_params_only(ckpt.resolve_checkpoint_dir(args.init_checkpoint),
                                  ctx.model_cfg)
 

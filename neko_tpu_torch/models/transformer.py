@@ -8,11 +8,15 @@ neko_tpu/models/transformer.py).
   hd <= 128): q, k and v stay the three column slices of the one
   [B, S, 3D] `c_attn` output (no transpose, one gradient buffer), with
   attention, residual and MLP dropout when a `generator` (the step's
-  `torch.Generator`) is given.  Under an active mesh whose 'seq' axis has
-  more than one shard (`parallel/mesh.py`) the attention runs as ring
-  attention over the sequence shards instead (`ops/ring_kernel.py`), before
-  the whole-head / blocked dispatch, as the JAX package routes it; S must
-  split over the axis.  Each layer draws its attention seed as an
+  `torch.Generator`) is given.  At hd > 128, where the JAX package has no
+  kernel and runs its XLA attention, the attention is the plain route of
+  ops/attention.py (`wide_attention_qkv`, its dropout mask drawn from the
+  generator); prefill and decode route there too, and a 'seq' axis refuses
+  it by name (the JAX package's XLA ring is not ported).  Under an active
+  mesh whose 'seq' axis has more than one shard (`parallel/mesh.py`) the
+  attention runs as ring attention over the sequence shards instead
+  (`ops/ring_kernel.py`), before the whole-head / blocked dispatch, as the
+  JAX package routes it; S must split over the axis.  Each layer draws its attention seed as an
   int32 [1] tensor on the device from that generator, as the JAX package
   draws one per layer from its dropout stream.  Without a generator the
   pass is deterministic (eval loss).
@@ -191,12 +195,15 @@ def write_rows(cache: KVCache, index, k: torch.Tensor, v: torch.Tensor) -> None:
     cache["value"][index] = v
 
 
-def _train_not_ported(cfg: ModelConfig, S: int) -> None:
-    if not attn_ops.packed_ok(S, cfg.head_dim, cfg.heads):
-        raise NotImplementedError(
-            f"not yet ported to neko_tpu_torch: training at S={S}, hd={cfg.head_dim} "
-            "(the head-packed kernels take hd <= 128)")
+def _train_checks(cfg: ModelConfig, S: int) -> None:
+    """What train mode refuses: ring attention at hd > 128 (the JAX
+    package's XLA ring, not ported) and an S that does not split over the
+    'seq' shards."""
     n = attn_ops.seq_shards()
+    if n > 1 and attn_ops.wide_heads(cfg.head_dim):
+        raise NotImplementedError(
+            f"not yet ported to neko_tpu_torch: sequence-parallel attention at "
+            f"hd={cfg.head_dim} > 128 (neko_tpu's XLA ring attention)")
     if n > 1 and S % n:
         raise ValueError(f"S={S} does not split over the mesh's {n} sequence shards")
 
@@ -282,6 +289,12 @@ class Attention(nn.Module):
                                   generator if mode == "train" else None)
             qkv = qkv + column_parallel(self.lora_b, a, dtype, self.tp) * (
                 cfg.lora_alpha / cfg.lora_r)
+        if mode == "train" and attn_ops.wide_heads(cfg.head_dim):
+            # hd > 128: the plain route, its mask drawn from the generator
+            out2d = attn_ops.wide_attention_qkv(
+                qkv, input_mask, heads=self.heads, generator=generator, rate=cfg.dropout,
+                head_block=(self.tp.index, self.tp.size))
+            return self._project_out(out2d, generator), None
         if mode == "train":
             seed, rate = None, 0.0
             if generator is not None and cfg.dropout > 0.0:
@@ -475,7 +488,7 @@ class Transformer(nn.Module):
         if mode in ("decode", "extend") and caches is None:
             raise ValueError(f"{mode} mode needs the caches prefill returned")
         if mode == "train":  # the whole sequence's S, its columns over 'seq' ranks
-            _train_not_ported(self.cfg, x.shape[1] * seq_ranks(active_mesh()))
+            _train_checks(self.cfg, x.shape[1] * seq_ranks(active_mesh()))
         bounds = None
         if mode == "decode":
             # the layers' masks are equal; the window includes the row this

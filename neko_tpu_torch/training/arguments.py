@@ -3,10 +3,8 @@ neko_tpu/training/arguments.py).
 
 Every field of the JAX package's TrainingArgs is kept, with its default, so
 its command lines and `args.json` files parse here unchanged; `--device`
-defaults to the CUDA device.  `not_ported(args)` names the flags that select
-what the port does not run yet (`cli/train.py` raises NotImplementedError
-for them).  `flash`, `rng_impl` and `compilation_cache` select JAX
-machinery and are ignored.
+defaults to the CUDA device.  `flash`, `rng_impl` and `compilation_cache`
+select JAX machinery and are ignored.
 """
 
 from __future__ import annotations
@@ -37,9 +35,9 @@ class TrainingArgs:
 
     # Transformer architecture (reference:46-55)
     tokenizer_model_name: str = field(default="gpt2")
-    pretrained_lm: Optional[str] = field(default=None)
+    pretrained_lm: Optional[str] = field(default=None, metadata={"help": "A local HF GPT-2 directory (config.json and model.safetensors or pytorch_model.bin): its widths and weights; hub names are not fetched."})
     flash: bool = field(default=True)
-    init_checkpoint: Optional[str] = field(default=None, metadata={"help": "Load the weights (not the optimizer state) of a checkpoint_<N> dir written by this package."})
+    init_checkpoint: Optional[str] = field(default=None, metadata={"help": "Load the weights (not the optimizer state) of a checkpoint_<N> dir written by this package, or migrate a reference <file>.pt."})
     resume_from: Optional[str] = field(default=None, metadata={"help": "Resume params, optimizer state and step from an experiment dir (its latest checkpoint) or a checkpoint_<N> dir, and the host sampler state from its sidecar: the data stream replays the uninterrupted run's."})
     embed_dim: int = field(default=768)
     layers: int = field(default=8)
@@ -153,12 +151,3 @@ def resolve_parallel_episodes(requested: int, n_iterations: int) -> int:
         return min(requested, max(n_iterations, 1))
     return min(max(n_iterations, 1), 8)
 
-
-def not_ported(args: TrainingArgs) -> List[str]:
-    """The flags of `args` that select what neko_tpu_torch does not run yet."""
-    unported = {
-        "--lora": args.lora,
-        "--pretrained_lm": args.pretrained_lm is not None,
-        "--init_checkpoint <file>.pt": str(args.init_checkpoint or "").endswith(".pt"),
-    }
-    return [name for name, on in unported.items() if on]

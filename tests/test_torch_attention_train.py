@@ -33,6 +33,7 @@ from neko_tpu.ops import attention_kernel as jax_whk  # noqa: E402
 
 from neko_tpu_torch.ops import attention as attn  # noqa: E402
 from neko_tpu_torch.ops import attention_kernel as whk  # noqa: E402
+from neko_tpu_torch.ops import blocked_attention as ba  # noqa: E402
 
 B, H, HD = 2, 2, 32
 TOL = dict(rtol=1e-5, atol=1e-5)  # fp32: summation order only
@@ -174,12 +175,15 @@ def test_attention_qkv_is_the_train_path_and_launches_nothing_on_cpu():
 
 
 def test_packed_ok_takes_the_kernel_head_dims():
-    assert attn.packed_ok(1024, 32, 24)
-    assert attn.packed_ok(1024, 128, 12)
-    assert attn.packed_ok(2048, 32, 24)  # through the blocked kernels #6-#9
-    assert attn.packed_ok(1024, 16, 4)   # any hd <= 128, as neko_tpu's kernel takes
-    assert attn.packed_ok(1024, 48, 4)
-    assert not attn.packed_ok(1024, 256, 2)
+    def packed(S, hd):  # the head-packed kernels serve it; no plain route
+        return ba.supported(S, hd) and not attn.wide_heads(hd)
+
+    assert packed(1024, 32)
+    assert packed(1024, 128)
+    assert packed(2048, 32)  # through the blocked kernels #6-#9
+    assert packed(1024, 16)   # any hd <= 128, as neko_tpu's kernel takes
+    assert packed(1024, 48)
+    assert not packed(1024, 256) and attn.wide_heads(256)
 
 
 def test_port_xla_attention_takes_an_injected_mask():

@@ -253,9 +253,9 @@ def test_dropout_keep_scale_at_S_is_the_corner_of_a_longer_mask(S):
 
 
 def test_dispatch_by_length_and_no_kernel_launch_on_the_cpu(monkeypatch):
-    assert attn.packed_ok(2048, 32, 24) and attn.packed_ok(8192, 128, 6)
-    assert attn.packed_ok(3000, 64, 12) and attn.packed_ok(2048, 48, 16)
-    assert not attn.packed_ok(2048, 256, 3)
+    assert ba.supported(2048, 32) and ba.supported(8192, 128)
+    assert ba.supported(3000, 64) and ba.supported(2048, 48)
+    assert not ba.supported(2048, 256) and attn.wide_heads(256)
     assert ba.supported(3000, 32) and not ba.supported(0, 32)
     counters = [whk.whole_head_attention, whk.whole_head_attention_bwd, whk.dropout_keep_scale,
                 ba.blocked_attention_fwd, ba.blocked_attention_bwd_fused,

@@ -85,7 +85,8 @@ def _pair(name):
 @pytest.mark.parametrize("name,hd", [("smoke", 16), ("odd", 48)])
 def test_train_step_matches_jax(name, hd):
     jmodel, params, cfg, sd = _pair(name)
-    assert cfg.head_dim == hd and attn.packed_ok(cfg.context_len, hd, cfg.heads)
+    assert cfg.head_dim == hd and not attn.wide_heads(hd)
+    assert ba.supported(cfg.context_len, hd)
     arrays = _arrays({"smoke": SMOKE, "odd": ODD}[name])
 
     def loss_fn(p):
@@ -188,9 +189,10 @@ def test_head_dims_the_kernels_take():
     assert whk.kernel_head_dim(100, da.KERNEL_HEAD_DIMS) == 128
     assert whk.kernel_head_dim(256, bf16) == 256  # above 128: no kernel, never padded
     for hd in (8, 16, 48, 80, 128):
-        assert attn.packed_ok(1024, hd, 4) and ba.supported(3000, hd) and rk.supported(300, hd)
+        assert not attn.wide_heads(hd) and ba.supported(1024, hd) and ba.supported(3000, hd)
+        assert rk.supported(300, hd)
         assert da.supported(2, 4, 100, hd)
-    assert not attn.packed_ok(1024, 256, 2) and not rk.supported(128, 160)
+    assert attn.wide_heads(256) and not ba.supported(1024, 256) and not rk.supported(128, 160)
 
 
 # ------------------------- plain backwards at hd 16 in bf16 vs the TPU kernels

@@ -45,6 +45,11 @@ def _env():
 def test_every_module_imports_with_jax_blocked():
     mods = _modules()
     assert len(mods) >= 15 and "neko_tpu_torch.parallel.pipeline" in mods
+    assert {"neko_tpu_torch.models.hf_files", "neko_tpu_torch.models.import_gpt2",
+            "neko_tpu_torch.models.import_reference", "neko_tpu_torch.models.export_reference",
+            "neko_tpu_torch.tools.export_checkpoint", "neko_tpu_torch.tools.average_checkpoints",
+            "neko_tpu_torch.tools.inspect_checkpoint", "neko_tpu_torch.examples.training",
+            "neko_tpu_torch.examples.inference"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for name in {BLOCKED!r}:\n"
@@ -292,3 +297,38 @@ def test_serve_cli_serves_a_train_checkpoint_with_them_blocked(tmp_path):
     finally:
         proc.terminate()
         proc.communicate(timeout=30)
+
+
+def test_weights_in_and_out_with_jax_transformers_and_safetensors_blocked(tmp_path):
+    """A local GPT-2 directory (written here by transformers) is read and
+    imported, and a reference .pt written and read back, with JAX, the JAX
+    package, transformers and safetensors blocked: the card's machine has
+    none of them."""
+    transformers = pytest.importorskip("transformers")
+    import torch
+
+    torch.manual_seed(0)
+    transformers.GPT2LMHeadModel(transformers.GPT2Config(
+        vocab_size=300, n_embd=32, n_layer=1, n_head=2, n_positions=32)).save_pretrained(
+        str(tmp_path / "gpt2"))
+    code = "\n".join([
+        "import sys",
+        f"for name in {BLOCKED + ('safetensors',)!r}:",
+        "    sys.modules[name] = None",
+        "import torch",
+        "from neko_tpu_torch.config import ModelConfig",
+        "from neko_tpu_torch.convert import init_state_dict",
+        "from neko_tpu_torch.models import export_reference, import_gpt2, import_reference",
+        "cfg = ModelConfig(embed_dim=32, layers=1, heads=2, context_len=32, max_patches=0,",
+        "                  text_tokens=512, continuous_tokens=64, discrete_tokens=64)",
+        f"sd = import_gpt2.load_pretrained_gpt2(init_state_dict(cfg, 0), {str(tmp_path / 'gpt2')!r}, 1)",
+        "assert sd['embed_token.weight'][:300].abs().max() > 0",
+        f"pt = {str(tmp_path / 'ref.pt')!r}",
+        "export_reference.save_reference_checkpoint(pt, sd, cfg)",
+        "back = import_reference.load_reference_checkpoint(pt, init_state_dict(cfg, 1), cfg)",
+        "assert all(torch.equal(back[k], v) for k, v in sd.items() if k.startswith('transformer'))",
+        "print('ok')",
+    ])
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=_env(),
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0 and r.stdout.strip() == "ok", r.stderr[-3000:]

@@ -194,12 +194,17 @@ def test_train_mode_refuses_what_is_not_ported():
     base = dict(TINY, dropout=0.1)
     arrays = _arrays(images=False)
     g = torch.Generator().manual_seed(0)
-    # hd 256: over the kernels' 128 (any hd <= 128 trains, as in neko_tpu)
-    for bad in (dict(embed_dim=256, heads=1), dict(embed_dim=256, heads=1, remat=True)):
-        cfg = ModelConfig(**{**base, **bad})
+    # hd 256, over the kernels' 128, trains as in neko_tpu (its XLA attention:
+    # the port's plain route, test_torch_wide_heads.py), with remat too
+    for wide in (dict(embed_dim=256, heads=1), dict(embed_dim=256, heads=1, remat=True)):
+        cfg = ModelConfig(**{**base, **wide})
         model = convert.build_model(cfg, convert.init_state_dict(cfg, 0), device="cpu")
-        with pytest.raises(NotImplementedError):
-            model(to_device_batch(arrays, "cpu"), train=True, compute_loss=True, generator=g)
+        _, loss = model(to_device_batch(arrays, "cpu"), train=True, compute_loss=True,
+                        generator=g)
+        loss.backward()
+        assert torch.isfinite(loss)
+        assert all(torch.isfinite(p.grad).all() for p in model.parameters())
+        assert model.transformer.h[0].attn.c_attn.weight.grad.abs().max() > 0
     # the int8 cache is ported: such a model trains as the native one (the
     # cache is generation's) and its prefill stores int8 rows and scales
     int8 = convert.build_model(ModelConfig(**base, kv_cache_dtype="int8"),

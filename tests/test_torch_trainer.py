@@ -339,7 +339,7 @@ def test_checkpoint_holds_what_serving_and_resume_read(tmp_path):
         torch.testing.assert_close(a, b, rtol=0, atol=0)
     # --init_checkpoint: the weights alone, a fresh optimizer at step 0
     warm = make_trainer(tmp_path, "warm", fused_adamw=True, init_checkpoint=path)
-    warm.init_state(cli_train.ckpt_weights(warm.args, warm.ctx))
+    warm.init_state(cli_train.initial_weights(warm.args, warm.ctx))
     assert warm.state.step == 0 and warm.state.optimizer.count == 0
     for name, p in warm.state.model.named_parameters():
         torch.testing.assert_close(p, dict(model.named_parameters())[name], rtol=0, atol=0)
@@ -367,24 +367,25 @@ def test_evaluation_keeps_training_parameters_fp32_and_unchanged(tmp_path):
 
 
 def test_cli_refuses_what_is_not_ported(tmp_path):
-    for flag in (["--lora", "--pretrained_lm", "gpt2"], ["--pretrained_lm", "gpt2"],
-                 ["--init_checkpoint", "ref.pt"]):
+    # the train CLI refuses no flag of neko_tpu's but a hub name in
+    # --pretrained_lm (nothing is downloaded: a local directory only), and
+    # --lora without --pretrained_lm, as neko_tpu refuses it
+    for flag, error, match in (
+            (["--pretrained_lm", "gpt2"], RuntimeError, "local GPT-2 directory only"),
+            (["--lora", "--pretrained_lm", "gpt2"], RuntimeError, "hub name is not fetched"),
+            (["--lora"], ValueError, "--lora requires --pretrained_lm"),
+            (["--init_checkpoint", str(tmp_path / "absent.pt")], FileNotFoundError, "absent")):
         argv = ["--cpu", "--control_datasets", CONTROL[0], "--training_steps", "1",
                 "--log_eval_freq", "1", "--save_dir", str(tmp_path)] + flag
-        with pytest.raises(NotImplementedError, match=flag[0]):
+        with pytest.raises(error, match=match):
             cli_train.main(argv)
     # training over processes is ported: --fsdp, --multihost and the 'model',
     # 'seq' and 'pipe' axes are no refusals; a 'model' or 'pipe' axis without
     # the ranks to carry it, layers that do not split into the stages, and
     # --multihost outside torchrun's environment are errors of use
-    from neko_tpu_torch.training.arguments import TrainingArgs, not_ported
+    import neko_tpu_torch.training.arguments as arguments
 
-    # the int8 cache of the in-loop evaluation is ported
-    assert not not_ported(TrainingArgs(kv_cache_dtype="int8"))
-    assert not not_ported(TrainingArgs(fsdp=True, multihost=True, mesh_model_axis=2))
-    assert not not_ported(TrainingArgs(multihost=True, mesh_seq_axis=2))
-    assert not not_ported(TrainingArgs(multihost=True, mesh_pipe_axis=2,
-                                       pipeline_schedule="1f1b"))
+    assert not hasattr(arguments, "not_ported")
     for flag, match in ((["--mesh_model_axis", "2"], "--multihost"),
                         (["--mesh_pipe_axis", "2"], "--multihost"),
                         (["--layers", "3", "--mesh_pipe_axis", "2"], "pipeline stages"),
