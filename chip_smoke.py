@@ -94,12 +94,17 @@
    with planted faults in the ring schedule that the check must see; the
    loss falls over 20 steps on one batch.
 11. Decode attention (#14) vs plain at the flagship decode step (B=8 and
-   B=1, H=24, S=1024, hd=32, bf16), fp32 at hd 64 and 128, hd 16 in bf16
-   and fp32, and a ragged S=1000: rows with a full cache, a left-padded
-   start, one key, no key, a wrapped ring; the same with holes in the cache
-   mask inside each window; planted faults ("newest key excluded", "start
-   ignored", "mask holes ignored") must fail; times in turns with SDPA
-   (boolean mask) as the yardstick.
+   B=1, H=24, S=1024, hd=32, bf16), a long cache (S=8192 at B=1 and 8),
+   fp32 at hd 64 and 128, hd 16 in bf16 and fp32, and a ragged S=1000: rows
+   with a full cache, a left-padded start, one key, no key, a wrapped ring;
+   the same with holes in the cache mask inside each window; windows on and
+   across the edges of the kernel's split (DECODE_SPLIT_SHAPES: shorter
+   than the cluster, exactly as long, one key, no key, a start no multiple
+   of 4, holes that clear a whole share); its registers and spills per
+   instance (ptxas: none may spill); planted faults ("newest key excluded",
+   "start ignored", "mask holes ignored", and SPLIT_FAULTS in the plain
+   split version) must fail; times in turns at DECODE_TIMED with SDPA
+   (boolean mask) as the yardstick and the cluster size each used.
    Then generate_batch at bench_decode.py's shape (B=8, 512-token prompts,
    64 new tokens) through the kernel and through the plain decode
    attention: per-token ms, and the last-step logits of the two (teacher-
@@ -258,10 +263,12 @@
    (`seq_ranks_launches`, `pipeline_launches`).
 20. Quantized and tensor-parallel serving.  (a) #14's int8 instance (int8
    cache rows, fp32 row scales) against its plain version at B=8 and B=1
-   (H=24, S=1024, hd=32, bf16 queries; `_decode_rows`' windows, an empty
-   one among them, a third of each window's mask cleared), with
-   INT8_DECODE_FAULTS planted in the plain version; device times in turns
-   beside its bound (no library call computes it).  (b) generate_batch at
+   (H=24, S=1024 and 8192, hd=32, bf16 queries; `_decode_rows`' windows,
+   an empty one among them, and the split-edge windows of phase 11, a
+   third of each window's mask cleared or a whole share), with
+   INT8_DECODE_FAULTS and SPLIT_FAULTS planted in the plain version; device
+   times in turns at INT8_DECODE_TIMED beside its bound (no library call
+   computes it).  (b) generate_batch at
    bench_decode.py's shape with an int8 cache against the native cache:
    the first-step logits equal (the prefill attends full precision), the
    token agreement, the last-step logits teacher-forced on the native
@@ -544,11 +551,24 @@ RING_STEP_FAULTS = ("running-max rescale dropped in the merge", "farthest kv blo
                     "delta taken as 0", "dk, dv partials added to the q shard's block")
 RING_STEP_LOSS_FAULTS = ("farthest kv block skipped",)
 # decode attention (phase 11): check shapes (B, H, S, hd, dtype); B=8 and
-# B=1 are the flagship decode step, the rest other head dims and a ragged S
+# B=1 are the flagship decode step, S=8192 the cache of a model trained at
+# k = 8192, the rest other head dims and a ragged S
 DECODE_SHAPES = ((8, 24, 1024, 32, "bfloat16"), (1, 24, 1024, 32, "bfloat16"),
+                 (1, 24, 8192, 32, "bfloat16"), (8, 24, 8192, 32, "bfloat16"),
                  (4, 12, 1024, 64, "float32"), (4, 6, 1024, 128, "float32"),
                  (8, 24, 1000, 32, "bfloat16"), (8, 8, 1024, 16, "bfloat16"),
                  (8, 8, 1024, 16, "float32"))
+# the split-edge windows (`_split_edge_rows`) at shapes whose cluster holds
+# 8, 4 and 2 blocks on an H100 (B * H = 12, 48, 96), each hd and dtype class
+DECODE_SPLIT_SHAPES = ((12, 1, 1024, 32, "bfloat16"), (12, 4, 1024, 128, "float32"),
+                       (12, 8, 2048, 16, "bfloat16"), (12, 4, 1000, 64, "float32"))
+# planted in the plain split version (`split_decode`): the check of the
+# shapes split over 2 or more blocks must see each one
+SPLIT_FAULTS = ("one share of the window dropped", "shares merged without the max rescale")
+# timed in turns (phase 11): the flagship decode step at B=8 and B=1, a
+# cache of k = 8192 at B=1 and 8, GPT-2 small's heads (phase 21)
+DECODE_TIMED = ((8, 24, 1024, 32), (1, 24, 1024, 32), (1, 24, 8192, 32), (8, 24, 8192, 32),
+                (8, 12, 1024, 64))
 # the same check with holes in the cache mask inside each row's window
 # (rows a left-padded prompt or an eviction clears): the kernel skips them
 DECODE_HOLED_SHAPES = ((8, 24, 1024, 32, "bfloat16"), (8, 8, 1024, 16, "bfloat16"))
@@ -850,7 +870,10 @@ PIPE_CLI = [a for a in TRAIN_CLI] + ["--training_steps", "10", "--log_eval_freq"
 # one card over gloo at model = 2 (12 heads a rank) against one process:
 # generate_batch native / int8 / fp8 (and the planted "scales per shard"),
 # the serve CLI (coalescing and the engine) and the evaluation CLI.
-INT8_DECODE_SHAPES = ((8, 24, 1024, 32), (1, 24, 1024, 32))
+INT8_DECODE_SHAPES = ((8, 24, 1024, 32), (1, 24, 1024, 32), (1, 24, 8192, 32),
+                      (8, 24, 8192, 32))
+INT8_DECODE_SPLIT_SHAPES = ((12, 1, 1024, 32), (12, 4, 1000, 16), (12, 8, 1024, 64))
+INT8_DECODE_TIMED = ((8, 24, 1024, 32), (1, 24, 1024, 32), (1, 24, 8192, 32))
 INT8_DECODE_FAULTS = ("key scales ignored", "value scales ignored", "mask holes ignored")
 # (b) the teacher-forced last-step logits of the int8 cache against the
 # native one (the int8 rows' rounding, on random weights), and the tokens
@@ -2710,30 +2733,93 @@ def _decode_rows(B, S):
     return (starts * B)[:B], (ends * B)[:B]
 
 
+def _split_edge_rows(B, S, n):
+    """(start, end) lists of windows on and across the edges of a split into
+    n shares: shorter than n, exactly n, one key, no key (empty and start >
+    end), a start no multiple of 4 over the whole cache, 3n + 1 rows, the
+    last 2n + 1 rows, the full cache, n + 1 rows across a 4-row boundary, a
+    full cache (a share of it cleared when holed), a middle run."""
+    starts = [37, 100, 515, 700, 5, 2, S - 2 * n - 1, 0, 900, 126, 0, S // 3 + 1]
+    ends = [37 + max(n - 1, 1), 100 + n, 516, 700, S - 3, 2 + 3 * n + 1, S, S, 300,
+            126 + n + 1, S, S - 1]
+    return (starts * B)[:B], (ends * B)[:B]
+
+
+def _split_n(q, S: int) -> int:
+    """The cluster size #14 takes for q [B, H, hd] over a cache of capacity
+    S (on a CPU tensor: an H100's, 132 SMs)."""
+    from neko_tpu_torch.ops import decode_attention as da
+
+    B, H, _ = q.shape
+    return da.kernel_split(q, S) if q.is_cuda else da.split_count(B, H, S, 132)
+
+
+def _case_windows(B, S, n, edges, holed, g, dev):
+    """(start, end, mask) of a check case: `_decode_rows`' windows or the
+    split-edge ones; holed: a third of each window's cache mask cleared,
+    its ends kept, and on the split-edge windows one whole share cleared in
+    each of two rows."""
+    import torch
+
+    from neko_tpu_torch.ops import decode_attention as da
+
+    st, en = _split_edge_rows(B, S, n) if edges else _decode_rows(B, S)
+    start = torch.tensor(st, dtype=torch.int32, device=dev)
+    end = torch.tensor(en, dtype=torch.int32, device=dev)
+    if not holed:
+        return start, end, None
+    mask = torch.rand(B, S, device=dev, generator=g) >= 1 / 3
+    rows = torch.arange(B, device=dev)
+    mask[rows, start.long().clamp(max=S - 1)] = True
+    mask[rows, (end.long() - 1).clamp(min=0)] = True
+    if edges:
+        lo, hi = da.split_bounds(start.clamp(min=0), end.clamp(max=S), n)
+        for row in (4, 10):
+            if row < B and n > 1:  # the second share, or the last but one
+                r = min(1, n - 1) if row == 4 else n - 2
+                mask[row, int(lo[row, r]):int(hi[row, r])] = False
+    return start, end, mask
+
+
+def split_decode(q, k, v, start, end, n, key_mask=None, scales=None, fault=None):
+    """#14's split in plain torch (the shares of `split_bounds`, a partial
+    each, merged), or that version with one of SPLIT_FAULTS planted in it.
+    scales: (k_scale, v_scale) of an int8 cache."""
+    import torch
+
+    from neko_tpu_torch.ops import decode_attention as da
+
+    lo, hi = da.split_bounds(start.clamp(min=0), end.clamp(max=k.shape[2]), n)
+    parts = [da.window_partials(q, k, v, lo[:, r], hi[:, r], key_mask, scales=scales)
+             for r in range(n)]
+    if fault == "one share of the window dropped" and n > 1:
+        del parts[n // 2]
+    elif fault == "shares merged without the max rescale":
+        _, l, acc = (torch.stack(x).sum(dim=0) for x in zip(*parts))
+        return torch.where(l[..., None] > 0, acc / torch.where(l > 0, l, 1)[..., None],
+                           0).to(q.dtype)
+    return da.merge_partials(parts, q.dtype)
+
+
 def decode_cases_vs_plain(cases, g, dev="cuda") -> float:
-    """#14 against its plain version at each ((B, H, S, hd, dtype), holed)
-    case (`_decode_rows`' windows; holed: a third of each window's cache
-    mask cleared), with DECODE_FAULTS planted in the plain version: fails
+    """#14 against its plain version at each ((B, H, S, hd, dtype), holed[,
+    edges]) case (`_decode_rows`' windows, or the split-edge windows; holed:
+    a third of each window's cache mask cleared), with DECODE_FAULTS planted
+    in the plain version and SPLIT_FAULTS in the plain split one: fails
     where the kernel disagrees or the cases cannot tell a fault.  -> the
     largest abs error."""
     import torch
 
     from neko_tpu_torch.ops import decode_attention as da
 
-    worst, fault_excess = 0.0, {f: -1.0 for f in DECODE_FAULTS}
-    for (B, H, S, hd, dtype_name), holed in cases:
+    faults = DECODE_FAULTS + SPLIT_FAULTS
+    worst, fault_excess = 0.0, {f: -1.0 for f in faults}
+    for (B, H, S, hd, dtype_name), holed, *edges in cases:
         dtype = getattr(torch, dtype_name)
         q = torch.randn(B, H, hd, device=dev, generator=g).to(dtype)
         k, v = (torch.randn(B, H, S, hd, device=dev, generator=g).to(dtype) for _ in range(2))
-        st, en = _decode_rows(B, S)
-        start = torch.tensor(st, dtype=torch.int32, device=dev)
-        end = torch.tensor(en, dtype=torch.int32, device=dev)
-        mask = None
-        if holed:  # a third of each window's rows cleared, its ends kept
-            mask = torch.rand(B, S, device=dev, generator=g) >= 1 / 3
-            rows = torch.arange(B, device=dev)
-            mask[rows, start.long().clamp(max=S - 1)] = True
-            mask[rows, (end.long() - 1).clamp(min=0)] = True
+        n = _split_n(q, S)
+        start, end, mask = _case_windows(B, S, n, bool(edges and edges[0]), holed, g, dev)
         out = da.decode_cache_attention(q, k, v, start, end, mask)
         ref = plain_decode_attention(q, k, v, start, end, mask)
         torch.cuda.synchronize()
@@ -2743,24 +2829,47 @@ def decode_cases_vs_plain(cases, g, dev="cuda") -> float:
         tol = KERNEL_TOL[dtype_name]
         err, excess = _excess(out.float() * seen, ref.float() * seen, tol)
         worst = max(worst, err)
-        print(f"decode kernel vs plain B={B} H={H} S={S} hd={hd} {dtype_name}"
+        print(f"decode kernel vs plain B={B} H={H} S={S} hd={hd} {dtype_name}, cluster of {n}"
+              f"{', split-edge windows' if edges and edges[0] else ''}"
               f"{', holed cache mask' if holed else ''}: max abs err "
               f"{err:.3e} (excess over tolerance {excess:.3e})")
         _require(excess <= 0, f"decode kernel disagrees at {B}x{H}x{S}x{hd} {dtype_name}")
-        for f in DECODE_FAULTS:
-            bad = plain_decode_attention(q, k, v, start, end, mask, fault=f)
+        for f in faults:
+            bad = (plain_decode_attention(q, k, v, start, end, mask, fault=f) if f in DECODE_FAULTS
+                   else split_decode(q, k, v, start, end, n, mask, fault=f))
             fault_excess[f] = max(fault_excess[f], _excess(bad.float() * seen,
                                                            ref.float() * seen, tol)[1])
-    for f in DECODE_FAULTS:
+    for f in faults:
         print(f"control '{f}': largest excess over tolerance {fault_excess[f]:.3e}")
-    blind = [f for f in DECODE_FAULTS if not fault_excess[f] > 0]
+    blind = [f for f in faults if not fault_excess[f] > 0]
     _require(not blind, f"the decode check cannot tell these planted faults: {blind}")
     return worst
 
 
+def _decode_ptxas(libs):
+    """-> [(q, cache, hd, registers, spill bytes)] of every #14 instance,
+    from nvcc's ptxas -v log."""
+    import re
+
+    rows, fn = [], None
+    for line in libs["decode_attention"].with_suffix(".log").read_text().splitlines():
+        if m := re.search(r"Function properties for (\S*decode_attention_kernel\S*)", line):
+            fn, spills = m.group(1), 0
+        elif fn and (m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)):
+            spills = int(m.group(1)) + int(m.group(2))
+        elif fn and (m := re.search(r"Used (\d+) registers", line)):
+            args = re.search(r"decode_attention_kernelI(.*)Li(\d+)EEEv", fn)
+            q = "bf16" if args.group(1).startswith("13__nv_bfloat16") else "fp32"
+            cache = "int8" if args.group(1).endswith("a") else q
+            rows.append((q, cache, int(args.group(2)), int(m.group(1)), spills))
+            fn = None
+    return rows
+
+
 def decode_kernels_vs_plain(card: str, dev="cuda") -> dict:
     """Phase 11, kernel part.  -> {"err": max abs error, "times": the JSON
-    timing fields at B=8, "times_b1": at B=1, "check_launches": n}."""
+    timing fields at B=8, "times_b1": at B=1, "shapes": at each of
+    DECODE_TIMED, "check_launches": n}."""
     import torch
     import torch.nn.functional as F
 
@@ -2770,8 +2879,9 @@ def decode_kernels_vs_plain(card: str, dev="cuda") -> dict:
     g = torch.Generator(device=dev).manual_seed(SEED)
     cases = [(shape, False) for shape in DECODE_SHAPES]
     cases += [(shape, True) for shape in DECODE_HOLED_SHAPES]
+    cases += [(shape, holed, True) for shape in DECODE_SPLIT_SHAPES for holed in (False, True)]
     worst = decode_cases_vs_plain(cases, g, dev)
-    res = {"err": worst, "check_launches": da.decode_cache_attention.launches}
+    res = {"err": worst, "check_launches": da.decode_cache_attention.launches, "shapes": []}
 
     # device times on a full cache (torch.profiler: a call's host work takes
     # longer than the kernel), in turns (plain, kernel, kernel, plain), with
@@ -2779,8 +2889,7 @@ def decode_kernels_vs_plain(card: str, dev="cuda") -> dict:
     # library yardstick.  Each call reads the next of enough copies of the
     # cache to fill the 50 MB L2 twice, as a decode step finds a layer's cache
     # after the other layers' have passed through it.
-    for B, key in ((8, "times"), (1, "times_b1")):
-        H, S, hd = 24, 1024, 32
+    for B, H, S, hd in DECODE_TIMED:
         q = torch.randn(B, H, hd, device=dev, generator=g).bfloat16()
         copies = -(-100_000_000 // (2 * B * H * S * hd * 2))
         caches = [[torch.randn(B, H, S, hd, device=dev, generator=g).bfloat16()
@@ -2800,14 +2909,21 @@ def decode_kernels_vs_plain(card: str, dev="cuda") -> dict:
         ev_k, ev_p, ev_l = (_time_ms(f, 50) for f in (run_k, run_p, run_l))
         keys = B * H * S
         bound = _bound(4 * hd * keys, (2 * keys * hd + 2 * B * H * hd) * 2 + B * S)
+        n = _split_n(q, S)
         del caches
         print(f"decode B={B} H={H} S={S} hd={hd} bf16, full cache ({copies} copies in turn), "
-              f"device time: kernel "
+              f"cluster of {n}, device time: kernel "
               f"{k1:.4f} / {k2:.4f} ms, plain {p1:.4f} / {p2:.4f} ms, SDPA (boolean mask) "
-              f"{lib:.4f} ms, bound {bound[0]:.4f} ms ({bound[1]}); CUDA events over 50 calls: "
+              f"{lib:.4f} ms, bound {bound[0]:.4f} ms ({bound[1]}; "
+              f"{bound[0] / ((k1 + k2) / 2):.3f} of it); CUDA events over 50 calls: "
               f"kernel {ev_k:.4f}, plain {ev_p:.4f}, SDPA {ev_l:.4f} ms ({card})")
-        res[key] = {"ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2, "bound_ms": bound[0],
-                    "bound_by": bound[1], "library_ms": lib, "event_ms": ev_k}
+        times = {"shape": [B, H, S, hd], "n": n, "ms": (k1 + k2) / 2,
+                 "plain_ms": (p1 + p2) / 2, "bound_ms": bound[0], "bound_by": bound[1],
+                 "library_ms": lib, "event_ms": ev_k}
+        res["shapes"].append(times)
+        if (H, S, hd) == (24, 1024, 32) and B in (8, 1):
+            res["times" if B == 8 else "times_b1"] = {
+                k: v for k, v in times.items() if k != "shape"}
     return res
 
 
@@ -5255,7 +5371,8 @@ def _int8_cache(B, H, S, hd, g, dev):
 
 
 def int8_decode_vs_plain(card: str, dev="cuda") -> dict:
-    """Phase 20 (a).  -> {"err", "check_launches", "times" (B=8), "times_b1"}."""
+    """Phase 20 (a).  -> {"err", "check_launches", "times" (B=8), "times_b1",
+    "shapes" (INT8_DECODE_TIMED)}."""
     import torch
 
     from neko_tpu_torch.ops import decode_attention as da
@@ -5263,18 +5380,15 @@ def int8_decode_vs_plain(card: str, dev="cuda") -> dict:
     da.decode_cache_attention_int8.launches = 0
     g = torch.Generator(device=dev).manual_seed(SEED)
     tol = KERNEL_TOL["bfloat16"]
-    worst, fault_excess = 0.0, {f: -1.0 for f in INT8_DECODE_FAULTS}
-    for B, H, S, hd in INT8_DECODE_SHAPES:
+    faults = INT8_DECODE_FAULTS + SPLIT_FAULTS
+    worst, fault_excess = 0.0, {f: -1.0 for f in faults}
+    cases = [(shape, False) for shape in INT8_DECODE_SHAPES]
+    cases += [(shape, True) for shape in INT8_DECODE_SPLIT_SHAPES]
+    for (B, H, S, hd), edges in cases:
         q = torch.randn(B, H, hd, device=dev, generator=g).bfloat16()
         cache = _int8_cache(B, H, S, hd, g, dev)
-        st, en = _decode_rows(B, S)
-        start = torch.tensor(st, dtype=torch.int32, device=dev)
-        end = torch.tensor(en, dtype=torch.int32, device=dev)
-        # a third of each window's rows cleared, its ends kept
-        mask = torch.rand(B, S, device=dev, generator=g) >= 1 / 3
-        rows = torch.arange(B, device=dev)
-        mask[rows, start.long().clamp(max=S - 1)] = True
-        mask[rows, (end.long() - 1).clamp(min=0)] = True
+        n = _split_n(q, S)
+        start, end, mask = _case_windows(B, S, n, edges, True, g, dev)
         out = da.decode_cache_attention_int8(q, *cache, start, end, mask)
         ref = plain_int8_decode(q, *cache, start, end, mask)
         torch.cuda.synchronize()
@@ -5283,23 +5397,27 @@ def int8_decode_vs_plain(card: str, dev="cuda") -> dict:
         _require(torch.all(out.masked_fill(seen, 0) == 0), "int8 decode rows without a key not 0")
         err, excess = _excess(out.float() * seen, ref.float() * seen, tol)
         worst = max(worst, err)
-        print(f"int8 decode kernel vs plain B={B} H={H} S={S} hd={hd} bf16 q, holed cache "
-              f"mask: max abs err {err:.3e} (excess over tolerance {excess:.3e})")
-        _require(excess <= 0, f"the int8 decode kernel disagrees at B={B}")
-        for f in INT8_DECODE_FAULTS:
-            bad = plain_int8_decode(q, *cache, start, end, mask, fault=f)
+        print(f"int8 decode kernel vs plain B={B} H={H} S={S} hd={hd} bf16 q, cluster of {n}, "
+              f"{'split-edge windows, ' if edges else ''}holed cache mask: max abs err "
+              f"{err:.3e} (excess over tolerance {excess:.3e})")
+        _require(excess <= 0, f"the int8 decode kernel disagrees at {B}x{H}x{S}x{hd}")
+        kq, ks, vq, vs = cache
+        for f in faults:
+            bad = (plain_int8_decode(q, *cache, start, end, mask, fault=f)
+                   if f in INT8_DECODE_FAULTS
+                   else split_decode(q, kq, vq, start, end, n, mask, (ks, vs), fault=f))
             fault_excess[f] = max(fault_excess[f], _excess(bad.float() * seen,
                                                            ref.float() * seen, tol)[1])
-    for f in INT8_DECODE_FAULTS:
+    for f in faults:
         print(f"control '{f}': largest excess over tolerance {fault_excess[f]:.3e}")
-    blind = [f for f in INT8_DECODE_FAULTS if not fault_excess[f] > 0]
+    blind = [f for f in faults if not fault_excess[f] > 0]
     _require(not blind, f"the int8 decode check cannot tell these planted faults: {blind}")
-    res = {"err": worst, "check_launches": da.decode_cache_attention_int8.launches}
+    res = {"err": worst, "check_launches": da.decode_cache_attention_int8.launches,
+           "shapes": []}
 
     # device times on a full cache, in turns, each call on the next of enough
     # copies of the cache to fill the 50 MB L2 twice (as phase 11)
-    for B, key in ((8, "times"), (1, "times_b1")):
-        H, S, hd = 24, 1024, 32
+    for B, H, S, hd in INT8_DECODE_TIMED:
         q = torch.randn(B, H, hd, device=dev, generator=g).bfloat16()
         copies = -(-100_000_000 // (2 * B * H * S * (hd + 4)))
         caches = [_int8_cache(B, H, S, hd, g, dev) for _ in range(copies)]
@@ -5316,13 +5434,20 @@ def int8_decode_vs_plain(card: str, dev="cuda") -> dict:
         keys = B * H * S
         # int8 K and V rows, their fp32 scales, q and o in bf16, the mask
         bound = _bound(4 * hd * keys, 2 * keys * hd + 2 * keys * 4 + 2 * B * H * hd * 2 + B * S)
+        n = _split_n(q, S)
         del caches
         print(f"int8 decode B={B} H={H} S={S} hd={hd}, full cache ({copies} copies in turn), "
-              f"device time: kernel {k1:.4f} / {k2:.4f} ms, plain {p1:.4f} / {p2:.4f} ms, "
-              f"bound {bound[0]:.4f} ms ({bound[1]}), no library call; CUDA events over 50 "
+              f"cluster of {n}, device time: kernel {k1:.4f} / {k2:.4f} ms, plain {p1:.4f} / "
+              f"{p2:.4f} ms, bound {bound[0]:.4f} ms ({bound[1]}; "
+              f"{bound[0] / ((k1 + k2) / 2):.3f} of it), no library call; CUDA events over 50 "
               f"calls: kernel {ev_k:.4f} ms ({card})")
-        res[key] = {"ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2, "bound_ms": bound[0],
-                    "bound_by": bound[1], "library_ms": None, "event_ms": ev_k}
+        times = {"shape": [B, H, S, hd], "n": n, "ms": (k1 + k2) / 2,
+                 "plain_ms": (p1 + p2) / 2, "bound_ms": bound[0], "bound_by": bound[1],
+                 "library_ms": None, "event_ms": ev_k}
+        res["shapes"].append(times)
+        if (H, S, hd) == (24, 1024, 32) and B in (8, 1):
+            res["times" if B == 8 else "times_b1"] = {
+                k: v for k, v in times.items() if k != "shape"}
     return res
 
 
@@ -6178,6 +6303,12 @@ def main() -> int:
               f"{spills} bytes spilled")
     _require(fwd_instances and not any(r[4] for r in fwd_instances),
              "an attention forward instance spills registers (or none was found)")
+    decode_instances = _decode_ptxas(libs)
+    for q_type, cache, hd, regs, spills in decode_instances:
+        print(f"ptxas decode attention q {q_type} cache {cache} hd {hd}: {regs} registers, "
+              f"{spills} bytes spilled")
+    _require(len(decode_instances) == 16 and not any(r[4] for r in decode_instances),
+             "a decode attention instance spills registers (or not all 16 were found)")
     err, prefill = kernel_vs_plain(
         8, 24, 1024, 32, "bfloat16",
         starts=[0, 0, 0, 0, 0, 0, 0, 300],
@@ -6336,8 +6467,10 @@ def main() -> int:
         for name, line, key in (("ring_partial_fwd", 102, "fwd"), ("ring_partial_dq", 158, "dq"),
                                 ("ring_partial_dkv", 208, "dkv"))
     ] + [
-        # decode timed at B=8, H=24, S=1024, hd=32 bf16 on a full cache; launches
-        # are the serving run's (layers x decode steps)
+        # decode timed at B=8, H=24, S=1024, hd=32 bf16 on a full cache (each
+        # of DECODE_TIMED under "shapes", with the cluster size n); launches
+        # are the serving run's (layers x decode steps); registers and spills
+        # per instance under "ptxas" (q, cache, hd, registers, spill bytes)
         {"name": "decode_cache_attention", "route": "cuda", "source": src + "decode_attention.cu",
          "replaces": "neko_tpu/ops/decode_attention.py:80",
          "launches": (decode_launches + cli["decode"] + ev["decode"] + ev["eval_decode"]
@@ -6351,12 +6484,14 @@ def main() -> int:
          "check_launches": (decode["check_launches"] + decode["generate"]["launches"]
                             + p21["decode_check_launches"]),
          "max_abs_err": max(decode["err"], wk["err"]["decode"]), **decode["times"],
-         "b1": decode["times_b1"],
+         "b1": decode["times_b1"], "shapes": decode["shapes"],
+         "ptxas": [list(r) for r in decode_instances if r[1] != "int8"],
          "generate_per_token_ms": {k: decode["generate"][k] for k in ("kernel_ms", "plain_ms")}},
         # #14 over an int8 cache (neko_tpu computes it in XLA,
         # models/transformer.py:71 `_quant_cache_attention`), timed at B=8,
-        # H=24, S=1024, hd=32 on a full cache; launches are phase 20's int8
-        # runs (layers x decode steps, both ranks of (d) counted)
+        # H=24, S=1024, hd=32 on a full cache (each of INT8_DECODE_TIMED under
+        # "shapes"); launches are phase 20's int8 runs (layers x decode steps,
+        # both ranks of (d) counted)
         {"name": "decode_cache_attention_int8", "route": "cuda",
          "source": src + "decode_attention.cu",
          "replaces": "neko_tpu/ops/decode_attention.py:80",
@@ -6365,7 +6500,8 @@ def main() -> int:
          "quant_tp_serving_launches": q20["int8_launches"] + r20["int8_launches"],
          "check_launches": p20["kernel"]["check_launches"],
          "max_abs_err": p20["kernel"]["err"], **p20["kernel"]["times"],
-         "b1": p20["kernel"]["times_b1"],
+         "b1": p20["kernel"]["times_b1"], "shapes": p20["kernel"]["shapes"],
+         "ptxas": [list(r) for r in decode_instances if r[1] == "int8"],
          "generate_per_token_ms": {"int8": q20["int8"]["token_ms"],
                                    "native": q20["int8"]["native_token_ms"]}},
         # the loss head timed at the first [4096, 768] chunk of the flagship

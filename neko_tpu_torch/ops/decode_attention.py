@@ -40,6 +40,18 @@ writes the new row in place before the call).
   hd in {16, 32, 64, 128} and the wrapper zero-pads any other hd to the next
   of them (sm_scale from the true hd), on every device.  The 128-multiple S
   and the VMEM cap of the TPU kernel do not bind a CUDA kernel.
+* The kernel splits each (b, h) window over a cluster of `n` blocks
+  (`split_count(B, H, S, sms)`, from the shapes and the SM count alone: the
+  host never reads `start` / `end`).  Each block takes its share
+  `split_bounds(start, end, n)` of the window (the formula the kernel
+  computes on the device), keeps a partial (m, l, acc), and the cluster's
+  rank 0 merges them.  `decode_cache_attention_split_reference` is that
+  split and merge in plain torch (over an int8 cache with `scales`).
+* Layouts the kernel takes (`_check` raises on others): hd contiguous, each
+  (b, h)'s rows one contiguous run (row stride hd), rows 16-byte aligned;
+  the int8 row scales with rows starting on 16 bytes (the wrapper copies
+  scales whose rows do not, an S that is no multiple of 4, into rows that
+  do).
 
 On the TPU the kernel lost to XLA's two einsums on the v5e's DMA stream rate
 and was never wired in; the port's decode step runs it on every layer of
@@ -49,6 +61,7 @@ every generated token.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional
 
 import torch
@@ -123,6 +136,80 @@ def decode_cache_attention_reference(q, k_cache, v_cache, start, end, sm_scale=N
     return out.masked_fill(~ok.any(dim=-1)[:, :, 0, None], 0).to(q.dtype)
 
 
+# a (b, h) window is split over at most a portable cluster of blocks, each
+# taking no fewer than MIN_SHARE_ROWS rows at the cache's capacity
+MAX_SPLIT = 8
+MIN_SHARE_ROWS = 128
+_NEG = -1e30
+
+
+def split_count(B: int, H: int, S: int, sms: int) -> int:
+    """Blocks (one cluster) the kernel splits each (b, h) window over, from
+    the shapes and the card's SM count alone: the least power of two that
+    gives every SM a block over the B * H windows, at most MAX_SPLIT, at
+    most S // MIN_SHARE_ROWS, at least 1.  Past one block an SM a split only
+    adds blocks, a cluster barrier and a merge (PERF.md, PR 17: 2 blocks a
+    window at B = 8, H = 24, S = 1024 took 0.0125 ms against 1's 0.0117)."""
+    want = 1
+    while want < MAX_SPLIT and want * B * H < sms:
+        want *= 2
+    return max(1, min(want, S // MIN_SHARE_ROWS))
+
+
+def split_bounds(start: torch.Tensor, end: torch.Tensor, n: int):
+    """Each block's share of the window: (lo, hi), int [B, n]; rank r takes
+    the rows lo[:, r] <= j < hi[:, r].  start, end: int [B], the window
+    clamped to the cache (max(start, 0), min(end, S)), as the kernel clamps
+    it.  The shares cover the window once, in order, ceil(len / n) rows each
+    but the last; a share is empty where the window is shorter than n, and
+    every share is where start >= end.  The kernel computes this formula on
+    the device (`csrc/decode_attention.cu` `share`)."""
+    length = (end - start).clamp(min=0)[:, None]
+    chunk = (length + n - 1) // n
+    r = torch.arange(n, device=start.device, dtype=start.dtype)[None, :]
+    return (start[:, None] + torch.minimum(r * chunk, length),
+            start[:, None] + torch.minimum((r + 1) * chunk, length))
+
+
+def window_partials(q, k_cache, v_cache, lo, hi, key_mask=None, sm_scale=None, scales=None):
+    """One block's partial over its share: the rows lo[b] <= j < hi[b] that
+    `key_mask` keeps, in fp32 as the kernel keeps it.  -> (m [B, H], the
+    largest score, -1e30 where no row; l [B, H], the sum of p = exp(s - m);
+    acc [B, H, hd], the sum of p * v).  `scales` (k_scale, v_scale): int8
+    rows, the scores times k_scale[j], p times v_scale[j] in the sum."""
+    if sm_scale is None:
+        sm_scale = q.shape[-1] ** -0.5
+    ok = key_window(k_cache.shape[2], lo, hi, key_mask)[:, :, 0]  # [B, 1, S]
+    s = torch.einsum("bhd,bhsd->bhs", q.float(), k_cache.float()) * sm_scale
+    if scales is not None:
+        s = s * scales[0]
+    s = s.masked_fill(~ok, _NEG)
+    m = s.amax(dim=-1)
+    p = torch.exp(s - m[..., None]) * ok
+    pv = p if scales is None else p * scales[1]
+    return m, p.sum(dim=-1), torch.einsum("bhs,bhsd->bhd", pv, v_cache.float())
+
+
+def merge_partials(parts, dtype):
+    """The blocks' partials merged as the cluster's rank 0 merges them: each
+    rescaled by exp(m_r - max m) -> [B, H, hd] in `dtype`, 0 where no key."""
+    m, l, acc = (torch.stack(x) for x in zip(*parts))
+    c = torch.exp(m - m.amax(dim=0))
+    l, acc = (l * c).sum(dim=0), (acc * c[..., None]).sum(dim=0)
+    return torch.where(l[..., None] > 0, acc / torch.where(l > 0, l, 1)[..., None],
+                       0).to(dtype)
+
+
+def decode_cache_attention_split_reference(q, k_cache, v_cache, start, end, n: int,
+                                           sm_scale=None, key_mask=None, scales=None):
+    """The kernel's split in plain torch: the window cut by `split_bounds`
+    into n shares, a partial each, merged.  `scales` (k_scale, v_scale):
+    the int8 instance.  -> [B, H, hd] in q's dtype."""
+    lo, hi = split_bounds(start.clamp(min=0), end.clamp(max=k_cache.shape[2]), n)
+    return merge_partials([window_partials(q, k_cache, v_cache, lo[:, r], hi[:, r], key_mask,
+                                           sm_scale, scales) for r in range(n)], q.dtype)
+
+
 class _View(ctypes.Structure):
     """csrc/decode_attention.cu `View`: pointer and (batch, head, row) strides
     in elements; hd is contiguous."""
@@ -137,7 +224,8 @@ class _Args(ctypes.Structure):
                 ("mask", ctypes.c_void_p), ("mask_sb", ctypes.c_longlong),
                 ("B", ctypes.c_int), ("H", ctypes.c_int), ("S", ctypes.c_int),
                 ("D", ctypes.c_int), ("dtype", ctypes.c_int), ("sm_scale", ctypes.c_float),
-                ("int8_cache", ctypes.c_int), ("ks", _View), ("vs", _View)]
+                ("int8_cache", ctypes.c_int), ("ks", _View), ("vs", _View),
+                ("n_split", ctypes.c_int)]
 
 
 def _view(t: torch.Tensor) -> _View:
@@ -163,16 +251,23 @@ def _check(q, k_cache, v_cache, start, end, key_mask, scales=None) -> None:
     if not (supported(B, H, S, hd) and hd in KERNEL_HEAD_DIMS):
         raise ValueError(f"no kernel for B={B}, H={H}, S={S}, hd={hd}: hd in "
                          f"{KERNEL_HEAD_DIMS} (the wrapper pads any hd <= {whk.MAX_HEAD_DIM})")
-    # the kernel loads 16 bytes of a cache row at a time, and as many
-    # columns of q
+    # q is read 16 bytes at a time; each (b, h)'s cache rows are one bulk
+    # copy (one contiguous run, on 16 bytes)
     vec = 16 // k_cache.element_size()
     for name, t in (("q", q), ("k_cache", k_cache), ("v_cache", v_cache)):
         if t.stride(-1) != 1 or t.data_ptr() % 16 or any(s % vec for s in t.stride()[:-1]):
             raise ValueError(f"{name}: hd must be contiguous and rows 16-byte aligned")
+    for name, t in (("k_cache", k_cache), ("v_cache", v_cache)):
+        if t.stride(2) != hd:
+            raise ValueError(f"{name}: the rows of each (b, h) must be one contiguous run "
+                             f"(row stride {hd}), got strides {t.stride()}")
+    # a tile's scale slice starts on a multiple of 4 rows: one bulk copy
     for name, t in zip(("k_scale", "v_scale"), scales or ()):
         if t.dtype != torch.float32 or t.shape != (B, H, S) or t.stride(-1) != 1:
             raise ValueError(f"{name} must be fp32 [{B}, {H}, {S}] with contiguous rows, "
                              f"got {t.dtype} {tuple(t.shape)}")
+        if not _rows_aligned(t):
+            raise ValueError(f"{name}: rows must start on 16 bytes, got strides {t.stride()}")
         if t.device != q.device:
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
     for name, t in (("start", start), ("end", end)):
@@ -235,10 +330,38 @@ def decode_cache_attention_int8(q, k_q, k_scale, v_q, v_scale, start, end, key_m
                                                      end, sm_scale, key_mask)
     if q.device.type != "cuda":
         raise ValueError(f"no decode_cache_attention_int8 for device {q.device}")
+    k_scale, v_scale = _aligned_rows(k_scale), _aligned_rows(v_scale)
     _check(q, k_q, v_q, start, end, key_mask, scales=(k_scale, v_scale))
     out = _launch(q, k_q, v_q, start, end, key_mask, sm_scale, (k_scale, v_scale))
     decode_cache_attention_int8.launches += 1
     return out
+
+
+def _rows_aligned(t: torch.Tensor) -> bool:
+    return t.data_ptr() % 16 == 0 and t.stride(0) % 4 == 0 and t.stride(1) % 4 == 0
+
+
+def _aligned_rows(t: torch.Tensor) -> torch.Tensor:
+    """fp32 scales [B, H, S] whose rows start on 16 bytes: t itself, or (an S
+    that is no multiple of 4) a view of a copy with rows padded to one."""
+    if t.dim() != 3 or t.stride(-1) != 1 or _rows_aligned(t):
+        return t  # `_check` names what is wrong with a malformed t
+    B, H, S = t.shape
+    out = t.new_zeros(B, H, -(-S // 4) * 4)
+    out[..., :S] = t
+    return out[..., :S]
+
+
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def kernel_split(q: torch.Tensor, S: int) -> int:
+    """The cluster size the kernel takes for q [B, H, hd] on its card over a
+    cache of capacity S."""
+    B, H, _ = q.shape
+    return split_count(B, H, S, _sm_count(q.device.index))
 
 
 def _launch(q, k_cache, v_cache, start, end, key_mask, sm_scale, scales=None):
@@ -252,7 +375,8 @@ def _launch(q, k_cache, v_cache, start, end, key_mask, sm_scale, scales=None):
                  mask=None if key_mask is None else key_mask.data_ptr(),
                  mask_sb=0 if key_mask is None else key_mask.stride(0), B=B, H=H, S=S, D=hd,
                  dtype=_KERNEL_DTYPES[q.dtype], sm_scale=float(sm_scale),
-                 int8_cache=int(scales is not None), ks=ks, vs=vs)
+                 int8_cache=int(scales is not None), ks=ks, vs=vs,
+                 n_split=kernel_split(q, S))
     from neko_tpu_torch.ops.cuda_build import load_library
 
     fn = load_library("decode_attention").decode_cache_attention
@@ -264,7 +388,8 @@ def _launch(q, k_cache, v_cache, start, end, key_mask, sm_scale, scales=None):
     if err != 0:
         cache = "int8" if scales is not None else str(q.dtype)
         raise RuntimeError(f"decode_cache_attention kernel launch failed: cudaError_t {err} "
-                           f"(B={B}, H={H}, S={S}, hd={hd}, {q.dtype}, {cache} cache)")
+                           f"(B={B}, H={H}, S={S}, hd={hd}, {q.dtype}, {cache} cache, "
+                           f"cluster of {args.n_split})")
     return out
 
 

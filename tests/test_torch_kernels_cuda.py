@@ -1,4 +1,5 @@
-"""The decode-attention (#14, over a native and an int8 cache), fused
+"""The decode-attention (#14, over a native and an int8 cache, split over a
+thread-block cluster), fused
 loss-head (#15), fused AdamW (#16) and dropout-mask (#5/#10) CUDA kernels
 against their plain torch versions on the card.
 
@@ -119,6 +120,60 @@ def test_decode_int8_kernel_matches_plain(cuda, B, H, S, hd, dtype):
     unscaled = da.decode_cache_attention_int8_reference(q, kq, torch.ones_like(ks), vq, vs,
                                                         start, end, key_mask=mask)
     assert (out.float() - unscaled.float()).abs().max() > 2 * atol  # the key scales count
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,S,hd,dtype,int8", [
+    (8, 1, 1024, 32, torch.bfloat16, False),   # 8 windows: a cluster of 8 blocks on an H100
+    (8, 6, 1024, 128, torch.float32, False),   # 48 windows: 4
+    (8, 12, 2048, 16, torch.bfloat16, False),  # 96: 2
+    (8, 24, 8192, 32, torch.bfloat16, False),  # 192: one block, a long cache
+    (1, 24, 8192, 32, torch.bfloat16, False),  # 8 over a long cache
+    (8, 1, 1024, 32, torch.bfloat16, True),
+    (8, 6, 1002, 64, torch.float32, True),     # S no multiple of 4: the scale rows padded
+    (1, 24, 8192, 32, torch.bfloat16, True),
+])
+def test_decode_split_edges_match_plain(cuda, B, H, S, hd, dtype, int8):
+    """Windows on and across the edges of the split: shorter than the
+    cluster, exactly as long, one key, no key (empty, start > end), a start
+    no multiple of 4 (with the second share cleared from the mask), 3n + 1
+    rows, n + 1 rows across a 4-row boundary; against the plain version and
+    the plain split; one launch a call on the instance's own counter."""
+    g = torch.Generator(device=cuda).manual_seed(S + hd + B)
+    q = torch.randn(B, H, hd, device=cuda, generator=g).to(dtype)
+    n = da.kernel_split(q, S)
+    st = [37, 100, 515, 700, 5, 2, 900, 126]
+    en = [37 + max(n - 1, 1), 100 + n, 516, 700, S - 3, 2 + 3 * n + 1, 300, 126 + n + 1]
+    start = torch.tensor(st[:B] if B > 1 else [5], dtype=torch.int32, device=cuda)
+    end = torch.tensor(en[:B] if B > 1 else [S - 3], dtype=torch.int32, device=cuda)
+    mask = torch.rand(B, S, device=cuda, generator=g) < 0.7
+    mask[torch.arange(B, device=cuda), start.long().clamp(max=S - 1)] = True
+    lo, hi = da.split_bounds(start.clamp(min=0), end.clamp(max=S), n)
+    row = min(4, B - 1)
+    if n > 1:
+        mask[row, int(lo[row, 1]):int(hi[row, 1])] = False  # a whole share cleared
+    counters = (da.decode_cache_attention, da.decode_cache_attention_int8)
+    before = [c.launches for c in counters]
+    if int8:
+        kq, ks = da.quant_rows(torch.randn(B, H, S, hd, device=cuda, generator=g) * 2)
+        vq, vs = da.quant_rows(torch.randn(B, H, S, hd, device=cuda, generator=g))
+        args = (q, kq, ks, vq, vs, start, end)
+        out = da.decode_cache_attention_int8(*args, mask)
+        ref = da.decode_cache_attention_int8_reference(*args, key_mask=mask)
+        split = da.decode_cache_attention_split_reference(q, kq, vq, start, end, n, key_mask=mask,
+                                                          scales=(ks, vs))
+    else:
+        k, v = (torch.randn(B, H, S, hd, device=cuda, generator=g).to(dtype) for _ in range(2))
+        out = da.decode_cache_attention(q, k, v, start, end, mask)
+        ref = da.decode_cache_attention_reference(q, k, v, start, end, key_mask=mask)
+        split = da.decode_cache_attention_split_reference(q, k, v, start, end, n, key_mask=mask)
+    torch.cuda.synchronize()
+    assert [c.launches - b for c, b in zip(counters, before)] == ([0, 1] if int8 else [1, 0])
+    assert torch.isfinite(out).all()
+    assert torch.all(out[start >= end] == 0)
+    atol, rtol = DECODE_TOL[dtype]
+    torch.testing.assert_close(out.float(), ref.float(), atol=atol, rtol=rtol)
+    torch.testing.assert_close(out.float(), split.float(), atol=atol, rtol=rtol)
 
 
 @pytest.mark.cuda

@@ -16,6 +16,14 @@ per-pair forward, dq and dkv on a full (past) pair of the k = 8192 shards
 hd=32, no dropout) and the decode step (B=8, H=24, S=1024, hd=32, a full
 cache; device time from torch.profiler, as a call's host work outlasts the
 kernel).  Run it as parent, change, change, parent.
+
+    python tools/time_attention_kernels.py --decode [--repo DIR]
+
+times the decode kernel #14 alone, at DECODE_SHAPES (bf16 and int8 caches,
+a full cache, bf16 queries): device ms per call from torch.profiler, each
+call on the next of enough copies of the cache to exceed the 50 MB L2
+twice, with the bound (bytes / 3.35 TB/s: K, V, int8 scales, q, o, mask)
+and, where the checkout has `kernel_split`, the cluster size it used.
 """
 
 from __future__ import annotations
@@ -60,9 +68,49 @@ def _device_ms(fn, iters: int = 50) -> float:
     return busy / 1e3 / iters
 
 
+# (cache, B, H, S, hd) timed by --decode
+DECODE_SHAPES = (("bf16", 8, 24, 1024, 32), ("bf16", 1, 24, 1024, 32), ("bf16", 1, 24, 8192, 32),
+                 ("bf16", 8, 24, 8192, 32), ("bf16", 8, 12, 1024, 64), ("int8", 8, 24, 1024, 32),
+                 ("int8", 1, 24, 1024, 32), ("int8", 1, 24, 8192, 32))
+
+
+def decode_ms(da, dev, g) -> dict:
+    """{"<cache> B,H,S,hd": {"ms", "bound_ms", "n"}} at DECODE_SHAPES."""
+    import itertools
+
+    import torch
+
+    out = {}
+    for cache, B, H, S, hd in DECODE_SHAPES:
+        int8 = cache == "int8"
+        q = torch.randn(B, H, hd, device=dev, generator=g).bfloat16()
+        row = hd + 4 if int8 else 2 * hd  # cache bytes a row of K or V (int8: and its scale)
+        copies = -(-100_000_000 // (2 * B * H * S * row))
+        make = (lambda: da.quant_rows(torch.randn(B, H, S, hd, device=dev, generator=g))) \
+            if int8 else (lambda: (torch.randn(B, H, S, hd, device=dev, generator=g).bfloat16(),))
+        caches = [[*make(), *make()] for _ in range(copies)]
+        turn = itertools.cycle(caches)
+        start = torch.zeros(B, dtype=torch.int32, device=dev)
+        end = torch.full((B,), S, dtype=torch.int32, device=dev)
+        valid = torch.ones(B, S, dtype=torch.bool, device=dev)
+        if int8:
+            ms = _device_ms(lambda: da.decode_cache_attention_int8(q, *next(turn), start, end,
+                                                                   valid))
+        else:
+            ms = _device_ms(lambda: da.decode_cache_attention(q, *next(turn), start, end, valid))
+        del caches
+        nbytes = 2 * B * H * S * row + 2 * B * H * hd * 2 + B * S
+        entry = {"ms": ms, "bound_ms": nbytes / 3.35e9}
+        if hasattr(da, "kernel_split"):
+            entry["n"] = da.kernel_split(q, S)
+        out[f"{cache} {B},{H},{S},{hd}"] = entry
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--repo", default=str(Path(__file__).resolve().parents[1]))
+    ap.add_argument("--decode", action="store_true", help="time the decode kernel #14 alone")
     args = ap.parse_args(argv)
     sys.path.insert(0, str(Path(args.repo).resolve()))
     import torch
@@ -75,9 +123,15 @@ def main(argv=None) -> int:
     from neko_tpu_torch.ops import blocked_attention as ba
     from neko_tpu_torch.ops import cuda_build
 
-    cuda_build.build_all()
     dev, rate = torch.device("cuda"), 0.1
     g = torch.Generator(device=dev).manual_seed(0)
+    if args.decode:
+        from neko_tpu_torch.ops import decode_attention as da
+
+        cuda_build.build("decode_attention")
+        print(json.dumps({"repo": args.repo, "card": card(), "decode": decode_ms(da, dev, g)}))
+        return 0
+    cuda_build.build_all()
     seed = torch.tensor([7], dtype=torch.int32, device=dev)
     ms = {}
 
