@@ -217,8 +217,8 @@
    block of the vocabulary (26,240 columns, 26,240 and 26,065 valid) with
    targets of both blocks, #16 over a rank's shards of the flagship tree
    under (data=2, fsdp), bit for bit.  Then tools/check_torch_parallel_ranks.py
-   (one spawn of 2 ranks) at the flagship width on the root bench's 16 rows,
-   3 steps, dropout 0: (data=2), (data=2, fsdp, fused_adamw) and (model=2)
+   (one spawn of 2 ranks) at the flagship width cut to RANK_WIDTH's 2 layers
+   on the root bench's 16 rows, 3 steps, dropout 0: (data=2), (data=2, fsdp, fused_adamw) and (model=2)
    against the same steps in one process on the whole batch (losses,
    gathered parameters, the clip's global norm: PARALLEL_LOSS_TOL,
    PARALLEL_PARAM_TOL, PARALLEL_NORM_TOL), with the planted "mean of local
@@ -230,9 +230,10 @@
    steps under fused_adamw; step ms, collective ms / bytes / calls per step,
    peak and resting memory per rank.  Then `python -m
    neko_tpu_torch.cli.train --multihost --mesh_model_axis 2` in 2 spawned
-   processes given torchrun's environment: 10 steps, an evaluation on rank
-   0 (#1, #14) and a checkpoint, which one process restores to the
-   parameters the ranks gathered, bit for bit (`parallel_launches`).
+   processes given torchrun's environment (2 layers): RANK_CLI_STEPS steps,
+   an evaluation on rank 0 (#1, #14) and a checkpoint, which one process
+   restores to the parameters the ranks gathered, bit for bit
+   (`parallel_launches`).
 
 19. The rest of training over processes: 'seq' over the ranks and the
    pipeline, two ranks on the one card over gloo again (the ring's kv
@@ -244,12 +245,13 @@
    microbatch of 4 rows, #15 on 1F1B's 1,024-row chunk of a microbatch, #16
    over stage 0's leaves, bit for bit.  Then through the tool, 3 steps at
    lr 1e-3 each, against one process (limits PARALLEL_*_TOL["seq"] and
-   ["pipe"]): (a) SEQ_RANK_RUNS, seq=2 at k = 8192 (the flagship width at 2
-   rows, S_local 4096) against the one-device seq=2 mesh, through the
+   ["pipe"]): (a) SEQ_RANK_RUNS, seq=2 at k = 8192 (RANK_WIDTH: the flagship
+   width at 2 layers, 2 rows, S_local 4096) against the one-device seq=2 mesh, through the
    gathered and the chunked loss and at dropout 0.1, the planted "gradients
    not summed over 'seq'", "boundary target dropped" and "seq peers share a
    mask" outside the limits; ring launches a step rank 0 layers x 1 pair,
-   rank 1 layers x 2.  (b) PIPE_RUNS, pipe=2 on the root bench's 16 rows:
+   rank 1 layers x 2.  (b) PIPE_RUNS, pipe=2 at the flagship width (6
+   layers, 3 a stage) on the root bench's 16 rows:
    GPipe and 1F1B at 4 and 8 microbatches (1F1B also with fused_adamw),
    GPipe against 1F1B at dropout 0.1 (PIPE_SCHEDULE_TOL) and the
    microbatches' own masks, the planted "clip norm from the stage's own
@@ -257,9 +259,9 @@
    means" and "every microbatch shares one mask" seen; the activations a
    stage holds (1F1B's below GPipe's, not growing with the microbatches);
    a stage's resting bytes against the count from the shapes.  Then the
-   train CLI over 2 ranks with `--mesh_seq_axis 2` and with
-   `--mesh_pipe_axis 2 --pipeline_schedule 1f1b`: 10 steps, rank 0's
-   evaluation, a checkpoint one process restores bit for bit
+   train CLI over 2 ranks (2 layers) with `--mesh_seq_axis 2` and with
+   `--mesh_pipe_axis 2 --pipeline_schedule 1f1b`: RANK_CLI_STEPS steps, rank
+   0's evaluation, a checkpoint one process restores bit for bit
    (`seq_ranks_launches`, `pipeline_launches`).
 20. Quantized and tensor-parallel serving.  (a) #14's int8 instance (int8
    cache rows, fp32 row scales) against its plain version at B=8 and B=1
@@ -794,10 +796,22 @@ PARALLEL_PEER_TOL = 1e-4
 # the per-rank kernel shapes: #3 / #4 at (data=2) and at (model=2); #15 on
 # each rank's block of the vocabulary (52,480 / 2 columns, 52,305 valid)
 PARALLEL_ATTN = ((8, 24), (16, 12))
-# the train CLI over 2 ranks with --mesh_model_axis 2: 10 steps, an
-# evaluation and a checkpoint at step 10, restored in one process
-PARALLEL_CLI = [a for a in TRAIN_CLI] + ["--training_steps", "10", "--log_eval_freq", "10",
-                                         "--mesh_model_axis", "2"]
+# phases 18 and 19 (a) run their rank configurations at RANK_WIDTH, the
+# flagship width cut to 2 layers in the tool (the run's time limit leaves
+# room for no more: over gloo a step's collectives and hops go through host
+# memory, layer by layer), and the train CLI over 2 ranks (phases 18, 19;
+# --mesh_model_axis 2 here) at 2 layers: RANK_CLI_STEPS steps, an evaluation
+# and a checkpoint at the last step, restored in one process.  At 2 layers
+# every planted fault of PARALLEL_RUNS and SEQ_RANK_RUNS still exceeds a
+# limit (the faintest: "boundary target dropped", param_err 2.667e-2
+# against 0.018), and every sound run lies within them (NVIDIA H100 80GB
+# HBM3, 700.00 W).  The pipeline's configurations stay at 6 layers: 2 would
+# not shorten them.
+RANK_WIDTH = "flagship2"
+RANK_CLI_STEPS = 4
+RANK_CLI = [a if prev != "--layers" else "2" for prev, a in zip([None] + TRAIN_CLI, TRAIN_CLI)]
+RANK_CLI += ["--training_steps", str(RANK_CLI_STEPS), "--log_eval_freq", str(RANK_CLI_STEPS)]
+PARALLEL_CLI = RANK_CLI + ["--mesh_model_axis", "2"]
 # phase 19: the rest of training over processes, two ranks on the one card
 # over gloo again (kv blocks and pipeline hops through pinned host buffers,
 # gloo's point-to-point taking host memory only), bf16 over fp32, 3 steps
@@ -857,10 +871,8 @@ PIPE_SCHEDULE_TOL = 1e-3
 SEQ_RING = (2, 24, 4096, 32)
 PIPE_ATTN = ((4, 24),)
 PIPE_LOSS_ROWS = 4 * 256
-SEQ_RANK_CLI = [a for a in TRAIN_CLI] + ["--training_steps", "10", "--log_eval_freq", "10",
-                                         "--mesh_seq_axis", "2"]
-PIPE_CLI = [a for a in TRAIN_CLI] + ["--training_steps", "10", "--log_eval_freq", "10",
-                                     "--mesh_pipe_axis", "2", "--pipeline_schedule", "1f1b"]
+SEQ_RANK_CLI = RANK_CLI + ["--mesh_seq_axis", "2"]
+PIPE_CLI = RANK_CLI + ["--mesh_pipe_axis", "2", "--pipeline_schedule", "1f1b"]
 # phase 20: quantized and tensor-parallel serving.  (a) #14's int8 path
 # against its plain version at the flagship decode shapes (bf16 queries,
 # int8 rows with fp32 row scales; `_decode_rows`' windows, a third of each
@@ -971,6 +983,59 @@ WIDE_DECODE_FAULTS = ("newest key excluded", "cache mask ignored")
 # (e) the two example walkthroughs run on the card at their default width
 # (64d / 2 layers / 4 heads, k = 128) for this many steps
 EXAMPLE_STEPS = 4
+# phase 22: the VQ image tokenizer, the world model and the ring at hd 256.
+# (a) the VQ at tools/train_vq.py's defaults (K = 512, D = 64, hidden 64,
+# batch 32, lr 3e-4, VQ_STEPS steps) on the frames of VQ_EPISODES episodes
+# of the synthetic image env (16x16).  The card's codes of every frame
+# against the CPU's fp32 codes on the same weights: the share that agree
+# must reach VQ_CODE_AGREE_MIN (the module runs fp32 with TF32 off, so only
+# a near tie can flip).  The card's encoder output and decoded images on an
+# odd-sized input (VQ_ODD) against a plain copy of the module written here
+# (fp32 on the CPU: lax's SAME padding by hand, the transposed convolution
+# as a correlation over the input dilated by 2) within VQ_OUT_TOL, with
+# VQ_FAULTS planted in the copy outside it (a shape that differs counts as
+# an infinite error).  The reconstruction MSE of the last 20 steps must fall
+# to VQ_MSE_DROP of the first step's.
+VQ_STEPS = 400
+VQ_EPISODES = 32
+VQ_ODD = (4, 7, 13)
+VQ_CODE_AGREE_MIN = 0.99
+VQ_OUT_TOL = 1e-4
+VQ_FAULTS = ("transpose kernel not flipped", "SAME padding made symmetric")
+VQ_MSE_DROP = 0.5
+# (b) the world model at the flagship width (768d / 6 layers / 24 heads,
+# k = 1024, bf16, dropout 0.1, fused AdamW) trained on (a)'s codes with
+# --observation_loss through the Trainer for WORLD_STEPS steps of 16 rows;
+# then `Generator.imagine` of WORLD_DREAM["frames"] frames after
+# WORLD_DREAM["history"] real timesteps.  Its first frame's window logits
+# (16 codes, each step restricted to the 512 codes) are held against the
+# same generate_batch call through the plain prefill and decode attention,
+# fed the kernel run's codes, under DECODE_LOGIT_TOL.  Both read the logits
+# out of the model's bf16 hidden states in fp32 (`fp32_head`): the trained
+# world model's logits reach |x| >= 4, where the bf16 head's own rounding
+# step (1/32 there, 1/16 from 8) would decide the reading (the first card
+# run, bf16 head: 3.125e-2, one such step).
+WORLD_STEPS = 4
+WORLD_ROWS = 16
+WORLD_DREAM = dict(history=6, frames=3)
+# (c) the ring at hd 256 (WIDE: 768d / 3 heads / 6 layers) at k = 8192 over
+# SEQ shards on the one card (the ring's plain pair steps; no kernel), one
+# train step at dropout 0 on WIDE_RING_ROWS text rows (a full one and a
+# shorter one), against the same step without a 'seq' axis (plain attention
+# at hd 256): the loss within WIDE_RING_LOSS_TOL, every gradient's relative
+# L2 error within WIDE_RING_GRAD_TOL, with WIDE_RING_FAULTS planted in the
+# ring's schedule (ring_planted) outside them; one step at dropout 0.1 (the
+# seed's Philox mask, a window a pair) finite; no attention kernel launched.
+# On an H100 (NVIDIA H100 80GB HBM3, 700.00 W) the sound step read a loss
+# difference of 9.537e-6 and a gradient error of 4.572e-3; "farthest kv
+# block skipped" 8.297e-5 and 4.980e-2, "running-max rescale dropped in the
+# merge" 1.669e-4 and 7.293e-2.  Each limit lies near the geometric mean of
+# its sound reading and its faintest fault.
+WIDE_RING_CONTEXT = 8192
+WIDE_RING_ROWS = (8192, 5000)
+WIDE_RING_LOSS_TOL = 2.8e-5
+WIDE_RING_GRAD_TOL = 1.5e-2
+WIDE_RING_FAULTS = ("farthest kv block skipped", "running-max rescale dropped in the merge")
 
 
 def _require(ok, what) -> None:
@@ -5119,8 +5184,8 @@ def _parallel_runs(card: str, runs=PARALLEL_RUNS, phase=18, width="flagship", de
 
 def _parallel_cli(card: str, workdir, argv=None, dev="cuda", mesh=None) -> dict:
     """The train CLI over 2 ranks (torchrun's environment given to each;
-    by default `--multihost --mesh_model_axis 2`): 10 steps, an evaluation
-    and a checkpoint on rank 0; the checkpoint restored in one process holds
+    by default `--multihost --mesh_model_axis 2`): RANK_CLI_STEPS steps, an
+    evaluation and a checkpoint on rank 0; the checkpoint restored in one process holds
     the parameters the ranks gathered, bit for bit.  -> the CLI's launches
     summed over the ranks."""
     import torch
@@ -5144,22 +5209,25 @@ def _parallel_cli(card: str, workdir, argv=None, dev="cuda", mesh=None) -> dict:
     print(f"train CLI over 2 ranks (--multihost {flags}, gloo on the card): "
           f"{ranks[0]['steps']} steps in {wall:.1f} s of wall time, train loss mean "
           f"{logs[-1]['training/train_loss_mean']:.4f}, step time "
-          f"{logs[-1]['time/training'] / 10 * 1e3:.1f} ms; evaluation {evals}; launches "
+          f"{logs[-1]['time/training'] / RANK_CLI_STEPS * 1e3:.1f} ms; evaluation {evals}; "
+          f"launches "
           f"{[r['launches'] for r in ranks]} ({card})")
     _require(evals and all(np.isfinite(v) for v in evals.values()),
              f"the CLI's evaluation is missing or not finite: {evals}")
-    _require(all(r["steps"] == 10 and r["mesh"] == mesh for r in ranks),
-             f"the CLI ranks did not train 10 steps over {mesh}: {ranks}")
+    _require(all(r["steps"] == RANK_CLI_STEPS and r["mesh"] == mesh for r in ranks),
+             f"the CLI ranks did not train {RANK_CLI_STEPS} steps over {mesh}: {ranks}")
     for r in ranks:
-        _require(dev == "cpu" or r["launches"]["loss"] >= 10 * (mesh.get("pipe", 1) == 1)
-                 and (r["launches"]["bwd"] == layers * 10 if mesh.get("model", 1) > 1 else True)
+        _require(dev == "cpu"
+                 or r["launches"]["loss"] >= RANK_CLI_STEPS * (mesh.get("pipe", 1) == 1)
+                 and (r["launches"]["bwd"] == layers * RANK_CLI_STEPS if mesh.get("model", 1) > 1
+                      else True)
                  and (r["launches"]["ring_dkv"] > 0 if mesh.get("seq", 1) > 1 else True)
                  and (r["launches"]["bwd"] > 0 if mesh.get("pipe", 1) > 1 else True),
                  f"CLI rank launches {r['launches']}")
     _require(dev == "cpu" or (ranks[0]["launches"]["decode"] > 0
                               and ranks[1]["launches"]["decode"] == 0
                               and ranks[0]["launches"]["fwd"] > ranks[1]["launches"]["fwd"]
-                              and (ranks[1]["launches"]["fwd"] == layers * 10
+                              and (ranks[1]["launches"]["fwd"] == layers * RANK_CLI_STEPS
                                    if mesh.get("model", 1) > 1 else True)),
              "the evaluation did not run on rank 0 alone")
     ckpt, args = resolve_checkpoint_and_args(exp, {"cpu": dev == "cpu", "device": dev})
@@ -5169,7 +5237,7 @@ def _parallel_cli(card: str, workdir, argv=None, dev="cuda", mesh=None) -> dict:
     diff = max(float((got[k].detach().cpu() - v).abs().max()) for k, v in final.items())
     print(f"checkpoint {ckpt} restored in one process: step {state.step}, mesh "
           f"{ctx.mesh}, largest difference from the ranks' gathered parameters {diff:.1e}")
-    _require(state.step == 10 and ctx.mesh is None and diff == 0.0,
+    _require(state.step == RANK_CLI_STEPS and ctx.mesh is None and diff == 0.0,
              "the one-process restore differs from the ranks' parameters")
     del state, final
     torch.cuda.empty_cache()
@@ -5181,7 +5249,7 @@ def parallel_train(card: str, workdir) -> dict:
     the main path's launches (the sound runs and the CLI, over the ranks)}."""
     sys.path.insert(0, str(Path(__file__).resolve().parent / "tools"))
     kernels = parallel_kernels_vs_plain(card)
-    runs = _parallel_runs(card)
+    runs = _parallel_runs(card, width=RANK_WIDTH)
     cli = _parallel_cli(card, workdir)
     launches = {k: runs["launches"].get(k, 0) + cli.get(k, 0)
                 for k in ("fwd", "bwd", "loss", "adamw", "decode")}
@@ -5304,7 +5372,7 @@ def pipeline_seq_train(card: str, workdir) -> dict:
     over the ranks), "readings"}."""
     sys.path.insert(0, str(Path(__file__).resolve().parent / "tools"))
     kernels = pipeline_seq_kernels_vs_plain(card)
-    seq = _parallel_runs(card, SEQ_RANK_RUNS, phase=19)
+    seq = _parallel_runs(card, SEQ_RANK_RUNS, phase=19, width=RANK_WIDTH)
     pipe = _parallel_runs(card, PIPE_RUNS, phase=19)
     pipe["schedules"] = _pipe_memory_and_schedules(pipe["results"], card)
     keys = ("fwd", "bwd", "loss", "adamw", "decode", "ring_fwd", "ring_dq", "ring_dkv")
@@ -6270,12 +6338,347 @@ def weights_in_and_out(card: str, workdir: Path, dev="cuda") -> dict:
             "decode_check_launches": decode_checks, "readings": readings}
 
 
+# ------------------------- phase 22: VQ tokenizer, world model, wide ring
+def plain_vq_conv(x, w, b, stride, fault=None):
+    """flax `nn.Conv(padding="SAME")` on NCHW, fp32: lax's padding (total //
+    2 before, the rest after), or with "SAME padding made symmetric" total
+    // 2 on both sides."""
+    import torch.nn.functional as F
+
+    k, pads = w.shape[-1], []
+    for size in (x.shape[3], x.shape[2]):  # F.pad: the last dim first
+        total = max((-(-size // stride) - 1) * stride + k - size, 0)
+        lo = total // 2
+        pads += [lo, lo if fault == "SAME padding made symmetric" else total - lo]
+    return F.conv2d(F.pad(x, pads), w, b, stride=stride)
+
+
+def plain_vq_conv_transpose(x, w_t, b, fault=None):
+    """flax `nn.ConvTranspose((4, 4), strides=(2, 2), padding="SAME")` from
+    the module's weight (the flax kernel flipped, [in, out, kh, kw]): the
+    input dilated by 2, padded (2, 2), correlated with the flax kernel."""
+    import torch.nn.functional as F
+
+    B, C, H, W = x.shape
+    d = x.new_zeros(B, C, 2 * H - 1, 2 * W - 1)
+    d[:, :, ::2, ::2] = x
+    k = w_t if fault == "transpose kernel not flipped" else w_t.flip(2, 3)
+    return F.conv2d(F.pad(d, (2, 2, 2, 2)), k.transpose(0, 1), b)
+
+
+def plain_vq(sd, images=None, z=None, fault=None):
+    """The plain copy of models/vq.py on the CPU: the encoder output
+    [B, h, w, D] of `images` [B, H, W, C], or the decoder output of `z`."""
+    import torch.nn.functional as F
+
+    gelu = lambda t: F.gelu(t, approximate="tanh")  # noqa: E731
+    p = lambda name: (sd[name + ".weight"], sd[name + ".bias"])  # noqa: E731
+    if images is not None:
+        x = images.permute(0, 3, 1, 2)
+        x = gelu(plain_vq_conv(x, *p("encoder.Conv_0"), 2, fault))
+        x = gelu(plain_vq_conv(x, *p("encoder.Conv_1"), 2, fault))
+        x = gelu(plain_vq_conv(x, *p("encoder.Conv_2"), 1, fault))
+        return plain_vq_conv(x, *p("encoder.Conv_3"), 1, fault).permute(0, 2, 3, 1)
+    x = gelu(plain_vq_conv(z.permute(0, 3, 1, 2), *p("decoder.Conv_0"), 1, fault))
+    x = gelu(plain_vq_conv_transpose(x, *p("decoder.ConvTranspose_0"), fault))
+    x = gelu(plain_vq_conv_transpose(x, *p("decoder.ConvTranspose_1"), fault))
+    return plain_vq_conv(x, *p("decoder.Conv_1"), 1, fault).permute(0, 2, 3, 1)
+
+
+def _max_err(got, want) -> float:
+    """Largest |got - want|, infinite when the shapes differ."""
+    if tuple(got.shape) != tuple(want.shape):
+        return float("inf")
+    return (got.float().cpu() - want.float().cpu()).abs().max().item()
+
+
+def vq_tokenizer(card: str, dev="cuda") -> dict:
+    """Phase 22 (a).  -> (the dataset, the trained VQVAE, readings)."""
+    import copy
+
+    import torch
+
+    from neko_tpu_torch.envs.synthetic import SyntheticImageEnv
+    from neko_tpu_torch.envs.vq_wrapper import _to_float_rgb
+    from neko_tpu_torch.examples.world_model import train_tokenizer
+    from neko_tpu_torch.models.vq import VQConfig, fp32_math
+
+    t0 = time.perf_counter()
+    cfg = VQConfig()
+    ds, vq, hist = train_tokenizer(SyntheticImageEnv(), VQ_EPISODES, cfg, VQ_STEPS, 3e-4, dev)
+    train_s = time.perf_counter() - t0
+    mse = hist["recon_mse"]
+    late = float(np.mean(mse[-20:]))
+    frames = np.stack([_to_float_rgb(o) for i in range(ds.total_episodes)
+                       for o in np.asarray(ds.get_episode(i).observations)])
+    cpu = copy.deepcopy(vq).cpu()
+    codes = vq.encode_indices(torch.from_numpy(frames).to(dev)).cpu()
+    want = cpu.encode_indices(torch.from_numpy(frames))
+    agree = (codes == want).float().mean().item()
+
+    B, H, W = VQ_ODD
+    x = torch.from_numpy(np.random.default_rng(SEED + 22).uniform(
+        0, 1, (B, H, W, cfg.channels)).astype(np.float32))
+    sd = {k: v.detach() for k, v in cpu.state_dict().items()}
+    with torch.no_grad(), fp32_math():
+        z = vq.encoder(x.to(dev).permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+    grid = tuple(z.shape[1:3])
+    odd_codes = vq.encode_indices(x.to(dev))
+    dec = vq.decode_indices(odd_codes, grid)
+    z_q = sd["embedding"][odd_codes.cpu().reshape(-1).long()].reshape(B, *grid, cfg.code_dim)
+    with torch.no_grad():
+        errs = {"encoder": _max_err(z, plain_vq(sd, images=x)),
+                "decoder": _max_err(dec, plain_vq(sd, z=z_q))}
+        faults = {f: max(_max_err(z, plain_vq(sd, images=x, fault=f)),
+                         _max_err(dec, plain_vq(sd, z=z_q, fault=f))) for f in VQ_FAULTS}
+    print(f"phase 22 (a) VQ K={cfg.codebook_size} D={cfg.code_dim} hidden {cfg.hidden} on "
+          f"{len(frames)} frames {frames.shape[1:]} of {VQ_EPISODES} episodes: {VQ_STEPS} steps "
+          f"in {train_s:.1f} s, recon_mse {mse[0]:.5f} -> {mse[-1]:.5f} (last 20 {late:.5f}, "
+          f"limit {VQ_MSE_DROP:g} of the first), perplexity {hist['perplexity'][0]:.1f} -> "
+          f"{hist['perplexity'][-1]:.1f}; card codes equal to the CPU's fp32 codes on "
+          f"{agree:.5f} of {codes.numel()} (limit {VQ_CODE_AGREE_MIN:g}); a {H}x{W} input "
+          f"(grid {grid}) against the plain copy: encoder {errs['encoder']:.3e}, decoder "
+          f"{errs['decoder']:.3e} (limit {VQ_OUT_TOL:g}); planted "
+          + ", ".join(f"'{f}' {e:.3e}" for f, e in faults.items()) + f" ({card})")
+    _require(all(np.isfinite(mse)) and late <= VQ_MSE_DROP * mse[0],
+             f"the VQ's recon_mse did not fall: {mse[0]} -> {late}")
+    _require(agree >= VQ_CODE_AGREE_MIN, f"VQ codes agree with fp32 on {agree} only")
+    _require(grid == (-(-H // 4), -(-W // 4)), f"grid {grid} of a {H}x{W} image")
+    _require(max(errs.values()) <= VQ_OUT_TOL, f"the VQ disagrees with its plain copy: {errs}")
+    blind = [f for f, e in faults.items() if not e > VQ_OUT_TOL]
+    _require(not blind, f"the VQ check cannot tell {blind}")
+    return ds, vq, {"recon_mse": [mse[0], mse[-1], late], "perplexity": hist["perplexity"][-1],
+                    "agree": agree, "err": errs, "faults": faults, "seconds": train_s}
+
+
+@contextlib.contextmanager
+def fp32_head(model):
+    """Within the block `model`'s head computes the logits from its hidden
+    states and weights in fp32 (one process, no fp8 weights)."""
+    import torch
+
+    def head(hidden):
+        return torch.nn.functional.linear(hidden.float(), model.predict_token.weight.float())
+
+    model._head = head
+    try:
+        yield
+    finally:
+        del model._head
+
+
+@contextlib.contextmanager
+def forced_picks(toks, start):
+    """Within the block the Generator's token choice returns the columns of
+    `toks` ([N, T] absolute ids, one column a call) in turn: teacher
+    forcing of a decode loop with its positions and per-step limits."""
+    from neko_tpu_torch.inference import generator as gmod
+
+    pick, cols = gmod._pick, iter((toks - start).unbind(1))
+    gmod._pick = lambda window, *a: next(cols)
+    try:
+        yield
+    finally:
+        gmod._pick = pick
+
+
+def world_model(card: str, ds, vq, main: dict, dev="cuda") -> dict:
+    """Phase 22 (b).  Adds the Trainer's and imagine's launches to `main`."""
+    import torch
+
+    from neko_tpu_torch.envs.synthetic import SyntheticImageEnv
+    from neko_tpu_torch.examples import world_model as wm
+
+    t0 = time.perf_counter()
+    codec, wrapped, vq_ds, task = wm.world_model_task(SyntheticImageEnv(), ds, vq, dev,
+                                                      FLAGSHIP["context_len"])
+    K, grid = vq.cfg.codebook_size, wrapped.grid
+    args = wm.world_model_args(
+        cpu=dev == "cpu", device=dev, sequence_length=FLAGSHIP["context_len"],
+        embed_dim=FLAGSHIP["embed_dim"], layers=FLAGSHIP["layers"], heads=FLAGSHIP["heads"], batch_size=WORLD_ROWS,
+        training_steps=WORLD_STEPS, log_eval_freq=WORLD_STEPS, warmup_steps=2,
+        learning_rate=1e-4, mixed_precision="bf16", dropout=RATE, fused_adamw=True)
+    counters = _launch_counters()
+    for c in counters.values():
+        c.launches = 0
+    with trainer_recorder() as rec:
+        trainer = wm.train_world_model(task, args)
+    train = {k: c.launches for k, c in counters.items()}
+    losses = [float(x) for x in rec["losses"]]
+    cfg = trainer.ctx.model_cfg
+    gen = wm.dream_generator(trainer)
+    del trainer
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+    H, F = WORLD_DREAM["history"], WORLD_DREAM["frames"]
+    for c in counters.values():
+        c.launches = 0
+    with model_call_counter() as calls:
+        res = wm.dream(gen, codec, vq_ds, grid, H, F)
+    dream_launches = {k: c.launches for k, c in counters.items()}
+    for part in (train, dream_launches):
+        for k, n in part.items():
+            main[k] = main.get(k, 0) + n
+
+    # the first frame's logits, kernels against the plain prefill and decode
+    hist, _, _ = wm.dream_inputs(vq_ds, H, F)
+    n = grid[0] * grid[1]
+    start = cfg.token_space.start("discrete")
+    kw = dict(max_new_tokens=n, start=start, end=start + K - 1, deterministic=True,
+              inner_pos_start=0, step_limits=[K] * n)
+    with fp32_head(gen.model):
+        toks, got = gen.generate_batch([hist], **kw)
+        with prefill_attention_through(plain_prefill_attention), \
+                decode_attention_through(plain_decode_attention), \
+                forced_picks(torch.as_tensor(toks, device=dev), start):
+            toks_p, want = gen.generate_batch([hist], **kw)
+    err = float(np.abs(got - want).max())
+    same = bool((toks == toks_p).all())
+    top = float(np.abs(got).max())
+    seconds = time.perf_counter() - t0
+    print(f"phase 22 (b) world model {cfg.embed_dim}d/{cfg.layers}L/{cfg.heads}h "
+          f"k={cfg.context_len} bf16 dropout {cfg.dropout}, fused AdamW, --observation_loss on "
+          f"{K}-code grids {grid}: {WORLD_STEPS} steps of {WORLD_ROWS} rows, losses "
+          + ", ".join(f"{x:.4f}" for x in losses) + f"; launches {train}; imagine {F} frames "
+          f"after {H}: codes {res['dream'].shape}, next-frame code accuracy "
+          f"{res['accuracy']:.3f}, decoded-pixel MSE {res['pixel_mse']:.5f}, launches "
+          f"{dream_launches} ({calls['prefill']} prefills, {calls['decode_step']} decode "
+          f"steps); first frame's window logits (fp32 readout, |logit| up to {top:.2f}), kernels "
+          f"vs plain attention (fed the same codes): {err:.3e} (limit {DECODE_LOGIT_TOL:g}); "
+          f"{seconds:.1f} s ({card})")
+    L = cfg.layers
+    _require(len(losses) == WORLD_STEPS and all(np.isfinite(losses)),
+             f"world model losses {losses}")
+    _require(train["fwd"] == train["bwd"] == L * WORLD_STEPS and train["adamw"] == WORLD_STEPS
+             and train["loss"] >= WORLD_STEPS and train["decode"] == train["mask"] == 0,
+             f"the world model's steps did not launch #3 / #4 layers x steps, #16 once a step "
+             f"and #15 at least once a step: {train}")
+    _require(dream_launches["fwd"] == calls["prefill_layers"] == L * F
+             and dream_launches["decode"] == calls["decode_step_layers"] > 0,
+             f"imagine did not prefill through #1 and decode through #14: {dream_launches}, "
+             f"{calls}")
+    _require(res["dream"].shape == (F, n) and (res["dream"] < K).all() and same
+             and np.isfinite(res["pixel_mse"]), "imagine's codes")
+    _require(err <= DECODE_LOGIT_TOL, f"imagine's first frame logits disagree: {err}")
+    del gen
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+    return {"losses": losses, "train_launches": train, "dream_launches": dream_launches,
+            "accuracy": res["accuracy"], "pixel_mse": res["pixel_mse"], "logit_err": err,
+            "seconds": seconds}
+
+
+def wide_ring(card: str, dev="cuda") -> dict:
+    """Phase 22 (c).  -> readings."""
+    import torch
+
+    from neko_tpu_torch.config import ModelConfig
+    from neko_tpu_torch.convert import init_state_dict
+    from neko_tpu_torch.data.batch import to_device_batch
+    from neko_tpu_torch.data.packing import SequencePacker
+    from neko_tpu_torch.ops import blocked_attention as ba
+    from neko_tpu_torch.ops import ring_kernel as rk
+    from neko_tpu_torch.parallel.mesh import create_mesh
+    from neko_tpu_torch.training.train_state import OptimizerConfig, TrainContext
+
+    t0 = time.perf_counter()
+    cfg = ModelConfig(**dict(WIDE, context_len=WIDE_RING_CONTEXT, dropout=0.0))
+    _require(cfg.head_dim == 256, f"hd {cfg.head_dim}")
+    rng = np.random.default_rng(SEED + 23)
+    arrays = SequencePacker(cfg).pack_batch([{"text": rng.integers(0, 256, n)}
+                                             for n in WIDE_RING_ROWS])
+    arrays.pop("lengths")
+    batch = to_device_batch(arrays, dev)
+    sd = init_state_dict(cfg, SEED)
+    counters = dict(_launch_counters(), ring_fwd=rk.ring_partial_fwd, ring_dq=rk.ring_partial_dq,
+                    ring_dkv=rk.ring_partial_dkv, blocked_fwd=ba.blocked_attention_fwd,
+                    blocked_fused=ba.blocked_attention_bwd_fused)
+    for c in counters.values():
+        c.launches = 0
+    ring_ctx = TrainContext(cfg, OptimizerConfig(), device=dev, seed=SEED,
+                            mesh=create_mesh(data=1, seq=SEQ))
+    plain_ctx = TrainContext(cfg, OptimizerConfig(), device=dev, seed=SEED)
+
+    def loss_and_grads(context, fault=None):
+        st = context.init_state({k: v.clone() for k, v in sd.items()})
+        with ring_planted(fault):
+            loss = context.loss_and_grads(st, batch).item()
+        grads = {n: p.grad for n, p in st.model.named_parameters() if p.grad is not None}
+        _sync(dev)
+        return loss, grads
+
+    ts = time.perf_counter()
+    loss_r, grads_r = loss_and_grads(ring_ctx)
+    ring_s = time.perf_counter() - ts
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30 if dev == "cuda" else float("nan")
+    loss_p, grads_p = loss_and_grads(plain_ctx)
+    gap, dloss = _grad_gap(grads_r, grads_p), abs(loss_r - loss_p)
+    del grads_r
+    fault_gap, fault_dloss = {}, {}
+    for f in WIDE_RING_FAULTS:
+        loss_f, grads_f = loss_and_grads(ring_ctx, f)
+        fault_gap[f], fault_dloss[f] = _grad_gap(grads_f, grads_p), abs(loss_f - loss_p)
+        del grads_f
+    del grads_p
+    drop_ctx = TrainContext(cfg.replace(dropout=RATE), OptimizerConfig(), device=dev, seed=SEED,
+                            mesh=create_mesh(data=1, seq=SEQ))
+    loss_d, grads_d = loss_and_grads(drop_ctx)
+    drop_ok = np.isfinite(loss_d) and all(torch.isfinite(g).all().item()
+                                          for g in grads_d.values())
+    del grads_d
+    launched = {k: c.launches for k, c in counters.items()}
+    seconds = time.perf_counter() - t0
+    print(f"phase 22 (c) hd 256 ring ({cfg.embed_dim}d/{cfg.heads}h/{cfg.layers}L "
+          f"k={cfg.context_len} bf16, rows of {WIDE_RING_ROWS} tokens) over {SEQ} shards on the "
+          f"card ({ring_s:.2f} s a step with its first call, peak {peak:.2f} GiB) vs plain "
+          f"attention without a 'seq' axis, dropout 0: loss {loss_r:.6f} vs {loss_p:.6f} (diff "
+          f"{dloss:.3e}, limit {WIDE_RING_LOSS_TOL:g}), largest relative gradient error "
+          f"{gap:.3e} (limit {WIDE_RING_GRAD_TOL:g}); planted "
+          + ", ".join(f"'{f}' loss {fault_dloss[f]:.3e} gradient {fault_gap[f]:.3e}"
+                      for f in WIDE_RING_FAULTS)
+          + f"; at dropout {RATE}: loss {loss_d:.6f}, finite {drop_ok}; launches {launched}; "
+          f"{seconds:.1f} s ({card})")
+    _require(dloss <= WIDE_RING_LOSS_TOL and gap <= WIDE_RING_GRAD_TOL,
+             f"the hd 256 ring disagrees with plain attention: {dloss}, {gap}")
+    blind = [f for f in WIDE_RING_FAULTS
+             if not (fault_gap[f] > WIDE_RING_GRAD_TOL or fault_dloss[f] > WIDE_RING_LOSS_TOL)]
+    _require(not blind, f"the hd 256 ring check cannot tell {blind}")
+    _require(drop_ok and abs(loss_d - loss_r) > 0, f"the dropout step: {loss_d}")
+    attention = {k: n for k, n in launched.items() if k not in ("loss", "adamw")}
+    _require(not any(attention.values()), f"an attention kernel launched at hd 256: {attention}")
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+    return {"loss_err": dloss, "grad_err": gap, "fault_grad": fault_gap,
+            "fault_loss": fault_dloss, "step_s": ring_s, "peak_gib": peak,
+            "launches": launched, "seconds": seconds}
+
+
+def vq_world_model(card: str, dev="cuda") -> dict:
+    """Phase 22.  -> {"launches": the main path's (b), "readings"}."""
+    t0 = time.perf_counter()
+    main = {}
+    ds, vq, vq_read = vq_tokenizer(card, dev)
+    readings = {"vq": vq_read, "world": world_model(card, ds, vq, main, dev),
+                "ring": wide_ring(card, dev)}
+    print(f"phase 22 main-path launches: {main}; phase 22 took "
+          f"{time.perf_counter() - t0:.1f} s")
+    return {"launches": main, "readings": readings}
+
+
 def main() -> int:
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
         return 2
+    t_start = time.perf_counter()
+    laps, t_lap = {}, [t_start]
+
+    def lap(name):  # seconds since the previous lap
+        now = time.perf_counter()
+        laps[name] = round(now - t_lap[0], 1)
+        t_lap[0] = now
+
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     from neko_tpu_torch.bench import card as card_name
@@ -6309,6 +6712,7 @@ def main() -> int:
               f"{spills} bytes spilled")
     _require(len(decode_instances) == 16 and not any(r[4] for r in decode_instances),
              "a decode attention instance spills registers (or not all 16 were found)")
+    lap("1 build")
     err, prefill = kernel_vs_plain(
         8, 24, 1024, 32, "bfloat16",
         starts=[0, 0, 0, 0, 0, 0, 0, 300],
@@ -6323,52 +6727,72 @@ def main() -> int:
     for dtype_name in ("bfloat16", "float32"):
         kernel_vs_plain(8, 8, 1024, 16, dtype_name, starts=[0] * 7 + [100],
                         ends=[1024, 700, 1, 1024, 513, 1, 1024, 1024], timed=False)
+    lap("2")
 
     serve_launches, decode_launches, gen, examples = serve(card)
     prefill_check(gen, examples)
     del gen
+    lap("3-4")
 
     trained = train_kernels_vs_plain(card)
     launches = train_step_check(card)
     smoke_width_step_check(card)
     print(f"forward kernel launches: serving run {serve_launches}, train run {launches['fwd']}")
+    lap("5-6")
     blocked = blocked_kernels_vs_plain(card)
+    lap("7")
     long_path = long_train(card)
+    lap("8")
     ring = ring_kernels_vs_plain(card)
+    lap("9")
     seq_path = seq_parallel_train(card)
+    lap("10")
     decode = decode_kernels_vs_plain(card)
     decode.update(generate=decode_generate(card))
+    lap("11")
     loss_head = loss_kernel_vs_plain(card, libs)
+    lap("12")
     adamw = fused_adamw_check(card)
+    lap("13")
     workdir = Path(__file__).resolve().parent / "_smoke_runs"
     shutil.rmtree(workdir, ignore_errors=True)
     try:
         cli = train_entry_point(card, launches["step_ms"], workdir)
+        lap("14")
         shutil.rmtree(workdir, ignore_errors=True)
         ev = eval_entry_point(card, workdir)
+        lap("15")
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     se = serving_engine(card)
+    lap("16")
     try:
         tf = train_features(card, workdir)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
+    lap("17")
     try:
         par = parallel_train(card, workdir)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
+    lap("18")
     try:
         p19 = pipeline_seq_train(card, workdir)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
+    lap("19")
     try:
         p20 = quantized_tp_serving(card, workdir)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
+    lap("20")
     try:
         p21 = weights_in_and_out(card, workdir)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
+    lap("21")
+    ww = vq_world_model(card)["launches"]
+    lap("22")
     wl, wk = p21["launches"], p21["kernels"]
     q20, r20 = p20["serving"], p20["ranks"]
     q_fwd, q_decode = q20["fwd"] + r20["fwd"], q20["decode"] + r20["decode"]
@@ -6416,12 +6840,13 @@ def main() -> int:
          "source": src + "whole_head_attention.cu", "replaces": f"{tpu}:206,236",
          "launches": (serve_launches + launches["fwd"] + cli["fwd"] + ev["fwd"] + ev["eval_fwd"]
                       + se["fwd"] + tf["fwd"] + pl["fwd"] + sl["fwd"] + pp["fwd"] + q_fwd
-                      + wl["fwd"]),
+                      + wl["fwd"] + ww["fwd"]),
          "train_cli_launches": cli["fwd"], "mix_train_launches": ev["fwd"],
          "eval_cli_launches": ev["eval_fwd"], "serving_engine_launches": se["fwd"],
          "train_features_launches": tf["fwd"], "parallel_launches": pl["fwd"],
          "seq_ranks_launches": sl["fwd"], "pipeline_launches": pp["fwd"],
          "quant_tp_serving_launches": q_fwd, "weights_io_launches": wl["fwd"],
+         "world_model_launches": ww["fwd"],
          "max_abs_err": max(err, trained["fwd_err"], pk["err"]["fwd"], qk["err"]["fwd"],
                             wk["err"]["fwd"], wk["err"]["prefill"]),
          **timing("fwd"), "prefill": prefill, "parallel_rank_shape": at_rank_shape("fwd"),
@@ -6429,11 +6854,11 @@ def main() -> int:
         {"name": "whole_head_attention_bwd", "route": "cuda",
          "source": src + "whole_head_attention_bwd.cu", "replaces": f"{tpu}:220,256",
          "launches": (launches["bwd"] + cli["bwd"] + ev["bwd"] + tf["bwd"] + pl["bwd"]
-                      + sl["bwd"] + pp["bwd"] + wl["bwd"]),
+                      + sl["bwd"] + pp["bwd"] + wl["bwd"] + ww["bwd"]),
          "train_cli_launches": cli["bwd"], "mix_train_launches": ev["bwd"],
          "train_features_launches": tf["bwd"], "parallel_launches": pl["bwd"],
          "seq_ranks_launches": sl["bwd"], "pipeline_launches": pp["bwd"],
-         "weights_io_launches": wl["bwd"],
+         "weights_io_launches": wl["bwd"], "world_model_launches": ww["bwd"],
          "max_abs_err": max(trained["bwd_err"], pk["err"]["bwd"], qk["err"]["bwd"],
                             wk["err"]["bwd"]),
          **timing("bwd"), "parallel_rank_shape": at_rank_shape("bwd"),
@@ -6475,12 +6900,13 @@ def main() -> int:
          "replaces": "neko_tpu/ops/decode_attention.py:80",
          "launches": (decode_launches + cli["decode"] + ev["decode"] + ev["eval_decode"]
                       + se["decode"] + tf["decode"] + pl["decode"] + sl["decode"]
-                      + pp["decode"] + q_decode + wl["decode"]),
+                      + pp["decode"] + q_decode + wl["decode"] + ww["decode"]),
          "train_cli_launches": cli["decode"], "mix_train_launches": ev["decode"],
          "eval_cli_launches": ev["eval_decode"], "serving_engine_launches": se["decode"],
          "train_features_launches": tf["decode"], "parallel_launches": pl["decode"],
          "seq_ranks_launches": sl["decode"], "pipeline_launches": pp["decode"],
          "quant_tp_serving_launches": q_decode, "weights_io_launches": wl["decode"],
+         "world_model_launches": ww["decode"],
          "check_launches": (decode["check_launches"] + decode["generate"]["launches"]
                             + p21["decode_check_launches"]),
          "max_abs_err": max(decode["err"], wk["err"]["decode"]), **decode["times"],
@@ -6511,11 +6937,11 @@ def main() -> int:
          "replaces": "neko_tpu/ops/loss_kernel.py:54",
          "launches": (launches["loss"] + long_path["loss head"] + seq_path["loss head"]
                       + adamw["loss_launches"] + cli["loss"] + ev["loss"] + tf["loss"]
-                      + pl["loss"] + sl["loss"] + pp["loss"] + wl["loss"]),
+                      + pl["loss"] + sl["loss"] + pp["loss"] + wl["loss"] + ww["loss"]),
          "train_cli_launches": cli["loss"], "mix_train_launches": ev["loss"],
          "train_features_launches": tf["loss"], "parallel_launches": pl["loss"],
          "seq_ranks_launches": sl["loss"], "pipeline_launches": pp["loss"],
-         "weights_io_launches": wl["loss"],
+         "weights_io_launches": wl["loss"], "world_model_launches": ww["loss"],
          "check_launches": loss_head["launches"],
          "max_abs_err": max(loss_head["err"], pk["err"]["loss"], qk["err"]["loss"]),
          **{k: v for k, v in loss_head.items() if k not in ("err", "launches")},
@@ -6524,8 +6950,8 @@ def main() -> int:
         {"name": "fused_adamw", "route": "cuda", "source": src + "fused_adamw.cu",
          "replaces": "neko_tpu/ops/fused_adamw.py:101",
          "launches": (adamw["launches"] + cli["adamw"] + tf["adamw"] + pl["adamw"]
-                      + sl["adamw"] + pp["adamw"] + wl["adamw"]),
-         "weights_io_launches": wl["adamw"],
+                      + sl["adamw"] + pp["adamw"] + wl["adamw"] + ww["adamw"]),
+         "weights_io_launches": wl["adamw"], "world_model_launches": ww["adamw"],
          "train_cli_launches": cli["adamw"], "train_features_launches": tf["adamw"],
          "parallel_launches": pl["adamw"], "parallel_rank_shards": pk["adamw"],
          "seq_ranks_launches": sl["adamw"], "pipeline_launches": pp["adamw"],
@@ -6549,6 +6975,7 @@ def main() -> int:
     for shape, t in (("16x24x1024^2", mask), ("8x24x2048^2", long_times["mask"])):
         print(f"mask kernel {shape}: {t['ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
               f"({t['bound_ms'] / t['ms']:.3f} of it) ({card})")
+    print(f"phases 1-22 took {time.perf_counter() - t_start:.1f} s; seconds by phase {laps}")
     print(json.dumps({"check_kernels": [mask] + [e for e in entries if not e["launches"]]}))
     print(json.dumps({"kernels": [e for e in entries if e["launches"]]}))
     print(json.dumps({"ok": True, "device": {

@@ -170,6 +170,26 @@ def jax_train_extras_to_torch(ema_params, opt_state, cfg: ModelConfig) -> Dict:
             "mini_step": int(np.asarray(getattr(opt_state, "mini_step", 0)))}
 
 
+def jax_vq_variables_to_state_dict(params: Dict, codebook: Dict) -> Dict[str, torch.Tensor]:
+    """neko_tpu's VQ-VAE variables as numpy trees (`params`: encoder/Conv_0..3,
+    decoder/Conv_0, ConvTranspose_0, ConvTranspose_1, Conv_1, each {kernel
+    HWIO, bias}; `codebook`: {embedding, cluster_size, cluster_sum}) -> the
+    state dict of `models/vq.VQVAE`.  A Conv kernel becomes OIHW; a
+    ConvTranspose kernel is flipped in both spatial axes and laid out
+    [in, out, kh, kw] (models/vq.py `SameConvTranspose`)."""
+    sd = {}
+    for path, leaf in _flatten(params).items():
+        key = path.replace("/", ".")
+        if path.endswith("/kernel"):
+            key = key[: -len("kernel")] + "weight"
+            leaf = (leaf[::-1, ::-1].transpose(2, 3, 0, 1) if "/ConvTranspose_" in path
+                    else leaf.transpose(3, 2, 0, 1))
+        sd[key] = torch.from_numpy(np.array(leaf, np.float32, order="C"))
+    for name in ("embedding", "cluster_size", "cluster_sum"):
+        sd[name] = torch.from_numpy(np.array(codebook[name], np.float32, order="C"))
+    return sd
+
+
 _NORMS = ("ln_1", "ln_2", "ln_f", "gn2")
 _EMBEDS = ("embed_token", "pos_embed_observation", "height", "width")
 

@@ -11,14 +11,15 @@ neko_tpu/models/transformer.py).
   `torch.Generator`) is given.  At hd > 128, where the JAX package has no
   kernel and runs its XLA attention, the attention is the plain route of
   ops/attention.py (`wide_attention_qkv`, its dropout mask drawn from the
-  generator); prefill and decode route there too, and a 'seq' axis refuses
-  it by name (the JAX package's XLA ring is not ported).  Under an active
-  mesh whose 'seq' axis has more than one shard (`parallel/mesh.py`) the
+  generator); prefill and decode route there too.  Under an active mesh
+  whose 'seq' axis has more than one shard (`parallel/mesh.py`) the
   attention runs as ring attention over the sequence shards instead
-  (`ops/ring_kernel.py`), before the whole-head / blocked dispatch, as the
-  JAX package routes it; S must split over the axis.  Each layer draws its attention seed as an
-  int32 [1] tensor on the device from that generator, as the JAX package
-  draws one per layer from its dropout stream.  Without a generator the
+  (`ops/ring_kernel.py`; at hd > 128 its pair steps are the kernels' plain
+  versions, the JAX package's XLA ring), before the whole-head / blocked
+  dispatch, as the JAX package routes it; S must split over the axis.
+  Each layer draws its attention seed as an int32 [1] tensor on the device
+  from that generator, as the JAX package draws one per layer from its
+  dropout stream.  Without a generator the
   pass is deterministic (eval loss).
 * `mode='prefill'`: full causal attention through the whole-head kernel
   wrapper on [B, H, S, hd] (always: `cfg.attention_impl` is carried for
@@ -195,15 +196,10 @@ def write_rows(cache: KVCache, index, k: torch.Tensor, v: torch.Tensor) -> None:
     cache["value"][index] = v
 
 
-def _train_checks(cfg: ModelConfig, S: int) -> None:
-    """What train mode refuses: ring attention at hd > 128 (the JAX
-    package's XLA ring, not ported) and an S that does not split over the
-    'seq' shards."""
+def _train_checks(S: int) -> None:
+    """What train mode refuses: an S that does not split over the 'seq'
+    shards."""
     n = attn_ops.seq_shards()
-    if n > 1 and attn_ops.wide_heads(cfg.head_dim):
-        raise NotImplementedError(
-            f"not yet ported to neko_tpu_torch: sequence-parallel attention at "
-            f"hd={cfg.head_dim} > 128 (neko_tpu's XLA ring attention)")
     if n > 1 and S % n:
         raise ValueError(f"S={S} does not split over the mesh's {n} sequence shards")
 
@@ -289,8 +285,10 @@ class Attention(nn.Module):
                                   generator if mode == "train" else None)
             qkv = qkv + column_parallel(self.lora_b, a, dtype, self.tp) * (
                 cfg.lora_alpha / cfg.lora_r)
-        if mode == "train" and attn_ops.wide_heads(cfg.head_dim):
-            # hd > 128: the plain route, its mask drawn from the generator
+        if (mode == "train" and attn_ops.wide_heads(cfg.head_dim)
+                and attn_ops.seq_shards() == 1):
+            # hd > 128 off a 'seq' axis: the plain route, its mask drawn from
+            # the generator (on one, the ring runs its plain pair steps)
             out2d = attn_ops.wide_attention_qkv(
                 qkv, input_mask, heads=self.heads, generator=generator, rate=cfg.dropout,
                 head_block=(self.tp.index, self.tp.size))
@@ -488,7 +486,7 @@ class Transformer(nn.Module):
         if mode in ("decode", "extend") and caches is None:
             raise ValueError(f"{mode} mode needs the caches prefill returned")
         if mode == "train":  # the whole sequence's S, its columns over 'seq' ranks
-            _train_checks(self.cfg, x.shape[1] * seq_ranks(active_mesh()))
+            _train_checks(x.shape[1] * seq_ranks(active_mesh()))
         bounds = None
         if mode == "decode":
             # the layers' masks are equal; the window includes the row this

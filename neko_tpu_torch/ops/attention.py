@@ -15,8 +15,9 @@
   attention over the cache mask (an int8 cache through
   `quant_cache_attention`).  Query rows with no key come out as zeros, as
   from the kernels.  No kernel launches on this route, as no Pallas kernel
-  runs on the JAX package's.  Ring attention at hd > 128 (the JAX
-  package's XLA ring) is not ported: a 'seq' axis refuses it by name.
+  runs on the JAX package's.  Under a 'seq' axis the ring runs at any hd:
+  at hd > 128 its pair steps are the plain versions of #11-#13
+  (`ring_kernel.py`), as the JAX package runs its XLA ring there.
 * `decode_attention`: the decode-step dispatch: one query per (row, head)
   over the valid KV cache rows (the cache mask) inside the window
   [start, end), through `decode_cache_attention` (kernel #14 on a CUDA
@@ -42,10 +43,11 @@
 * `sequence_parallel_attention_qkv` / `_bsd`: the train path under a mesh
   whose 'seq' axis has more than one shard (the JAX package's
   `sequence_parallel_attention_bsd`): ring attention with the per-pair
-  kernels #11-#13 (`ring_kernel.py`).  The global key bounds are computed
-  once from the key mask; nothing mask-shaped travels around the ring.
-  `seq_shards()` reads the active mesh and `packed_ring_ok` says which
-  shapes the ring takes: S a multiple of the axis size, hd <= 128.
+  kernels #11-#13 (`ring_kernel.py`; their plain versions at hd > 128).
+  The global key bounds are computed once from the key mask; nothing
+  mask-shaped travels around the ring.  `seq_shards()` reads the active
+  mesh and `packed_ring_ok` says which shapes the ring's kernels take: S a
+  multiple of the axis size, hd <= 128.
 """
 
 from __future__ import annotations
@@ -198,8 +200,7 @@ def sequence_parallel_attention_qkv(qkv, key_mask, *, heads, seed=None, rate=0.0
     With the shards on one device qkv is the global [B, S, 3*H*hd] tensor;
     with the shards on the ranks of a process group it is this rank's
     [B, S / n, 3*H*hd] block.  key_mask is the GLOBAL bool [B, S] mask either
-    way, and seed (int32 [1] on the device) the same on every rank.  Check
-    `packed_ring_ok(S, hd, heads)` first."""
+    way, and seed (int32 [1] on the device) the same on every rank."""
     start, end, n, group = _ring_args(key_mask)
     return ring_kernel.ring_attention_qkv(qkv, start, end, seed, n_shards=n, heads=heads,
                                           group=group, dropout_rate=rate)

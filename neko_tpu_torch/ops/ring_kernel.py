@@ -56,6 +56,13 @@ ring mode.  Each wrapper counts its launches in `<wrapper>.launches`.  On a
 CPU tensor a wrapper runs its plain version (`ring_partial_*_reference`:
 blocked torch code over BLOCK-wide tiles with global offsets, no
 [B, H, S, S] tensor).  A CUDA tensor launches the kernel or raises.
+
+At hd > 128, over the widest compiled head, no kernel exists and the same
+schedule runs the plain versions on any device in place of the wrappers
+(`plain_partial_*`, picked by shape in `_pair_fns`): the counterpart of the
+JAX package's XLA ring (neko_tpu/ops/ring_attention.py), which no Pallas
+kernel of it computes either.  Its dropout is the same Philox keep mask of
+the seed, each pair taking its window of rows and columns.
 """
 
 from __future__ import annotations
@@ -181,21 +188,49 @@ def ring_partial_dkv_reference(q, k, v, do, L, delta, q_off, k_off, start, end, 
     return dk, dv
 
 
+# ------------------------------------------ the pair steps in plain torch
+def _filled(res, bufs):
+    return tuple(r if buf is None else buf.copy_(r) for r, buf in zip(res, bufs))
+
+
+def _keep_window(q, q_off, k_off, seed, dropout_rate):
+    """The pair's fp32 keep/scale window of the plain versions (rows
+    [q_off, q_off + S_local), columns [k_off, k_off + S_local) of the one
+    Philox mask of `seed`), or None without dropout."""
+    if not whk._threshold(seed, dropout_rate):
+        return None
+    B, H, S, _ = q.shape
+    return whk.dropout_keep_scale_reference(seed, B, H, None, dropout_rate,
+                                            rows=(q_off, q_off + S), cols=(k_off, k_off + S))
+
+
+def plain_partial_fwd(q, k, v, q_off, k_off, start, end, seed=None, sm_scale=None,
+                      dropout_rate=0.0, out=None, m=None, l=None):
+    """`ring_partial_fwd` through its plain version on any device: what the
+    wrapper runs on a CPU tensor, and the ring's forward pair step at
+    hd > 128, where no kernel is compiled."""
+    res = ring_partial_fwd_reference(q, k, v, q_off, k_off, start, end, sm_scale,
+                                     _keep_window(q, q_off, k_off, seed, dropout_rate))
+    return _filled(res, (out, m, l))
+
+
+def plain_partial_dq(q, k, v, do, L, delta, q_off, k_off, start, end, seed=None,
+                     sm_scale=None, dropout_rate=0.0, dq=None):
+    """`ring_partial_dq` through its plain version on any device."""
+    res = ring_partial_dq_reference(q, k, v, do, L, delta, q_off, k_off, start, end, sm_scale,
+                                    _keep_window(q, q_off, k_off, seed, dropout_rate))
+    return res if dq is None else dq.copy_(res)
+
+
+def plain_partial_dkv(q, k, v, do, L, delta, q_off, k_off, start, end, seed=None,
+                      sm_scale=None, dropout_rate=0.0, dk=None, dv=None):
+    """`ring_partial_dkv` through its plain version on any device."""
+    res = ring_partial_dkv_reference(q, k, v, do, L, delta, q_off, k_off, start, end, sm_scale,
+                                     _keep_window(q, q_off, k_off, seed, dropout_rate))
+    return _filled(res, (dk, dv))
+
+
 # ------------------------------------------------------ kernel bindings
-def _pair_setup(q, q_off, k_off, seed, sm_scale, dropout_rate):
-    """-> (sm_scale, keep threshold, the pair's fp32 keep/scale window for
-    the plain versions or None)."""
-    if sm_scale is None:
-        sm_scale = q.shape[-1] ** -0.5
-    q_thr = whk._threshold(seed, dropout_rate)
-    ks = None
-    if q_thr and q.device.type == "cpu":
-        B, H, S, _ = q.shape
-        ks = whk.dropout_keep_scale_reference(seed, B, H, None, dropout_rate,
-                                              rows=(q_off, q_off + S), cols=(k_off, k_off + S))
-    return sm_scale, q_thr, ks
-
-
 def _new_fp32(q):
     """A new fp32 [B, H, S_local, hd] view in the head-packed layout."""
     B, H, S, hd = q.shape
@@ -228,10 +263,6 @@ def _fp32_like(q, buf, name):
     return buf
 
 
-def _filled(res, bufs):
-    return tuple(r if buf is None else buf.copy_(r) for r, buf in zip(res, bufs))
-
-
 def ring_partial_fwd(q, k, v, q_off, k_off, start, end, seed=None, sm_scale=None,
                      dropout_rate=0.0, out=None, m=None, l=None):
     """Forward partial (#11) of the q block at global row `q_off` against the
@@ -245,10 +276,10 @@ def ring_partial_fwd(q, k, v, q_off, k_off, start, end, seed=None, sm_scale=None
         acc, m_p, l_p = ring_partial_fwd(*whk.padded(width, q, k, v), q_off, k_off, start, end,
                                          seed, whk._scale(sm_scale, hd), dropout_rate)
         return (*whk._sliced_into((acc,), (out,), hd), *_filled((m_p, l_p), (m, l)))
-    sm_scale, q_thr, ks = _pair_setup(q, q_off, k_off, seed, sm_scale, dropout_rate)
     if whk._device_of(q) == "cpu":
-        res = ring_partial_fwd_reference(q, k, v, q_off, k_off, start, end, sm_scale, ks)
-        return _filled(res, (out, m, l))
+        return plain_partial_fwd(q, k, v, q_off, k_off, start, end, seed, sm_scale,
+                                 dropout_rate, out, m, l)
+    sm_scale, q_thr = whk._scale(sm_scale, q.shape[-1]), whk._threshold(seed, dropout_rate)
     whk._check_kernel_args(q, k, v, start, end, seed if q_thr else None)
     whk._check_aligned16(q=q, k=k, v=v)
     out = _fp32_like(q, out, "out")
@@ -282,11 +313,10 @@ def ring_partial_dq(q, k, v, do, L, delta, q_off, k_off, start, end, seed=None, 
         res = ring_partial_dq(*whk.padded(width, q, k, v, do), L, delta, q_off, k_off, start,
                               end, seed, whk._scale(sm_scale, hd), dropout_rate)
         return whk._sliced_into((res,), (dq,), hd)[0]
-    sm_scale, q_thr, ks = _pair_setup(q, q_off, k_off, seed, sm_scale, dropout_rate)
     if whk._device_of(q) == "cpu":
-        res = ring_partial_dq_reference(q, k, v, do, L, delta, q_off, k_off, start, end,
-                                        sm_scale, ks)
-        return res if dq is None else dq.copy_(res)
+        return plain_partial_dq(q, k, v, do, L, delta, q_off, k_off, start, end, seed,
+                                sm_scale, dropout_rate, dq)
+    sm_scale, q_thr = whk._scale(sm_scale, q.shape[-1]), whk._threshold(seed, dropout_rate)
     dq = _fp32_like(q, dq, "dq")
     args = _bwd_kernel_args(q, k, v, ba._do(do), L, delta, q_off, k_off, start, end, seed,
                             sm_scale, q_thr, dq=dq)
@@ -305,11 +335,10 @@ def ring_partial_dkv(q, k, v, do, L, delta, q_off, k_off, start, end, seed=None,
         res = ring_partial_dkv(*whk.padded(width, q, k, v, do), L, delta, q_off, k_off, start,
                                end, seed, whk._scale(sm_scale, hd), dropout_rate)
         return whk._sliced_into(res, (dk, dv), hd)
-    sm_scale, q_thr, ks = _pair_setup(q, q_off, k_off, seed, sm_scale, dropout_rate)
     if whk._device_of(q) == "cpu":
-        res = ring_partial_dkv_reference(q, k, v, do, L, delta, q_off, k_off, start, end,
-                                         sm_scale, ks)
-        return _filled(res, (dk, dv))
+        return plain_partial_dkv(q, k, v, do, L, delta, q_off, k_off, start, end, seed,
+                                 sm_scale, dropout_rate, dk, dv)
+    sm_scale, q_thr = whk._scale(sm_scale, q.shape[-1]), whk._threshold(seed, dropout_rate)
     dk, dv = _fp32_like(q, dk, "dk"), _fp32_like(q, dv, "dv")
     args = _bwd_kernel_args(q, k, v, ba._do(do), L, delta, q_off, k_off, start, end, seed,
                             sm_scale, q_thr, dk=dk, dv=dv)
@@ -320,6 +349,15 @@ def ring_partial_dkv(q, k, v, do, L, delta, q_off, k_off, start, end, seed=None,
 
 for _fn in (ring_partial_fwd, ring_partial_dq, ring_partial_dkv):
     _fn.launches = 0
+
+
+def _pair_fns(q):
+    """(fwd, dq, dkv) of a pair of [B, H, S_local, hd] blocks: the kernels'
+    wrappers at hd <= 128, the plain versions above (the JAX package's XLA
+    ring)."""
+    if supported(q.shape[2], q.shape[-1]):
+        return ring_partial_fwd, ring_partial_dq, ring_partial_dkv
+    return plain_partial_fwd, plain_partial_dq, plain_partial_dkv
 
 
 # ------------------------------------------------------- the per-pair steps
@@ -344,11 +382,12 @@ def _fwd_step(q, k, v, q_off, k_off, state, scratch, first, common) -> None:
         assert not first, "a ring pass starts on the shard's own kv block"
         return
     m, l, acc = state
+    fwd = _pair_fns(q)[0]
     if first:
-        ring_partial_fwd(q, k, v, q_off, k_off, *common, out=acc, m=m, l=l)
+        fwd(q, k, v, q_off, k_off, *common, out=acc, m=m, l=l)
         return
     m_p, l_p, acc_p = scratch
-    ring_partial_fwd(q, k, v, q_off, k_off, *common, out=acc_p, m=m_p, l=l_p)
+    fwd(q, k, v, q_off, k_off, *common, out=acc_p, m=m_p, l=l_p)
     with torch.profiler.record_function(MERGE_RANGE):
         merge_partial(m, l, acc, m_p, l_p, acc_p)
 
@@ -372,14 +411,15 @@ def _bwd_step(q, k, v, do, L, delta, q_off, k_off, grads, scratch, first, common
         assert not first, "a ring pass starts on the shard's own kv block"
         return
     dq, dk, dv = grads
+    _, pair_dq, pair_dkv = _pair_fns(q)
     pair = (q, k, v, do, L, delta, q_off, k_off, *common)
     if first:
-        ring_partial_dq(*pair, dq=dq)
-        ring_partial_dkv(*pair, dk=dk, dv=dv)
+        pair_dq(*pair, dq=dq)
+        pair_dkv(*pair, dk=dk, dv=dv)
         return
     dq_p, dk_p, dv_p = scratch
-    ring_partial_dq(*pair, dq=dq_p)
-    ring_partial_dkv(*pair, dk=dk_p, dv=dv_p)
+    pair_dq(*pair, dq=dq_p)
+    pair_dkv(*pair, dk=dk_p, dv=dv_p)
     with torch.profiler.record_function(MERGE_RANGE):
         dq.add_(dq_p)
         dk.add_(dk_p)
@@ -520,14 +560,12 @@ class _RingAttention(torch.autograd.Function):
         return (None,) * 9 + tuple(g.to(s.dtype) for g, s in zip(sums, srcs))
 
 
-def _check_ring(S: int, hd: int, n_shards: int, group) -> None:
+def _check_ring(S: int, n_shards: int, group) -> None:
     if group is not None and dist.get_world_size(group) != n_shards:
         raise ValueError(f"the process group has {dist.get_world_size(group)} ranks, "
                          f"the ring {n_shards} shards")
     if n_shards < 1 or (group is None and S % n_shards):
         raise ValueError(f"S={S} does not split into {n_shards} sequence shards")
-    if not supported(S if group is not None else S // n_shards, hd):
-        raise ValueError(f"no ring kernel for hd={hd}: it takes hd <= {whk.MAX_HEAD_DIM}")
 
 
 def ring_attention_bsd(q, k, v, start, end, seed=None, *, n_shards, heads, group=None,
@@ -540,7 +578,7 @@ def ring_attention_bsd(q, k, v, start, end, seed=None, *, n_shards, heads, group
     the GLOBAL key bounds per batch row (int32 [B]); `seed`: int32 [1] on
     the device, the same on every rank."""
     hd = q.shape[-1] // heads
-    _check_ring(q.shape[1], hd, n_shards, group)
+    _check_ring(q.shape[1], n_shards, group)
     if sm_scale is None:
         sm_scale = hd ** -0.5
     return _RingAttention.apply("bsd", heads, sm_scale, dropout_rate, n_shards, group,
@@ -553,7 +591,7 @@ def ring_attention_qkv(qkv, start, end, seed=None, *, n_shards, heads, group=Non
     projection output; returns [B, S, H*hd], and its backward one
     [B, S, 3*H*hd] gradient."""
     hd = qkv.shape[-1] // (3 * heads)
-    _check_ring(qkv.shape[1], hd, n_shards, group)
+    _check_ring(qkv.shape[1], n_shards, group)
     if sm_scale is None:
         sm_scale = hd ** -0.5
     return _RingAttention.apply("qkv", heads, sm_scale, dropout_rate, n_shards, group,

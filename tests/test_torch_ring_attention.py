@@ -360,17 +360,22 @@ def test_dispatch_and_the_raises(monkeypatch):
     model = convert.build_model(cfg, convert.init_state_dict(cfg, 0), device="cpu")
     with pmesh.create_mesh(seq=3), pytest.raises(ValueError):
         model(batch, train=True, compute_loss=True, generator=torch.Generator().manual_seed(0))
-    bad_hd = ModelConfig(**dict(LONG, embed_dim=256, heads=1))  # hd 256: over 128, mesh or not
-    with mesh, pytest.raises(NotImplementedError):
-        convert.build_model(bad_hd, convert.init_state_dict(bad_hd, 0), device="cpu")(
+    # hd 256, over the kernels' 128: the ring's plain pair steps, no launch
+    # (tests/test_torch_wide_ring.py holds them against neko_tpu's XLA ring)
+    wide = ModelConfig(**dict(LONG, embed_dim=256, heads=1))
+    with mesh:
+        _, loss = convert.build_model(wide, convert.init_state_dict(wide, 0), device="cpu")(
             batch, train=True, compute_loss=True, generator=torch.Generator().manual_seed(0))
+    assert np.isfinite(loss.item()) and [c.launches for c in counters] == before
     x = torch.zeros(1, 512, D)
     bounds = torch.tensor([0], dtype=torch.int32)
     with pytest.raises(ValueError):
         rk.ring_attention_bsd(x, x, x, bounds, bounds + 512, n_shards=3, heads=H)
-    x256 = torch.zeros(1, 512, 256)
-    with pytest.raises(ValueError):  # hd 256: over the kernels' 128
-        rk.ring_attention_bsd(x256, x256, x256, bounds, bounds + 512, n_shards=4, heads=1)
+    x256 = torch.zeros(1, 512, 256)  # hd 256: over the kernels' 128, the plain pair steps
+    out = rk.ring_attention_bsd(x256, x256, x256, bounds, bounds + 512, n_shards=4, heads=1)
+    assert out.shape == x256.shape and not out.any()
+    with pytest.raises(ValueError):
+        rk.ring_attention_bsd(x256, x256, x256, bounds, bounds + 512, n_shards=3, heads=1)
     with pytest.raises(ValueError):  # no active seq axis
         attn.sequence_parallel_attention_bsd(x, x, x, torch.ones(1, 512, dtype=torch.bool),
                                              heads=H)

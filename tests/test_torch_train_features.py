@@ -43,6 +43,21 @@ OPT = dict(learning_rate=1e-3, init_lr=1e-4, warmup_steps=2, training_steps=10,
            grad_norm_clip=0.5)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def threefry_keys():
+    """neko_tpu's weights drawn with JAX's default PRNG (threefry) in every
+    test here: neko_tpu's `cli.build.build_context` sets
+    `jax_default_prng_impl` for the whole process (to `--rng_impl`,
+    unsafe_rbg by default), so a test file that ran it earlier in the same
+    worker would otherwise change the weights every comparison here starts
+    from, and with them which elements Adam's normalisation brings nearest
+    PARAM_TOL."""
+    impl = jax.config.jax_default_prng_impl
+    jax.config.update("jax_default_prng_impl", "threefry2x32")
+    yield
+    jax.config.update("jax_default_prng_impl", impl)
+
+
 def _np(tree):
     return jax.tree_util.tree_map(np.asarray, tree)
 

@@ -22,8 +22,8 @@ plain decode attention) and launches no kernel.
   1e-4 of them one step off (an fp32 sum in another order across a rounding
   boundary), and four decode steps over the port's cache on both sides
   within 1e-4;
-* a 'seq' axis at hd > 128 (neko_tpu's XLA ring, not ported) is refused by
-  name.
+* a 'seq' axis at hd > 128 trains (the ring's plain pair steps, neko_tpu's
+  XLA ring): its loss equals the step's without the axis.
 """
 
 import functools
@@ -267,11 +267,19 @@ def test_extend_and_greedy_generation_match_jax(hd, monkeypatch):
     np.testing.assert_array_equal(got_t, want_t)
 
 
-def test_sequence_parallel_at_wide_heads_is_refused_by_name():
+def test_sequence_parallel_at_wide_heads_is_refused_by_name(monkeypatch):
+    """No longer refused: a 'seq' axis at hd 256 trains through the ring's
+    plain pair steps (tests/test_torch_wide_ring.py holds them against
+    neko_tpu's XLA ring); the loss equals the step's without the axis, and
+    no attention kernel wrapper runs."""
+    _no_kernel_wrapper(monkeypatch)
     _, _, cfg, sd = _pair(256)
     model = convert.build_model(cfg, sd, device="cpu")
     batch = to_device_batch(_arrays(WIDTHS[256]), "cpu")
-    with pmesh.create_mesh(data=1, seq=2), pytest.raises(
-            NotImplementedError, match="sequence-parallel attention at hd=256"):
-        model(batch, train=True, compute_loss=True, generator=torch.Generator().manual_seed(0))
+    with pmesh.create_mesh(data=1, seq=2):
+        _, loss = model(batch, train=True, compute_loss=True,
+                        generator=torch.Generator().manual_seed(0))
+    _, plain = model(batch, train=True, compute_loss=True,
+                     generator=torch.Generator().manual_seed(0))
+    np.testing.assert_allclose(loss.item(), plain.item(), **LOSS_TOL)
     assert da.supported(8, 2, 64, 128) and not da.supported(8, 2, 64, 256)

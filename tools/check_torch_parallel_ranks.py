@@ -6,7 +6,7 @@ step:
         [--device cpu|cuda] [--data 2] [--model 1] [--seq 1] [--pipe 1]
         [--schedule gpipe|1f1b] [--micro 4] [--loss gathered|chunked]
         [--fsdp] [--fused_adamw] [--ema 0.0] [--dropout 0.0]
-        [--width small|small4|flagship] [--steps 3] [--fault NAME]
+        [--width small|small4|flagship|flagship2] [--steps 3] [--fault NAME]
         [--state FILE] [--out FILE] [--timeout 600]
 
 It spawns data x seq x pipe x model processes that join one
@@ -19,8 +19,9 @@ blocks of it (`TrainContext(mesh=, fsdp=)`); data rank d packs rows
 seed: the root bench's row mix (text, continuous, image; bench.py
 build_examples), 4 rows at the small width (128d / 2 layers / 4 heads,
 k = 64, fp32; `small4` has 4 layers, so a pipeline stage holds two) and 16
-at the flagship's (768d / 6 layers / 24 heads, k = 1024, bf16; `--k`
-and `--rows` change the context and the rows).  'seq' and 'pipe' peers
+at the flagship's (768d / 6 layers / 24 heads, k = 1024, bf16; `flagship2`
+the same at 2 layers; `--k` and `--rows` change the context and the
+rows).  'seq' and 'pipe' peers
 pack their data coordinate's rows (each 'seq' rank keeps its columns on the
 device); `--loss chunked` drops the gathered targets, so the loss takes the
 chunked route (1F1B always does).  The two data halves hold different numbers of loss
@@ -102,6 +103,12 @@ WIDTHS = {
                      model=dict(),
                      opt=dict(learning_rate=1e-3, init_lr=1e-3, warmup_steps=1,
                               disable_cosine_decay=True, training_steps=10_000)),
+    # the flagship cut to 2 layers (chip_smoke.py phases 18 and 19 (a), whose
+    # run must end within its time limit)
+    "flagship2": dict(shape=dict(embed_dim=768, layers=2, heads=24, batch_per_chip=16),
+                      model=dict(),
+                      opt=dict(learning_rate=1e-3, init_lr=1e-3, warmup_steps=1,
+                               disable_cosine_decay=True, training_steps=10_000)),
 }
 FAULTS = ("mean of local means", "row-parallel all-reduce dropped",
           "out-of-shard targets clipped", "FSDP clip norm from the local shard",
