@@ -107,8 +107,10 @@
    (boolean mask) as the yardstick and the cluster size each used.
    Then generate_batch at bench_decode.py's shape (B=8, 512-token prompts,
    64 new tokens) through the kernel and through the plain decode
-   attention: per-token ms, and the last-step logits of the two (teacher-
-   forced on the kernel run's tokens) within a limit a planted fault fails.
+   attention: per-token ms (the package harness's timing loop,
+   `neko_tpu_torch.bench_decode.measure`), and the last-step logits of the
+   two (teacher-forced on the kernel run's tokens) within a limit a planted
+   fault fails.
 12. The fused loss head (#15, the train steps' loss forward) at the
    flagship loss chunks ([4096, 768] and [3328, 768] x 52,480, valid vocab
    52,305, bf16) against its plain version in fp32, with planted faults
@@ -140,7 +142,8 @@
    RESUME_LOSS_TOL, which the resume from a copy without the host-state
    sidecar must exceed; the same with `--fused_adamw` (#16 launches =
    steps) resumed at 10 of 15.  The last checkpoint loads through
-   `convert.load_model_dir` and answers /v1/generate and /v1/action.
+   `convert.load_model_dir` and answers /v1/generate and /v1/action.  The
+   run's control rows go through the native C packer (`native.calls` > 0).
    Then one continuous-env episode longer than the ring through
    `RolloutSession` on the kernels against the same session on the plain
    prefill and decode attention, teacher-forced (ROLLOUT_*).  The runs write
@@ -172,7 +175,9 @@
    `NekoServer(continuous_slots=8, continuous_chunk=8)` and then through the
    coalescing server: requests/s, tokens/s, p50 / p99 latency and time to
    first token of each (the coalescing server's first token comes with its
-   reply), the greedy replies against generate_batch up to the first step
+   reply; the load through the serving harness's closed loop,
+   `tools.bench_serving.run_load`, one client a request), the greedy
+   replies against generate_batch up to the first step
    whose top-two logits lie within DECODE_LOGIT_TOL; a stream against the
    same request's reply; /metrics.  Beams: predict_caption with 4 beams on
    two 256x256 caption prompts, generate_beam kernels vs plain attention
@@ -326,8 +331,28 @@
    outside it); no attention kernel launched for that model.  (e) (b)'s two
    checkpoints averaged by `tools.average_checkpoints` and served by the
    serve CLI's build for one request; `tools.inspect_checkpoint` reports
-   the model's parameter count; `python -m neko_tpu_torch.examples.training`
-   and `examples.inference` run on the card.  (`weights_io_launches`.)
+   the model's parameter count; the `main` of
+   `neko_tpu_torch.examples.training` and `examples.inference` (what
+   `python -m` runs) runs on the card in this process.  (`weights_io_launches`.)
+22. The VQ image tokenizer, the world model and the ring at hd 256: (a)
+   the VQ trained 400 steps, its codes against the CPU's fp32 codes
+   (VQ_CODE_AGREE_MIN) and the plain convolutions (VQ_OUT_TOL, VQ_FAULTS);
+   (b) the world model at the flagship width on its code grids and
+   `imagine`'s first frame against plain attention; (c) the ring at hd 256
+   over `seq` = 4 against plain attention (WIDE_RING_*).
+   (`world_model_launches`.)
+23. The serving bench harnesses through their main() at the flagship width
+   (HARNESS_RUNS): `neko_tpu_torch.bench_decode` at its shape with the
+   native and the int8 cache (launches of #14 = 63 x 6 a timed generation,
+   #1 = 6), `tools.bench_spec` (tokens a round within [1, k + 1], lossless
+   in bf16; in fp32 the cyclic prompt's speculative tokens equal plain
+   greedy's), `tools.bench_serving` (no error, the coalescing worker and the
+   engine lossless in bf16, token for token in fp32), `tools.bench_rollout`
+   (the share of actions the two modes agree on with the full-context
+   prompt; equal actions without eviction); each harness's JSON line on a
+   line of its own.  Then the native packer built here against the numpy
+   route on the three pure-control variants, bit for bit.
+   (`serving_harness_launches`.)
 
 Every train run (phases 6, 8, 10, 13, 14, 15, 17, 18, 19, 21) takes its loss forward through #15:
 its launches must be loss chunks x steps (2 a flagship and `long` step, 3 a
@@ -343,7 +368,8 @@ alone, phase 14's among them (`train_cli_launches`), phase 15's training
 18's over both ranks (`parallel_launches`), phase 19's (`seq_ranks_launches`,
 `pipeline_launches`), phase 20's over its one-process and two-rank runs
 (`quant_tp_serving_launches`; #14's int8 instance as its own entry,
-`decode_cache_attention_int8`), phase 21's (`weights_io_launches`), each
+`decode_cache_attention_int8`), phase 21's (`weights_io_launches`), phase
+22's (`world_model_launches`), phase 23's (`serving_harness_launches`), each
 with its bound
 from this run's shapes), then, as the last line,
 {"ok": true, "device": {...}}.  Any failed phase exits non-zero.  The
@@ -1036,6 +1062,27 @@ WIDE_RING_ROWS = (8192, 5000)
 WIDE_RING_LOSS_TOL = 2.8e-5
 WIDE_RING_GRAD_TOL = 1.5e-2
 WIDE_RING_FAULTS = ("farthest kv block skipped", "running-max rescale dropped in the merge")
+
+# the serving bench harnesses (phase 23): each one's main() at the flagship
+# width, with fewer repetitions than its defaults (3 runs, 3 reps, 1 round, 1
+# episode a mode, no warm-up episode).  In bf16 the random model's logits
+# tie exactly (top-two gap 0) often enough that a token flips between two
+# forwards of other shapes: there the speculative and the served tokens are
+# held to the tie rule (`lossless`), and token for token in fp32 runs of the
+# same width (speculation at 1 rep, 8 served requests).  The last rollout
+# run has no prompt and a horizon under the window's 93 timesteps, so
+# nothing is evicted and the two modes must take the same actions (fp32).
+HARNESS_RUNS = (
+    ("bench_decode", ["--runs", "3"]),
+    ("bench_decode", ["--runs", "3", "--kv_quant"]),
+    ("bench_spec", ["--gen", "128", "--reps", "3"]),
+    ("bench_spec", ["--gen", "128", "--reps", "1", "--dtype", "float32"]),
+    ("bench_serving", ["--requests", "16", "--rounds", "1"]),
+    ("bench_serving", ["--requests", "8", "--rounds", "1", "--dtype", "float32"]),
+    ("bench_rollout", ["--iterations", "1", "--warmup", "0"]),
+    ("bench_rollout", ["--iterations", "1", "--warmup", "0", "--promptless", "--horizon", "16",
+                       "--dtype", "float32"]),
+)
 
 
 def _require(ok, what) -> None:
@@ -3023,6 +3070,7 @@ def decode_generate(card: str, dev="cuda") -> dict:
     "plain_ms" per token, "launches" of the kernel run}."""
     import torch
 
+    from neko_tpu_torch import bench_decode
     from neko_tpu_torch.config import ModelConfig
     from neko_tpu_torch.convert import build_model, init_state_dict
     from neko_tpu_torch.inference.generator import Generator
@@ -3036,17 +3084,8 @@ def decode_generate(card: str, dev="cuda") -> dict:
     ts = cfg.token_space
     kw = dict(start=ts.start("text"), end=ts.end("text"), return_logits=False)
 
-    def per_token(runs=3):
-        gen.generate_batch(examples, max_new_tokens=T, **kw)  # warm-up
-        full, one = [], []
-        for _ in range(runs):
-            t0 = time.perf_counter()
-            gen.generate_batch(examples, max_new_tokens=T, **kw)
-            full.append(time.perf_counter() - t0)
-            t0 = time.perf_counter()
-            gen.generate_batch(examples, max_new_tokens=1, **kw)
-            one.append(time.perf_counter() - t0)
-        return (float(np.median(full)) - float(np.median(one))) / (T - 1) * 1e3
+    def per_token():  # the package harness's timing loop, 3 runs
+        return bench_decode.measure(gen, examples, T, runs=3)["per_token_ms"]
 
     da.decode_cache_attention.launches = 0
     (tokens,) = gen.generate_batch(examples, max_new_tokens=T, **kw)
@@ -3626,10 +3665,14 @@ def train_entry_point(card: str, bench_step_ms: float, workdir, dev="cuda") -> d
     from neko_tpu_torch.serving.server import NekoServer
     from neko_tpu_torch.utils.checkpoint import latest_checkpoint
 
+    from neko_tpu_torch import native
+
     base = TRAIN_CLI + ["--training_steps", str(TRAIN_STEPS),
                         "--log_eval_freq", str(TRAIN_EVAL_FREQ)]
     t0 = time.perf_counter()
+    native.calls = 0
     tr, rec, launches, calls = train_cli(base, workdir / "a")
+    native_packs = native.calls
     run_s = time.perf_counter() - t0
     cfg, layers = tr.ctx.model_cfg, tr.ctx.model_cfg.layers
     exp_a, target_budget = tr.exp_dir, tr.target_budget
@@ -3653,6 +3696,9 @@ def train_entry_point(card: str, bench_step_ms: float, workdir, dev="cuda") -> d
           f"{bench_step_ms:.3f} ms ({trainer_ms / bench_step_ms:.3f} of it); time/sample_batch "
           f"(queue wait) median {np.median(waits):.3f} ms, max {waits.max():.3f} ms; "
           f"time/host_pipeline (produce) median {np.median(produce):.3f} ms ({card})")
+    print(f"native packer (neko_tpu_torch/native/packing.c): {native_packs} control examples "
+          f"packed by the C kernel in the run")
+    _require(native_packs > 0, "the train CLI's control rows never reached the native packer")
     metrics = {}
     for i, it in enumerate(logs):
         ev = {k: v for k, v in it.items() if k.startswith("evaluation/")}
@@ -3802,7 +3848,7 @@ def train_entry_point(card: str, bench_step_ms: float, workdir, dev="cuda") -> d
     return {"fwd": launches["fwd"], "bwd": launches["bwd"], "decode": launches["decode"],
             "loss": launches["loss"], "adamw": launches_d["adamw"] + launches_e["adamw"],
             "trainer_ms": trainer_ms, "bench_step_ms": bench_step_ms,
-            "rollout_step_ms": step_ms}
+            "rollout_step_ms": step_ms, "native_packs": native_packs}
 
 
 # ------------------------------------------------ the evaluation entry point
@@ -3964,6 +4010,7 @@ def eval_entry_point(card: str, workdir, dev="cuda") -> dict:
     the readings."""
     import torch
 
+    from neko_tpu_torch import bench_decode
     from neko_tpu_torch.cli import evaluate as cli_eval
     from neko_tpu_torch.cli.build import (
         build_context, load_state_for, resolve_checkpoint_and_args)
@@ -4093,21 +4140,7 @@ def eval_entry_point(card: str, workdir, dev="cuda") -> dict:
     kw = dict(start=ts.start("text"), end=ts.end("text"), drop_trailing=1,
               inner_pos_continuation=True, return_logits=False)
     T = 32
-
-    def per_token(runs=3):
-        gen.generate_batch(prompts, max_new_tokens=T, **kw)
-        full, one = [], []
-        for _ in range(runs):
-            _sync(dev)
-            t0 = time.perf_counter()
-            gen.generate_batch(prompts, max_new_tokens=T, **kw)
-            full.append(time.perf_counter() - t0)
-            t0 = time.perf_counter()
-            gen.generate_batch(prompts, max_new_tokens=1, **kw)
-            one.append(time.perf_counter() - t0)
-        return (float(np.median(full)) - float(np.median(one))) / (T - 1) * 1e3
-
-    decode_ms = per_token()
+    decode_ms = bench_decode.measure(gen, prompts, T, runs=3, **kw)["per_token_ms"]
     print(f"caption group of {len(prompts)} ({int(lengths[0])}-token prompts: "
           f"{EVAL_IMAGE}x{EVAL_IMAGE} images): prefill {prefill_ms:.3f} ms (CUDA events), "
           f"{prefill_dev:.3f} ms device time; decode {decode_ms:.3f} ms a step (generate_batch, "
@@ -4174,51 +4207,17 @@ def _engine_payloads(ts, rng):
     return out
 
 
-def _stream_post(url: str, payload: dict):
-    """-> (body of the done event, seconds to the first tokens event,
-    seconds to the end)."""
-    req = urllib.request.Request(url, data=json.dumps({**payload, "stream": True}).encode(),
-                                 headers={"Content-Type": "application/json"}, method="POST")
-    t0, first, done = time.perf_counter(), None, None
-    with urllib.request.urlopen(req, timeout=600) as r:
-        for line in r:
-            ev = json.loads(line)
-            if "error" in ev:
-                raise AssertionError(f"stream error: {ev['error']}")
-            if ev.get("done"):
-                done = ev
-            elif first is None:
-                first = time.perf_counter() - t0
-    _require(done is not None, "the stream ended without a done event")
-    return done, first, time.perf_counter() - t0
-
-
 def _http_load(base: str, payloads, stream: bool):
-    """Every payload at once, one client thread each.  -> (replies, TTFTs,
-    latencies, wall seconds)."""
-    n = len(payloads)
-    replies, ttft, lat, errors = [None] * n, [0.0] * n, [0.0] * n, []
+    """Every payload at once, one client each, through the serving harness's
+    closed loop (`tools.bench_serving.run_load`).  -> (replies, TTFTs,
+    latencies, wall seconds); without a stream the first token comes with
+    the reply."""
+    from neko_tpu_torch.tools.bench_serving import run_load
 
-    def go(i):
-        try:
-            if stream:
-                replies[i], ttft[i], lat[i] = _stream_post(base + "/v1/generate", payloads[i])
-            else:
-                status, replies[i], lat[i] = _post(base + "/v1/generate", payloads[i])
-                _require(status == 200, replies[i])
-                ttft[i] = lat[i]  # no stream: the first token comes with the reply
-        except Exception as e:  # noqa: BLE001 -- re-raised below
-            errors.append(e)
-
-    threads = [threading.Thread(target=go, args=(i,)) for i in range(n)]
-    t0 = time.perf_counter()
-    for t in threads:
-        t.start()
-    for t in threads:
-        t.join(timeout=900)
-    wall = time.perf_counter() - t0
-    _require(not errors and not any(t.is_alive() for t in threads), f"requests failed: {errors}")
-    return replies, ttft, lat, wall
+    res = run_load(base, payloads, clients=len(payloads), stream=stream)
+    _require(res["errors"] == 0, f"requests failed: {res['error_messages']}")
+    lat = res["latency_s"]
+    return res["replies"], res["ttft_s"] if stream else lat, lat, res["wall_s"]
 
 
 def _load_summary(name, replies, ttft, lat, wall, card):
@@ -4460,6 +4459,7 @@ def serving_engine(card: str, dev="cuda", width=None) -> dict:
     from neko_tpu_torch.convert import build_model, init_state_dict
     from neko_tpu_torch.inference.generator import Generator
     from neko_tpu_torch.serving.server import NekoServer
+    from neko_tpu_torch.tools.bench_serving import post
 
     width = dict(width or FLAGSHIP, max_patches=(ENGINE_IMAGE // 16) ** 2, dropout=0.0)
     cfg = ModelConfig(**width)
@@ -4486,7 +4486,7 @@ def serving_engine(card: str, dev="cuda", width=None) -> dict:
                                         f"{ENGINE['chunk']}, streamed)", replies, ttft, lat,
                                         wall, card)
             probe = dict(greedy[0])
-            done, _, _ = _stream_post(base + "/v1/generate", probe)
+            done, _ = post(base + "/v1/generate", probe, stream=True)
             status, body, _ = _post(base + "/v1/generate", probe)
             with urllib.request.urlopen(base + "/metrics", timeout=60) as r:
                 metrics = json.loads(r.read())
@@ -5530,21 +5530,6 @@ def _launched_device_ms(fn) -> float:
     raise AssertionError("the profiler recorded no device time for a call that launches")
 
 
-def _per_token_ms(gen, examples, T, kw, runs=3) -> float:
-    """Decode ms a token of generate_batch (host clock): the median of
-    `runs` T-token runs less the 1-token run, over T - 1 steps."""
-    gen.generate_batch(examples, max_new_tokens=T, **kw)  # warm-up
-    full, one = [], []
-    for _ in range(runs):
-        t0 = time.perf_counter()
-        gen.generate_batch(examples, max_new_tokens=T, **kw)
-        full.append(time.perf_counter() - t0)
-        t0 = time.perf_counter()
-        gen.generate_batch(examples, max_new_tokens=1, **kw)
-        one.append(time.perf_counter() - t0)
-    return (float(np.median(full)) - float(np.median(one))) / (T - 1) * 1e3
-
-
 def _cache_bytes(gen, examples) -> int:
     """Bytes of the KV caches (rows and scales; not the masks) a prefill of
     `examples` leaves."""
@@ -5594,6 +5579,7 @@ def quantized_serving(card: str, dev="cuda") -> dict:
     "fp8": readings}."""
     import torch
 
+    from neko_tpu_torch import bench_decode
     from neko_tpu_torch.config import ModelConfig
     from neko_tpu_torch.convert import build_model, init_state_dict
     from neko_tpu_torch.inference import quant
@@ -5718,8 +5704,8 @@ def quantized_serving(card: str, dev="cuda") -> dict:
     nk = {}
     for name, gen in (("native", native), ("int8", int8), ("fp8", fp8), ("int8", int8),
                       ("fp8", fp8), ("native", native)):
-        nk.setdefault(name, []).append(_per_token_ms(gen, examples, T,
-                                                     dict(kw, return_logits=False)))
+        nk.setdefault(name, []).append(bench_decode.measure(
+            gen, examples, T, runs=3, **dict(kw, return_logits=False))["per_token_ms"])
     print(f"decode ms a token at B={B} (generate_batch, host clock, in turns): native "
           f"{nk['native']}, int8 cache {nk['int8']}, fp8 weights {nk['fp8']} ({card})")
     res["int8"] = {"first_logit_diff": first, "token_agreement": agree, "forced_logit_err": err,
@@ -6285,26 +6271,25 @@ def wide_heads(card: str, main: dict, dev="cuda") -> dict:
 
 
 def examples_run(workdir: Path, dev="cuda") -> dict:
-    """Phase 21 (e): `python -m neko_tpu_torch.examples.training` and
-    `examples.inference` at their default width, EXAMPLE_STEPS steps, each
-    a process of its own.  -> seconds each."""
-    import subprocess
+    """Phase 21 (e): the `main` of `neko_tpu_torch.examples.training` and
+    `examples.inference` (what `python -m` runs) in this process, at their
+    default width, EXAMPLE_STEPS steps.  -> seconds each."""
+    import importlib
+    import io
 
-    env = dict(os.environ)
-    env["PYTHONPATH"] = str(Path(__file__).resolve().parent) + os.pathsep + env.get(
-        "PYTHONPATH", "")
     cpu = [] if dev == "cuda" else ["--cpu"]
     secs = {}
     for name, marker in (("training", "=== 4: export"), ("inference", "engine_slot_0 ->")):
+        mod = importlib.import_module(f"neko_tpu_torch.examples.{name}")
+        buf = io.StringIO()
         t0 = time.perf_counter()
-        r = subprocess.run([sys.executable, "-m", f"neko_tpu_torch.examples.{name}",
-                            "--steps", str(EXAMPLE_STEPS), "--save_dir",
-                            str(workdir / f"example_{name}")] + cpu,
-                           env=env, capture_output=True, text=True, timeout=600)
+        with contextlib.redirect_stdout(buf):
+            mod.main(["--steps", str(EXAMPLE_STEPS), "--save_dir",
+                      str(workdir / f"example_{name}")] + cpu)
         secs[name] = time.perf_counter() - t0
-        _require(r.returncode == 0 and marker in r.stdout,
-                 f"examples.{name} failed: {r.stderr[-2000:]}")
-    print(f"phase 21 examples on {dev} (python -m, {EXAMPLE_STEPS} steps): training "
+        _require(marker in buf.getvalue(), f"examples.{name}: no '{marker}' in its output: "
+                 f"{buf.getvalue()[-2000:]}")
+    print(f"phase 21 examples on {dev} (in process, {EXAMPLE_STEPS} steps): training "
           f"{secs['training']:.1f} s, inference {secs['inference']:.1f} s")
     return secs
 
@@ -6665,6 +6650,118 @@ def vq_world_model(card: str, dev="cuda") -> dict:
     return {"launches": main, "readings": readings}
 
 
+# ------------------------------------------------ the serving bench harnesses
+def _harness_line(name: str, argv) -> dict:
+    """`main(argv)` of a serving harness in this process: its JSON line,
+    printed on a line of its own; a non-zero exit fails the phase."""
+    import importlib
+    import io
+
+    mod = importlib.import_module(("neko_tpu_torch." if name == "bench_decode"
+                                   else "neko_tpu_torch.tools.") + name)
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = mod.main(list(argv))
+    line = buf.getvalue().strip().splitlines()[-1]
+    print(f"{name} {' '.join(argv)}:")
+    print(line)
+    _require(rc == 0, f"{name} {argv} exited {rc}")
+    return json.loads(line)
+
+
+def native_packer_vs_numpy() -> int:
+    """The native packer built on this machine against the numpy route on
+    the three pure-control variants (tests/test_native_packing.py's cases),
+    bit for bit.  -> the packs made."""
+    from neko_tpu_torch import native
+    from neko_tpu_torch.config import ModelConfig
+    from neko_tpu_torch.data.packing import SequencePacker
+
+    cfg = ModelConfig(**dict(FLAGSHIP, max_patches=0))
+    rng = np.random.RandomState(SEED)
+    top = np.tanh(rng.randn(12, 3)).astype(np.float32)
+    top[0, 0], top[0, -1] = 1.0, -1.0  # the unclipped top bin, the bottom edge
+    cases = [{"continuous_obs": rng.randn(12, 8).astype(np.float32), "continuous_actions": top},
+             {"continuous_obs": (rng.randn(7, 5) * 100).astype(np.float32),
+              "discrete_actions": rng.randint(0, 50, (7, 1)).astype(np.int32)},
+             {"discrete_obs": rng.randint(0, 50, (9, 2)).astype(np.int32),
+              "discrete_actions": rng.randint(0, 50, (9, 1)).astype(np.int32)}]
+    fast, plain = SequencePacker(cfg), SequencePacker(cfg)
+    plain._pack_control_native = lambda ex: None
+    before = native.calls
+    for ex in cases:
+        a, b = fast.pack_example(ex), plain.pack_example(ex)
+        for field in ("tokens", "target_mask", "inner_pos"):
+            _require(np.array_equal(getattr(a, field), getattr(b, field)),
+                     f"native packer {sorted(ex)}: {field} differs from the numpy route")
+    packs = native.calls - before
+    _require(packs == len(cases), f"{packs} native packs for {len(cases)} examples")
+    print(f"native packer built on this machine ({native.library_path().name}): tokens, "
+          f"targets and inner positions equal to the numpy route on the {len(cases)} variants")
+    return packs
+
+
+def serving_harnesses(card: str) -> dict:
+    """Phase 23: the serving bench harnesses through their main() at the
+    flagship width (HARNESS_RUNS) and the native packer.  -> the main
+    path's launches of #1 ("fwd"), #14 ("decode") and #14-int8 ("int8"),
+    and the harnesses' lines."""
+    from neko_tpu_torch.tools import harness
+
+    t0 = time.perf_counter()
+    for fn in harness.launch_counters().values():
+        fn.launches = 0
+    lines = [_harness_line(name, argv) for name, argv in HARNESS_RUNS]
+    launched = harness.read_launches()
+    dec, dec8, spec, spec32, srv, srv32, roll, still = lines
+    layers = FLAGSHIP["layers"]
+    steps = (DECODE_BENCH["new"] - 1) * layers
+    want = {"whole_head_attention": layers, "decode_cache_attention": steps,
+            "decode_cache_attention_int8": 0}
+    _require(dec["launches"] == want, f"bench_decode launches {dec['launches']}, want {want}")
+    want8 = dict(want, decode_cache_attention=0, decode_cache_attention_int8=steps)
+    _require(dec8["launches"] == want8, f"bench_decode --kv_quant launches {dec8['launches']}")
+    k = spec["k"]
+    for line in (spec, spec32):
+        for name in ("cyclic", "random"):
+            r = line[name]
+            _require(r["lossless"] and 1 <= r["tokens_per_round"] <= k + 1,
+                     f"bench_spec {line['dtype']} {name}: {r}")
+    _require(spec32["cyclic"]["tie_flips"] == 0 and spec32["cyclic"]["tokens_equal"],
+             "bench_spec fp32 cyclic: the speculative tokens differ from plain greedy's")
+    for line in (srv, srv32):
+        _require(line["errors"] == 0 and line["lossless"],
+                 f"bench_serving {line['dtype']}: errors {line['errors']}, a difference "
+                 "beyond a logit tie")
+    _require(srv32["outputs_equal"], "bench_serving fp32: the modes' tokens differ")
+    for r in (roll, still):
+        _require(r["actions_finite"] and r["launches"]["repack"]["whole_head_attention"] > 0
+                 and r["launches"]["rollout_cache"]["decode_cache_attention"] > 0,
+                 f"bench_rollout: {r}")
+    _require(still["actions_equal"], "bench_rollout without eviction: the rollout cache and "
+             f"the re-pack took other actions (agree {still['actions_agree_share']})")
+    packs = native_packer_vs_numpy()
+    seconds = time.perf_counter() - t0
+    out = {"fwd": launched["whole_head_attention"], "decode": launched["decode_cache_attention"],
+           "int8": launched["decode_cache_attention_int8"], "native_packs": packs,
+           "seconds": seconds, "lines": lines}
+    print(f"phase 23 main-path launches: #1 {out['fwd']}, #14 {out['decode']}, #14-int8 "
+          f"{out['int8']}; bench_decode {dec['per_token_ms']:.3f} ms a token (int8 cache "
+          f"{dec8['per_token_ms']:.3f}), bench_spec tokens a round cyclic "
+          f"{spec['cyclic']['tokens_per_round']:.2f} / random "
+          f"{spec['random']['tokens_per_round']:.2f} (tie flips {spec['cyclic']['tie_flips']} / "
+          f"{spec['random']['tie_flips']} in bf16, {spec32['cyclic']['tie_flips']} / "
+          f"{spec32['random']['tie_flips']} in fp32), bench_serving "
+          f"{srv['continuous']['requests_per_sec']:.2f} against "
+          f"{srv['coalesce']['requests_per_sec']:.2f} requests/s (requests differing in bf16 "
+          f"{srv['requests_differing']}, fp32 {srv32['requests_differing']}), bench_rollout "
+          f"speedup "
+          f"{roll['speedup']:.2f}, actions agree {roll['actions_agree_share']:.3f} (full prompt) "
+          f"/ {still['actions_agree_share']:.3f} (no eviction); phase 23 took {seconds:.1f} s "
+          f"({card})")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -6793,6 +6890,8 @@ def main() -> int:
     lap("21")
     ww = vq_world_model(card)["launches"]
     lap("22")
+    p23 = serving_harnesses(card)
+    lap("23")
     wl, wk = p21["launches"], p21["kernels"]
     q20, r20 = p20["serving"], p20["ranks"]
     q_fwd, q_decode = q20["fwd"] + r20["fwd"], q20["decode"] + r20["decode"]
@@ -6840,13 +6939,13 @@ def main() -> int:
          "source": src + "whole_head_attention.cu", "replaces": f"{tpu}:206,236",
          "launches": (serve_launches + launches["fwd"] + cli["fwd"] + ev["fwd"] + ev["eval_fwd"]
                       + se["fwd"] + tf["fwd"] + pl["fwd"] + sl["fwd"] + pp["fwd"] + q_fwd
-                      + wl["fwd"] + ww["fwd"]),
+                      + wl["fwd"] + ww["fwd"] + p23["fwd"]),
          "train_cli_launches": cli["fwd"], "mix_train_launches": ev["fwd"],
          "eval_cli_launches": ev["eval_fwd"], "serving_engine_launches": se["fwd"],
          "train_features_launches": tf["fwd"], "parallel_launches": pl["fwd"],
          "seq_ranks_launches": sl["fwd"], "pipeline_launches": pp["fwd"],
          "quant_tp_serving_launches": q_fwd, "weights_io_launches": wl["fwd"],
-         "world_model_launches": ww["fwd"],
+         "world_model_launches": ww["fwd"], "serving_harness_launches": p23["fwd"],
          "max_abs_err": max(err, trained["fwd_err"], pk["err"]["fwd"], qk["err"]["fwd"],
                             wk["err"]["fwd"], wk["err"]["prefill"]),
          **timing("fwd"), "prefill": prefill, "parallel_rank_shape": at_rank_shape("fwd"),
@@ -6900,13 +6999,13 @@ def main() -> int:
          "replaces": "neko_tpu/ops/decode_attention.py:80",
          "launches": (decode_launches + cli["decode"] + ev["decode"] + ev["eval_decode"]
                       + se["decode"] + tf["decode"] + pl["decode"] + sl["decode"]
-                      + pp["decode"] + q_decode + wl["decode"] + ww["decode"]),
+                      + pp["decode"] + q_decode + wl["decode"] + ww["decode"] + p23["decode"]),
          "train_cli_launches": cli["decode"], "mix_train_launches": ev["decode"],
          "eval_cli_launches": ev["eval_decode"], "serving_engine_launches": se["decode"],
          "train_features_launches": tf["decode"], "parallel_launches": pl["decode"],
          "seq_ranks_launches": sl["decode"], "pipeline_launches": pp["decode"],
          "quant_tp_serving_launches": q_decode, "weights_io_launches": wl["decode"],
-         "world_model_launches": ww["decode"],
+         "world_model_launches": ww["decode"], "serving_harness_launches": p23["decode"],
          "check_launches": (decode["check_launches"] + decode["generate"]["launches"]
                             + p21["decode_check_launches"]),
          "max_abs_err": max(decode["err"], wk["err"]["decode"]), **decode["times"],
@@ -6922,8 +7021,9 @@ def main() -> int:
          "source": src + "decode_attention.cu",
          "replaces": "neko_tpu/ops/decode_attention.py:80",
          "computes": "neko_tpu/models/transformer.py:71",
-         "launches": q20["int8_launches"] + r20["int8_launches"],
+         "launches": q20["int8_launches"] + r20["int8_launches"] + p23["int8"],
          "quant_tp_serving_launches": q20["int8_launches"] + r20["int8_launches"],
+         "serving_harness_launches": p23["int8"],
          "check_launches": p20["kernel"]["check_launches"],
          "max_abs_err": p20["kernel"]["err"], **p20["kernel"]["times"],
          "b1": p20["kernel"]["times_b1"], "shapes": p20["kernel"]["shapes"],
@@ -6975,7 +7075,7 @@ def main() -> int:
     for shape, t in (("16x24x1024^2", mask), ("8x24x2048^2", long_times["mask"])):
         print(f"mask kernel {shape}: {t['ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
               f"({t['bound_ms'] / t['ms']:.3f} of it) ({card})")
-    print(f"phases 1-22 took {time.perf_counter() - t_start:.1f} s; seconds by phase {laps}")
+    print(f"phases 1-23 took {time.perf_counter() - t_start:.1f} s; seconds by phase {laps}")
     print(json.dumps({"check_kernels": [mask] + [e for e in entries if not e["launches"]]}))
     print(json.dumps({"kernels": [e for e in entries if e["launches"]]}))
     print(json.dumps({"ok": True, "device": {

@@ -2,16 +2,18 @@
 trajectory store the control tasks sample from, in memory or in a
 Minari-layout HDF5 file.
 
-The JAX package reads HDF5 files through h5py; the port reads them with its
-own numpy reader (`data/hdf5.py`), which takes what h5py writes by default
-and names what it refuses (filters, enums, newer file formats).  Minari
-datasets need `minari`, which the port does not import.  The JAX package's
-`save_h5` is not ported: nothing on the port's paths writes a file.
+The JAX package reads and writes HDF5 files through h5py; the port reads
+them with its own numpy reader (`data/hdf5.py`), which takes what h5py
+writes by default and names what it refuses (filters, enums, newer file
+formats), and writes them with its own numpy writer there (`save_h5`: the
+layout of the JAX package's, which h5py reads too).  Minari datasets need
+`minari`, which the port does not import.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import List, Optional, Sequence
 
 import numpy as np
@@ -147,3 +149,21 @@ class H5EpisodeDataset(EpisodeDataset):
 
     def close(self):
         self._file.close()
+
+
+def save_h5(path: str, episodes: List[Episode], env_id: Optional[str] = None) -> None:
+    """Episodes -> a Minari-layout HDF5 file (counterpart of neko_tpu's
+    `save_h5`, written by `data/hdf5.write_h5` without h5py): groups
+    `episode_{i}` with datasets observations / actions / rewards (a
+    sub-group of per-component datasets for a dict), root attributes
+    `total_episodes` (int64) and `env_id` (a variable-length string)."""
+    from neko_tpu_torch.data.hdf5 import write_h5
+
+    tree = {f"episode_{i}": {"observations": ep.observations, "actions": ep.actions,
+                             "rewards": ep.rewards}
+            for i, ep in enumerate(episodes)}
+    attrs = {"total_episodes": np.int64(len(episodes))}
+    if env_id is not None:
+        attrs["env_id"] = env_id
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    write_h5(path, tree, attrs)

@@ -1,6 +1,8 @@
 """A numpy reader for the subset of HDF5 that h5py writes with its default
 file format (libver ('earliest', 'v114')): what the JAX package's `save_h5`
-produces, and what `H5EpisodeDataset` reads here without h5py.
+produces, and what `H5EpisodeDataset` reads here without h5py; and a numpy
+writer (`write_h5`, under `data/episodes.py`'s `save_h5`) of a part of that
+subset, which h5py, the JAX package and this reader all read.
 
 What it reads:
 
@@ -27,6 +29,16 @@ new-style (link message / fractal-heap) group storage.
 
 Reads happen on demand with `os.pread` on one read-only descriptor, so
 threads may read one `H5File` at once: nothing keeps a file position.
+
+What `write_h5` writes: superblock version 0 (8-byte offsets and lengths,
+group leaf K 4, internal K 16, as h5py's default), version 1 object headers,
+symbol-table groups (a version 1 B-tree of node type 0 over `SNOD`s, the
+names in a `HEAP`), contiguous datasets of the fixed-point (1/2/4/8 bytes)
+and IEEE float (2/4/8 bytes) types in either byte order, and root
+attributes of those types or of variable-length UTF-8 strings (one global
+heap collection, `GCOL`, as h5py writes a `str`).  Anything else (bool,
+which h5py writes as an enum; complex, object or fixed-length string
+arrays) raises `UnsupportedHDF5`.
 """
 
 from __future__ import annotations
@@ -466,3 +478,185 @@ class Dataset:
             dst = tuple(slice(o, min(o + c, s)) for o, c, s in zip(offset, chunk, self.shape))
             out[dst] = block[tuple(slice(0, sl.stop - sl.start) for sl in dst)]
         return out
+
+
+# ------------------------------------------------------------------ writer
+_LEAF_K, _NODE_K = 4, 16           # h5py's defaults: <= 8 names a SNOD, <= 32 children a node
+_SNOD_SIZE = 8 + 2 * _LEAF_K * 40
+_TREE_SIZE = 24 + 2 * _NODE_K * 8 + (2 * _NODE_K + 1) * 8
+_HEAP_FREE_NULL = 1                # a local heap's "no free block"
+_GCOL_MIN = 4096                   # the smallest global heap collection HDF5 reads
+
+
+def _p64(*vals) -> bytes:
+    return b"".join(int(v).to_bytes(8, "little") for v in vals)
+
+
+def _pad8(b: bytes) -> bytes:
+    return b + bytes(-len(b) % 8)
+
+
+def _encode_datatype(dtype: np.dtype) -> bytes:
+    """A datatype message body (unpadded) for a numeric numpy dtype."""
+    dtype = np.dtype(dtype)
+    big = dtype.byteorder == ">" or (dtype.byteorder == "=" and not np.little_endian)
+    n = dtype.itemsize
+    if dtype.kind in "iu" and n in (1, 2, 4, 8):
+        bits = int(big) | (0x08 if dtype.kind == "i" else 0)
+        return (bytes([0x10, bits, 0, 0]) + n.to_bytes(4, "little")
+                + (0).to_bytes(2, "little") + (8 * n).to_bytes(2, "little"))
+    if dtype.kind == "f" and n in (2, 4, 8):
+        exp_loc, exp_size, mant, bias = {2: (10, 5, 10, 15), 4: (23, 8, 23, 127),
+                                         8: (52, 11, 52, 1023)}[n]
+        return (bytes([0x11, 0x20 | int(big), 8 * n - 1, 0]) + n.to_bytes(4, "little")
+                + (0).to_bytes(2, "little") + (8 * n).to_bytes(2, "little")
+                + bytes([exp_loc, exp_size, 0, mant]) + bias.to_bytes(4, "little"))
+    raise UnsupportedHDF5(f"writing a {dtype} array (fixed-point and IEEE float types of "
+                          "1-8 bytes are written; h5py stores bool as an enum, which the "
+                          "reader refuses)")
+
+
+_VLEN_STR = (bytes([0x19, 0x01, 0x01, 0x00]) + (16).to_bytes(4, "little")   # UTF-8, null-term
+             + bytes([0x10, 0, 0, 0]) + (1).to_bytes(4, "little")           # base: 1-byte uint
+             + (0).to_bytes(2, "little") + (8).to_bytes(2, "little"))
+
+
+def _encode_dataspace(shape) -> bytes:
+    """Version 1 dataspace with its maximum dims equal to its dims (a
+    scalar: rank 0)."""
+    flags = 1 if shape else 0
+    return bytes([1, len(shape), flags, 0, 0, 0, 0, 0]) + _p64(*shape) + (
+        _p64(*shape) if shape else b"")
+
+
+def _message(mtype: int, body: bytes, flags: int = 0) -> bytes:
+    body = _pad8(body)
+    return (mtype.to_bytes(2, "little") + len(body).to_bytes(2, "little")
+            + bytes([flags, 0, 0, 0]) + body)
+
+
+class _Writer:
+    """Appends the objects of one file to a buffer; addresses are offsets
+    into it (the superblock's 96 bytes come first, filled in last)."""
+
+    def __init__(self):
+        self.buf = bytearray(96)
+
+    def put(self, data: bytes) -> int:
+        self.buf += bytes(-len(self.buf) % 8)
+        addr = len(self.buf)
+        self.buf += data
+        return addr
+
+    def header(self, messages) -> int:
+        body = b"".join(messages)
+        prefix = (bytes([1, 0]) + len(messages).to_bytes(2, "little")
+                  + (1).to_bytes(4, "little") + len(body).to_bytes(4, "little") + bytes(4))
+        return self.put(prefix + body)
+
+    def dataset(self, a: np.ndarray) -> int:
+        a = np.ascontiguousarray(a)
+        dtype = _encode_datatype(a.dtype)
+        if a.size:
+            layout = bytes([3, 1]) + _p64(self.put(a.tobytes()), a.nbytes)
+        else:  # never written: the address stays undefined, as h5py leaves it
+            layout = bytes([3, 1]) + _p64(_UNDEF, 0)
+        return self.header([_message(0x1, _encode_dataspace(a.shape), 1),
+                            _message(0x3, dtype, 1),
+                            _message(0x5, bytes([2, 2, 2, 1, 0, 0, 0, 0]), 1),
+                            _message(0x8, layout)])
+
+    def attribute(self, name: str, value) -> bytes:
+        if isinstance(value, str):
+            data = value.encode("utf-8")
+            coll = self.gcol(data)
+            dtype, space = _VLEN_STR, _encode_dataspace(())
+            raw = len(data).to_bytes(4, "little") + _p64(coll) + (1).to_bytes(4, "little")
+        else:
+            a = np.asarray(value)
+            dtype, space, raw = _encode_datatype(a.dtype), _encode_dataspace(a.shape), \
+                np.ascontiguousarray(a).tobytes()
+        nm = name.encode("utf-8") + b"\0"
+        body = (bytes([1, 0]) + len(nm).to_bytes(2, "little") + len(dtype).to_bytes(2, "little")
+                + len(space).to_bytes(2, "little") + _pad8(nm) + _pad8(dtype) + _pad8(space)
+                + raw)
+        return _message(0xC, body)
+
+    def gcol(self, data: bytes) -> int:
+        """A global heap collection holding `data` as object 1."""
+        obj = (1).to_bytes(2, "little") + bytes(6) + _p64(len(data)) + _pad8(data)
+        size = max(_GCOL_MIN, 16 + len(obj) + 16)
+        free = (0).to_bytes(2, "little") + bytes(6) + _p64(size - 16 - len(obj))
+        out = b"GCOL" + bytes([1, 0, 0, 0]) + _p64(size) + obj + free
+        return self.put(out + bytes(size - len(out)))
+
+    def group(self, tree: dict, attrs=None):
+        """Write `tree` ({name: array or dict}) as a group.  -> (object
+        header address, B-tree address, local heap address)."""
+        entries = []  # (name bytes, header address, (btree, heap) or None)
+        for name, node in tree.items():
+            if isinstance(node, dict):
+                addr, btree, heap = self.group(node)
+                entries.append((name.encode("utf-8"), addr, (btree, heap)))
+            else:
+                entries.append((name.encode("utf-8"), self.dataset(np.asarray(node)), None))
+        entries.sort(key=lambda e: e[0])  # the B-tree's order: strcmp on the names
+        heap_data, offsets = bytearray(8), []  # offset 0: the empty name
+        for name, _, _ in entries:
+            offsets.append(len(heap_data))
+            heap_data += _pad8(name + b"\0")
+        heap = self.put(b"HEAP" + bytes(4) + _p64(len(heap_data), _HEAP_FREE_NULL, 0))
+        data_addr = self.put(bytes(heap_data))
+        self.buf[heap + 24:heap + 32] = _p64(data_addr)
+        # symbol nodes of at most 2 * leaf K names each, then B-tree levels
+        n_snod = max(1, -(-len(entries) // (2 * _LEAF_K)))
+        children = []  # (address, heap offset of the subtree's last name)
+        for chunk in np.array_split(np.arange(len(entries)), n_snod):
+            node = bytearray(b"SNOD" + bytes([1, 0]) + len(chunk).to_bytes(2, "little"))
+            for i in chunk:
+                name, addr, scratch = entries[i]
+                node += _p64(offsets[i], addr) + (
+                    (1).to_bytes(4, "little") + bytes(4) + _p64(*scratch) if scratch
+                    else bytes(24))
+            node += bytes(_SNOD_SIZE - len(node))
+            children.append((self.put(bytes(node)), offsets[chunk[-1]] if len(chunk) else 0))
+        level = 0
+        while True:
+            n_node = max(1, -(-len(children) // (2 * _NODE_K)))
+            parents = []
+            for chunk in np.array_split(np.arange(len(children)), n_node):
+                node = bytearray(b"TREE" + bytes([0, level]) + len(chunk).to_bytes(2, "little")
+                                 + _p64(_UNDEF, _UNDEF) + _p64(0))
+                for i in chunk:
+                    node += _p64(children[i][0], children[i][1])
+                node += bytes(_TREE_SIZE - len(node))
+                parents.append((self.put(bytes(node)), children[chunk[-1]][1]))
+            if len(parents) == 1:
+                btree = parents[0][0]
+                break
+            children, level = parents, level + 1
+        messages = [_message(0x11, _p64(btree, heap))]
+        messages += [self.attribute(k, v) for k, v in (attrs or {}).items()]
+        return self.header(messages), btree, heap
+
+    def finish(self, root) -> bytes:
+        addr, btree, heap = root
+        self.buf[:96] = (_SIGNATURE + bytes([0, 0, 0, 0, 0, 8, 8, 0])
+                         + _LEAF_K.to_bytes(2, "little") + _NODE_K.to_bytes(2, "little")
+                         + bytes(4) + _p64(0, _UNDEF, len(self.buf), _UNDEF)
+                         + _p64(0, addr) + (1).to_bytes(4, "little") + bytes(4)
+                         + _p64(btree, heap))
+        return bytes(self.buf)
+
+
+def write_h5(path: str, tree: dict, attrs: Optional[dict] = None) -> None:
+    """Write `tree` ({name: array, or a dict for a sub-group}) to `path` as
+    an HDF5 file of the subset above, with `attrs` ({name: number, numeric
+    array or str}) on its root group.  The file appears whole or not at all
+    (written beside `path`, then renamed)."""
+    w = _Writer()
+    data = w.finish(w.group(tree, attrs))
+    tmp = f"{path}.tmp{os.getpid()}"
+    with open(tmp, "wb") as f:
+        f.write(data)
+    os.replace(tmp, path)

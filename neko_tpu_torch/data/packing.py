@@ -1,7 +1,10 @@
 """Host-side sequence packer: ragged modality dicts -> fixed-shape arrays.
 
-The numpy route of neko_tpu/data/packing.py, which the JAX package tests as
-the bit-exact equal of its C fast path.  Semantics:
+Counterpart of neko_tpu/data/packing.py: pure state-based control episodes
+(continuous or discrete observations with continuous or discrete actions,
+nothing else, no `observation_loss`) go through the C kernel of
+`neko_tpu_torch/native/`, the bit-exact equal of the numpy route that packs
+everything else.  Semantics:
 
 * per-timestep interleave order
   [image | text | continuous_obs | discrete_obs | SEP | continuous_actions |
@@ -81,6 +84,9 @@ class SequencePacker:
 
     # ------------------------------------------------------------ example
     def pack_example(self, ex: Dict) -> PackedExample:
+        fast = self._pack_control_native(ex)
+        if fast is not None:
+            return fast
         ts = self.ts
         cfg = self.cfg
 
@@ -252,6 +258,75 @@ class SequencePacker:
             patches=patches,
             patch_pos=patch_pos,
             patch_slot=patch_slot.astype(np.int32),
+        )
+
+    # ----------------------------------------------------- native fast path
+    _NATIVE_KEYS = (
+        frozenset(("continuous_obs", "continuous_actions")),
+        frozenset(("continuous_obs", "discrete_actions")),
+        frozenset(("discrete_obs", "discrete_actions")),
+    )
+
+    def _pack_control_native(self, ex: Dict) -> Optional[PackedExample]:
+        """The fused C kernel for pure state-based control episodes (the data
+        loader's hot path), or None for every other example: text, images,
+        any other key set, `observation_loss` (the kernel hard-codes the
+        observations-are-not-targets rule), or an episode longer than the
+        context (the numpy route trims it)."""
+        from neko_tpu_torch import native
+
+        if self.cfg.observation_loss:
+            return None
+        keys = frozenset(k for k, v in ex.items() if v is not None)
+        if keys not in self._NATIVE_KEYS:
+            return None
+        L = native.lib()
+        ts, cfg = self.ts, self.cfg
+
+        def _2d(a, dt):
+            a = np.asarray(a, dtype=dt)
+            return a[:, None] if a.ndim == 1 else np.ascontiguousarray(a)
+
+        if "continuous_obs" in keys:
+            obs = _2d(ex["continuous_obs"], np.float32)
+        else:
+            obs = _2d(ex["discrete_obs"], np.int32)
+        if "continuous_actions" in keys:
+            act = _2d(ex["continuous_actions"], np.float32)
+        else:
+            act = _2d(ex["discrete_actions"], np.int32)
+        T, O = obs.shape
+        A = act.shape[1]
+        if act.shape[0] != T:
+            raise ValueError(f"modalities disagree on timesteps: {T} vs {act.shape[0]}")
+        n = T * (O + 1 + A)
+        if n > self.S:
+            return None  # the numpy route trims the oldest timesteps
+        tokens = np.empty(n, np.int32)
+        target = np.empty(n, np.uint8)
+        inner = np.empty(n, np.int32)
+        if keys == self._NATIVE_KEYS[0]:
+            L.pack_continuous_control(
+                obs, T, O, act, A, float(cfg.mu), float(cfg.M),
+                ts.continuous_tokens, ts.continuous_start, ts.separator_id,
+                tokens, target, inner)
+        elif keys == self._NATIVE_KEYS[1]:
+            L.pack_continuous_obs_discrete_act(
+                obs, T, O, act, A, float(cfg.mu), float(cfg.M),
+                ts.continuous_tokens, ts.continuous_start, ts.discrete_start,
+                ts.separator_id, tokens, target, inner)
+        else:
+            L.pack_discrete_control(
+                obs, T, O, act, A, ts.discrete_start, ts.separator_id,
+                tokens, target, inner)
+        native.calls += 1
+        return PackedExample(
+            tokens=tokens,
+            target_mask=target.astype(bool),
+            inner_pos=inner,
+            patches=np.zeros((0, self.ps, self.ps, 3), cfg.patch_np_dtype),
+            patch_pos=np.zeros((0, 4), np.int32),
+            patch_slot=np.zeros((0,), np.int32),
         )
 
     # -------------------------------------------------------------- batch

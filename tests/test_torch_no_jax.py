@@ -6,7 +6,8 @@ answers over HTTP on the CPU, its train CLI trains, checkpoints and resumes
 on the CPU, its evaluation CLI evaluates such a checkpoint and its serve
 CLI serves it (the continuous engine, a stream, /metrics, a draft; both
 with the int8 cache and fp8 weights) with all of them blocked, generation
-over 'model' ranks runs with them blocked, and chip_smoke.py refuses to run
+over 'model' ranks runs with them blocked, so do the serving bench
+harnesses, the native packer and save_h5, and chip_smoke.py refuses to run
 without a CUDA device."""
 
 import json
@@ -39,6 +40,8 @@ def _modules():
 def _env():
     env = dict(os.environ)
     env["PYTHONPATH"] = str(ROOT) + os.pathsep + env.get("PYTHONPATH", "")
+    # one torch thread a process: the suite runs these beside other workers
+    env["OMP_NUM_THREADS"] = "1"
     return env
 
 
@@ -49,7 +52,10 @@ def test_every_module_imports_with_jax_blocked():
             "neko_tpu_torch.models.import_reference", "neko_tpu_torch.models.export_reference",
             "neko_tpu_torch.tools.export_checkpoint", "neko_tpu_torch.tools.average_checkpoints",
             "neko_tpu_torch.tools.inspect_checkpoint", "neko_tpu_torch.examples.training",
-            "neko_tpu_torch.examples.inference"} <= set(mods)
+            "neko_tpu_torch.examples.inference", "neko_tpu_torch.bench_decode",
+            "neko_tpu_torch.tools.bench_serving", "neko_tpu_torch.tools.bench_spec",
+            "neko_tpu_torch.tools.bench_rollout", "neko_tpu_torch.tools.harness",
+            "neko_tpu_torch.native"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for name in {BLOCKED!r}:\n"
@@ -85,13 +91,60 @@ def test_package_data_holds_every_source_the_kernels_build_from():
 
     globs = tomllib.loads((ROOT / "pyproject.toml").read_text())[
         "tool"]["setuptools"]["package-data"]["neko_tpu_torch"]
+    from neko_tpu_torch import native
+
     sources = sorted(cuda_build.CSRC_DIR.glob("*.cu")) + sorted(cuda_build.CSRC_DIR.glob("*.cuh"))
     assert len(sources) >= 9 and cuda_build.CSRC_DIR.parent == PKG
     included = {inc for f in sources for inc in re.findall(r'#include "([^"]+)"', f.read_text())}
     assert included <= {f.name for f in sources}, included  # no header outside csrc/
-    for f in sources:
+    # the native packer's C source, which native/__init__.py compiles at first use
+    assert native.SRC == PKG / "native" / "packing.c" and native.SRC.exists()
+    assert not re.findall(r'#include "([^"]+)"', native.SRC.read_text())
+    for f in sources + [native.SRC]:
         rel = f.relative_to(PKG).as_posix()
         assert any(fnmatch.fnmatch(rel, g) for g in globs), f"{rel} matches none of {globs}"
+
+
+def test_bench_harnesses_packer_and_h5_writer_run_with_them_blocked(tmp_path):
+    """The four serving bench harnesses at --tiny --device cpu, the native
+    packer and save_h5 (its file read back by the port's reader) in one
+    process where every module of BLOCKED (h5py among them) raises on
+    import."""
+    code = "\n".join([
+        "import contextlib, io, json, sys",
+        f"for name in {BLOCKED!r}:",
+        "    sys.modules[name] = None",
+        "import numpy as np",
+        "from neko_tpu_torch import bench_decode, native",
+        "from neko_tpu_torch.tools import bench_rollout, bench_serving, bench_spec",
+        "from neko_tpu_torch.config import ModelConfig",
+        "from neko_tpu_torch.data.packing import SequencePacker",
+        "from neko_tpu_torch.data.episodes import Episode, H5EpisodeDataset, save_h5",
+        "cpu = ['--tiny', '--device', 'cpu']",
+        "for main, extra in ((bench_decode.main, ['--runs', '1']),",
+        "                    (bench_spec.main, ['--reps', '1']),",
+        "                    (bench_serving.main, ['--requests', '4']),",
+        "                    (bench_rollout.main, ['--iterations', '1', '--horizon', '4'])):",
+        "    buf = io.StringIO()",
+        "    with contextlib.redirect_stdout(buf):",
+        "        assert main(cpu + extra) == 0",
+        "    assert json.loads(buf.getvalue())['card'] == 'cpu'",
+        "p = SequencePacker(ModelConfig(embed_dim=32, layers=1, heads=2, context_len=64,",
+        "                               continuous_tokens=32, discrete_tokens=16))",
+        "n = native.calls",
+        "p.pack_example({'continuous_obs': np.ones((2, 3), np.float32),",
+        "                'discrete_actions': np.ones((2, 1), np.int32)})",
+        "assert native.calls == n + 1",
+        f"path = {str(tmp_path / 'e.h5')!r}",
+        "save_h5(path, [Episode(np.ones((3, 2), np.float32), np.zeros(2, np.int64),",
+        "                       np.ones(2, np.float32))], env_id='x')",
+        "ds = H5EpisodeDataset(path)",
+        "assert ds.spec_env_id == 'x' and ds.get_episode(0).observations.shape == (3, 2)",
+        "print('ok')",
+    ])
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=_env(),
+                       capture_output=True, text=True, timeout=240)
+    assert r.returncode == 0 and r.stdout.strip().endswith("ok"), r.stderr[-3000:]
 
 
 @pytest.mark.parametrize("mode", [["--data", "2"], ["--data", "1", "--seq", "2"],
@@ -130,7 +183,7 @@ def test_serving_ranks_tool_runs_with_them_blocked():
         f"sys.path.insert(0, {str(ROOT / 'tools')!r})\n"
         "import check_torch_serving_ranks as t\n"
         "if __name__ == '__main__':\n"
-        "    sys.exit(t.main(['--model', '2']))\n"
+        "    sys.exit(t.main(['--model', '2', '--device', 'cpu']))\n"
     )
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=_env(),
                        capture_output=True, text=True, timeout=180)

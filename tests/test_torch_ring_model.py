@@ -110,7 +110,7 @@ def test_four_gloo_processes_agree_with_the_one_device_schedule():
     (its own limit 120 s); every rank's out, dq, dk, dv block within 1e-6 of
     the one-device schedule's (the same plain versions in the same order)."""
     r = subprocess.run([sys.executable, str(ROOT / "tools" / "check_torch_ring_ranks.py"),
-                        "--backend", "gloo", "--ranks", "4", "--s_local", "128", "--rate",
+                        "--device", "cpu", "--ranks", "4", "--s_local", "128", "--rate",
                         str(RATE), "--atol", "1e-6", "--timeout", "120"],
                        cwd=ROOT, capture_output=True, text=True, timeout=180)
     assert r.returncode == 0, r.stderr[-3000:]

@@ -105,7 +105,7 @@ def _spawn_ranks(jobs, world, state, timeout=300):
         "import check_torch_serving_ranks as t",
         "if __name__ == '__main__':",
         f"    res = t.run_ranks({jobs!r}, world={world}, state={state!r},"
-        f" cfg={tool.SMALL!r}, timeout={timeout - 30})",
+        f" cfg={tool.SMALL!r}, device='cpu', timeout={timeout - 30})",
         f"    pickle.dump(res, open({out!r}, 'wb'))",
     ])
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env(),

@@ -187,7 +187,7 @@ def test_two_gloo_processes_agree_with_the_one_device_schedule_at_hd_256():
     dv block within 1e-6 of the one-device schedule's (the same plain pair
     steps in the same order), dropout on."""
     r = subprocess.run([sys.executable, str(ROOT / "tools" / "check_torch_ring_ranks.py"),
-                        "--backend", "gloo", "--ranks", "2", "--s_local", "64", "--heads", "1",
+                        "--device", "cpu", "--ranks", "2", "--s_local", "64", "--heads", "1",
                         "--hd", "256", "--rate", str(RATE), "--atol", "1e-6", "--timeout", "120"],
                        cwd=ROOT, capture_output=True, text=True, timeout=180)
     assert r.returncode == 0, r.stderr[-3000:]

@@ -2,7 +2,7 @@
 """Holds the process-group schedule of the port's ring attention against its
 one-device schedule:
 
-    python tools/check_torch_ring_ranks.py [--backend gloo|nccl] [--ranks 4]
+    python tools/check_torch_ring_ranks.py [--device cuda|cpu] [--ranks 4]
         [--s_local 128] [--heads 2] [--hd 64] [--batch 2] [--rate 0.1]
         [--dtype float32|bfloat16] [--atol 1e-6] [--timeout 120]
 
@@ -14,9 +14,10 @@ port>; rank r gets row block r, runs `ring_attention_bsd(..., group=WORLD)`
 forward and backward -- k, v and the dk, dv sums travel from rank to rank --
 and compares its out, dq, dk, dv with block r of the parent's.
 
-`gloo` runs on CPU tensors (the kernels' plain versions); `nccl` puts rank r
-on CUDA device r (the kernels) and needs as many cards as ranks.  Prints one
-JSON line {"backend", "ranks", "device", "max_abs_err": {...}, "bit_equal",
+`--device cuda` (the default) puts rank r on CUDA device r over NCCL (the
+kernels) and needs as many cards as ranks; `--device cpu` runs the ranks on
+CPU tensors over gloo (the kernels' plain versions).  Prints one JSON line
+{"backend", "ranks", "device", "max_abs_err": {...}, "bit_equal",
 "atol", "ok"} and exits 0 only when every rank agrees within `atol`.
 """
 
@@ -70,10 +71,11 @@ def _worker(rank, args, port, tensors, start, end, want, errs):
     import torch
     import torch.distributed as dist
 
-    dist.init_process_group(args.backend, init_method=f"tcp://localhost:{port}",
+    backend = "nccl" if args.device == "cuda" else "gloo"
+    dist.init_process_group(backend, init_method=f"tcp://localhost:{port}",
                             world_size=args.ranks, rank=rank)
     try:
-        device = torch.device("cuda", rank) if args.backend == "nccl" else torch.device("cpu")
+        device = torch.device("cuda", rank) if args.device == "cuda" else torch.device("cpu")
         if device.type == "cuda":
             torch.cuda.set_device(device)
         S_l = args.s_local
@@ -88,7 +90,8 @@ def _worker(rank, args, port, tensors, start, end, want, errs):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--backend", choices=("gloo", "nccl"), default="gloo")
+    ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
+                    help="cuda: a card a rank over NCCL; cpu: CPU ranks over gloo")
     ap.add_argument("--ranks", type=int, default=4)
     ap.add_argument("--s_local", type=int, default=128)
     ap.add_argument("--heads", type=int, default=2)
@@ -104,11 +107,12 @@ def main(argv=None) -> int:
     import torch.multiprocessing as mp
 
     torch.set_num_threads(1)
-    if args.backend == "nccl" and torch.cuda.device_count() < args.ranks:
-        print(f"check_torch_ring_ranks: nccl needs {args.ranks} CUDA devices, "
-              f"{torch.cuda.device_count()} visible", file=sys.stderr)
+    if args.device == "cuda" and torch.cuda.device_count() < args.ranks:
+        print(f"check_torch_ring_ranks: --device cuda needs {args.ranks} CUDA devices, "
+              f"{torch.cuda.device_count()} visible (pass --device cpu for gloo CPU ranks)",
+              file=sys.stderr)
         return 2
-    device = torch.device("cuda", 0) if args.backend == "nccl" else torch.device("cpu")
+    device = torch.device("cuda", 0) if args.device == "cuda" else torch.device("cpu")
     *tensors, start, end = _inputs(args)
     want = _ring(tensors, start, end, args, device, slice(None), None)
 
@@ -131,7 +135,8 @@ def main(argv=None) -> int:
     worst = {n: float(per[:, i].max()) for i, n in enumerate(NAMES)}
     ok = bool(np.isfinite(per).all() and per.max() <= args.atol)
     name = torch.cuda.get_device_name(0) if device.type == "cuda" else "cpu"
-    print(json.dumps({"backend": args.backend, "ranks": args.ranks, "device": name,
+    backend = "nccl" if args.device == "cuda" else "gloo"
+    print(json.dumps({"backend": backend, "ranks": args.ranks, "device": name,
                       "shape": [args.batch, args.ranks * args.s_local, args.heads, args.hd],
                       "dtype": args.dtype, "rate": args.rate, "max_abs_err": worst,
                       "bit_equal": bool(per.max() == 0.0), "atol": args.atol, "ok": ok}))

@@ -2,7 +2,7 @@
 """Serving over a 'model' axis of ranks (tensor-parallel generation, the
 serve and evaluation CLIs), held against one process:
 
-    python tools/check_torch_serving_ranks.py [--model 2] [--device cpu|cuda]
+    python tools/check_torch_serving_ranks.py [--model 2] [--device cuda|cpu]
         [--width small|flagship] [--logit_tol X] [--timeout 600]
 
 It spawns `--model` processes, each given torchrun's environment, that
@@ -286,7 +286,7 @@ def _worker(rank, world, jobs, state_path, cfg_dict, cpu, port, outdir):
         dist.destroy_process_group()
 
 
-def run_ranks(jobs, *, world=2, state=None, cfg=None, device="cpu", timeout=600.0):
+def run_ranks(jobs, *, world=2, state=None, cfg=None, device="cuda", timeout=600.0):
     """The jobs in one spawn of `world` ranks (`state`: a torch file of the
     canonical state dict and `cfg` a ModelConfig dict, for "generate").
     -> one result a job: for "generate" a list a case of rank 0's readings
@@ -328,7 +328,9 @@ def run_ranks(jobs, *, world=2, state=None, cfg=None, device="cpu", timeout=600.
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--model", type=int, default=2)
-    ap.add_argument("--device", default="cpu", choices=["cpu", "cuda"])
+    ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
+                    help="where the ranks and the one-process run go: the card unless "
+                         "'cpu' is given")
     ap.add_argument("--width", default="small", choices=["small", "flagship"])
     ap.add_argument("--logit_tol", type=float, default=None)
     ap.add_argument("--timeout", type=float, default=600.0)
@@ -340,6 +342,10 @@ def main(argv=None) -> int:
     from neko_tpu_torch.config import ModelConfig
     from neko_tpu_torch.convert import init_state_dict
 
+    if args.device == "cuda" and not torch.cuda.is_available():
+        print("check_torch_serving_ranks: no CUDA device is visible (pass --device cpu to run "
+              "the ranks on the CPU)", file=sys.stderr)
+        return 2
     width = SMALL if args.width == "small" else FLAGSHIP
     tol = args.logit_tol if args.logit_tol is not None else (
         1e-4 if args.width == "small" else 0.06)
