@@ -28,6 +28,8 @@ from typing import Callable, Optional
 
 import torch
 
+from neko_tpu_torch.utils import trace
+
 
 def _tensors(item):
     """Every tensor in a (nested) tuple / list / dict / dataclass."""
@@ -96,16 +98,17 @@ class HostPrefetcher:
                 return
 
     def get(self):
-        kind, value = self._queue.get()
-        if kind == "err":
-            raise value
-        item, ready = value
-        if ready is not None:
-            consumer = torch.cuda.current_stream(self._stream.device)
-            consumer.wait_event(ready)
-            for t in _tensors(item):
-                if t.is_cuda:
-                    t.record_stream(consumer)
+        with trace.span("pipeline.wait"):
+            kind, value = self._queue.get()
+            if kind == "err":
+                raise value
+            item, ready = value
+            if ready is not None:
+                consumer = torch.cuda.current_stream(self._stream.device)
+                consumer.wait_event(ready)
+                for t in _tensors(item):
+                    if t.is_cuda:
+                        t.record_stream(consumer)
         return item
 
     def close(self):

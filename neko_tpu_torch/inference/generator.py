@@ -91,6 +91,7 @@ from neko_tpu_torch.inference import quant
 from neko_tpu_torch.models.policy import NekoModel
 from neko_tpu_torch.models.transformer import empty_cache
 from neko_tpu_torch.tokenizers.continuous import decode_mu_law_np, decode_np
+from neko_tpu_torch.utils import trace
 
 
 def apply_logit_filters(window: torch.Tensor, *, temperature=1.0, top_k: int = 0,
@@ -930,23 +931,28 @@ class Generator:
         """Prefill prompts and install them in engine slots while the other
         slots ride along untouched: one slot and one example dict, or a
         list of each, all prefilled in one call.  Updates `state` in place
-        and returns it."""
+        and returns it; `state["admit_prompt_tokens"]` holds this call's
+        prompt tokens (each row is prefilled at the full context_len)."""
         slots = [slot] if isinstance(example, dict) else list(slot)
         examples = [example] if isinstance(example, dict) else list(example)
-        arrays, lengths = self._pack(examples, drop_trailing)
-        pos, last, caches1 = self._prefill(self.model, arrays, lengths)
-        b = torch.as_tensor(slots, dtype=torch.long, device=self.device)
-        for c, c1 in zip(state["caches"], caches1):
-            for k in c:
-                c[k][b] = c1[k]
-        state["last"][b] = last
-        state["pos"][b] = pos
-        if "hist" in state:
-            hrows = np.zeros((len(slots), state["hist"].shape[1]), np.int64)
-            for i, L in enumerate(lengths):
-                hrows[i, :L] = arrays["tokens"][i][:L]
-            state["hist"][b] = torch.as_tensor(hrows, device=self.device)
-            state["reject"][b] = -1
+        with trace.span("admit.pack"):
+            arrays, lengths = self._pack(examples, drop_trailing)
+        with trace.span("admit.prefill"):
+            pos, last, caches1 = self._prefill(self.model, arrays, lengths)
+        with trace.span("admit.install"):
+            b = torch.as_tensor(slots, dtype=torch.long, device=self.device)
+            for c, c1 in zip(state["caches"], caches1):
+                for k in c:
+                    c[k][b] = c1[k]
+            state["last"][b] = last
+            state["pos"][b] = pos
+            if "hist" in state:
+                hrows = np.zeros((len(slots), state["hist"].shape[1]), np.int64)
+                for i, L in enumerate(lengths):
+                    hrows[i, :L] = arrays["tokens"][i][:L]
+                state["hist"][b] = torch.as_tensor(hrows, device=self.device)
+                state["reject"][b] = -1
+        state["admit_prompt_tokens"] = int(lengths.sum())
         return state
 
     def _row_knobs(self, n, det, temp, top_p):
@@ -977,27 +983,29 @@ class Generator:
         rows = torch.arange(pos.shape[0], device=self.device)
         toks = []
         for _ in range(n_steps):
-            window = last[:, start:end + 1]
-            tok = window.argmax(dim=-1)
-            if not det_np.all():
-                warped = apply_logit_filters(window, temperature=temp, top_p=top_p,
-                                             use_top_p=use_top_p)
-                if reject is not None:  # a spec round's residual, on the first draw
-                    warped = _mask_rejected(warped, reject)
-                tok = torch.where(det, tok, _categorical(warped, rng))
-            if reject is not None:
-                reject = torch.full_like(reject, -1)
-            tok = tok + start
-            if hist is not None:
-                hist[rows, pos.clamp(max=hist.shape[1] - 1)] = tok
-            last = self.model.decode_step(self.model.embed_tokens(tok[:, None]), pos % S,
-                                          caches)[:, 0]
-            pos = pos + 1
-            toks.append(tok)
+            with trace.span("decode.step"):
+                window = last[:, start:end + 1]
+                tok = window.argmax(dim=-1)
+                if not det_np.all():
+                    warped = apply_logit_filters(window, temperature=temp, top_p=top_p,
+                                                 use_top_p=use_top_p)
+                    if reject is not None:  # a spec round's residual, on the first draw
+                        warped = _mask_rejected(warped, reject)
+                    tok = torch.where(det, tok, _categorical(warped, rng))
+                if reject is not None:
+                    reject = torch.full_like(reject, -1)
+                tok = tok + start
+                if hist is not None:
+                    hist[rows, pos.clamp(max=hist.shape[1] - 1)] = tok
+                last = self.model.decode_step(self.model.embed_tokens(tok[:, None]), pos % S,
+                                              caches)[:, 0]
+                pos = pos + 1
+                toks.append(tok)
         state["last"], state["pos"] = last, pos
         if reject is not None:
             state["reject"] = reject
-        return torch.stack(toks, dim=1).cpu().numpy(), state
+        with trace.span("chunk.fetch"):
+            return torch.stack(toks, dim=1).cpu().numpy(), state
 
     @torch.inference_mode()
     def engine_spec_chunk(self, state: Dict, *, rounds: int, start: int, end: int, K: int,
@@ -1035,40 +1043,42 @@ class Generator:
 
         chunks, advs = [], []
         for _ in range(rounds):
-            parked = pos + K + 1 > S
-            win0 = last[:, start:end + 1]
-            a0 = win0.argmax(dim=-1)
-            if sampled:
-                a0 = torch.where(det, a0, _categorical(_mask_rejected(warp(win0), reject), rng))
-            a0 = a0 + start
-            hist2 = hist.clone()
-            hist2[rows, pos.clamp(max=Hlen - 1)] = a0
-            props = lookup_proposals(hist2, pos + 1, K=K, ngram=ngram)
-            chunk = torch.cat([a0[:, None], props], dim=1)             # [N, K+1]
-            logits = self.model.extend_step(self.model.embed_tokens(chunk),
-                                            pos.clamp(max=S - K - 1), caches=caches)
-            win = logits[:, :, start:end + 1]                          # [N, K+1, W]
-            ok = props == win.argmax(dim=-1)[:, :K] + start
-            if sampled:  # the point-mass rule on the sampled rows
-                pt = _accept_prob(torch.softmax(warp(win[:, :K]), dim=-1), props, start, end)
-                ok = torch.where(det[:, None], ok,
-                                 torch.rand(n, K, device=dev, generator=rng) < pt)
-            m = _first_rejection(ok).long()
-            new_reject = torch.where(det, -1, _rejected(props, m, start, end))
-            adv = torch.where(parked, 0, m + 1)
-            reject = torch.where(parked, reject, new_reject)
-            hist2[rows[:, None], (pos[:, None] + kcol).clamp(max=Hlen - 1)] = chunk
-            hist = torch.where(parked[:, None], hist, hist2)
-            last = torch.where(parked[:, None], last, logits[rows, m])
-            pos = pos + adv
-            chunks.append(chunk)
-            advs.append(adv)
+            with trace.span("spec.round"):
+                parked = pos + K + 1 > S
+                win0 = last[:, start:end + 1]
+                a0 = win0.argmax(dim=-1)
+                if sampled:
+                    a0 = torch.where(det, a0, _categorical(_mask_rejected(warp(win0), reject), rng))
+                a0 = a0 + start
+                hist2 = hist.clone()
+                hist2[rows, pos.clamp(max=Hlen - 1)] = a0
+                props = lookup_proposals(hist2, pos + 1, K=K, ngram=ngram)
+                chunk = torch.cat([a0[:, None], props], dim=1)             # [N, K+1]
+                logits = self.model.extend_step(self.model.embed_tokens(chunk),
+                                                pos.clamp(max=S - K - 1), caches=caches)
+                win = logits[:, :, start:end + 1]                          # [N, K+1, W]
+                ok = props == win.argmax(dim=-1)[:, :K] + start
+                if sampled:  # the point-mass rule on the sampled rows
+                    pt = _accept_prob(torch.softmax(warp(win[:, :K]), dim=-1), props, start, end)
+                    ok = torch.where(det[:, None], ok,
+                                     torch.rand(n, K, device=dev, generator=rng) < pt)
+                m = _first_rejection(ok).long()
+                new_reject = torch.where(det, -1, _rejected(props, m, start, end))
+                adv = torch.where(parked, 0, m + 1)
+                reject = torch.where(parked, reject, new_reject)
+                hist2[rows[:, None], (pos[:, None] + kcol).clamp(max=Hlen - 1)] = chunk
+                hist = torch.where(parked[:, None], hist, hist2)
+                last = torch.where(parked[:, None], last, logits[rows, m])
+                pos = pos + adv
+                chunks.append(chunk)
+                advs.append(adv)
         valid = torch.arange(S, device=dev)[None, :] < pos.clamp(max=S)[:, None]
         for c in caches:
             c["mask"].copy_(valid)
         state.update(last=last, pos=pos, hist=hist, reject=reject)
-        return (torch.stack(chunks, dim=1).cpu().numpy(),
-                torch.stack(advs, dim=1).cpu().numpy(), state)
+        with trace.span("chunk.fetch"):
+            return (torch.stack(chunks, dim=1).cpu().numpy(),
+                    torch.stack(advs, dim=1).cpu().numpy(), state)
 
     # ------------------------------------------------------ task-level API
     def predict_text(

@@ -73,6 +73,7 @@ import torch.distributed as dist
 from neko_tpu_torch.ops import attention_kernel as whk
 from neko_tpu_torch.ops import blocked_attention as ba
 from neko_tpu_torch.parallel.collectives import exchange
+from neko_tpu_torch.utils import trace
 
 BLOCK = ba.BLOCK  # the plain versions' tile; the bf16 kernels tile 64 x 64
 # profiler range around the torch passes between the kernels (the merges of
@@ -388,7 +389,7 @@ def _fwd_step(q, k, v, q_off, k_off, state, scratch, first, common) -> None:
         return
     m_p, l_p, acc_p = scratch
     fwd(q, k, v, q_off, k_off, *common, out=acc_p, m=m_p, l=l_p)
-    with torch.profiler.record_function(MERGE_RANGE):
+    with trace.span(MERGE_RANGE):
         merge_partial(m, l, acc, m_p, l_p, acc_p)
 
 
@@ -396,7 +397,7 @@ def _finish_fwd(state, out) -> torch.Tensor:
     """out = acc / l (0 where l = 0) into the [B, H, S_local, hd] view `out`.
     -> L = m + log(l), fp32 [B, H, S_local] (0 where l = 0)."""
     m, l, acc = state
-    with torch.profiler.record_function(MERGE_RANGE):
+    with trace.span(MERGE_RANGE):
         seen = l > 0
         out.copy_(acc * torch.where(seen, 1.0 / l.clamp_min(1e-30), 0.0)[..., None])
         return torch.where(seen, m + torch.log(l.clamp_min(1e-30)), 0.0)
@@ -420,7 +421,7 @@ def _bwd_step(q, k, v, do, L, delta, q_off, k_off, grads, scratch, first, common
     dq_p, dk_p, dv_p = scratch
     pair_dq(*pair, dq=dq_p)
     pair_dkv(*pair, dk=dk_p, dv=dv_p)
-    with torch.profiler.record_function(MERGE_RANGE):
+    with trace.span(MERGE_RANGE):
         dq.add_(dq_p)
         dk.add_(dk_p)
         dv.add_(dv_p)

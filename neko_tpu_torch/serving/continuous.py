@@ -26,12 +26,14 @@ from __future__ import annotations
 
 import queue
 import threading
+import time
 from typing import Dict, List, Optional
 
 import numpy as np
 import torch
 
 from neko_tpu_torch.serving.server import _example_from_payload, _opt, _truncate_at_stop
+from neko_tpu_torch.utils import trace
 
 
 class _Slot:
@@ -75,9 +77,14 @@ class ContinuousEngine:
         self._thread = threading.Thread(target=self._loop, daemon=True)
         self._state = None  # made on the decode thread
         self._slots: List[Optional[_Slot]] = [None] * slots
-        # advisory counters (GET /metrics)
+        # advisory counters (GET /metrics): admissions counts the prefill
+        # calls, admitted the requests they took; queue_wait_s sums those
+        # requests' seconds from NekoServer.submit to leaving the queue;
+        # prompt_tokens their packed lengths, prefill_tokens the rows x the
+        # context_len every row is prefilled at
         self.stats = {"admitted": 0, "finished": 0, "chunks": 0, "tokens_out": 0,
-                      "spec_chunks": 0, "plain_chunks": 0}
+                      "spec_chunks": 0, "plain_chunks": 0, "admissions": 0,
+                      "queue_wait_s": 0.0, "prompt_tokens": 0, "prefill_tokens": 0}
 
     def metrics(self) -> Dict:
         return {
@@ -147,24 +154,33 @@ class ContinuousEngine:
                 reqs.append(req)
         if not reqs:
             return
+        taken = time.monotonic()
+        for req in reqs:
+            trace.record("engine.queue", req.t_submit, taken, req.rid)
         try:
-            self._admit(free[:len(reqs)], reqs)
+            self._admit(free[:len(reqs)], reqs, taken)
         except Exception as e:  # noqa: BLE001 -- a prefill fault fails these requests
             for req in reqs:
                 self._fail(req, f"{type(e).__name__}: {e}")
 
-    def _admit(self, slots: List[int], reqs) -> None:
-        examples = [_example_from_payload(r.payload) for r in reqs]
-        self._state = self.gen.engine_admit(self._state, slots, examples)
-        for b, req, ex in zip(slots, reqs, examples):
-            p = req.payload
-            self._slots[b] = _Slot(
-                req, want=_opt(p, "max_new_tokens", 16, int),
-                det=bool(p.get("deterministic", True)),
-                temp=_opt(p, "temperature", 1.0, float), top_p=_opt(p, "top_p", 1.0, float),
-                # the spec policy keeps rounds away from rows near the context end
-                prompt_len=self.gen.packer.pack_example(ex).length if self.spec_k else 0)
-            self.stats["admitted"] += 1
+    def _admit(self, slots: List[int], reqs, taken: float) -> None:
+        with trace.span("engine.admit"):
+            examples = [_example_from_payload(r.payload) for r in reqs]
+            self._state = self.gen.engine_admit(self._state, slots, examples)
+            for b, req, ex in zip(slots, reqs, examples):
+                p = req.payload
+                self._slots[b] = _Slot(
+                    req, want=_opt(p, "max_new_tokens", 16, int),
+                    det=bool(p.get("deterministic", True)),
+                    temp=_opt(p, "temperature", 1.0, float), top_p=_opt(p, "top_p", 1.0, float),
+                    # the spec policy keeps rounds away from rows near the context end
+                    prompt_len=self.gen.packer.pack_example(ex).length if self.spec_k else 0)
+        st = self.stats
+        st["admissions"] += 1
+        st["admitted"] += len(reqs)
+        st["queue_wait_s"] += sum(taken - r.t_submit for r in reqs)
+        st["prompt_tokens"] += self._state["admit_prompt_tokens"]
+        st["prefill_tokens"] += len(reqs) * self.gen.cfg.context_len
 
     def _finish(self, b: int, ids: List[int]) -> None:
         s = self._slots[b]
@@ -191,50 +207,54 @@ class ContinuousEngine:
             active = [b for b, s in enumerate(self._slots) if s is not None]
             if not active:
                 continue
-            det = np.ones(n, bool)
-            temp = np.ones(n, np.float32)
-            top_p = np.ones(n, np.float32)
-            for b in active:
-                s = self._slots[b]
-                det[b], temp[b], top_p[b] = s.det, s.temp, s.top_p
-                s.co = max(s.co, len(active) - 1)
-            run_spec = self.spec_k > 0 and self._want_spec(active)
+            with trace.span("engine.bookkeep"):
+                det = np.ones(n, bool)
+                temp = np.ones(n, np.float32)
+                top_p = np.ones(n, np.float32)
+                for b in active:
+                    s = self._slots[b]
+                    det[b], temp[b], top_p[b] = s.det, s.temp, s.top_p
+                    s.co = max(s.co, len(active) - 1)
+                run_spec = self.spec_k > 0 and self._want_spec(active)
             try:
-                if run_spec:
-                    chunks, advs, self._state = self.gen.engine_spec_chunk(
-                        self._state, rounds=self.chunk, start=self.start_id, end=self.end_id,
-                        K=self.spec_k, ngram=self.ngram, det=det, temp=temp, top_p=top_p,
-                        generator=self._rng)
-                    self.stats["spec_chunks"] += 1
-                else:
-                    toks, self._state = self.gen.engine_chunk(
-                        self._state, n_steps=self.chunk, start=self.start_id, end=self.end_id,
-                        det=det, temp=temp, top_p=top_p, generator=self._rng)
-                    self.stats["plain_chunks"] += 1
+                with trace.span("engine.chunk"):
+                    if run_spec:
+                        chunks, advs, self._state = self.gen.engine_spec_chunk(
+                            self._state, rounds=self.chunk, start=self.start_id,
+                            end=self.end_id, K=self.spec_k, ngram=self.ngram, det=det,
+                            temp=temp, top_p=top_p, generator=self._rng)
+                        self.stats["spec_chunks"] += 1
+                    else:
+                        toks, self._state = self.gen.engine_chunk(
+                            self._state, n_steps=self.chunk, start=self.start_id,
+                            end=self.end_id, det=det, temp=temp, top_p=top_p,
+                            generator=self._rng)
+                        self.stats["plain_chunks"] += 1
                 self.stats["chunks"] += 1
             except Exception as e:  # noqa: BLE001 -- a device fault fails the requests
                 for b in active:  # in flight rather than hanging their handlers
                     self._fail(self._slots[b].req, f"{type(e).__name__}: {e}")
                     self._slots[b] = None
                 continue
-            for b in active:
-                s = self._slots[b]
-                if s.req.cancelled:  # the client went away or timed out
-                    self._slots[b] = None
-                    continue
-                if run_spec:
-                    for r in range(self.chunk):
-                        s.ids.extend(int(t) - self.start_id
-                                     for t in chunks[b, r, :int(advs[b, r])])
-                else:
-                    s.ids.extend(int(t) - self.start_id for t in toks[b])
-                ids = s.ids[:s.want]
-                cut = _truncate_at_stop(ids, s.req.payload.get("stop"))
-                done = len(cut) < len(ids) or len(ids) >= s.want
-                if s.req.stream_q is not None and len(cut) > s.sent:
-                    # stream only confirmed tokens: a stop cut applies within
-                    # the chunk that produced it
-                    s.req.stream_q.put(("tokens", cut[s.sent:]))
-                    s.sent = len(cut)
-                if done:
-                    self._finish(b, cut)
+            with trace.span("engine.bookkeep"):
+                for b in active:
+                    s = self._slots[b]
+                    if s.req.cancelled:  # the client went away or timed out
+                        self._slots[b] = None
+                        continue
+                    if run_spec:
+                        for r in range(self.chunk):
+                            s.ids.extend(int(t) - self.start_id
+                                         for t in chunks[b, r, :int(advs[b, r])])
+                    else:
+                        s.ids.extend(int(t) - self.start_id for t in toks[b])
+                    ids = s.ids[:s.want]
+                    cut = _truncate_at_stop(ids, s.req.payload.get("stop"))
+                    done = len(cut) < len(ids) or len(ids) >= s.want
+                    if s.req.stream_q is not None and len(cut) > s.sent:
+                        # stream only confirmed tokens: a stop cut applies within
+                        # the chunk that produced it
+                        s.req.stream_q.put(("tokens", cut[s.sent:]))
+                        s.sent = len(cut)
+                    if done:
+                        self._finish(b, cut)

@@ -54,6 +54,7 @@ default group's timeout ends them.
 from __future__ import annotations
 
 import datetime
+import itertools
 import json
 import queue
 import sys
@@ -67,6 +68,7 @@ import numpy as np
 
 from neko_tpu_torch.inference.generator import _check_sampling_args
 from neko_tpu_torch.parallel.multihost import agree_group, broadcast_object, tally
+from neko_tpu_torch.utils import trace
 
 
 # the Generator methods a server calls: what the ranks run in lockstep
@@ -234,10 +236,12 @@ class Follower:
 
 class _Pending:
     __slots__ = ("payload", "event", "result", "error", "key", "status",
-                 "cancelled", "stream_q")
+                 "cancelled", "stream_q", "rid", "t_submit")
 
-    def __init__(self, payload: Dict, key):
+    def __init__(self, payload: Dict, key, rid: Optional[int] = None):
         self.payload = payload
+        self.rid = rid  # the request's id on its trace spans (NekoServer.submit's)
+        self.t_submit = time.monotonic()  # the engine's queue wait starts here
         self.event = threading.Event()
         self.result = None
         self.error: Optional[str] = None
@@ -338,6 +342,7 @@ class NekoServer:
         # coalescing worker's generation calls (one prefill each)
         self.stats = {"requests": 0, "responses": 0, "errors": 0, "tokens_out": 0,
                       "coalesced_calls": 0}
+        self._rids = itertools.count()
         self.fault: Optional[str] = None  # why a lockstep server stopped serving
         if isinstance(generator, LockstepGenerator):
             generator.on_fault = self._fail
@@ -386,34 +391,36 @@ class NekoServer:
                 })
 
             def do_POST(self):
-                n = int(self.headers.get("Content-Length", 0))
-                try:
-                    payload = json.loads(self.rfile.read(n) or b"{}")
-                except json.JSONDecodeError:
-                    return self._json(400, {"error": "invalid JSON"})
-                if not isinstance(payload, dict):
-                    return self._json(400, {"error": "payload must be a JSON object"})
-                if self.path == "/v1/generate":
-                    payload["_kind"] = "generate"
-                elif self.path == "/v1/action":
-                    payload["_kind"] = "action"
-                else:
-                    return self._json(404, {"error": "not found"})
-                server.stats["requests"] += 1
-                try:
-                    result = server.submit(payload, timeout=server.request_timeout)
-                except (ValueError, TypeError, KeyError, OverflowError) as e:
-                    # raised BEFORE queueing: payload-induced, a client error
-                    server.stats["errors"] += 1
-                    return self._json(400, {"error": str(e)})
-                if result.stream_q is not None:
-                    return self._stream(result)
-                if result.error is not None:
-                    server.stats["errors"] += 1
-                    return self._json(result.status, {"error": result.error})
-                server.stats["responses"] += 1
-                server.stats["tokens_out"] += len(result.result.get("tokens", ()))
-                self._json(200, result.result)
+                with trace.span("http.request") as span:
+                    n = int(self.headers.get("Content-Length", 0))
+                    try:
+                        payload = json.loads(self.rfile.read(n) or b"{}")
+                    except json.JSONDecodeError:
+                        return self._json(400, {"error": "invalid JSON"})
+                    if not isinstance(payload, dict):
+                        return self._json(400, {"error": "payload must be a JSON object"})
+                    if self.path == "/v1/generate":
+                        payload["_kind"] = "generate"
+                    elif self.path == "/v1/action":
+                        payload["_kind"] = "action"
+                    else:
+                        return self._json(404, {"error": "not found"})
+                    server.stats["requests"] += 1
+                    try:
+                        result = server.submit(payload, timeout=server.request_timeout)
+                    except (ValueError, TypeError, KeyError, OverflowError) as e:
+                        # raised BEFORE queueing: payload-induced, a client error
+                        server.stats["errors"] += 1
+                        return self._json(400, {"error": str(e)})
+                    span.rid = result.rid
+                    if result.stream_q is not None:
+                        return self._stream(result)
+                    if result.error is not None:
+                        server.stats["errors"] += 1
+                        return self._json(result.status, {"error": result.error})
+                    server.stats["responses"] += 1
+                    server.stats["tokens_out"] += len(result.result.get("tokens", ()))
+                    self._json(200, result.result)
 
             def _stream(self, req) -> None:
                 """Chunked NDJSON: one {"tokens": [...]} line per engine
@@ -431,8 +438,9 @@ class NekoServer:
                 try:
                     while True:
                         try:
-                            kind, val = req.stream_q.get(
-                                timeout=max(0.1, deadline - time.time()))
+                            with trace.span("http.wait", req.rid):
+                                kind, val = req.stream_q.get(
+                                    timeout=max(0.1, deadline - time.time()))
                         except queue.Empty:
                             req.cancelled = True  # the engine frees the slot
                             server.stats["errors"] += 1
@@ -619,7 +627,7 @@ class NekoServer:
         if stream and not use_cont:
             raise ValueError("streaming needs continuous batching (--continuous_slots) and a "
                              "plain generate request (no beams / speculative / top_k)")
-        req = _Pending(payload, key)
+        req = _Pending(payload, key, next(self._rids))
         if self._stop.is_set():
             req.error, req.status = "server closing", 503
             return req
@@ -631,7 +639,9 @@ class NekoServer:
             self._cont.submit(req)
         else:
             self._q.put(req)
-        if not req.event.wait(timeout):
+        with trace.span("http.wait", req.rid):
+            answered = req.event.wait(timeout)
+        if not answered:
             req.cancelled = True  # worker will skip it
             req.error, req.status = "timed out", 504
         return req

@@ -116,6 +116,7 @@ from neko_tpu_torch.parallel import pipeline, sharding
 from neko_tpu_torch.parallel.collectives import all_reduce_, all_reduce_grads_
 from neko_tpu_torch.parallel.mesh import Mesh, axis, seq_axis_size
 from neko_tpu_torch.training.schedulers import linear_warmup_cosine_decay
+from neko_tpu_torch.utils import trace
 
 
 @dataclasses.dataclass
@@ -570,7 +571,7 @@ class TrainContext:
         gradients in `.grad`, set the learning rate of this update, apply
         AdamW (`FusedAdamW` clips inside its own pass), update the EMA;
         count the call."""
-        with torch.profiler.record_function("optimizer"):
+        with trace.span("optimizer"):
             if state.accum is not None and not self._accumulate(state):
                 state.step += 1
                 return

@@ -63,6 +63,7 @@ from neko_tpu_torch.tasks.text import TextTask
 from neko_tpu_torch.training.arguments import resolve_parallel_episodes
 from neko_tpu_torch.training.train_state import TrainContext, TrainState
 from neko_tpu_torch.utils import host_state as hs
+from neko_tpu_torch.utils import trace
 from neko_tpu_torch.utils.checkpoint import save_checkpoint
 from neko_tpu_torch.utils.logging import MetricsLogger
 
@@ -363,7 +364,7 @@ class Trainer:
         if self._prefetcher is not None:
             logs["time/host_pipeline"] = self._prefetcher.last_produce_time
         self._maybe_profile()
-        with torch.profiler.record_function("train_step"):
+        with trace.span("train_step"):
             self.state, loss = self.ctx.train_step(self.state, batch)
         # commit after the step: an interrupt mid-step leaves the snapshot at
         # the previous batch, so resume replays the batch never applied

@@ -21,6 +21,7 @@ heads, k = 64, fp32), the cases of tests/test_continuous.py:
   frees its slot); /metrics; the adaptive speculative engine.
 """
 
+import collections
 import http.client
 import json
 import threading
@@ -405,7 +406,84 @@ def test_http_metrics(server):
     assert c["tokens_out"] >= 4 and c["chunk"] == 4
     assert set(c) == {"admitted", "finished", "chunks", "tokens_out", "spec_chunks",
                       "plain_chunks", "slots", "active", "queued", "chunk", "speculate_k",
-                      "spec_threshold"}
+                      "spec_threshold", "admissions", "queue_wait_s", "prompt_tokens",
+                      "prefill_tokens"}
+    assert c["admissions"] >= 1 and c["queue_wait_s"] >= 0.0
+    assert 0 < c["prompt_tokens"] <= c["prefill_tokens"]
+
+
+def test_http_engine_counters_and_spans(server):
+    """The engine's counters count what it admitted and decoded; under the
+    tracer one request's spans share its id and nest as the serving path's
+    layers do."""
+    from neko_tpu_torch.utils import trace
+
+    S = TINY["context_len"]
+    payloads = [{"text": [5, 6, 7], "max_new_tokens": 3},
+                {"text": list(range(1, 20)), "max_new_tokens": 5},
+                {"text": [9, 8], "max_new_tokens": 2}]
+    c0 = _metrics(server)["continuous"]
+    code, _ = _post(server, payloads[0])
+    c1 = _metrics(server)["continuous"]
+    assert code == 200
+    assert c1["admissions"] - c0["admissions"] == c1["admitted"] - c0["admitted"] == 1
+    assert c1["prompt_tokens"] - c0["prompt_tokens"] == server._prompt_len(payloads[0])
+    assert c1["prefill_tokens"] - c0["prefill_tokens"] == S
+    assert c1["chunks"] > c0["chunks"]
+    assert c1["queue_wait_s"] >= c0["queue_wait_s"]
+
+    t0 = time.monotonic()
+    with trace.enabled():
+        out = [None] * len(payloads)
+        threads = [threading.Thread(target=lambda i=i: out.__setitem__(
+            i, _post(server, payloads[i]))) for i in range(len(payloads))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(120)
+        assert not any(t.is_alive() for t in threads)
+    c2 = _metrics(server)["continuous"]
+    assert [o[0] for o in out] == [200, 200, 200]
+    n = c2["admissions"] - c1["admissions"]
+    assert 1 <= n <= 3 and c2["admitted"] - c1["admitted"] == 3
+    assert (c2["prompt_tokens"] - c1["prompt_tokens"]
+            == sum(server._prompt_len(p) for p in payloads))
+    assert c2["prefill_tokens"] - c1["prefill_tokens"] == 3 * S
+
+    # a handler keeps its http.request span once its reply is written: the
+    # client may read the reply first
+    deadline = time.monotonic() + 60
+    while time.monotonic() < deadline:
+        spans = trace.spans(t0, time.monotonic())
+        if sum(s.name == "http.request" for s in spans) == 3:
+            break
+        time.sleep(0.01)
+    by_name = collections.defaultdict(list)
+    for s in spans:
+        by_name[s.name].append(s)
+    sid = {s.sid: s for s in spans}
+    requests = by_name["http.request"]
+    assert len(requests) == 3 and len({s.rid for s in requests}) == 3
+    for r in requests:
+        mine = {s.name for s in spans if s.rid == r.rid}
+        assert mine == {"http.request", "http.wait", "engine.queue"}
+        (wait,) = [s for s in by_name["http.wait"] if s.rid == r.rid]
+        assert sid[wait.parent] is r and r.t0 <= wait.t0 <= wait.t1 <= r.t1
+        assert wait.tid == r.tid
+    assert len(by_name["engine.queue"]) == 3 and len(by_name["engine.admit"]) == n
+    engine = {s.tid for s in by_name["engine.admit"]}
+    assert len(engine) == 1 and not engine & {r.tid for r in requests}
+    for part in ("admit.pack", "admit.prefill", "admit.install"):
+        assert len(by_name[part]) == n
+        assert all(sid[s.parent].name == "engine.admit" for s in by_name[part])
+    chunks = by_name["engine.chunk"]
+    assert len(chunks) == c2["chunks"] - c1["chunks"] > 0
+    assert len(by_name["decode.step"]) == 4 * len(chunks)
+    assert len(by_name["chunk.fetch"]) == len(chunks)
+    assert all(sid[s.parent].name == "engine.chunk"
+               for s in by_name["decode.step"] + by_name["chunk.fetch"])
+    assert by_name["engine.bookkeep"] and {s.tid for s in spans if s.name.startswith(
+        ("engine.", "admit.", "decode.", "chunk."))} == engine
 
 
 @pytest.fixture(scope="module")
