@@ -353,6 +353,17 @@
    line of its own.  Then the native packer built here against the numpy
    route on the three pure-control variants, bit for bit.
    (`serving_harness_launches`.)
+24. The erf GELU kernel (`csrc/gelu_erf.cu`, no Pallas counterpart) against
+   its plain version at the cells' activations (GELU_SHAPES: gato-364m's
+   and gato-79m's MLP rows, the image block's channels-last patches, a
+   decode step, a ragged fp32 tensor, a view not 16-byte aligned), forward
+   with and without a graph and backward, within GELU_ULPS, and on every
+   one of the 2^32 fp32 bit patterns (forward and gelu'(x)); timed by CUDA
+   events in turns against its bytes bound (GELU_BOUND_SHARE_MIN at the
+   first shape), the plain version and F.gelu(approximate="none") as the
+   library yardstick; `gelu_erf.launches` of one flagship train step (2 x
+   layers + 3); the profiler's kernel count of one decode step at
+   gato-364m's width with the kernel and with the plain route.
 
 Every train run (phases 6, 8, 10, 13, 14, 15, 17, 18, 19, 21) takes its loss forward through #15:
 its launches must be loss chunks x steps (2 a flagship and `long` step, 3 a
@@ -1083,6 +1094,22 @@ HARNESS_RUNS = (
     ("bench_rollout", ["--iterations", "1", "--warmup", "0", "--promptless", "--horizon", "16",
                        "--dtype", "float32"]),
 )
+
+# phase 24: the erf GELU kernel at the activations the benchmark's cells run,
+# (what, shape, dtype, layout): "nhwc" a channels-last tensor seen as NCHW
+# (the image block's), "offset" a view one element into its storage (not
+# 16-byte aligned); timed where `timed`
+GELU_SHAPES = (
+    ("gato-364m MLP (32 rows)", (32768, 6144), "bfloat16", None, True),
+    ("gato-79m MLP (64 rows)", (65536, 3072), "bfloat16", None, True),
+    ("image block (gato-364m's 9,472 patches)", (9472, 128, 16, 16), "bfloat16", "nhwc", True),
+    ("decode step (128 slots)", (128, 1, 6144), "bfloat16", None, True),
+    ("ragged", (1_000_003,), "float32", None, False),
+    ("not 16-byte aligned", (1_000_003,), "bfloat16", "offset", False),
+    ("fp32 MLP rows", (4096, 6144), "float32", None, False),
+)
+GELU_ULPS = {"bfloat16": 1, "float32": 2}  # kernel vs plain, forward and backward
+GELU_BOUND_SHARE_MIN = 0.8  # of the bytes bound, forward and backward, at the first shape
 
 
 def _require(ok, what) -> None:
@@ -6762,6 +6789,196 @@ def serving_harnesses(card: str) -> dict:
     return out
 
 
+# ------------------------------------------------------- phase 24: the erf GELU
+def _ulps_apart(a, b) -> int:
+    """Largest |a - b| in units in the last place of their dtype (the bit
+    patterns in sign-magnitude order); NaN against NaN is 0 apart."""
+    import torch
+
+    ints, mask = {torch.float32: (torch.int32, 0x7FFFFFFF),
+                  torch.bfloat16: (torch.int16, 0x7FFF)}[a.dtype]
+
+    def ordered(t):
+        i = t.contiguous().view(ints).long()
+        return torch.where(i < 0, -(i & mask), i)
+
+    apart = (ordered(a) - ordered(b)).abs()
+    return int(apart.masked_fill_(a.isnan() & b.isnan(), 0).max())
+
+
+def _gelu_every_fp32(chunk: int = 1 << 28) -> dict:
+    """The kernel against the plain version on all 2^32 fp32 bit patterns,
+    forward and gelu'(x) (the backward at g = 1, exact): -> {"fwd", "bwd":
+    largest ulps apart, "fwd_inexact", "bwd_inexact": elements not equal}."""
+    import torch
+
+    from neko_tpu_torch.ops import gelu
+
+    out = {"fwd": 0, "bwd": 0, "fwd_inexact": 0, "bwd_inexact": 0}
+    one = None
+    for lo in range(-(1 << 31), 1 << 31, chunk):
+        x = torch.arange(lo, lo + chunk, dtype=torch.int32, device="cuda").view(torch.float32)
+        if one is None:
+            one = torch.ones_like(x)
+        for way, got, want in (
+                ("fwd", gelu._launch("gelu_erf_fwd", x), gelu.gelu_erf_reference(x)),
+                ("bwd", gelu._launch("gelu_erf_bwd", x, one), gelu.gelu_erf_grad_reference(x, one))):
+            same = (got.view(torch.int32) == want.view(torch.int32)) | (got.isnan() & want.isnan())
+            out[f"{way}_inexact"] += int((~same).sum())
+            out[way] = max(out[way], _ulps_apart(got, want))
+            del got, want
+    return out
+
+
+def _gelu_input(shape, dtype, layout, g):
+    import torch
+
+    if layout == "nhwc":
+        n, c, h, w = shape
+        return (torch.randn(n, h, w, c, device=g.device, generator=g) * 4).to(dtype).permute(
+            0, 3, 1, 2)
+    if layout == "offset":
+        return (torch.randn(shape[0] + 1, device=g.device, generator=g) * 4).to(dtype)[1:]
+    return (torch.randn(shape, device=g.device, generator=g) * 4).to(dtype)
+
+
+def _kernels_in(fn) -> int:
+    """Device kernels one call of `fn` launches (torch.profiler)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA
+               and not e.is_user_annotation and "memcpy" not in e.name.lower()
+               and "memset" not in e.name.lower())
+
+
+def gelu_kernel_vs_plain(card: str, dev="cuda") -> dict:
+    """Phase 24: the erf GELU kernel (`csrc/gelu_erf.cu`) against its plain
+    version at GELU_SHAPES, forward (with and without a graph) and backward,
+    within GELU_ULPS; at the timed shapes the kernel, the plain version and
+    F.gelu(approximate="none") (the library's true-erf GELU, which the port
+    never calls) by CUDA events in turns, against the bytes bound; one
+    flagship train step's launches (2 x layers for the MLPs, 3 for the image
+    block: its input needs no gradient); the kernels one decode step at
+    gato-364m's width launches with the kernel and with the plain route.
+    -> {"err", "times", "step_launches", "check_launches", "decode_kernels"}."""
+    import torch
+    import torch.nn.functional as F
+
+    from neko_tpu_torch import bench, bench_decode
+    from neko_tpu_torch.ops import gelu
+
+    t0 = time.perf_counter()
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    gelu.gelu_erf.launches = 0
+    err, times, checks = {}, {}, 0
+    for what, shape, dtype_name, layout, timed in GELU_SHAPES:
+        dtype = getattr(torch, dtype_name)
+        x = _gelu_input(shape, dtype, layout, g)
+        dy = _gelu_input(shape, dtype, layout, g) / 4  # in x's layout, as autograd hands it
+        xg = x.detach().clone().requires_grad_()
+        y = gelu.gelu_erf(xg)
+        y.backward(dy)
+        with torch.no_grad():
+            served = gelu.gelu_erf(x)
+        torch.cuda.synchronize()
+        checks += 3
+        want, dwant = gelu.gelu_erf_reference(x), gelu.gelu_erf_grad_reference(x, dy)
+        ulps = (_ulps_apart(y.detach(), want), _ulps_apart(served, want),
+                _ulps_apart(xg.grad, dwant))
+        err[what] = ulps
+        print(f"phase 24 {what} {list(shape)} {dtype_name}{' ' + layout if layout else ''}: "
+              f"kernel vs plain ulps forward {ulps[0]} (no graph {ulps[1]}), backward {ulps[2]}")
+        _require(y.dtype == xg.grad.dtype == dtype and y.shape == x.shape,
+                 f"{what}: dtype or shape changed")
+        _require(max(ulps) <= GELU_ULPS[dtype_name],
+                 f"{what}: kernel and plain differ by {ulps} ulps (> {GELU_ULPS[dtype_name]})")
+        del y, xg, served, want, dwant
+        if not timed:
+            continue
+        n, esize = x.numel(), x.element_size()
+        kernel = {"fwd": lambda: gelu._launch("gelu_erf_fwd", x),
+                  "bwd": lambda: gelu._launch("gelu_erf_bwd", x, dy)}
+        plain = {"fwd": lambda: gelu.gelu_erf_reference(x),
+                 "bwd": lambda: gelu.gelu_erf_grad_reference(x, dy)}
+        library = {"fwd": lambda: F.gelu(x),
+                   "bwd": lambda: torch.ops.aten.gelu_backward(dy, x)}
+        row = {}
+        for way, nbytes in (("fwd", 2 * n * esize), ("bwd", 3 * n * esize)):
+            before = gelu.gelu_erf.launches
+            p1, k1, l1, l2, k2, p2 = (
+                _time_ms(f, it) for f, it in ((plain[way], 3), (kernel[way], 30),
+                                              (library[way], 30), (library[way], 30),
+                                              (kernel[way], 30), (plain[way], 3)))
+            checks += gelu.gelu_erf.launches - before
+            bound = _bound(0.0, nbytes)[0]
+            ms = (k1 + k2) / 2
+            row[way] = {"ms": ms, "plain_ms": (p1 + p2) / 2, "library_ms": (l1 + l2) / 2,
+                        "bound_ms": bound, "bound_by": "bytes", "bound_share": bound / ms}
+            print(f"phase 24 {what} {way}: kernel {k1:.4f} / {k2:.4f} ms, plain {p1:.4f} / "
+                  f"{p2:.4f}, library {l1:.4f} / {l2:.4f}, bound {bound:.4f} ms (bytes): "
+                  f"{bound / ms:.3f} of it ({card})")
+        times[what] = {"shape": list(shape), **row}
+        del x, dy
+    every = _gelu_every_fp32() if dev == "cuda" else {}
+    print(f"phase 24 every fp32 input (2^32), kernel vs plain: {every}")
+    _require(every.get("fwd", 0) <= GELU_ULPS["float32"] and
+             every.get("bwd", 0) <= GELU_ULPS["float32"],
+             f"the kernel and the plain version differ beyond {GELU_ULPS['float32']} ulps")
+    first = times[GELU_SHAPES[0][0]]
+    _require(min(first[w]["bound_share"] for w in ("fwd", "bwd")) >= GELU_BOUND_SHARE_MIN,
+             f"the kernel reaches {first['fwd']['bound_share']:.3f} / "
+             f"{first['bwd']['bound_share']:.3f} of its bytes bound at "
+             f"{GELU_SHAPES[0][1]} (< {GELU_BOUND_SHARE_MIN})")
+    check_launches = gelu.gelu_erf.launches
+
+    # one train step of the main path (the flagship width, image rows in the batch)
+    cfg, ctx, state, batch, _ = bench.setup("flagship", dev, SEED)
+    bench.time_steps(ctx, state, batch, 1)
+    gelu.gelu_erf.launches = 0
+    bench.time_steps(ctx, state, batch, 1)
+    step = gelu.gelu_erf.launches
+    want_step = 2 * cfg.layers + 3
+    print(f"phase 24 main-path gelu_erf launches in one flagship train step "
+          f"({cfg.layers} layers, image rows): {step} (2 x {cfg.layers} for the MLPs + 3 for "
+          f"the image block)")
+    _require(step == want_step, f"gelu_erf launches a train step {step}, want {want_step}")
+    del ctx, state, batch
+
+    # one decode step's kernels at gato-364m's width, the kernel against the plain route
+    gen, examples = bench_decode.build("medium", device=dev, seed=SEED)
+    ts = gen.cfg.token_space
+    kw = dict(start=ts.start("text"), end=ts.end("text"), return_logits=False)
+
+    def step_kernels():
+        for n_new in (1, 2, 1, 2):  # warm both
+            gen.generate_batch(examples, max_new_tokens=n_new, **kw)
+        return (_kernels_in(lambda: gen.generate_batch(examples, max_new_tokens=2, **kw))
+                - _kernels_in(lambda: gen.generate_batch(examples, max_new_tokens=1, **kw)))
+
+    with_kernel = step_kernels()
+    forward = gelu._forward
+    gelu._forward = gelu.gelu_erf_reference  # the plain route on the card: the former ops
+    try:
+        with_plain = step_kernels()
+    finally:
+        gelu._forward = forward
+    print(f"phase 24 kernels of one decode step at {gen.cfg.embed_dim}d / {gen.cfg.layers} "
+          f"layers (B={len(examples)}, profiler): {with_kernel} with the gelu kernel, "
+          f"{with_plain} with the plain route")
+    _require(with_plain - with_kernel > 20 * gen.cfg.layers,
+             f"decode step kernels {with_kernel} vs {with_plain} with the plain route")
+    seconds = time.perf_counter() - t0
+    print(f"phase 24 took {seconds:.1f} s ({card})")
+    return {"err": err, "times": times, "step_launches": step, "check_launches": check_launches,
+            "every_fp32": every, "decode_kernels": {"kernel": with_kernel, "plain": with_plain}}
+
+
 def main() -> int:
     import torch
 
@@ -6892,6 +7109,8 @@ def main() -> int:
     lap("22")
     p23 = serving_harnesses(card)
     lap("23")
+    p24 = gelu_kernel_vs_plain(card)
+    lap("24")
     wl, wk = p21["launches"], p21["kernels"]
     q20, r20 = p20["serving"], p20["ranks"]
     q_fwd, q_decode = q20["fwd"] + r20["fwd"], q20["decode"] + r20["decode"]
@@ -7046,6 +7265,16 @@ def main() -> int:
          "max_abs_err": max(loss_head["err"], pk["err"]["loss"], qk["err"]["loss"]),
          **{k: v for k, v in loss_head.items() if k not in ("err", "launches")},
          "parallel_vocab_blocks": pk["loss"], "microbatch_chunk": qk["loss"]},
+        # the erf GELU timed at gato-364m's MLP activation (each of
+        # GELU_SHAPES' timed ones under "shapes"); launches are phase 24's
+        # flagship train step's; no Pallas counterpart (XLA fuses the jnp GELU)
+        {"name": "gelu_erf", "route": "cuda", "source": src + "gelu_erf.cu",
+         "replaces": "none: XLA's fusion of neko_tpu/ops/gelu.py",
+         "launches": p24["step_launches"], "check_launches": p24["check_launches"],
+         "max_ulps": max(max(u) for u in p24["err"].values()),
+         "every_fp32_input": p24["every_fp32"],
+         **p24["times"][GELU_SHAPES[0][0]], "shapes": p24["times"],
+         "decode_step_kernels": p24["decode_kernels"]},
         # AdamW over the flagship tree; launches are the fused train steps'
         {"name": "fused_adamw", "route": "cuda", "source": src + "fused_adamw.cu",
          "replaces": "neko_tpu/ops/fused_adamw.py:101",
@@ -7075,7 +7304,7 @@ def main() -> int:
     for shape, t in (("16x24x1024^2", mask), ("8x24x2048^2", long_times["mask"])):
         print(f"mask kernel {shape}: {t['ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
               f"({t['bound_ms'] / t['ms']:.3f} of it) ({card})")
-    print(f"phases 1-23 took {time.perf_counter() - t_start:.1f} s; seconds by phase {laps}")
+    print(f"phases 1-24 took {time.perf_counter() - t_start:.1f} s; seconds by phase {laps}")
     print(json.dumps({"check_kernels": [mask] + [e for e in entries if not e["launches"]]}))
     print(json.dumps({"kernels": [e for e in entries if e["launches"]]}))
     print(json.dumps({"ok": True, "device": {

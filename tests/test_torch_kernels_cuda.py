@@ -1,7 +1,7 @@
 """The decode-attention (#14, over a native and an int8 cache, split over a
 thread-block cluster), fused
-loss-head (#15), fused AdamW (#16) and dropout-mask (#5/#10) CUDA kernels
-against their plain torch versions on the card.
+loss-head (#15), fused AdamW (#16), dropout-mask (#5/#10) and erf GELU
+CUDA kernels against their plain torch versions on the card.
 
 Needs an NVIDIA Hopper card and nvcc; skipped elsewhere.  It imports no JAX,
 so on the card it runs with the repository conftest (which imports jax) left
@@ -17,6 +17,7 @@ torch = pytest.importorskip("torch")
 from neko_tpu_torch.ops import attention_kernel as whk  # noqa: E402
 from neko_tpu_torch.ops import decode_attention as da  # noqa: E402
 from neko_tpu_torch.ops import fused_adamw as fa  # noqa: E402
+from neko_tpu_torch.ops import gelu  # noqa: E402
 from neko_tpu_torch.ops import loss_kernel as lk  # noqa: E402
 
 
@@ -268,3 +269,45 @@ def test_adamw_kernel_equals_plain_bit_for_bit(cuda):
     torch.cuda.synchronize()
     for a, b in zip(*runs):
         assert torch.equal(a, b)
+
+
+def ulps_apart(a, b):
+    """|a - b| in units in the last place of their dtype, element by element
+    (the bit patterns in sign-magnitude order)."""
+    ints, mask = {torch.float32: (torch.int32, 0x7FFFFFFF),
+                  torch.bfloat16: (torch.int16, 0x7FFF)}[a.dtype]
+
+    def ordered(t):
+        i = t.contiguous().view(ints).long()
+        return torch.where(i < 0, -(i & mask), i)
+
+    return (ordered(a) - ordered(b)).abs()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("make,dtype", [
+    (lambda d: torch.randn(4096, 6144, device=d), torch.bfloat16),    # an MLP activation's rows
+    (lambda d: torch.randn(128, 1, 6144, device=d), torch.bfloat16),   # a decode step
+    (lambda d: torch.randn(64, 16, 16, 128, device=d).permute(0, 3, 1, 2),  # NHWC as NCHW
+     torch.bfloat16),
+    (lambda d: torch.randn(1_000_003, device=d), torch.float32),       # ragged
+    (lambda d: torch.randn(1_000_003, device=d)[1:], torch.bfloat16),  # not 16-byte aligned
+    (lambda d: torch.randn(3, 1001, device=d)[:, ::2], torch.float32),  # strided
+])
+def test_gelu_kernel_matches_plain(cuda, make, dtype):
+    torch.manual_seed(0)
+    x = (make(cuda) * 4).to(dtype)
+    g = torch.randn(x.shape, device=cuda).to(dtype)
+    xg = x.clone().requires_grad_()
+    before = gelu.gelu_erf.launches
+    y = gelu.gelu_erf(xg)
+    y.backward(g)
+    with torch.no_grad():
+        y_served = gelu.gelu_erf(x)
+    torch.cuda.synchronize()
+    assert gelu.gelu_erf.launches == before + 3
+    want, dwant = gelu.gelu_erf_reference(x), gelu.gelu_erf_grad_reference(x, g)
+    assert y.dtype == xg.grad.dtype == dtype and y.shape == x.shape
+    tol = 2 if dtype == torch.float32 else 1
+    for got, ref in ((y.detach(), want), (y_served, want), (xg.grad, dwant)):
+        assert int(ulps_apart(got, ref).max()) <= tol
